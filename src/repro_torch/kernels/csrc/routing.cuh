@@ -1,0 +1,150 @@
+// Votes + routing-by-agreement of ONE sample inside one CTA: the consume
+// schedule shared by votes_routing.cu (K3/K4) and primary_routing.cu (K5).
+//
+// u (the sample's I x C capsules) is already in shared memory.  Routing
+// runs iters + 1 passes; pass t folds the logits update
+// b_t = b_{t-1} + <u_hat, v_{t-1}> (t > 0) into the accumulation of
+// s_t = sum_i softmax_j(b_t)[i, j] u_hat[i, j, :], then squashes s_t into
+// v_t.  The last pass is the readout.  This is the reference's fused s+b
+// schedule (votes_routing.py _streamed_kernel) and equals its resident
+// routing (_routing_iterations) row by row.
+//
+//   resident  the votes u_hat [I, J*D] of the sample are computed once
+//             into shared memory and every pass reads them there.
+//   streamed  only u and the logits stay; each pass recomputes the votes
+//             i-block by i-block from W, so W is read iters + 1 times.
+//
+// Rows past I are never computed: the reference zero-pads the i axis to a
+// multiple of block_i, and zero rows add nothing to s and leave their own
+// logits unread, so skipping them gives the same result.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace repro {
+
+struct RouteScratch {
+  float* b;    // [I][J] logits
+  float* s;    // [J*D]
+  float* v;    // [J*D]
+  float* uh;   // [rows][J*D + 1] votes (row padded against bank conflicts)
+  float* c;    // [rows][J] couplings
+};
+
+// Carve the routing scratch from p: I*J + 2*J*D + rows*(J*D + 1 + J)
+// floats (execplan.routing_smem_floats); the votes rows and couplings come
+// last, so K5's producer can use that tail for its tiles before routing.
+__device__ inline RouteScratch carve_route(float* p, int I, int J, int jd) {
+  RouteScratch sc;
+  sc.b = p;
+  sc.s = sc.b + I * J;
+  sc.v = sc.s + jd;
+  sc.uh = sc.v + jd;
+  sc.c = nullptr;                  // placed by route_sample after the votes
+  return sc;
+}
+
+// uh[r][n] = sum_c W[r][n][c] u[r][c] for the `rows` rows at u_s / W.
+__device__ inline void votes_rows(const float* __restrict__ u_s,
+                                  const float* __restrict__ W, int rows,
+                                  int jd, int C, float* uh, int ld) {
+  const bool vec4 = (C % 4 == 0) && ((uintptr_t)W % 16 == 0);
+  const int total = rows * jd;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / jd, n = e - r * jd;
+    const float* w = W + ((size_t)r * jd + n) * C;
+    const float* uu = u_s + r * C;
+    float a = 0.f;
+    if (vec4) {
+      for (int c = 0; c < C; c += 4) {
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(w + c));
+        a = fmaf(wv.x, uu[c], a);
+        a = fmaf(wv.y, uu[c + 1], a);
+        a = fmaf(wv.z, uu[c + 2], a);
+        a = fmaf(wv.w, uu[c + 3], a);
+      }
+    } else {
+      for (int c = 0; c < C; ++c) a = fmaf(__ldg(w + c), uu[c], a);
+    }
+    uh[r * ld + n] = a;
+  }
+}
+
+// One fused s+b step over `rows` rows: update their logits (if `update`),
+// soften them into couplings, and add their share of s.
+__device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
+                                  float* c, float* s, const float* v,
+                                  bool update, int J, int D) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const float* ur = uh + r * ld;
+    float* br = b + r * J;
+    float* cr = c + r * J;
+    if (update) {
+      for (int j = 0; j < J; ++j) {
+        float a = 0.f;
+        for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
+        br[j] += a;
+      }
+    }
+    float m = -INFINITY;
+    for (int j = 0; j < J; ++j) m = fmaxf(m, br[j]);
+    float sum = 0.f;
+    for (int j = 0; j < J; ++j) {
+      const float e = expf(br[j] - m);
+      cr[j] = e;
+      sum += e;
+    }
+    for (int j = 0; j < J; ++j) cr[j] = cr[j] / sum;
+  }
+  __syncthreads();
+  const int jd = J * D;
+  for (int n = threadIdx.x; n < jd; n += blockDim.x) {
+    const int j = n / D;
+    float a = s[n];
+    for (int r = 0; r < rows; ++r) a = fmaf(c[r * J + j], uh[r * ld + n], a);
+    s[n] = a;
+  }
+  __syncthreads();
+}
+
+// All routing passes of one sample; writes v [J*D] to out.
+__device__ inline void route_sample(const float* u_s,
+                                    const float* __restrict__ W, int I,
+                                    int C, int J, int D, int iters,
+                                    bool resident, int block_i,
+                                    RouteScratch sc, float* out) {
+  const int jd = J * D, ld = jd + 1;
+  sc.c = sc.uh + (resident ? I : block_i) * ld;
+  for (int e = threadIdx.x; e < I * J; e += blockDim.x) sc.b[e] = 0.f;
+  if (resident) {
+    for (int i0 = 0; i0 < I; i0 += block_i)
+      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, min(block_i, I - i0),
+                 jd, C, sc.uh + i0 * ld, ld);
+  }
+  __syncthreads();
+  for (int t = 0; t <= iters; ++t) {
+    for (int n = threadIdx.x; n < jd; n += blockDim.x) sc.s[n] = 0.f;
+    __syncthreads();
+    if (resident) {
+      route_rows(sc.uh, ld, I, sc.b, sc.c, sc.s, sc.v, t > 0, J, D);
+    } else {
+      for (int i0 = 0; i0 < I; i0 += block_i) {
+        const int rows = min(block_i, I - i0);
+        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C,
+                   sc.uh, ld);
+        __syncthreads();
+        route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v, t > 0,
+                   J, D);
+      }
+    }
+    for (int j = threadIdx.x; j < J; j += blockDim.x)
+      squash_into(sc.s + j * D, sc.v + j * D, D);
+    __syncthreads();
+  }
+  for (int n = threadIdx.x; n < jd; n += blockDim.x) out[n] = sc.v[n];
+}
+
+}  // namespace repro

@@ -11,3 +11,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 # and runs (the real package always wins when installed).
 if importlib.util.find_spec("hypothesis") is None:
     sys.path.append(os.path.join(os.path.dirname(__file__), "_fallback"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
