@@ -19,3 +19,15 @@ def params_from_numpy(np_params: dict, device: str | torch.device = "cuda"
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
             for k, v in np_params.items()}
+
+
+def opt_state_from_numpy(np_state: dict, device: str | torch.device = "cuda"
+                         ) -> dict:
+    """The reference's AdamW state (``{"m": {...}, "v": {...}, "step"}``
+    taken through ``np.asarray``) -> the port's ``init_opt_state`` layout:
+    float32 moments and an int32 0-d step."""
+    dev = resolve_device(device)
+    return {"m": params_from_numpy(np_state["m"], dev),
+            "v": params_from_numpy(np_state["v"], dev),
+            "step": torch.tensor(np.asarray(np_state["step"], np.int32),
+                                 device=dev)}

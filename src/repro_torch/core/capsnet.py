@@ -12,6 +12,9 @@ of ``backend="jnp"``); ``backend="kernels"`` runs the plan-driven path
 through the hand-written CUDA kernels of ``repro_torch.kernels`` (the
 counterpart of ``backend="pallas"``).  On CPU tensors every kernel wrapper
 runs its plain twin, so the plan-driven path is testable without a card.
+Both backends are differentiable: ``total_loss`` trains through the
+kernels' ``torch.autograd.Function``s, whose backward runs the backward
+kernels (K6-K9) on the plan's ``-bwd`` schedules.
 """
 
 from __future__ import annotations
@@ -343,7 +346,8 @@ def _forward_kernels(params: Params, images: torch.Tensor,
     if plan is None:
         plan = execplan.compile_plan(cfg, batch=b, pipeline=True)
     x = ops.conv2d(images, params["conv1_w"], params["conv1_b"], stride=1,
-                   plan_op=plan.op("Conv1"), epilogue="relu")
+                   plan_op=plan.op("Conv1"), bwd_op=plan.bwd_op("Conv1"),
+                   epilogue="relu")
 
     def w_of(lay: RoutingLayer) -> torch.Tensor:
         return params[lay.param].reshape(lay.in_caps, lay.jd, lay.in_dim)
@@ -353,12 +357,14 @@ def _forward_kernels(params: Params, images: torch.Tensor,
         h = ops.primary_routing(
             x, params["pc_w"], params["pc_b"], w_of(first), plan=plan,
             stride=cfg.pc_stride, iters=first.iters,
-            num_classes=first.num_caps).reshape(b, first.num_caps,
+            num_classes=first.num_caps,
+            routing_op_name=first.name).reshape(b, first.num_caps,
                                                 first.caps_dim)
         k = 1
     else:
         x = ops.conv2d(x, params["pc_w"], params["pc_b"],
                        stride=cfg.pc_stride, plan_op=plan.op("PrimaryCaps"),
+                       bwd_op=plan.bwd_op("PrimaryCaps"),
                        squash_dim=cfg.primary_dim)
         h, k = x.reshape(b, cfg.num_primary, cfg.primary_dim), 0
     for lay in stack[k:]:
@@ -376,3 +382,66 @@ def margin_loss(lengths: torch.Tensor, labels: torch.Tensor,
     pos = torch.square(torch.clamp(m_pos - lengths, min=0.0))
     neg = torch.square(torch.clamp(lengths - m_neg, min=0.0))
     return torch.mean(torch.sum(t * pos + lam * (1.0 - t) * neg, dim=-1))
+
+
+def total_loss(params: Params, images, labels,
+               cfg: CapsNetConfig = CapsNetConfig(),
+               recon_weight: float = 0.0005, *, backend: str = "torch",
+               plan=None, device: str | torch.device = "cuda"
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Margin loss + masked reconstruction, differentiable on both
+    backends.  The decoder reconstructs the LABELED capsule, so the
+    reconstruction term backpropagates only through that capsule's pose.
+    On the kernels backend pass a ``compile_plan(train=True)`` plan to pin
+    the backward schedules (else the memoized backward decisions apply).
+    """
+    dev = resolve_device(device)
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(labels, device=dev).long()
+    out = forward(params, images, cfg, labels=labels, backend=backend,
+                  plan=plan, device=dev)
+    loss = margin_loss(out["lengths"], labels)
+    metrics = {"margin_loss": loss}
+    if "reconstruction" in out:
+        flat = images.reshape(images.shape[0], -1)
+        rec = torch.mean(torch.sum(torch.square(out["reconstruction"]
+                                                - flat), -1))
+        loss = loss + recon_weight * rec
+        metrics["recon_loss"] = rec
+    metrics["accuracy"] = torch.mean(
+        (torch.argmax(out["lengths"], -1) == labels).to(torch.float32))
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def loss_and_grads(params: Params, images, labels,
+                   cfg: CapsNetConfig = CapsNetConfig(), **kw
+                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """(grads, metrics) of ``total_loss``: one gradient per parameter, in
+    ``params``' order, with the metrics detached.  ``kw`` goes to
+    ``total_loss``."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, metrics = total_loss(leaves, images, labels, cfg, **kw)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    missing = [k for k, g in zip(leaves, grads) if g is None]
+    if missing:
+        raise RuntimeError(f"total_loss: no gradient reached {missing}")
+    return (dict(zip(leaves, grads)),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def train_step(params: Params, images, labels,
+               cfg: CapsNetConfig = CapsNetConfig(), lr: float = 1e-3, *,
+               backend: str = "torch", plan=None,
+               device: str | torch.device = "cuda"
+               ) -> tuple[Params, dict[str, torch.Tensor]]:
+    """One SGD step of ``total_loss``.  Updates ``params``' tensors IN
+    PLACE (under ``no_grad``) and returns them with the metrics."""
+    grads, metrics = loss_and_grads(params, images, labels, cfg,
+                                    backend=backend, plan=plan,
+                                    device=device)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.sub_(lr * grads[k])
+    return params, metrics

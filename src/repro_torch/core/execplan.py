@@ -25,6 +25,21 @@ and recomputes the votes from W on each of the ``iters + 1`` passes.
 At MNIST width one sample's votes (1152 x 160 fp32 = 737,280 B) do not
 fit, so the plan picks ``streamed``; splitting i over a thread-block
 cluster so that ``resident`` fits is later work.
+
+``compile_plan(train=True)`` appends one backward op per executed kernel,
+named ``<op>-bwd`` and listed in reverse network order (the order the
+backward runs), as the reference's training plans do:
+
+  <routing>-bwd      ``votes_routing_bwd`` (K8 resident / K9 streamed):
+                     a per-sample replay CTA, then a per-capsule emit
+                     CTA; its own schedule, since the replay's shared
+                     memory is larger than the forward's.
+  PrimaryCaps-bwd,   ``conv_im2col_bwd``: the forward tiles for the
+  Conv1-bwd          recompute, K6 for dW, ``dx_block`` tiles for the
+                     dpatches GEMM (K2) and K7 for dx.
+
+A pipelined training plan runs the same backward ops: the pipelined
+op's backward is the per-op backward (``kernels/primary_routing.py``).
 """
 
 from __future__ import annotations
@@ -33,11 +48,13 @@ import dataclasses
 import functools
 
 from repro_torch.core.capsnet import ROUTING_NAME, CapsNetConfig
-from repro_torch.core.planner import (ELEM_BYTES, SMEM_BYTES, BlockPlan,
-                                      MatmulWorkload, plan_matmul)
+from repro_torch.core.planner import (AT_B_SMEM_BYTES, ELEM_BYTES,
+                                      SMEM_BYTES, BlockPlan, MatmulWorkload,
+                                      at_b_splits, plan_matmul)
 
 FUSED_NAME = ROUTING_NAME
 PIPE_NAME = "PrimaryCaps-Routing"
+BWD_SUFFIX = "-bwd"
 MODES = ("resident", "streamed")
 
 # Limits of primary_routing's produce phase (csrc/primary_routing.cu):
@@ -46,6 +63,9 @@ PIPE_MAX_POSITIONS = 64
 PIPE_MAX_CHANNELS = 256
 BLOCK_I_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 PIPE_BLOCK_K_CANDIDATES = (32, 16, 8)
+# Samples the routing backward's emit CTA (csrc/votes_routing_bwd.cu)
+# holds in shared memory at a time.
+EMIT_CHUNK = 16
 
 
 class PlanError(ValueError):
@@ -58,11 +78,12 @@ class OpPlan:
 
     ``block`` holds the GEMM tiles of the conv ops and of the pipelined
     op's producer; ``block_i`` / ``mode`` / ``n_passes`` the routing
-    schedule (W is read ``n_passes`` times per sample); ``block_k`` the
-    pipelined producer's K tile.  ``smem_bytes`` is the modeled shared
-    memory of one CTA, and ``global_bytes`` the bytes the op requests
-    from global memory per forward at the plan batch (served by L2 where
-    a re-read operand fits there).
+    schedule (the votes are computed from W ``n_passes`` times per
+    sample); ``block_k`` the pipelined producer's K tile; ``dx_block`` a
+    conv backward's dpatches GEMM tiles.  ``smem_bytes`` is the modeled
+    shared memory of one CTA, and ``global_bytes`` the bytes the op
+    requests from global memory per call at the plan batch (served by L2
+    where a re-read operand fits there).
     """
 
     name: str
@@ -74,6 +95,7 @@ class OpPlan:
     mode: str | None = None
     n_passes: int | None = None
     block_k: int | None = None
+    dx_block: BlockPlan | None = None
 
     @property
     def fuses_squash(self) -> bool:
@@ -87,6 +109,7 @@ class ExecutionPlan:
     batch: int
     smem_budget: int
     ops: tuple[OpPlan, ...]
+    train: bool = False
 
     def op(self, name: str) -> OpPlan:
         for op in self.ops:
@@ -94,6 +117,10 @@ class ExecutionPlan:
                 return op
         raise KeyError(f"no operation {name!r} in plan "
                        f"({[o.name for o in self.ops]})")
+
+    def bwd_op(self, name: str) -> OpPlan | None:
+        """The backward op of ``name`` on a training plan, else None."""
+        return self.op(name + BWD_SUFFIX) if self.train else None
 
     @property
     def pipelined(self) -> bool:
@@ -107,6 +134,9 @@ class ExecutionPlan:
         layers = [lay.name for lay in self.cfg.routing_stack()]
         expected = (["Conv1", PIPE_NAME] + layers[1:] if self.pipelined
                     else ["Conv1", "PrimaryCaps"] + layers)
+        if self.train:
+            expected += [n + BWD_SUFFIX for n in
+                         list(reversed(layers)) + ["PrimaryCaps", "Conv1"]]
         if names != expected:
             raise PlanError(f"plan ops {names}, expected {expected}")
         for op in self.ops:
@@ -118,9 +148,10 @@ class ExecutionPlan:
                     f"exceeds the {self.smem_budget} B budget")
 
     def summary(self) -> list[dict]:
-        return [dict(name=op.name, kernel=op.kernel,
-                     block=((op.block.block_m, op.block.block_k,
-                             op.block.block_n) if op.block else None),
+        def tiles(b):
+            return (b.block_m, b.block_k, b.block_n) if b else None
+        return [dict(name=op.name, kernel=op.kernel, block=tiles(op.block),
+                     dx_block=tiles(op.dx_block),
                      block_i=op.block_i, block_k=op.block_k, mode=op.mode,
                      n_passes=op.n_passes, smem_kib=op.smem_bytes / 1024,
                      global_bytes=op.global_bytes)
@@ -200,6 +231,73 @@ def votes_routing_global_bytes(batch: int, num_caps: int, caps_dim: int,
     per_sample = (num_caps * caps_dim + n_passes * num_caps * jd * caps_dim
                   + jd)
     return float(batch * per_sample * ELEM_BYTES)
+
+
+def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
+                           caps_dim: int, j: int, jd: int) -> int:
+    """Shared memory of one replay CTA of the routing backward (K8/K9):
+    the forward's layout (u, ONE logits slab, the votes rows and their
+    couplings -- reused for ``db``) plus s_{T-1}, ds_T and the dv
+    accumulator.  ``b_{T-1}`` goes to global memory row by row before
+    pass T overwrites it, so no second slab is held."""
+    return votes_routing_smem(mode, num_caps, block_i, caps_dim, j,
+                              jd) + 3 * jd * ELEM_BYTES
+
+
+def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int) -> int:
+    """Shared memory of one emit CTA (one capsule i): W[i] and the dW[i]
+    accumulator, then per chunk of ``EMIT_CHUNK`` samples their u[i],
+    couplings c_T / c_{T-1} and the d u_hat rows."""
+    return (2 * jd * caps_dim
+            + EMIT_CHUNK * (caps_dim + 2 * j + jd)) * ELEM_BYTES
+
+
+def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
+                           *, iters: int = 3, smem_budget: int = SMEM_BYTES,
+                           name: str = FUSED_NAME) -> VotesRoutingSchedule:
+    """Resident-vs-streamed decision for the routing BACKWARD, made on its
+    own footprint: resident when one sample's votes, logits and the
+    backward's extra rows fit a CTA, else streamed at the largest i-tile
+    that fits.  ``n_passes`` counts votes computations per sample: 1
+    resident, ``iters + 2`` streamed (``iters + 1`` replay passes, then
+    one merged seed+reverse pass).  Raises ``PlanError`` naming the
+    ``-bwd`` op when nothing fits."""
+    emit = routing_bwd_emit_smem(caps_dim, j, jd)
+
+    def fits(mode):
+        def smem_of(bi):
+            need = max(votes_routing_bwd_smem(mode, num_caps, bi, caps_dim,
+                                              j, jd), emit)
+            return need if need <= smem_budget else None
+        return smem_of
+
+    for mode, n_passes in (("resident", 1), ("streamed", iters + 2)):
+        fit = _largest_fit(num_caps, fits(mode))
+        if fit is not None:
+            return VotesRoutingSchedule(mode=mode, block_i=fit[0],
+                                        smem_bytes=fit[1], n_passes=n_passes)
+    need = max(votes_routing_bwd_smem("streamed", num_caps, 1, caps_dim, j,
+                                      jd), emit)
+    raise PlanError(
+        f"{name}{BWD_SUFFIX}: no feasible backward schedule: even streamed "
+        f"block_i=1 needs {need} B of shared memory per CTA, over the "
+        f"{smem_budget} B budget ({num_caps} capsules of {caps_dim}D -> "
+        f"{jd})")
+
+
+def votes_routing_bwd_global_bytes(batch: int, num_caps: int, caps_dim: int,
+                                   jd: int, j: int, n_passes: int) -> float:
+    """Bytes the routing backward requests from global memory per step.
+    Replay, per sample: u once, W ``n_passes`` times, the cotangent, and
+    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written.
+    Emit: those read back with u and W once, du and dW written.  No
+    u_hat or d u_hat term: neither reaches device memory."""
+    u = num_caps * caps_dim
+    w = num_caps * jd * caps_dim
+    state = 2 * num_caps * j + 2 * jd
+    replay = batch * (u + n_passes * w + jd + state)
+    emit = batch * (state + 2 * u) + 2 * w
+    return float((replay + emit) * ELEM_BYTES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,14 +380,45 @@ def _conv_op(name: str, wl: MatmulWorkload, in_elems: int,
         global_bytes=in_elems * ELEM_BYTES + patches + block.hbm_bytes)
 
 
+def _conv_bwd_op(fwd: OpPlan, wl: MatmulWorkload, in_elems: int,
+                 smem_budget: int, needs_dx: bool) -> OpPlan:
+    """Backward of one conv: K1 recompute, the pre-activation recompute
+    on the forward tiles (fused squash only), K6 for dW, and -- unless
+    the input is the image, which asks for no gradient -- the dpatches
+    GEMM on its own tiles and K7."""
+    try:
+        dx_block = plan_matmul(MatmulWorkload(m=wl.m, k=wl.n, n=wl.k),
+                               smem_budget)
+    except ValueError as err:
+        raise PlanError(f"{fwd.name}{BWD_SUFFIX}: no feasible dpatches "
+                        f"tiling: {err}") from None
+    patches = wl.m * wl.k
+    splits, _ = at_b_splits(wl.m, wl.k, wl.n)
+    elems = (in_elems + patches                           # K1 recompute
+             + patches + wl.m * wl.n + wl.k * wl.n        # K6
+             + (2 * splits * wl.k * wl.n if splits > 1 else 0))
+    nbytes = elems * ELEM_BYTES
+    if fwd.fuses_squash:
+        nbytes += fwd.block.hbm_bytes
+    if needs_dx:                                   # dpatches GEMM, then K7
+        nbytes += dx_block.hbm_bytes + (patches + in_elems) * ELEM_BYTES
+    return OpPlan(
+        name=fwd.name + BWD_SUFFIX, kernel="conv_im2col_bwd",
+        block=fwd.block, dx_block=dx_block,
+        smem_bytes=max(fwd.block.smem_bytes, dx_block.smem_bytes,
+                       AT_B_SMEM_BYTES),
+        global_bytes=float(nbytes))
+
+
 @functools.lru_cache(maxsize=64)
 def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
-                 smem_budget: int = SMEM_BYTES,
-                 pipeline: bool = False) -> ExecutionPlan:
+                 smem_budget: int = SMEM_BYTES, pipeline: bool = False,
+                 train: bool = False) -> ExecutionPlan:
     """Compile ``cfg`` into the per-operation ExecutionPlan (memoized:
     plans are immutable).  ``pipeline=True`` replaces PrimaryCaps and the
     first routing layer with ONE ``primary_routing`` op when its schedule
-    fits, and keeps the per-op pair otherwise."""
+    fits, and keeps the per-op pair otherwise.  ``train=True`` appends the
+    backward ops (see the module note)."""
     c1_hw, pc_hw = cfg.conv1_out, cfg.pc_out
     conv1 = _conv_op(
         "Conv1", MatmulWorkload(m=batch * c1_hw ** 2,
@@ -300,8 +429,9 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                            k=cfg.pc_kernel ** 2 * cfg.conv1_channels,
                            n=cfg.pc_channels)
     pc_in = batch * c1_hw ** 2 * cfg.conv1_channels
-    ops = [conv1, _conv_op("PrimaryCaps", pc_wl, pc_in, smem_budget,
-                           cfg.primary_dim)]
+    pc_op = _conv_op("PrimaryCaps", pc_wl, pc_in, smem_budget,
+                     cfg.primary_dim)
+    ops = [conv1, pc_op]
     stack = cfg.routing_stack()
     for lay in stack:
         sched = plan_votes_routing(lay.in_caps, lay.in_dim, lay.jd,
@@ -340,7 +470,28 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                 block_i=sched.block_i, block_k=sched.block_k,
                 mode=sched.mode, n_passes=sched.n_passes)] + ops[3:]
 
+    if train:
+        for lay in reversed(stack):
+            sched = plan_votes_routing_bwd(
+                lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
+                iters=lay.iters, smem_budget=smem_budget, name=lay.name)
+            ops.append(OpPlan(
+                name=lay.name + BWD_SUFFIX, kernel="votes_routing_bwd",
+                block=None, smem_bytes=sched.smem_bytes,
+                global_bytes=votes_routing_bwd_global_bytes(
+                    batch, lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
+                    sched.n_passes),
+                block_i=sched.block_i, mode=sched.mode,
+                n_passes=sched.n_passes))
+        ops.append(_conv_bwd_op(pc_op, pc_wl, pc_in, smem_budget, True))
+        ops.append(_conv_bwd_op(
+            conv1, MatmulWorkload(m=batch * c1_hw ** 2,
+                                  k=cfg.conv1_kernel ** 2 * cfg.in_channels,
+                                  n=cfg.conv1_channels),
+            batch * cfg.image_hw ** 2 * cfg.in_channels, smem_budget,
+            False))
+
     plan = ExecutionPlan(cfg=cfg, batch=batch, smem_budget=smem_budget,
-                         ops=tuple(ops))
+                         ops=tuple(ops), train=train)
     plan.validate()
     return plan

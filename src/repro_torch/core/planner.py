@@ -33,6 +33,16 @@ FP32_LANES = 128             # fp32 FMA units per SM (cycle estimate only)
 TILE_MN = (32, 64, 128)      # matmul_bias_act's block_m / block_n builds
 TILE_K = (8, 16, 32)         # its block_k choices
 ELEM_BYTES = 4
+NUM_SMS = 132                # streaming multiprocessors of an H100 SXM
+
+# matmul_at_b (K6, csrc/conv_bwd.cu): a fixed AT_B_TILE x AT_B_TILE output
+# tile per CTA, the reduction walked AT_B_STEP rows at a time through
+# shared memory; the M axis splits across CTAs when the output alone
+# cannot fill the card, and a second pass sums the partials in order.
+AT_B_TILE = 64
+AT_B_STEP = 16
+AT_B_MIN_ROWS = 64           # fewest reduction rows one split takes
+AT_B_SMEM_BYTES = 2 * AT_B_STEP * AT_B_TILE * ELEM_BYTES
 
 # Relative energy weights (only their ratios matter for the argmin).
 E_HBM = 1.0
@@ -81,6 +91,17 @@ def gemm_smem_bytes(block_m: int, block_k: int, block_n: int, *,
     if stage_output:
         tiles = max(tiles, block_m * (bn + 1))
     return tiles * ELEM_BYTES
+
+
+def at_b_splits(m: int, k: int, n: int) -> tuple[int, int]:
+    """``(splits, rows)`` of ``matmul_at_b``'s M axis: enough splits that
+    about two CTAs per SM run, each taking ``rows`` (at least
+    ``AT_B_MIN_ROWS``) consecutive reduction rows; no split is empty."""
+    tiles = math.ceil(k / AT_B_TILE) * math.ceil(n / AT_B_TILE)
+    want = max(1, math.ceil(2 * NUM_SMS / tiles))
+    splits = max(1, min(want, math.ceil(m / AT_B_MIN_ROWS)))
+    rows = math.ceil(m / splits)
+    return math.ceil(m / rows), rows
 
 
 def n_candidates(n_multiple: int = 1) -> list[int]:

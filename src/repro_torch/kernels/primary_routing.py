@@ -1,19 +1,28 @@
 """Pipelined PrimaryCaps -> routing kernel (K5): u never leaves the chip.
 
-The counterpart of ``repro/kernels/primary_routing.py``'s forward
+The counterpart of ``repro/kernels/primary_routing.py``: the forward
 (``_produce_u`` + ``_pipe_resident_kernel`` / ``_pipe_streamed_kernel``
-through ``_pr_apply``).  ``primary_routing`` extracts the PrimaryCaps
+through ``_pr_apply``) and the custom VJP (``_pr_core``, whose backward
+``_pr_grad`` is the K11 composite).  ``primary_routing`` is a
+``torch.autograd.Function``: its forward extracts the PrimaryCaps
 patches with K1, as ``_pr_apply`` does, then runs
-``primary_routing_patches``: the plain twin for CPU tensors, the CUDA
+``primary_routing_patches`` -- the plain twin for CPU tensors, the CUDA
 kernel (``csrc/primary_routing.cu``, one CTA per sample) for CUDA
 tensors.  Capsule row ``i = p * groups + g`` of u is channels
 ``[g*C, (g+1)*C)`` of patch position ``p``, so the producer's output
 rows are the capsule rows with no reshuffle.
+
+The backward saves only ``(x, W_pc, b_pc, W_cc)`` and recomputes u from
+the patches (K1, K2), runs the routing backward (K8/K9) on it, pulls the
+squash VJP, and finishes with the conv backward's kernels (K6, K2, K7):
+exactly the per-op backward, so a pipelined training plan keeps the
+per-op backward schedule.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,8 +31,11 @@ from repro_torch.core.execplan import (PIPE_MAX_CHANNELS, PIPE_MAX_POSITIONS,
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
-from repro_torch.kernels.conv_im2col import im2col_patches
-from repro_torch.kernels.votes_routing import (check_schedule,
+from repro_torch.kernels.conv_im2col import (conv_bwd_from_dpre,
+                                             gemm_tiles, im2col_patches)
+from repro_torch.kernels.votes_routing import (FUSED_NAME, RoutingStatics,
+                                               check_schedule, routing_bwd,
+                                               routing_statics,
                                                votes_routing_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -88,17 +100,81 @@ def primary_routing_patches(patches: torch.Tensor, w_pc: torch.Tensor,
     return out
 
 
+class PrimaryStatics(NamedTuple):
+    """Schedule of one pipelined call: the stride, the routing statics,
+    the producer's K tile, and the conv tiles the
+    backward's recompute and dpatches GEMMs run on."""
+
+    stride: int
+    routing: RoutingStatics
+    block_k: int
+    conv_block: tuple[int, int, int]
+    dx_block: tuple[int, int, int]
+
+
+class _PrimaryRouting(torch.autograd.Function):
+    """The reference's ``_pr_core`` custom VJP (backward: ``_pr_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_pc, b_pc, w_cc, st: PrimaryStatics):
+        kh, kw, cin, n_ch = w_pc.shape
+        rt = st.routing
+        patches = im2col_patches(x, kh=kh, kw=kw, stride=st.stride)
+        ctx.st = st
+        ctx.save_for_backward(x, w_pc, b_pc, w_cc)
+        return primary_routing_patches(
+            patches, w_pc.reshape(kh * kw * cin, n_ch), b_pc, w_cc,
+            iters=rt.iters, num_classes=rt.num_classes, mode=rt.mode,
+            block_i=rt.block_i, block_k=st.block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_pc, b_pc, w_cc = ctx.saved_tensors
+        st, rt = ctx.st, ctx.st.routing
+        need_x, need_wpc, need_bpc, need_wcc = ctx.needs_input_grad[:4]
+        bsz = x.shape[0]
+        kh, kw, _, n_ch = w_pc.shape
+        i_dim, _, caps_dim = w_cc.shape
+        patches = im2col_patches(x, kh=kh, kw=kw, stride=st.stride)
+        p2 = patches.reshape(-1, patches.shape[2])
+        pre = gemm_tiles(st.conv_block, p2, w_pc.reshape(-1, n_ch),
+                         b_pc).reshape(bsz, i_dim, caps_dim)
+        du, dw_cc = routing_bwd(ref.squash(pre), w_cc, g, rt)
+        dpre = ref.squash_vjp(pre, du).reshape(-1, n_ch)
+        dx, dw_pc, db_pc = conv_bwd_from_dpre(
+            dpre, p2, w_pc, stride=st.stride, dx_block=st.dx_block,
+            x_shape=x.shape, need=(need_x, need_wpc, need_bpc))
+        return dx, dw_pc, db_pc, (dw_cc if need_wcc else None), None
+
+
 def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
                     w_cc: torch.Tensor, *, stride: int = 2, iters: int = 3,
                     num_classes: int = 10, mode: str = "streamed",
-                    block_i: int = 128, block_k: int = 32) -> torch.Tensor:
+                    block_i: int = 128, block_k: int = 32,
+                    bwd_mode: str | None = None,
+                    bwd_block_i: int | None = None,
+                    routing_op_name: str = FUSED_NAME,
+                    conv_block: tuple[int, int, int] = (64, 16, 64),
+                    dx_block: tuple[int, int, int] = (64, 16, 64)
+                    ) -> torch.Tensor:
     """x: [B, H, W, Cin] (Conv1 output), w_pc: [KH, KW, Cin, N] HWIO,
     b_pc: [N], w_cc: [I, J*D, C] -> v: [B, J*D].
 
     The PrimaryCaps conv (im2col GEMM + bias + per-capsule squash) and
-    the votes + routing of the next layer, with u kept on chip."""
-    kh, kw, cin, n_ch = w_pc.shape
-    patches = im2col_patches(x, kh=kh, kw=kw, stride=stride)
-    return primary_routing_patches(
-        patches, w_pc.reshape(kh * kw * cin, n_ch), b_pc, w_cc, iters=iters,
-        num_classes=num_classes, mode=mode, block_i=block_i, block_k=block_k)
+    the votes + routing of the next layer, with u kept on chip.
+    Differentiable (see the module note): the routing backward runs as
+    ``votes_routing``'s does for ``bwd_mode`` / ``bwd_block_i`` /
+    ``routing_op_name``, the conv backward on ``conv_block``
+    (pre-activation recompute) and ``dx_block`` (dpatches) tiles."""
+    if x.dim() != 4 or w_pc.dim() != 4 or w_pc.shape[2] != x.shape[3]:
+        raise ValueError(f"primary_routing: x {tuple(x.shape)} and W_pc "
+                         f"{tuple(w_pc.shape)} must be NHWC and HWIO with "
+                         f"matching channels")
+    rt = routing_statics(w_cc.shape[0], w_cc.shape[1], iters=iters,
+                         num_classes=num_classes, mode=mode, block_i=block_i,
+                         bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
+                         op_name=routing_op_name)
+    st = PrimaryStatics(stride=stride, routing=rt, block_k=block_k,
+                        conv_block=tuple(conv_block),
+                        dx_block=tuple(dx_block))
+    return _PrimaryRouting.apply(x, w_pc, b_pc, w_cc, st)

@@ -27,3 +27,27 @@ def routing(u_hat: torch.Tensor, iters: int) -> torch.Tensor:
         b = b + torch.einsum("bijd,bjd->bij", u_hat, v)
     c = torch.softmax(b, dim=2)
     return squash(torch.einsum("bij,bijd->bjd", c, u_hat))
+
+
+def squash_vjp(s: torch.Tensor, g: torch.Tensor,
+               eps: float = 1e-7) -> torch.Tensor:
+    """VJP of ``squash`` over the last axis at pre-activation ``s``.
+
+    With ``v = f(q) s``, ``q = ||s||^2``, ``f = q / (1 + q) / sqrt(q + eps)``:
+    ``ds = f g + 2 f'(q) <g, s> s``, where
+    ``f'(q) = r / (1 + q)^2 - a r^3 / 2``, ``a = q / (1 + q)``,
+    ``r = (q + eps)^-1/2``.  The CUDA backward kernels evaluate the same
+    formula (``routing_bwd.cuh``)."""
+    q = torch.sum(s * s, dim=-1, keepdim=True)
+    a = q / (1.0 + q)
+    r = torch.rsqrt(q + eps)
+    fq = a * r
+    dfq = r / torch.square(1.0 + q) - 0.5 * a * r * r * r
+    gs = torch.sum(g * s, dim=-1, keepdim=True)
+    return fq * g + 2.0 * dfq * gs * s
+
+
+def softmax_vjp(c: torch.Tensor, dc: torch.Tensor,
+                dim: int = -1) -> torch.Tensor:
+    """VJP of a softmax over ``dim`` given its OUTPUT ``c``."""
+    return c * (dc - torch.sum(c * dc, dim=dim, keepdim=True))

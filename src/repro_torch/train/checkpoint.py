@@ -1,0 +1,162 @@
+"""Checkpoints: atomic, asynchronous, in the reference's on-disk layout.
+
+The counterpart of ``repro/train/checkpoint.py``; one directory per step:
+
+    <dir>/step_000123/
+        manifest.json        # keys, shapes, dtypes, step, extras
+        arrays.npz           # leaf key -> numpy array
+    <dir>/step_000123.COMMIT # empty commit marker (atomicity)
+
+State is a nested dict of tensors (``{"params": {...}, "opt": {...}}``).
+Leaf keys are the reference's (``jax.tree_util.keystr`` of the dict
+path, e.g. ``['params']['conv1_w']``), so either package restores the
+other's checkpoints.  Writes go to ``step_X.tmp`` and are renamed, then
+committed, so a preempted writer never leaves a readable but corrupt
+checkpoint.  ``AsyncCheckpointer.save_async`` copies the state to host
+memory at once and writes it on a background thread.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """(key, leaf) in the reference's order: dict keys sorted, depth first."""
+    for k in sorted(tree):
+        key = f"{prefix}[{k!r}]"
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], key)
+        else:
+            yield key, tree[k]
+
+
+def _to_host(tree: dict) -> dict:
+    """A numpy copy of every leaf (a copy, not a view: the loop goes on
+    updating its tensors in place)."""
+    return {k: (_to_host(v) if isinstance(v, dict)
+                else np.array(torch.as_tensor(v).detach().cpu(), copy=True))
+            for k, v in tree.items()}
+
+
+def save(tree: dict, directory: str | pathlib.Path, step: int,
+         extra: dict | None = None) -> pathlib.Path:
+    """Synchronous atomic save."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    final = directory / f"step_{step:08d}"
+    tmp = directory / f"step_{step:08d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    arrays = dict(_leaves(_to_host(tree)))
+    np.savez(tmp / "arrays.npz", **arrays)
+    manifest = {
+        "step": step,
+        "keys": list(arrays),
+        "shapes": {k: list(v.shape) for k, v in arrays.items()},
+        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "extra": extra or {},
+    }
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)
+    (directory / f"step_{step:08d}.COMMIT").touch()
+    return final
+
+
+class AsyncCheckpointer:
+    """Snapshot now, write later; at most one write in flight."""
+
+    def __init__(self, directory: str | pathlib.Path, keep: int = 3):
+        self.directory = pathlib.Path(directory)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self.last_error: Exception | None = None
+
+    def save_async(self, tree: dict, step: int,
+                   extra: dict | None = None) -> None:
+        self.wait()
+        host_tree = _to_host(tree)                       # snapshot
+
+        def _write():
+            try:
+                save(host_tree, self.directory, step, extra)
+                self._gc()
+            except Exception as e:                      # pragma: no cover
+                self.last_error = e                     # raised by wait()
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+    def _gc(self) -> None:
+        steps = committed_steps(self.directory)
+        for s in steps[:-self.keep]:
+            shutil.rmtree(self.directory / f"step_{s:08d}",
+                          ignore_errors=True)
+            (self.directory / f"step_{s:08d}.COMMIT").unlink(missing_ok=True)
+
+
+def committed_steps(directory: str | pathlib.Path) -> list[int]:
+    directory = pathlib.Path(directory)
+    if not directory.exists():
+        return []
+    out = []
+    for marker in directory.glob("step_*.COMMIT"):
+        s = int(marker.stem.split("_")[1])
+        if (directory / f"step_{s:08d}" / "manifest.json").exists():
+            out.append(s)
+    return sorted(out)
+
+
+def latest_step(directory: str | pathlib.Path) -> int | None:
+    steps = committed_steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore(template: dict, directory: str | pathlib.Path,
+            step: int | None = None) -> tuple[dict, dict]:
+    """Restore into the structure of ``template`` (a nested dict of
+    tensors): each leaf comes back with the template leaf's dtype and
+    device.  Returns ``(tree, manifest)``."""
+    directory = pathlib.Path(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {directory}")
+    d = directory / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    with np.load(d / "arrays.npz") as arrays:
+        def rebuild(tmpl: dict, prefix: str) -> dict:
+            out = {}
+            for k, leaf in tmpl.items():
+                key = f"{prefix}[{k!r}]"
+                if isinstance(leaf, dict):
+                    out[k] = rebuild(leaf, key)
+                    continue
+                if key not in arrays:
+                    raise KeyError(f"checkpoint missing leaf {key}")
+                arr = arrays[key]
+                if tuple(arr.shape) != tuple(leaf.shape):
+                    raise ValueError(f"shape mismatch for {key}: "
+                                     f"{arr.shape} vs {tuple(leaf.shape)}")
+                out[k] = torch.tensor(arr, dtype=leaf.dtype,
+                                      device=leaf.device)
+            return out
+
+        return rebuild(template, ""), manifest

@@ -64,7 +64,10 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
             k5.primary_routing_patches(p, w2, b_pc, w_cc, block_k=32, **kw),
             k5.primary_routing_patches_plain(p, w2, b_pc, w_cc, **kw),
             rtol=1e-5, atol=1e-6)
-    assert all(n > 0 for n in build.launch_counts().values())
+    counts = build.launch_counts()
+    for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
+                "votes_routing_f32", "primary_routing_f32"):
+        assert counts[sym] > 0, sym
 
 
 @pytest.mark.parametrize("pipeline", [True, False])
@@ -101,3 +104,62 @@ def test_engine_serves_on_the_card(cuda):
     for r in done:
         np.testing.assert_allclose(r.lengths, want[r.rid], rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_backward_kernels_launch_and_match_twins_on_the_card(cuda):
+    """K6 with one split and with several (ragged M), K7 at two strides,
+    K8 and K9 with a ragged i-block, each against its plain twin."""
+    build.reset_launch_counts()
+    for m, k, n in ((45, 13, 21), (3000, 81, 32)):
+        a = _rand(m, m, k, device=cuda)
+        b = _rand(m + 1, m, n, device=cuda)
+        torch.testing.assert_close(k12.matmul_at_b(a, b),
+                                   k12.matmul_at_b_plain(a, b),
+                                   rtol=1e-5, atol=1e-5)
+    for stride in (1, 2):
+        oh = (11 - 3) // stride + 1
+        dp = _rand(stride, 2, oh * oh, 3 * 3 * 5, device=cuda)
+        kw = dict(kh=3, kw=3, stride=stride, h=11, w=11)
+        torch.testing.assert_close(k12.col2im_patches(dp, **kw),
+                                   k12.col2im_patches_plain(dp, **kw),
+                                   rtol=0, atol=0)
+    u = _rand(5, 3, 64, 4, scale=0.5, device=cuda)
+    w = _rand(6, 64, 32, 4, scale=0.3, device=cuda)
+    g = _rand(7, 3, 32, device=cuda)
+    for mode in ("resident", "streamed"):
+        kw = dict(iters=3, num_classes=4, mode=mode, block_i=24)
+        got = k34.votes_routing_bwd(u, w, g, **kw)
+        want = k34.votes_routing_bwd_plain(u, w, g, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
+    counts = build.launch_counts()
+    for sym in ("matmul_at_b_f32", "col2im_patches_f32",
+                "routing_bwd_resident_f32", "routing_bwd_streamed_f32"):
+        assert counts[sym] > 0, sym
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_total_loss_backward_on_the_card_matches_the_plain_backend(
+        cuda, pipeline):
+    """Every parameter gets a gradient through the kernels, equal to the
+    plain backend's autograd gradient."""
+    cfg = capsnet_mnist.smoke_config()
+    params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=cuda)
+    images = _rand(8, 4, cfg.image_hw, cfg.image_hw, 1, uniform=True,
+                   device=cuda)
+    labels = torch.tensor([1, 5, 0, 9], device=cuda)
+    plan = execplan.compile_plan(cfg, batch=4, pipeline=pipeline, train=True)
+    build.reset_launch_counts()
+    got, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                    backend="kernels", plan=plan,
+                                    device=cuda)
+    counts = build.launch_counts()
+    want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                     backend="torch", device=cuda)
+    for sym in ("matmul_at_b_f32", "col2im_patches_f32",
+                "routing_bwd_resident_f32"):
+        assert counts[sym] > 0, sym
+    for k in params:
+        scale = want[k].abs().max().clamp_min(1e-12)
+        assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k

@@ -49,9 +49,10 @@ def test_the_scan_sees_every_kind_of_import():
 
 def _entry_points():
     from repro_torch.configs import capsnet_mnist
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.convert import opt_state_from_numpy, params_from_numpy
     from repro_torch.core import capsnet
     from repro_torch.serve.capsule import CapsuleEngine
+    from repro_torch.train import capsnet_loop
 
     cfg = capsnet_mnist.smoke_config()
     params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
@@ -66,12 +67,20 @@ def _entry_points():
         "params_from_numpy": lambda: params_from_numpy(
             {"w": np.zeros(3, np.float32)}),
         "CapsuleEngine": lambda: CapsuleEngine(params, cfg),
+        "total_loss": lambda: capsnet.total_loss(params, images, [0], cfg),
+        "opt_state_from_numpy": lambda: opt_state_from_numpy(
+            {"m": {}, "v": {}, "step": 0}),
+        "CapsTrainLoop": lambda: capsnet_loop.CapsTrainLoop(
+            capsnet_loop.SMOKE, capsnet_loop.CapsLoopConfig(total_steps=1)),
+        "capsnet_loop.main": lambda: capsnet_loop.main(["--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["forward", "forward-kernels",
                                    "init_params", "params_from_numpy",
-                                   "CapsuleEngine"])
+                                   "CapsuleEngine", "total_loss",
+                                   "opt_state_from_numpy", "CapsTrainLoop",
+                                   "capsnet_loop.main"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
