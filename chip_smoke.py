@@ -16,7 +16,12 @@ training shapes (batch 16), one full-width ``total_loss`` backward on
 both training plans against the plain backend's autograd gradients, 20
 SGD steps of ``CapsTrainLoop`` on the full-width network (the loss must
 fall) and 4 on the CLI's default smoke config, and the backward kernels'
-times.  The weights are random, made from a seed.
+times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
+device memory, K14b routing reading it back) and the standalone squash
+(K10) with its backward: the path at full width (and one gradient of a
+network whose capsule cannot fuse), each kernel against its twin, the
+split v against the fused kernel's, and their times and modeled bytes
+side by side.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -67,6 +72,11 @@ AT_B_SUM = (2e-5, "576- and 6400-term fp32 sums (K6's reduction, split "
 GRAD = (1e-4, "fp32 backward through 3 routing iterations and sums over "
         "up to 1152 capsules, 16 samples and 20,736-term GEMMs, in "
         "another order")
+SPLIT = (1e-4, 1e-5, "8-term votes, then sums over 1152 capsules through 3 "
+         "routing iterations, in another order (the card tolerance of "
+         "the routing checks)")
+SQUASH = (1e-4, 1e-5, "a sum of up to 256 squares in another order, and "
+          "rsqrtf")
 
 
 def check(name: str, got, want, tol) -> dict:
@@ -136,10 +146,42 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(samples)
 
 
+def device_ms(fn, reps: int = 20) -> float | None:
+    """Device time per call of ``fn``: the CUDA kernel time that
+    ``torch.profiler`` (CUPTI) records over ``reps`` calls, divided by
+    ``reps``.  Unlike ``time_ms`` it leaves out the host's dispatch, which
+    sets the pace of back-to-back calls of a kernel shorter than it.
+    None (printed as not measured) where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+    except (RuntimeError, AssertionError) as err:  # no CUPTI trace here
+        print(f"device_ms: not measured ({type(err).__name__}: {err})",
+              flush=True)
+        return None
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def summed(values) -> float | None:
+    """Sum of ``values``, None when any is None (not measured)."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def same_predictions(name: str, lengths_k, lengths_t, atol: float) -> None:
@@ -176,8 +218,12 @@ def main() -> int:
     from repro_torch.configs import capsnet_mnist
     from repro_torch.core import capsnet, execplan
     from repro_torch.kernels import build
+    from repro_torch.kernels import caps_votes as k14a
     from repro_torch.kernels import conv_im2col as k12
+    from repro_torch.kernels import ops
     from repro_torch.kernels import primary_routing as k5
+    from repro_torch.kernels import routing as k14b
+    from repro_torch.kernels import squash as k10
     from repro_torch.kernels import votes_routing as k34
     from repro_torch.kernels.ref import squash
     from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
@@ -469,7 +515,8 @@ def main() -> int:
         for (op, on, fn, plain, lib, nbytes, flops) in kernel_sites:
             bms, by = bound(nbytes, flops)
             site_rows.append(dict(
-                op=op, path=on, ms=time_ms(fn), plain_ms=time_ms(plain),
+                op=op, path=on, ms=time_ms(fn), device_ms=device_ms(fn),
+                plain_ms=time_ms(plain),
                 library_ms=time_ms(lib) if lib is not None else None,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
         main = [s for s in site_rows if s["path"] == path]
@@ -484,6 +531,7 @@ def main() -> int:
             launches=counts[f"{kernel}_f32"],
             max_abs_err=errs[kernel],
             ms=sum(s["ms"] for s in main),
+            device_ms=summed(s["device_ms"] for s in main),
             plain_ms=sum(s["plain_ms"] for s in main),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -683,7 +731,8 @@ def main() -> int:
         for (op, fn, plain, lib, nbytes, flops) in kernel_sites:
             bms, by = bound(nbytes, flops)
             site_rows.append(dict(
-                op=op, ms=time_ms(fn), plain_ms=time_ms(plain),
+                op=op, ms=time_ms(fn), device_ms=device_ms(fn),
+                plain_ms=time_ms(plain),
                 library_ms=time_ms(lib) if lib is not None else None,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
         libs = [s_["library_ms"] for s_ in site_rows]
@@ -697,6 +746,7 @@ def main() -> int:
             launches_per_step=launches_ / steps,
             max_abs_err=berrs[kernel],
             ms=sum(s_["ms"] for s_ in site_rows),
+            device_ms=summed(s_["device_ms"] for s_ in site_rows),
             plain_ms=sum(s_["plain_ms"] for s_ in site_rows),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -708,6 +758,193 @@ def main() -> int:
             sites=site_rows))
     print(f"train ms per step at batch {tb}: {json.dumps(train_ms)}",
           flush=True)
+
+    # 11. The split ClassCaps path (K14a caps_votes writes u_hat to device
+    # memory, K14b routing reads it back: the paper's baseline) against
+    # the fused K4, and the standalone squash (K10) with its VJP.  u is
+    # the per-op plan's PrimaryCaps output, W the routing weights.
+    with torch.no_grad():
+        x_pre = ops.conv2d(x1, params["pc_w"], params["pc_b"],
+                           stride=cfg.pc_stride)       # no squash epilogue
+        u_pc = ops.conv2d(x1, params["pc_w"], params["pc_b"],
+                          stride=cfg.pc_stride, plan_op=perop.op(
+                              "PrimaryCaps"), squash_dim=cfg.primary_dim)
+    x_pre = x_pre.reshape(b_, i_, c_)
+    u_pc = u_pc.reshape(b_, i_, c_)
+    rows_pc = x_pre.reshape(-1, c_)                       # [8 * 1152, 8]
+    x_wide = randn(4096, 256)               # benchmarks/bench_kernels.py
+    g_pc, g_wide = randn(*rows_pc.shape), randn(*x_wide.shape)
+    wide_cfg = capsnet.CapsNetConfig(     # no GEMM tile holds 160 floats
+        image_hw=14, conv1_channels=24, conv1_kernel=5, pc_kernel=3,
+        num_primary_groups=1, primary_dim=160, class_dim=8,
+        decoder_hidden=(32, 64))
+    wide_params = capsnet.init_params(torch.Generator().manual_seed(SEED + 2),
+                                      wide_cfg, device=dev)
+    wide_images = torch.tensor(rng.random((SLOTS, 14, 14, 1), np.float32),
+                               device=dev)
+    wide_labels = torch.tensor(rng.integers(0, 10, SLOTS), device=dev)
+    wide_plan = execplan.compile_plan(wide_cfg, batch=SLOTS, pipeline=False,
+                                      train=True)
+    assert not wide_plan.op("PrimaryCaps").fuses_squash
+    cv_bi = ops.planned_block_i(i_, c_, jd, b_)
+    rt_bi = ops.planned_routing(i_, lay.num_caps, jd)
+    sq_rows = perop.op("PrimaryCaps").block_rows
+    print(f"split plan: caps_votes block_i {cv_bi} "
+          f"({-(-i_ // cv_bi)} CTAs), routing block_i {rt_bi}, squash "
+          f"block_rows {sq_rows} (D={c_}) / "
+          f"{execplan.squash_block_rows(256)} (D=256)", flush=True)
+
+    # The path, with the counts at 0: the split path at full width, the
+    # standalone squash and its backward on the PrimaryCaps capsules, and
+    # one gradient of a network whose capsule cannot fuse (the per-op
+    # plan runs K10 after the plain GEMM).
+    build.reset_launch_counts()
+    with torch.no_grad():
+        u_hat = ops.caps_votes(u_pc, wcc, plan=perop)
+        v_split = ops.routing(u_hat, plan=perop)
+    xs = rows_pc.detach().clone().requires_grad_()
+    ops.squash(xs, plan=perop).backward(g_pc)
+    wide_got, _ = capsnet.loss_and_grads(
+        wide_params, wide_images, wide_labels, wide_cfg, backend="kernels",
+        plan=wide_plan, device=dev)
+    torch.cuda.synchronize()
+    split_launches = build.launch_counts()
+    print(f"split: launches {split_launches}", flush=True)
+    for sym in ("caps_votes_f32", "routing_f32", "squash_f32",
+                "squash_bwd_f32"):
+        if split_launches[sym] < 1:
+            raise AssertionError(f"split: {sym} was never launched")
+
+    # What came out, against the plain twins and the fused kernel.
+    with torch.no_grad():
+        v_fused = ops.votes_routing(u_pc, wcc, plan=perop)
+        held("caps_votes", "K14a caps_votes MNIST", u_hat,
+             k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi), SPLIT)
+        held("caps_votes", "K14a caps_votes MNIST, block_i 7 (ragged)",
+             k14a.caps_votes(u_pc, wcc, block_i=7),
+             k14a.caps_votes_plain(u_pc, wcc, block_i=7), SPLIT)
+        held("routing", "K14b routing MNIST", v_split,
+             k14b.routing_plain(u_hat, iters=it, num_classes=lay.num_caps,
+                                block_i=rt_bi), SPLIT)
+        held("routing", "K14b routing MNIST, block_i 100 (ragged)",
+             k14b.routing(u_hat, iters=it, num_classes=lay.num_caps,
+                          block_i=100),
+             k14b.routing_plain(u_hat, iters=it, num_classes=lay.num_caps,
+                                block_i=100), SPLIT)
+        check("split v against the fused K4 v", v_split, v_fused, SPLIT)
+        lengths = [torch.linalg.vector_norm(
+            v.reshape(b_, lay.num_caps, lay.caps_dim), dim=-1).cpu()
+            for v in (v_split, v_fused)]
+        same_predictions("split against fused", *lengths, SPLIT[1])
+        held("squash", "K10 squash [9216, 8]",
+             k10.squash_rows(rows_pc, block_rows=sq_rows),
+             k10.squash_plain(rows_pc), SQUASH)
+        held("squash", "K10 squash [4096, 256]",
+             k10.squash_rows(x_wide, block_rows=8),
+             k10.squash_plain(x_wide), SQUASH)
+        held("squash_bwd", "K10 squash backward (autograd) [9216, 8]",
+             xs.grad, k10.squash_bwd_plain(rows_pc, g_pc), SQUASH)
+        held("squash_bwd", "K10 squash backward [4096, 256]",
+             k10.squash_bwd(x_wide, g_wide, block_rows=8),
+             k10.squash_bwd_plain(x_wide, g_wide), SQUASH)
+    wide_want, _ = capsnet.loss_and_grads(
+        wide_params, wide_images, wide_labels, wide_cfg, backend="torch",
+        device=dev)
+    for k in wide_params:
+        check_scaled(f"unfused-squash network d{k}", wide_got[k],
+                     wide_want[k], GRAD)
+
+    # Times: each kernel against its twin, its bound and a library call;
+    # then the split path against the fused kernel, with the modeled
+    # global bytes of each.
+    n_uh = b_ * i_ * jd
+    split_sites = [
+        ("caps_votes", "caps_votes.cu", "src/repro/kernels/caps_votes.py:32",
+         [("ClassCaps-FC (split)",
+           lambda: k14a.caps_votes(u_pc, wcc, block_i=cv_bi),
+           lambda: k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi),
+           lambda: torch.einsum("bic,inc->bin", u_pc, wcc),
+           4.0 * (u_pc.numel() + wcc.numel() + n_uh), 2.0 * n_uh * c_)]),
+        ("routing", "routing.cu", "src/repro/kernels/routing.py:34",
+         [("Sum+Squash / Update+Sum (split)",
+           lambda: k14b.routing(u_hat, iters=it, num_classes=lay.num_caps,
+                                block_i=rt_bi),
+           lambda: k14b.routing_plain(u_hat, iters=it,
+                                      num_classes=lay.num_caps,
+                                      block_i=rt_bi), None,
+           4.0 * (n_uh + b_ * jd), 2.0 * n_uh * (2 * it + 1))]),
+        ("squash", "squash.cu", "src/repro/kernels/squash.py:24",
+         [("PrimaryCaps capsules [9216, 8]",
+           lambda: k10.squash_rows(rows_pc, block_rows=sq_rows),
+           lambda: k10.squash_plain(rows_pc), None,
+           4.0 * 2 * rows_pc.numel(), 4.0 * rows_pc.numel()),
+          ("[4096, 256]", lambda: k10.squash_rows(x_wide, block_rows=8),
+           lambda: k10.squash_plain(x_wide), None,
+           4.0 * 2 * x_wide.numel(), 4.0 * x_wide.numel())]),
+        ("squash_bwd", "squash.cu", "src/repro/kernels/squash.py:29",
+         [("PrimaryCaps capsules [9216, 8]",
+           lambda: k10.squash_bwd(rows_pc, g_pc, block_rows=sq_rows),
+           lambda: k10.squash_bwd_plain(rows_pc, g_pc), None,
+           4.0 * 3 * rows_pc.numel(), 8.0 * rows_pc.numel()),
+          ("[4096, 256]",
+           lambda: k10.squash_bwd(x_wide, g_wide, block_rows=8),
+           lambda: k10.squash_bwd_plain(x_wide, g_wide), None,
+           4.0 * 3 * x_wide.numel(), 8.0 * x_wide.numel())]),
+    ]
+    with torch.no_grad():
+        for kernel, source, replaces, kernel_sites in split_sites:
+            site_rows = []
+            for (op, fn, plain, lib, nbytes, flops) in kernel_sites:
+                bms, by = bound(nbytes, flops)
+                site_rows.append(dict(
+                    op=op, ms=time_ms(fn), device_ms=device_ms(fn),
+                    plain_ms=time_ms(plain),
+                    library_ms=time_ms(lib) if lib is not None else None,
+                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+            main = site_rows[:1]              # the MNIST path's shape
+            bms, by = bound(main[0]["bytes"], main[0]["flops"])
+            rows.append(dict(
+                name=kernel, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
+                replaces=replaces, launches=split_launches[f"{kernel}_f32"],
+                max_abs_err=errs[kernel], ms=main[0]["ms"],
+                device_ms=main[0]["device_ms"],
+                plain_ms=main[0]["plain_ms"], bound_ms=bms, bound_by=by,
+                library_ms=main[0]["library_ms"],
+                path="split path (caps_votes -> routing) and standalone "
+                     "squash, MNIST width, batch 8",
+                sites=site_rows))
+        def split_path():
+            return ops.routing(ops.caps_votes(u_pc, wcc, plan=perop),
+                               plan=perop)
+
+        def fused_path():
+            return ops.votes_routing(u_pc, wcc, plan=perop)
+
+        split_ms, fused_ms = time_ms(split_path), time_ms(fused_path)
+        split_dev, fused_dev = device_ms(split_path), device_ms(fused_path)
+        sweep = {bi: device_ms(lambda bi=bi: k14a.caps_votes(
+            u_pc, wcc, block_i=bi)) for bi in (1, 2, 4, 8, 16, 32)}
+        rows_sweep = {f"[9216, 8] block_rows {br}": device_ms(
+            lambda br=br: k10.squash_rows(rows_pc, block_rows=br))
+            for br in (256, 1024)}
+        rows_sweep.update({f"[4096, 256] block_rows {br}": device_ms(
+            lambda br=br: k10.squash_rows(x_wide, block_rows=br))
+            for br in (8, 64, 1024)})
+    split_bytes, uhat_bytes = execplan.split_votes_routing_global_bytes(
+        b_, i_, c_, jd)
+    fused_once = 4.0 * (u_pc.numel() + wcc.numel() + b_ * jd)
+    print(f"caps_votes device ms by block_i: {json.dumps(sweep)}",
+          flush=True)
+    print(f"squash device ms by block_rows: {json.dumps(rows_sweep)}",
+          flush=True)
+    print(f"split vs fused at batch {b_}: split (caps_votes -> routing) "
+          f"{split_ms:.4f} ms (device {split_dev} ms), modeled global "
+          f"bytes {split_bytes:.0f} of which u_hat {uhat_bytes:.0f} "
+          f"({uhat_bytes / split_bytes:.1%}); fused K4 {fused_ms:.4f} ms "
+          f"(device {fused_dev} ms), each tensor once {fused_once:.0f} B, "
+          f"as the plan models it (W per sample per pass, mostly from L2) "
+          f"{vr.global_bytes:.0f} B", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -306,7 +306,8 @@ def forward(params: Params, images, cfg: CapsNetConfig = CapsNetConfig(), *,
     resident/streamed routing schedule chosen by an ``ExecutionPlan``
     (compiled here with ``pipeline=True`` unless ``plan`` is passed): a
     pipelined plan runs Conv1 -> ONE ``primary_routing`` kernel, a per-op
-    plan runs Conv1 -> PrimaryCaps (squash fused) -> ``votes_routing``.
+    plan runs Conv1 -> PrimaryCaps (squash fused, or the standalone
+    ``squash`` after it when the plan cannot fuse) -> ``votes_routing``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
@@ -362,11 +363,14 @@ def _forward_kernels(params: Params, images: torch.Tensor,
                                                 first.caps_dim)
         k = 1
     else:
+        pc = plan.op("PrimaryCaps")
         x = ops.conv2d(x, params["pc_w"], params["pc_b"],
-                       stride=cfg.pc_stride, plan_op=plan.op("PrimaryCaps"),
+                       stride=cfg.pc_stride, plan_op=pc,
                        bwd_op=plan.bwd_op("PrimaryCaps"),
-                       squash_dim=cfg.primary_dim)
+                       squash_dim=cfg.primary_dim if pc.fuses_squash else 0)
         h, k = x.reshape(b, cfg.num_primary, cfg.primary_dim), 0
+        if not pc.fuses_squash:        # no capsule-aligned tile: K10
+            h = ops.squash(h, plan=plan)
     for lay in stack[k:]:
         h = ops.votes_routing(
             h, w_of(lay), plan=plan, op_name=lay.name, iters=lay.iters,

@@ -6,10 +6,12 @@ executed kernel call, with the reference's op names:
 
   Conv1, PrimaryCaps   ``conv_im2col``: patch extraction (K1) + the tiled
                        GEMM (K2) over ``planner.plan_matmul``'s tiles.
-                       PrimaryCaps always fuses the capsule squash into
-                       the GEMM epilogue: its tile width is a multiple of
-                       the capsule size, so the standalone squash kernel
-                       (K10) stays off this path.
+                       PrimaryCaps fuses the capsule squash into the GEMM
+                       epilogue when a tile width that is a multiple of
+                       the capsule size exists (every capsule up to 128
+                       floats); a wider capsule plans the plain GEMM and
+                       the standalone squash (K10) over ``block_rows``
+                       rows per CTA.
   ClassCaps-Routing    ``votes_routing`` (K3/K4): votes + every routing
                        iteration, one CTA per sample.
   PrimaryCaps-Routing  ``primary_routing`` (K5, ``pipeline=True``):
@@ -25,6 +27,12 @@ and recomputes the votes from W on each of the ``iters + 1`` passes.
 At MNIST width one sample's votes (1152 x 160 fp32 = 737,280 B) do not
 fit, so the plan picks ``streamed``; splitting i over a thread-block
 cluster so that ``resident`` fits is later work.
+
+The split ClassCaps path -- ``caps_votes`` (K14a) writing u_hat to
+device memory, then ``routing`` (K14b) reading it back -- is the paper's
+baseline and never a plan op; ``plan_caps_votes`` and
+``plan_routing_split`` give its tiles, ``split_votes_routing_global_bytes``
+its traffic, for the comparison with the fused op.
 
 ``compile_plan(train=True)`` appends one backward op per executed kernel,
 named ``<op>-bwd`` and listed in reverse network order (the order the
@@ -49,8 +57,9 @@ import functools
 
 from repro_torch.core.capsnet import ROUTING_NAME, CapsNetConfig
 from repro_torch.core.planner import (AT_B_SMEM_BYTES, ELEM_BYTES,
-                                      SMEM_BYTES, BlockPlan, MatmulWorkload,
-                                      at_b_splits, plan_matmul)
+                                      NUM_SMS, SMEM_BYTES, BlockPlan,
+                                      MatmulWorkload, at_b_splits,
+                                      plan_matmul)
 
 FUSED_NAME = ROUTING_NAME
 PIPE_NAME = "PrimaryCaps-Routing"
@@ -66,6 +75,11 @@ PIPE_BLOCK_K_CANDIDATES = (32, 16, 8)
 # Samples the routing backward's emit CTA (csrc/votes_routing_bwd.cu)
 # holds in shared memory at a time.
 EMIT_CHUNK = 16
+# Op name of the split path's votes (the reference's ``ClassCaps-FC``).
+VOTES_NAME = "ClassCaps-FC"
+# Capsules up to this many floats take a thread per row in the standalone
+# squash (csrc/squash.cu), wider ones a warp per row.
+SQUASH_THREAD_ROW_DIM = 32
 
 
 class PlanError(ValueError):
@@ -80,8 +94,9 @@ class OpPlan:
     op's producer; ``block_i`` / ``mode`` / ``n_passes`` the routing
     schedule (the votes are computed from W ``n_passes`` times per
     sample); ``block_k`` the pipelined producer's K tile; ``dx_block`` a
-    conv backward's dpatches GEMM tiles.  ``smem_bytes`` is the modeled
-    shared memory of one CTA, and ``global_bytes`` the bytes the op
+    conv backward's dpatches GEMM tiles; ``block_rows`` the rows of one
+    standalone-squash CTA (PrimaryCaps only).  ``smem_bytes`` is the
+    modeled shared memory of one CTA, and ``global_bytes`` the bytes the op
     requests from global memory per call at the plan batch (served by L2
     where a re-read operand fits there).
     """
@@ -96,6 +111,7 @@ class OpPlan:
     n_passes: int | None = None
     block_k: int | None = None
     dx_block: BlockPlan | None = None
+    block_rows: int | None = None
 
     @property
     def fuses_squash(self) -> bool:
@@ -151,7 +167,7 @@ class ExecutionPlan:
         def tiles(b):
             return (b.block_m, b.block_k, b.block_n) if b else None
         return [dict(name=op.name, kernel=op.kernel, block=tiles(op.block),
-                     dx_block=tiles(op.dx_block),
+                     dx_block=tiles(op.dx_block), block_rows=op.block_rows,
                      block_i=op.block_i, block_k=op.block_k, mode=op.mode,
                      n_passes=op.n_passes, smem_kib=op.smem_bytes / 1024,
                      global_bytes=op.global_bytes)
@@ -231,6 +247,89 @@ def votes_routing_global_bytes(batch: int, num_caps: int, caps_dim: int,
     per_sample = (num_caps * caps_dim + n_passes * num_caps * jd * caps_dim
                   + jd)
     return float(batch * per_sample * ELEM_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# The split path (K14a caps_votes -> K14b routing) and the standalone squash
+# ---------------------------------------------------------------------------
+
+def caps_votes_smem(batch: int, block_i: int, caps_dim: int,
+                    out_dim: int) -> int:
+    """Shared memory of one ``caps_votes`` CTA: its i-block's W rows,
+    each padded to ``caps_dim + 1`` floats so that neighbouring threads
+    read them without bank conflicts, and the block's u rows of every
+    sample."""
+    return (block_i * out_dim * (caps_dim + 1)
+            + batch * block_i * caps_dim) * ELEM_BYTES
+
+
+def plan_caps_votes(num_caps: int, caps_dim: int, out_dim: int, batch: int,
+                    smem_budget: int = SMEM_BYTES) -> int:
+    """``block_i`` of ``caps_votes``: the largest i-tile that fits the
+    budget at this batch and still gives every SM two CTAs.  W is
+    reuse-free (each element serves only the batch), so the I rows, not
+    the batch, are what spreads the work over the card; below
+    ``2 * NUM_SMS`` rows every CTA takes one.  Raises ``PlanError``
+    naming ``ClassCaps-FC`` when even ``block_i=1`` does not fit."""
+    need = caps_votes_smem(batch, 1, caps_dim, out_dim)
+    if need > smem_budget:
+        raise PlanError(
+            f"{VOTES_NAME}: no feasible schedule at batch={batch}: even "
+            f"block_i=1 needs {need} B of shared memory per CTA, over the "
+            f"{smem_budget} B budget")
+    for bi in BLOCK_I_CANDIDATES:
+        if (-(-num_caps // bi) >= 2 * NUM_SMS and caps_votes_smem(
+                batch, bi, caps_dim, out_dim) <= smem_budget):
+            return bi
+    return 1
+
+
+def routing_split_smem(num_caps: int, j: int, jd: int, block_i: int) -> int:
+    """Shared memory of one ``routing`` CTA: the streamed routing scratch
+    of ``votes_routing`` (logits, s, v, one tile of u_hat rows and their
+    couplings) with no u, since the votes come from device memory."""
+    return routing_smem_floats("streamed", num_caps, block_i, j,
+                               jd) * ELEM_BYTES
+
+
+def plan_routing_split(num_caps: int, j: int, jd: int,
+                       smem_budget: int = SMEM_BYTES) -> int:
+    """``block_i`` of ``routing``: the largest u_hat tile that fits.
+    Raises ``PlanError`` when the logits alone leave no room for one
+    row."""
+    def smem_of(bi):
+        need = routing_split_smem(num_caps, j, jd, bi)
+        return need if need <= smem_budget else None
+
+    fit = _largest_fit(num_caps, smem_of)
+    if fit is None:
+        raise PlanError(
+            f"routing: no feasible schedule: even block_i=1 needs "
+            f"{routing_split_smem(num_caps, j, jd, 1)} B of shared memory "
+            f"per CTA, over the {smem_budget} B budget ({num_caps} "
+            f"capsules -> {jd})")
+    return fit[0]
+
+
+def split_votes_routing_global_bytes(batch: int, num_caps: int,
+                                     caps_dim: int,
+                                     jd: int) -> tuple[float, float]:
+    """(total, u_hat share) of the split ``caps_votes`` -> ``routing``
+    path, each tensor counted once: u and W read, u_hat written by K14a
+    and read back by K14b, v written.  K14b requests u_hat once per
+    routing pass; the passes after the first find it in L2."""
+    u = batch * num_caps * caps_dim
+    w = num_caps * jd * caps_dim
+    v = batch * jd
+    uhat = 2 * batch * num_caps * jd                 # write + read back
+    return float((u + w + v + uhat) * ELEM_BYTES), float(uhat * ELEM_BYTES)
+
+
+def squash_block_rows(d: int) -> int:
+    """Rows one standalone-squash CTA takes for capsules of ``d`` floats:
+    256 (a row per thread) up to ``SQUASH_THREAD_ROW_DIM``, else 8 (a row
+    per warp), so that the rows spread over the SMs."""
+    return 256 if d <= SQUASH_THREAD_ROW_DIM else 8
 
 
 def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
@@ -362,22 +461,38 @@ def plan_primary_routing(p_pos: int, k_in: int, n_ch: int, num_caps: int,
 
 def _conv_op(name: str, wl: MatmulWorkload, in_elems: int,
              smem_budget: int, squash_dim: int | None) -> OpPlan:
-    try:
-        block = plan_matmul(wl, smem_budget, n_multiple=squash_dim or 1,
-                            stage_output=squash_dim is not None)
-    except ValueError as err:
-        hint = (" (the squash cannot fuse into the epilogue, and the "
-                "standalone squash kernel K10 is not ported yet: ROADMAP "
-                "queue 2)" if squash_dim is not None else "")
-        raise PlanError(f"{name}: no feasible GEMM tiling: {err}{hint}") \
-            from None
-    patches = wl.m * wl.k * ELEM_BYTES
+    """One conv op.  With ``squash_dim`` (PrimaryCaps) the squash fuses
+    into the GEMM epilogue when a capsule-aligned tile fits; otherwise
+    the op is the plain GEMM and the standalone squash (K10) follows it,
+    as the reference's plan does."""
+    block = None
+    if squash_dim is not None:
+        try:
+            block = plan_matmul(wl, smem_budget, n_multiple=squash_dim,
+                                stage_output=True)
+        except ValueError:
+            pass                       # no capsule-aligned tile: K10
+    fused = block is not None
+    if block is None:
+        try:
+            block = plan_matmul(wl, smem_budget)
+        except ValueError as err:
+            raise PlanError(f"{name}: no feasible GEMM tiling: {err}") \
+                from None
+    # image read + patch write by the extraction, then the GEMM.
+    nbytes = in_elems * ELEM_BYTES + wl.m * wl.k * ELEM_BYTES \
+        + block.hbm_bytes
+    block_rows = None
+    if squash_dim is not None:
+        rows = wl.m * wl.n // squash_dim
+        block_rows = max(min(squash_block_rows(squash_dim), rows), 1)
+        if not fused:                  # K10 reads and writes u once
+            nbytes += 2 * wl.m * wl.n * ELEM_BYTES
     return OpPlan(
         name=name,
-        kernel="conv_im2col+squash" if squash_dim else "conv_im2col",
-        block=block, smem_bytes=block.smem_bytes,
-        # image read + patch write by the extraction, then the GEMM.
-        global_bytes=in_elems * ELEM_BYTES + patches + block.hbm_bytes)
+        kernel="conv_im2col+squash" if fused else "conv_im2col",
+        block=block, smem_bytes=block.smem_bytes, global_bytes=nbytes,
+        block_rows=block_rows)
 
 
 def _conv_bwd_op(fwd: OpPlan, wl: MatmulWorkload, in_elems: int,

@@ -11,10 +11,12 @@ tears it down; nesting is refused.
 
 Sites wired in the port so far: ``train.step`` (``train/harness.py``:
 ``nan_output`` / ``inf_output`` poison the step's loss so the NaN
-rollback runs, ``stall`` inflates the step's measured time).  The
-``ops.*`` and ``engine.*`` names are kept for the sites still to be
-wired (the kernel wrappers' outputs, through ``corrupt_array``, and the
-engine's ticks).
+rollback runs, ``stall`` inflates the step's measured time) and the
+kernel wrappers' outputs in ``kernels/ops.py`` (``ops.conv2d``,
+``ops.votes_routing``, ``ops.primary_routing``, ``ops.caps_votes``,
+``ops.routing``, ``ops.squash``, through ``corrupt_array``).  The other
+``ops.*`` and the ``engine.*`` names are kept for the sites still to be
+wired (the deep-stack segment, the LM kernels, the engine's ticks).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 LIBRARIES = ("conv_im2col", "votes_routing", "primary_routing", "conv_bwd",
-             "votes_routing_bwd")
+             "votes_routing_bwd", "caps_votes", "routing", "squash")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,60 @@
+"""Split-path capsule votes (K14a): u_hat written to device memory.
+
+The counterpart of ``repro/kernels/caps_votes.py`` (``_votes_kernel``):
+u [B, I, C], W [I, N, C] -> u_hat [B, I, N], ``u_hat[b, i, n] =
+sum_c W[i, n, c] u[b, i, c]``.  ``caps_votes`` runs ``caps_votes_plain``
+for CPU tensors and the CUDA kernel (``csrc/caps_votes.cu``, one CTA per
+i-block) for CUDA tensors.  The twin follows the kernel's i-blocks,
+ragged last block included.  Forward only, as in the reference: the
+plan-driven path runs the fused ``votes_routing`` instead, and this
+kernel is the paper's baseline that the fusion is measured against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.execplan import caps_votes_smem
+from repro_torch.core.planner import SMEM_BYTES
+from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+CAPS_VOTES = Kernel("caps_votes", "caps_votes_f32",
+                    [_P] * 3 + [_I] * 6 + [_P])
+
+
+def caps_votes_plain(u: torch.Tensor, w: torch.Tensor, *,
+                     block_i: int) -> torch.Tensor:
+    """The kernel's i-blocks in plain PyTorch: u [B, I, C], w [I, N, C]
+    -> [B, I, N]."""
+    i_dim = u.shape[1]
+    return torch.cat([torch.einsum("bic,inc->bin", u[:, i0:i0 + block_i],
+                                   w[i0:i0 + block_i])
+                      for i0 in range(0, i_dim, block_i)], dim=1)
+
+
+def caps_votes(u: torch.Tensor, w: torch.Tensor, *,
+               block_i: int = 128) -> torch.Tensor:
+    """K14a: u [B, I, C], w [I, N, C] -> u_hat [B, I, N].  ``block_i`` is
+    clamped to I; I need not divide it (the last block is ragged)."""
+    if u.dim() != 3 or w.dim() != 3 or w.shape[0] != u.shape[1] \
+            or w.shape[2] != u.shape[2]:
+        raise ValueError(f"caps_votes: u {tuple(u.shape)} and w "
+                         f"{tuple(w.shape)} must be [B, I, C] and [I, N, C]")
+    bsz, i_dim, c = u.shape
+    n = w.shape[1]
+    block_i = max(1, min(block_i, i_dim))
+    if on_cpu("caps_votes", u, w):
+        return caps_votes_plain(u, w, block_i=block_i)
+    smem = caps_votes_smem(bsz, block_i, c, n)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"caps_votes: block_i={block_i} at batch {bsz} "
+                         f"needs {smem} B of shared memory per CTA, over "
+                         f"{SMEM_BYTES} B")
+    out = torch.empty((bsz, i_dim, n), dtype=u.dtype, device=u.device)
+    if out.numel():
+        CAPS_VOTES(ptr(u), ptr(w), ptr(out), bsz, i_dim, c, n, block_i, smem,
+                   stream_of(u))
+    return out

@@ -1,17 +1,23 @@
 """Plan-aware wrappers for the port's kernels, driven by one ExecutionPlan.
 
 The counterparts of ``repro/kernels/ops.py``'s ``conv2d``,
-``votes_routing`` and ``primary_routing``.  Tiles and schedules come from
-an ``ExecutionPlan`` (``repro_torch.core.execplan.compile_plan``) when
-one is passed; otherwise the planner's pick is computed once per shape
-and memoized in a bounded cache.  CPU tensors run the plain twins, CUDA
+``votes_routing``, ``primary_routing``, the split path's ``caps_votes``
+and ``routing``, and ``squash``.  Tiles and schedules come from an
+``ExecutionPlan`` (``repro_torch.core.execplan.compile_plan``) when one is
+passed; otherwise the planner's pick is computed once per shape and
+memoized in a bounded cache.  CPU tensors run the plain twins, CUDA
 tensors the kernels (see each kernel module).
 
-Every wrapper is differentiable.  The backward schedule comes from the
-plan's ``<op>-bwd`` entry on a training plan (``compile_plan(train=
-True)``); otherwise the routing backward plans its own when it runs
-(``votes_routing.planned_votes_routing_bwd``), so a forward that is never
-differentiated plans no backward.
+The conv, routing and squash wrappers are differentiable (``caps_votes``
+and ``routing`` are forward only, as in the reference).  The backward
+schedule comes from the plan's ``<op>-bwd`` entry on a training plan
+(``compile_plan(train=True)``); otherwise the routing backward plans its
+own when it runs (``votes_routing.planned_votes_routing_bwd``), so a
+forward that is never differentiated plans no backward.
+
+Every wrapper ends in the reference's fault site, ``if faults.enabled():
+out = faults.corrupt_array(SITE_..., out)``: one global load when nothing
+is injected.
 """
 
 from __future__ import annotations
@@ -20,11 +26,14 @@ import functools
 
 import torch
 
-from repro_torch.core import execplan
-from repro_torch.core.planner import MatmulWorkload, plan_matmul
+from repro_torch.core import execplan, faults
+from repro_torch.core.planner import SMEM_BYTES, MatmulWorkload, plan_matmul
+from repro_torch.kernels.caps_votes import caps_votes as _caps_votes
 from repro_torch.kernels.conv_im2col import conv2d_im2col, out_size
 from repro_torch.kernels.primary_routing import \
     primary_routing as _primary_routing
+from repro_torch.kernels.routing import routing as _routing
+from repro_torch.kernels.squash import squash as _squash
 from repro_torch.kernels.votes_routing import votes_routing as _votes_routing
 
 
@@ -63,9 +72,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             m, k, cout, squash_dim if epilogue == "squash" else 0)
     dx_block = (_tiles(bwd_op.dx_block) if bwd_op is not None
                 else planned_conv_blocks(m, cout, k))
-    return conv2d_im2col(x, w, b, stride=stride, block=block,
-                         dx_block=dx_block, epilogue=epilogue,
-                         squash_dim=squash_dim)
+    out = conv2d_im2col(x, w, b, stride=stride, block=block,
+                        dx_block=dx_block, epilogue=epilogue,
+                        squash_dim=squash_dim)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_CONV2D, out)
+    return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -103,9 +115,12 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
         mode, block_i = planned_votes_routing(u.shape[1], u.shape[2],
                                               w.shape[1], num_classes, iters)
     bwd_mode, bwd_block_i = _bwd_schedule(plan, op_name)
-    return _votes_routing(u, w, iters=iters, num_classes=num_classes,
-                          mode=mode, block_i=block_i, bwd_mode=bwd_mode,
-                          bwd_block_i=bwd_block_i, op_name=op_name)
+    out = _votes_routing(u, w, iters=iters, num_classes=num_classes,
+                         mode=mode, block_i=block_i, bwd_mode=bwd_mode,
+                         bwd_block_i=bwd_block_i, op_name=op_name)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_VOTES_ROUTING, out)
+    return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -156,9 +171,79 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     else:
         conv_block = planned_conv_blocks(m, k, n_ch, caps_dim)
         dx_block = planned_conv_blocks(m, n_ch, k)
-    return _primary_routing(x, w_pc, b_pc, w_cc, stride=stride, iters=iters,
-                            num_classes=num_classes, mode=mode,
-                            block_i=block_i, block_k=block_k,
-                            bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                            routing_op_name=routing_op_name,
-                            conv_block=conv_block, dx_block=dx_block)
+    out = _primary_routing(x, w_pc, b_pc, w_cc, stride=stride, iters=iters,
+                           num_classes=num_classes, mode=mode,
+                           block_i=block_i, block_k=block_k,
+                           bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
+                           routing_op_name=routing_op_name,
+                           conv_block=conv_block, dx_block=dx_block)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_PRIMARY_ROUTING, out)
+    return out
+
+
+@functools.lru_cache(maxsize=64)            # the batch is a key: bounded
+def planned_block_i(num_caps: int, caps_dim: int, out_dim: int,
+                    batch: int = 1, smem_budget: int = SMEM_BYTES) -> int:
+    """Memoized ``execplan.plan_caps_votes`` pick of the split votes'
+    i-tile at the real batch (its footprint holds every sample's u)."""
+    return execplan.plan_caps_votes(num_caps, caps_dim, out_dim, batch,
+                                    smem_budget)
+
+
+def caps_votes(u: torch.Tensor, w: torch.Tensor, *, plan=None,
+               block_i: int | None = None) -> torch.Tensor:
+    """u: [B, I, C], w: [I, N, C] -> u_hat [B, I, N] (K14a, the split
+    path's votes; the plan executes the fused ``votes_routing`` instead).
+    Unless given, ``block_i`` is the planner's pick at this batch, under
+    ``plan``'s shared-memory budget when a plan is passed: the plan has
+    no op of its own for the split path, and its routing i-tile is sized
+    for K3/K4's footprint, not this kernel's."""
+    if block_i is None:
+        budget = plan.smem_budget if plan is not None else SMEM_BYTES
+        block_i = planned_block_i(u.shape[1], u.shape[2], w.shape[1],
+                                  u.shape[0], budget)
+    out = _caps_votes(u, w, block_i=block_i)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_CAPS_VOTES, out)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def planned_routing(num_caps: int, j: int, jd: int,
+                    smem_budget: int = SMEM_BYTES) -> int:
+    """Memoized ``execplan.plan_routing_split`` pick of K14b's u_hat
+    tile."""
+    return execplan.plan_routing_split(num_caps, j, jd, smem_budget)
+
+
+def routing(u_hat: torch.Tensor, *, plan=None, iters: int | None = None,
+            num_classes: int | None = None) -> torch.Tensor:
+    """u_hat: [B, I, J*D] -> v [B, J*D] (K14b: every routing iteration
+    over the materialized votes).  ``iters`` / ``num_classes`` default to
+    the plan's config, else 3 and 10."""
+    if iters is None:
+        iters = plan.cfg.routing_iters if plan is not None else 3
+    if num_classes is None:
+        num_classes = plan.cfg.num_classes if plan is not None else 10
+    budget = plan.smem_budget if plan is not None else SMEM_BYTES
+    block_i = planned_routing(u_hat.shape[1], num_classes, u_hat.shape[2],
+                              budget)
+    out = _routing(u_hat, iters=iters, num_classes=num_classes,
+                   block_i=block_i)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_ROUTING, out)
+    return out
+
+
+def squash(x: torch.Tensor, *, plan=None,
+           block_rows: int | None = None) -> torch.Tensor:
+    """x [..., D] -> squash over the last axis (K10, differentiable).
+    ``block_rows`` (rows per CTA) comes from ``plan.op("PrimaryCaps")``
+    when a plan is passed, else the Hopper pick for D."""
+    if block_rows is None and plan is not None:
+        block_rows = plan.op("PrimaryCaps").block_rows
+    out = _squash(x, block_rows=block_rows)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_SQUASH, out)
+    return out

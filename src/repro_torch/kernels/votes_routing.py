@@ -12,9 +12,10 @@ twin and CUDA kernels (``csrc/votes_routing_bwd.cu``) compute the
 reference's stop-gradient routing VJP by one explicit formula.  The plain
 twins follow the kernels' schedule math: the i axis is zero-padded to a
 multiple of ``block_i``; ``resident`` computes the votes once and
-iterates on them; ``streamed`` recomputes each votes block on every pass
-and folds the logits update of iteration ``t`` into the same pass as the
-accumulation of ``s_t``.
+iterates on them; ``streamed`` folds the logits update of iteration ``t``
+into the same pass as the accumulation of ``s_t``, block by block (the
+kernel recomputes each votes block on every pass; its twin computes them
+once, which gives the same values, and runs ``routing.routing_plain``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.core.execplan import (FUSED_NAME, MODES,
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
+from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",
@@ -87,24 +89,15 @@ def votes_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
     u, w, n_blocks = _padded(u, w, block_i)
-    blocks = [slice(ib * block_i, (ib + 1) * block_i)
-              for ib in range(n_blocks)]
+    votes = torch.cat([_votes_block(u[:, ib * block_i:(ib + 1) * block_i],
+                                    w[ib * block_i:(ib + 1) * block_i])
+                       for ib in range(n_blocks)], 1)
     if mode == "resident":
-        votes = torch.cat([_votes_block(u[:, r], w[r]) for r in blocks], 1)
         return ref.routing(votes.reshape(bsz, -1, j, d),
                            iters).reshape(bsz, jd)
-    b = torch.zeros((bsz, u.shape[1], j), dtype=u.dtype, device=u.device)
-    v = None
-    for t in range(iters + 1):
-        s = torch.zeros((bsz, j, d), dtype=u.dtype, device=u.device)
-        for rows in blocks:
-            uh4 = _votes_block(u[:, rows], w[rows]).reshape(bsz, -1, j, d)
-            if t > 0:      # iteration t's logits update rides this W stream
-                b[:, rows] += torch.einsum("bijd,bjd->bij", uh4, v)
-            c = torch.softmax(b[:, rows], dim=2)
-            s = s + torch.einsum("bij,bijd->bjd", c, uh4)
-        v = ref.squash(s)
-    return v.reshape(bsz, jd)
+    # A recomputed votes block equals the one computed here, so the
+    # streamed schedule is the split routing's fused s+b passes over them.
+    return routing_plain(votes, iters=iters, num_classes=j, block_i=block_i)
 
 
 def _check_shapes(u: torch.Tensor, w: torch.Tensor) -> None:

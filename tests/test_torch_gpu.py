@@ -14,8 +14,12 @@ import torch
 from repro_torch.configs import capsnet_mnist
 from repro_torch.core import capsnet, execplan
 from repro_torch.kernels import build
+from repro_torch.kernels import caps_votes as k14a
 from repro_torch.kernels import conv_im2col as k12
+from repro_torch.kernels import ops
 from repro_torch.kernels import primary_routing as k5
+from repro_torch.kernels import routing as k14b
+from repro_torch.kernels import squash as k10
 from repro_torch.kernels import votes_routing as k34
 from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
 
@@ -160,6 +164,71 @@ def test_total_loss_backward_on_the_card_matches_the_plain_backend(
     for sym in ("matmul_at_b_f32", "col2im_patches_f32",
                 "routing_bwd_resident_f32"):
         assert counts[sym] > 0, sym
+    for k in params:
+        scale = want[k].abs().max().clamp_min(1e-12)
+        assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k
+
+
+def test_split_path_and_squash_launch_and_match_twins_on_the_card(cuda):
+    """K14a with ragged i-blocks, K14b with ragged u_hat tiles, K10 forward
+    and backward a row per thread (D=8) and a row per warp (D=160, odd
+    D), each against its plain twin; the split path against the fused
+    kernel."""
+    build.reset_launch_counts()
+    u = _rand(10, 3, 300, 8, scale=0.5, device=cuda)
+    w = _rand(11, 300, 40, 8, scale=0.3, device=cuda)
+    for bi in (1, 7, 128):
+        torch.testing.assert_close(k14a.caps_votes(u, w, block_i=bi),
+                                   k14a.caps_votes_plain(u, w, block_i=bi),
+                                   rtol=1e-5, atol=1e-5)
+    uh = _rand(12, 3, 300, 40, scale=0.1, device=cuda)
+    for bi in (1, 64, 300):
+        kw = dict(iters=3, num_classes=4, block_i=bi)
+        torch.testing.assert_close(k14b.routing(uh, **kw),
+                                   k14b.routing_plain(uh, **kw),
+                                   rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        ops.routing(ops.caps_votes(u, w), iters=3, num_classes=4),
+        ops.votes_routing(u, w, iters=3, num_classes=4),
+        rtol=1e-5, atol=1e-6)
+    for shape, br in (((37, 8), 16), ((9, 160), 2), ((5, 7), 3),
+                      ((4, 33), 8)):
+        x = _rand(13, *shape, device=cuda)
+        g = _rand(14, *shape, device=cuda)
+        torch.testing.assert_close(k10.squash_rows(x, block_rows=br),
+                                   k10.squash_plain(x), rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(k10.squash_bwd(x, g, block_rows=br),
+                                   k10.squash_bwd_plain(x, g), rtol=1e-5,
+                                   atol=1e-6)
+    counts = build.launch_counts()
+    for sym in ("caps_votes_f32", "routing_f32", "squash_f32",
+                "squash_bwd_f32"):
+        assert counts[sym] > 0, sym
+
+
+def test_unfusable_capsule_forward_and_backward_on_the_card(cuda):
+    """A 160-float capsule: the per-op plan runs the plain GEMM, then K10
+    forward (and K10 backward in the gradient), equal to the plain
+    backend."""
+    cfg = capsnet.CapsNetConfig(
+        image_hw=14, conv1_channels=24, conv1_kernel=5, pc_kernel=3,
+        num_primary_groups=1, primary_dim=160, class_dim=8,
+        decoder_hidden=(32, 64))
+    params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=cuda)
+    images = _rand(15, 2, 14, 14, 1, uniform=True, device=cuda)
+    labels = torch.tensor([3, 7], device=cuda)
+    plan = execplan.compile_plan(cfg, batch=2, pipeline=False, train=True)
+    assert not plan.op("PrimaryCaps").fuses_squash
+    build.reset_launch_counts()
+    got, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                    backend="kernels", plan=plan,
+                                    device=cuda)
+    counts = build.launch_counts()
+    want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                     backend="torch", device=cuda)
+    assert counts["squash_f32"] == 1 and counts["squash_bwd_f32"] == 1
     for k in params:
         scale = want[k].abs().max().clamp_min(1e-12)
         assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k
