@@ -21,7 +21,15 @@ device memory, K14b routing reading it back) and the standalone squash
 (K10) with its backward: the path at full width (and one gradient of a
 network whose capsule cannot fuse), each kernel against its twin, the
 split v against the fused kernel's, and their times and modeled bytes
-side by side.  The weights are random, made from a seed.
+side by side.  Phase 12, deep stacks, runs the full-width SVHN
+CapsuleNet (a plain bottleneck routed with its logits in device memory,
+two reversible ResCaps blocks, ClassCaps): its forward against the plain
+forward, 16 requests through the engine, the residual epilogue, the
+streamed-global K4/K9 and K13 (the unfused oracle) against their twins
+and the fused kernels, one training gradient through the reversible
+segment K12 (and on the CIFAR-10 smoke config), the SVHN smoke config's
+pipelined plan, 20 full-width training steps, and the new kernels'
+times.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -49,6 +57,7 @@ SLOTS = 8                       # the engine's batch: every timed shape uses it
 N_REQUESTS = 32
 TRAIN_BATCH = 16                # the trainer's batch: the backward's shapes
 TRAIN_STEPS = 20
+SVHN_REQUESTS = 16
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit.
 PEAK_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
@@ -172,6 +181,35 @@ def device_ms(fn, reps: int = 20) -> float | None:
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
+    """Device ms per call of ``fn`` by kernel name (the ``top`` largest),
+    from a ``torch.profiler`` trace of ``reps`` calls; None where the
+    trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key[:72]: e.device_time_total / reps / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.device_time_total > 0}
+    except (RuntimeError, AssertionError) as err:
+        print(f"device_breakdown: not measured ({type(err).__name__}: "
+              f"{err})", flush=True)
+        return None
+    if not times:
+        return None
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return dict(ranked[:top], total=sum(times.values()))
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -182,6 +220,55 @@ def summed(values) -> float | None:
     """Sum of ``values``, None when any is None (not measured)."""
     values = list(values)
     return None if any(v is None for v in values) else sum(values)
+
+
+def routing_flops(b, i, c, jd, iters) -> float:
+    """Votes once, then each routing pass's couplings and s."""
+    return 2.0 * b * i * jd * (c + 2 * iters + 1)
+
+
+def routing_bwd_flops(b, i, c, jd, iters) -> float:
+    """The routing backward's own work: the votes once (a streamed
+    schedule's recomputations are its cost, not the function's), the
+    replayed routing, the seed/reverse rows and the du/dW emit."""
+    votes = 2.0 * b * i * jd * c
+    route = (iters + 1) * 4.0 * b * i * jd + 6.0 * b * i * jd
+    emit = 3.0 * b * i * jd + 4.0 * b * i * jd * c
+    return votes + route + emit
+
+
+def routing_bwd_bytes(uu, ww) -> float:
+    """u and W read, du and dW written, the cotangent read."""
+    return 4.0 * 2 * (uu.numel() + ww.numel()) + 4.0 * uu.shape[0] * \
+        ww.shape[1]
+
+
+def conv_inputs(cfg, params, images):
+    """The plain path's Conv1 output and squashed PrimaryCaps capsules."""
+    import torch
+    from repro_torch.core import capsnet
+    from repro_torch.kernels.ref import squash
+    x1 = torch.relu(capsnet._conv_nhwc(images, params["conv1_w"],
+                                       params["conv1_b"], 1))
+    pre = capsnet._conv_nhwc(x1, params["pc_w"], params["pc_b"],
+                             cfg.pc_stride)
+    return x1, squash(pre.reshape(images.shape[0], cfg.num_primary,
+                                  cfg.primary_dim))
+
+
+def timed_sites(sites) -> list[dict]:
+    """Time each ``(op, fn, plain, library, bytes, flops)`` site: the
+    kernel (CUDA events and profiler), its plain twin, the library call,
+    and the card's bound for its work."""
+    site_rows = []
+    for (op, fn, plain, lib, nbytes, flops) in sites:
+        bms, by = bound(nbytes, flops)
+        site_rows.append(dict(
+            op=op, ms=time_ms(fn), device_ms=device_ms(fn),
+            plain_ms=time_ms(plain),
+            library_ms=time_ms(lib) if lib is not None else None,
+            bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+    return site_rows
 
 
 def same_predictions(name: str, lengths_k, lengths_t, atol: float) -> None:
@@ -198,6 +285,446 @@ def same_predictions(name: str, lengths_k, lengths_t, atol: float) -> None:
             ties += 1
     print(f"check {name}: predictions equal on {len(pk) - ties}/{len(pk)}, "
           f"{ties} ties within {atol:g}", flush=True)
+
+
+def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
+    """Phase 12, deep stacks, at the full width of ``capsnet-svhn``: 32x32x3
+    -> Conv1 -> PrimaryCaps (2048 capsules of 8D) -> the plain bottleneck
+    routed to 64 x 8D with its logits in device memory (K4 in the plan's
+    streamed-global mode) -> two reversible ResCaps blocks (K3 with the
+    residual epilogue, inside the K12 segment) -> ClassCaps (K3).  The
+    forward at the engine's batch against the plain forward, 16 requests
+    through the engine, each new kernel (and K13, the unfused oracle, at
+    the MNIST and the bottleneck shapes) against its twin and the fused
+    kernel, one training gradient through K12 (and on the CIFAR-10 smoke
+    config's all-residual segment), the SVHN smoke config's pipelined plan
+    (K5 with J = 16), 20 training steps, and the new kernels' times.
+    Appends the new kernels' rows to ``rows``; ``mnist`` holds the MNIST
+    ClassCaps inputs (K13's other shape)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import capsnet_cifar10, capsnet_svhn
+    from repro_torch.core import capsnet, execplan
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import votes_routing as k34
+    from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
+    from repro_torch.train import capsnet_loop
+
+    GLOBAL, ORACLE = execplan.STREAMED_GLOBAL, execplan.ORACLE_MODE
+    tb = TRAIN_BATCH
+    cfg = capsnet_svhn.config()
+    params = capsnet.init_params(torch.Generator().manual_seed(SEED + 3),
+                                 cfg, device=dev)
+    hw, ch = cfg.image_hw, cfg.in_channels
+
+    def uniform(*shape):
+        return torch.tensor(rng.random(shape, np.float32), device=dev)
+
+    def randn(*shape, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal(shape, np.float32),
+                            device=dev)
+
+    images, timages = uniform(SLOTS, hw, hw, ch), uniform(tb, hw, hw, ch)
+    labels = torch.tensor(rng.integers(0, cfg.num_classes, tb), device=dev)
+    plan = execplan.compile_plan(cfg, batch=SLOTS, pipeline=True)
+    tplan = execplan.compile_plan(cfg, batch=tb, pipeline=True, train=True)
+    for name, p in (("SVHN serving", plan), ("SVHN train", tplan)):
+        print(f"plan {name}: pipelined={p.pipelined}, ops " + json.dumps(
+            [(o.name, o.kernel, o.mode, o.block_i, o.smem_bytes)
+             for o in p.ops]), flush=True)
+    stack = cfg.routing_stack()
+    lay0, half, final = stack[0], stack[1], stack[-1]
+    neck, nbwd = plan.op(lay0.name), tplan.bwd_op(lay0.name)
+    if plan.pipelined or (neck.mode, nbwd.mode) != (GLOBAL, GLOBAL):
+        raise AssertionError("SVHN plan: expected the per-op fallback with "
+                             "the bottleneck in streamed-global")
+
+    def w_of(lay_):
+        return params[lay_.param].reshape(lay_.in_caps, lay_.jd, lay_.in_dim)
+
+    w0, wf, wfin = w_of(lay0), w_of(half), w_of(final)
+
+    # The forward at the engine's batch against the plain forward.
+    with torch.no_grad():
+        build.reset_launch_counts()
+        out = capsnet.forward(params, images, cfg, backend="kernels",
+                              plan=plan, device=dev)
+        torch.cuda.synchronize()
+        fwd_counts = build.launch_counts()
+        ref_out = capsnet.forward(params, images, cfg, backend="torch",
+                                  device=dev)
+    print(f"svhn forward: launches {fwd_counts}", flush=True)
+    for key in ("class_caps", "lengths", "reconstruction"):
+        check(f"svhn forward {key}", out[key], ref_out[key], ROUTING)
+    for key in ("class_caps", "lengths"):     # small at this init: below atol
+        err = (out[key] - ref_out[key]).abs().max().item()
+        scale = ref_out[key].abs().max().item()
+        print(f"svhn forward {key}: max|want| {scale:.3e}, max_abs "
+              f"{err:.3e}, normalised {err / scale:.3e}", flush=True)
+    same_predictions("svhn forward", out["lengths"].cpu(),
+                     ref_out["lengths"].cpu(), ROUTING[1])
+    for sym, n in (("im2col_patches_f32", 2), ("matmul_bias_act_f32", 2),
+                   ("votes_routing_global_f32", 1), ("votes_routing_f32", 5),
+                   ("votes_routing_2pass_f32", 0)):
+        if fwd_counts[sym] != n:
+            raise AssertionError(f"svhn forward: {sym} launched "
+                                 f"{fwd_counts[sym]} times, not {n}")
+
+    # Serve seeded requests through the engine.
+    reqs = [CapsRequest(rid=i, image=rng.random((hw, hw, ch), np.float32))
+            for i in range(SVHN_REQUESTS)]
+    engine = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
+                           device=dev)
+    build.reset_launch_counts()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_counts = build.launch_counts()
+    stats = engine.stats()
+    print(f"svhn serve: {json.dumps(stats)}", flush=True)
+    print(f"svhn serve: launches {serve_counts}", flush=True)
+    if len(done) != SVHN_REQUESTS or any(r.status != "ok" for r in done):
+        raise AssertionError(f"svhn serve: statuses "
+                             f"{[r.status for r in done]}")
+    if serve_counts["votes_routing_global_f32"] < 1:
+        raise AssertionError("svhn serve: K4 (streamed-global) never ran")
+    with torch.no_grad():
+        all_imgs = torch.tensor(np.stack([r.image for r in reqs]),
+                                device=dev)
+        plain_len = capsnet.forward(params, all_imgs, cfg, backend="torch",
+                                    device=dev)["lengths"].cpu()
+    same_predictions("svhn serve", torch.tensor(np.stack(
+        [r.lengths for r in sorted(done, key=lambda r: r.rid)])),
+        plain_len, ROUTING[1])
+
+    # Each new kernel against its twin, and K13 against K4/K9, at the
+    # path's shapes (activations from the plain path).
+    _, u0 = conv_inputs(cfg, params, images)                # [8, 2048, 8]
+    _, tu0 = conv_inputs(cfg, params, timages)              # [16, 2048, 8]
+    with torch.no_grad():
+        h0 = capsnet.routing_by_agreement(capsnet.compute_votes(
+            u0, params[lay0.param]), lay0.iters)            # [8, 64, 8]
+    i1 = half.num_caps
+    x1, x2 = h0[:, :i1].contiguous(), h0[:, i1:].contiguous()
+    r1 = x1.reshape(SLOTS, -1)
+    g0 = randn(tb, lay0.jd, scale=1e-2)
+    u, wcc, tu, g = mnist["u"], mnist["wcc"], mnist["tu"], mnist["g"]
+    mb_i, mbwd_i = mnist["block_i"], mnist["bwd_block_i"]
+    kw0 = dict(iters=lay0.iters, num_classes=lay0.num_caps)
+    kwh = dict(iters=half.iters, num_classes=half.num_caps)
+    kwm = dict(iters=3, num_classes=10)
+    errs: dict[str, float] = {}
+
+    def held(kernel, name, got, want, tol):
+        errs[kernel] = max(errs.get(kernel, 0.0),
+                           check(name, got, want, tol)["max_abs"])
+
+    def held_bwd(kernel, name, got, want):
+        errs[kernel] = max(errs.get(kernel, 0.0), *(
+            check_scaled(f"{name} {part}", x, y, GRAD)
+            for part, x, y in zip(("du", "dW"), got, want)))
+
+    with torch.no_grad():
+        for mode, bi in (("resident", plan.op(half.name).block_i),
+                         ("streamed", 12), (GLOBAL, 12)):
+            held("votes_routing", f"K3/K4 residual epilogue, {mode}, SVHN "
+                 f"half {half.in_caps}->{half.num_caps}x{half.caps_dim}",
+                 k34.votes_routing(x2, wf, r=r1, mode=mode, block_i=bi,
+                                   **kwh),
+                 k34.votes_routing_plain(x2, wf, r=r1, mode=mode,
+                                         block_i=bi, **kwh), ROUTING)
+        v_neck = k34.votes_routing(u0, w0, mode=GLOBAL,
+                                   block_i=neck.block_i, **kw0)
+        held("votes_routing_global", "K4 streamed-global, SVHN bottleneck",
+             v_neck, k34.votes_routing_plain(u0, w0, mode=GLOBAL,
+                                             block_i=neck.block_i, **kw0),
+             ROUTING)
+    held_bwd("routing_bwd_global", "K9 streamed-global, SVHN bottleneck",
+             k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
+                                   block_i=nbwd.block_i, **kw0),
+             k34.votes_routing_bwd_plain(tu0, w0, g0, mode=GLOBAL,
+                                         block_i=nbwd.block_i, **kw0))
+    build.reset_launch_counts()
+    with torch.no_grad():
+        for label, uu, ww, bi, kw, fused in (
+                ("MNIST ClassCaps", u, wcc, mb_i, kwm,
+                 k34.votes_routing(u, wcc, mode="streamed", block_i=mb_i,
+                                   **kwm)),
+                ("SVHN bottleneck", u0, w0, neck.block_i, kw0, v_neck)):
+            got = k34.votes_routing(uu, ww, mode=ORACLE, block_i=bi, **kw)
+            held("votes_routing_2pass", f"K13 forward, {label}", got,
+                 k34.votes_routing_plain(uu, ww, mode=ORACLE, block_i=bi,
+                                         **kw), ROUTING)
+            held("votes_routing_2pass", f"K13 forward against the fused "
+                 f"kernel, {label}", got, fused, ROUTING)
+    for label, uu, ww, gg, bi, mode, kw in (
+            ("MNIST ClassCaps", tu, wcc, g, mbwd_i, "streamed", kwm),
+            ("SVHN bottleneck", tu0, w0, g0, nbwd.block_i, GLOBAL, kw0)):
+        got = k34.votes_routing_bwd(uu, ww, gg, mode=ORACLE, block_i=bi, **kw)
+        held_bwd("routing_bwd_2pass", f"K13 backward, {label}", got,
+                 k34.votes_routing_bwd_plain(uu, ww, gg, mode=ORACLE,
+                                             block_i=bi, **kw))
+        held_bwd("routing_bwd_2pass", f"K13 backward against the fused "
+                 f"kernel, {label}", got,
+                 k34.votes_routing_bwd(uu, ww, gg, mode=mode, block_i=bi,
+                                       **kw))
+    torch.cuda.synchronize()
+    oracle_counts = build.launch_counts()
+
+    # One training gradient through K12 against the plain backend: SVHN at
+    # full width, then the CIFAR-10 smoke config (3 all-residual blocks).
+    ccfg = capsnet_cifar10.smoke_config()
+    cparams = capsnet.init_params(torch.Generator().manual_seed(SEED + 4),
+                                  ccfg, device=dev)
+    cimages = uniform(tb, ccfg.image_hw, ccfg.image_hw, ccfg.in_channels)
+    grad_counts = {}
+    for label, cfg_, params_, imgs_, plan_, k12_halves in (
+            ("svhn", cfg, params, timages, tplan, 4),
+            ("cifar10 smoke", ccfg, cparams, cimages,
+             execplan.compile_plan(ccfg, batch=tb, pipeline=True,
+                                   train=True), 6)):
+        want, _ = capsnet.loss_and_grads(params_, imgs_, labels, cfg_,
+                                         backend="torch", device=dev)
+        build.reset_launch_counts()
+        got, _ = capsnet.loss_and_grads(params_, imgs_, labels, cfg_,
+                                        backend="kernels", plan=plan_,
+                                        device=dev)
+        torch.cuda.synchronize()
+        grad_counts[label] = build.launch_counts()
+        print(f"backward {label}: launches {grad_counts[label]}", flush=True)
+        for k in params_:
+            check_scaled(f"backward {label} d{k}", got[k], want[k], GRAD)
+        # Each half runs its forward kernel twice (forward, and the K12
+        # backward's recompute) and its backward kernel once.
+        if grad_counts[label]["routing_bwd_resident_f32"] < k12_halves + 1:
+            raise AssertionError(f"backward {label}: the K12 halves' "
+                                 f"backward kernels did not all run")
+    if grad_counts["svhn"]["routing_bwd_global_f32"] != 1:
+        raise AssertionError("backward svhn: K9 (streamed-global) did not "
+                             "run once")
+
+    # The SVHN smoke config's pipelined plan: K5 (J = 16) leads the stack.
+    scfg = capsnet_svhn.smoke_config()
+    sparams = capsnet.init_params(torch.Generator().manual_seed(SEED + 5),
+                                  scfg, device=dev)
+    simages = uniform(SLOTS, scfg.image_hw, scfg.image_hw, scfg.in_channels)
+    splan = execplan.compile_plan(scfg, batch=SLOTS, pipeline=True)
+    print(f"plan SVHN smoke pipelined: {json.dumps(splan.summary())}",
+          flush=True)
+    with torch.no_grad():
+        build.reset_launch_counts()
+        sout = capsnet.forward(sparams, simages, scfg, backend="kernels",
+                               plan=splan, device=dev)
+        torch.cuda.synchronize()
+        pipe_counts = build.launch_counts()
+        sref = capsnet.forward(sparams, simages, scfg, backend="torch",
+                               device=dev)
+    for key in ("class_caps", "lengths", "reconstruction"):
+        check(f"svhn smoke pipelined {key}", sout[key], sref[key], ROUTING)
+    if pipe_counts["primary_routing_f32"] != 1 or \
+            pipe_counts["votes_routing_f32"] < 5:
+        raise AssertionError(f"svhn smoke pipelined: launches {pipe_counts}")
+
+    # Train the full-width network: SGD (the loop's default), reported,
+    # then AdamW, whose loss must fall.  At this init the class capsules'
+    # lengths are ~1e-4 and the margin loss's gradient through them
+    # vanishes, so plain SGD barely moves the loss; AdamW rescales each
+    # parameter's step.
+    for opt, lr in (("sgd", 3e-2), ("adam", 3e-3)):
+        with tempfile.TemporaryDirectory() as tmp:
+            loop = capsnet_loop.CapsTrainLoop(
+                cfg, capsnet_loop.CapsLoopConfig(
+                    total_steps=TRAIN_STEPS, batch=tb, lr=lr, optimizer=opt,
+                    ckpt_every=10, ckpt_dir=tmp, log_every=5, seed=SEED),
+                device=dev)
+            build.reset_launch_counts()
+            hist = loop.run(resume=False)
+            torch.cuda.synchronize()
+            train_counts = build.launch_counts()
+        step_ms = 1e3 * statistics.median(h["time_s"] for h in hist)
+        ok = len(hist) == TRAIN_STEPS and capsnet_loop.improved(
+            hist, loop.nan_skips)
+        print(f"train svhn {opt} lr {lr:g}: {TRAIN_STEPS} steps at batch "
+              f"{tb}, loss {[round(h['loss'], 4) for h in hist]}, means of "
+              f"the first and last 3 {capsnet_loop.loss_ends(hist)}, "
+              f"improved {ok}, median step {step_ms:.2f} ms, launches "
+              f"{train_counts}", flush=True)
+    if not ok:
+        raise AssertionError("train svhn: the loss did not fall under "
+                             "AdamW, or a rollback fired")
+    for sym in ("votes_routing_global_f32", "routing_bwd_global_f32",
+                "votes_routing_f32", "routing_bwd_resident_f32"):
+        if train_counts[sym] < TRAIN_STEPS:
+            raise AssertionError(f"train svhn: {sym} ran "
+                                 f"{train_counts[sym]} times")
+
+    # Times: the forward and the K12 segment, then each new kernel against
+    # its twin and its bound (K13 also against the fused kernel).
+    with torch.no_grad():
+        fwd_ms = {b: time_ms(lambda b=b: capsnet.forward(
+            params, images, cfg, backend=b, plan=plan if b == "kernels"
+            else None, device=dev)) for b in ("kernels", "torch")}
+    pairs = tuple((stack[k], stack[k + 1]) for k in (1, 3))
+    seg_ws = tuple(w_of(lyr) for pair in pairs for lyr in pair)
+    h_seg = h0.detach().clone()
+    th_seg = randn(tb, *h0.shape[1:], scale=0.1)
+
+    def seg_fwd():
+        return ops.res_caps_segment(h_seg, seg_ws, pairs, plan=plan)
+
+    def seg_fwd_bwd():
+        x = th_seg.detach().requires_grad_()
+        ws_ = [w.detach().requires_grad_() for w in seg_ws]
+        ops.res_caps_segment(x, ws_, pairs, plan=tplan).sum().backward()
+        return x.grad
+
+    with torch.no_grad():
+        seg = dict(fwd_ms=time_ms(seg_fwd), fwd_device_ms=device_ms(seg_fwd))
+    seg.update(fwd_bwd_ms=time_ms(seg_fwd_bwd),
+               fwd_bwd_device_ms=device_ms(seg_fwd_bwd))
+    print(f"svhn forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}; "
+          f"train step median {step_ms:.2f} ms at batch {tb}; K12 segment "
+          f"(2 blocks): {json.dumps(seg)}", flush=True)
+    # Where the device time goes: one forward at the engine's batch, one
+    # training gradient at the trainer's batch.
+    with torch.no_grad():
+        fwd_split = device_breakdown(lambda: capsnet.forward(
+            params, images, cfg, backend="kernels", plan=plan, device=dev))
+    step_split = device_breakdown(lambda: capsnet.loss_and_grads(
+        params, timages, labels, cfg, backend="kernels", plan=tplan,
+        device=dev))
+    print(f"svhn forward device ms by kernel (batch {SLOTS}): "
+          f"{json.dumps(fwd_split)}", flush=True)
+    print(f"svhn gradient device ms by kernel (batch {tb}): "
+          f"{json.dumps(step_split)}", flush=True)
+    neck_bytes = 4.0 * (u0.numel() + w0.numel() + SLOTS * lay0.jd)
+    neck_flops = routing_flops(SLOTS, lay0.in_caps, lay0.in_dim, lay0.jd, 3)
+    mn = dict(bytes=4.0 * (u.numel() + wcc.numel() + SLOTS * wcc.shape[1]),
+              flops=routing_flops(SLOTS, u.shape[1], u.shape[2],
+                                  wcc.shape[1], 3))
+    new = [
+        ("votes_routing_global", "votes_routing.cu",
+         "src/repro/kernels/votes_routing.py:139",
+         "serve, SVHN full width (bottleneck, streamed-global)",
+         serve_counts, [
+             (lay0.name + " (SVHN, 8)",
+              lambda: k34.votes_routing(u0, w0, mode=GLOBAL,
+                                        block_i=neck.block_i, **kw0),
+              lambda: k34.votes_routing_plain(u0, w0, mode=GLOBAL,
+                                              block_i=neck.block_i, **kw0),
+              None, neck_bytes, neck_flops)]),
+        ("votes_routing_2pass", "votes_routing.cu",
+         "src/repro/kernels/votes_routing.py:189",
+         "oracle only: 0 launches on the SVHN serving path", serve_counts, [
+             ("ClassCaps-Routing (MNIST, 8)",
+              lambda: k34.votes_routing(u, wcc, mode=ORACLE, block_i=mb_i,
+                                        **kwm),
+              lambda: k34.votes_routing_plain(u, wcc, mode=ORACLE,
+                                              block_i=mb_i, **kwm),
+              None, mn["bytes"], mn["flops"]),
+             (lay0.name + " (SVHN, 8)",
+              lambda: k34.votes_routing(u0, w0, mode=ORACLE,
+                                        block_i=neck.block_i, **kw0),
+              lambda: k34.votes_routing_plain(u0, w0, mode=ORACLE,
+                                              block_i=neck.block_i, **kw0),
+              None, neck_bytes, neck_flops)]),
+        ("routing_bwd_global", "votes_routing_bwd.cu",
+         "src/repro/kernels/votes_routing.py:367",
+         "train, SVHN full width (bottleneck, streamed-global)",
+         train_counts, [
+             (lay0.name + "-bwd (SVHN, 16)",
+              lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
+                                            block_i=nbwd.block_i, **kw0),
+              lambda: k34.votes_routing_bwd_plain(
+                  tu0, w0, g0, mode=GLOBAL, block_i=nbwd.block_i, **kw0),
+              None, routing_bwd_bytes(tu0, w0),
+              routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd,
+                                3))]),
+        ("routing_bwd_2pass", "votes_routing_bwd.cu",
+         "src/repro/kernels/votes_routing.py:426",
+         "oracle only: 0 launches on the SVHN training path", train_counts, [
+             ("ClassCaps-Routing-bwd (MNIST, 16)",
+              lambda: k34.votes_routing_bwd(tu, wcc, g, mode=ORACLE,
+                                            block_i=mbwd_i, **kwm),
+              lambda: k34.votes_routing_bwd_plain(tu, wcc, g, mode=ORACLE,
+                                                  block_i=mbwd_i, **kwm),
+              None, routing_bwd_bytes(tu, wcc),
+              routing_bwd_flops(tb, tu.shape[1], tu.shape[2], wcc.shape[1],
+                                3)),
+             (lay0.name + "-bwd (SVHN, 16)",
+              lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=ORACLE,
+                                            block_i=nbwd.block_i, **kw0),
+              lambda: k34.votes_routing_bwd_plain(
+                  tu0, w0, g0, mode=ORACLE, block_i=nbwd.block_i, **kw0),
+              None, routing_bwd_bytes(tu0, w0),
+              routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd,
+                                3))]),
+    ]
+    fused = {"votes_routing_2pass": [
+        lambda: k34.votes_routing(u, wcc, mode="streamed", block_i=mb_i,
+                                  **kwm),
+        lambda: k34.votes_routing(u0, w0, mode=GLOBAL, block_i=neck.block_i,
+                                  **kw0)],
+        "routing_bwd_2pass": [
+        lambda: k34.votes_routing_bwd(tu, wcc, g, mode="streamed",
+                                      block_i=mbwd_i, **kwm),
+        lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
+                                      block_i=nbwd.block_i, **kw0)]}
+    with torch.no_grad():
+        for kernel, source, replaces, path, counts, sites in new:
+            site_rows = timed_sites(sites)
+            for site, fn in zip(site_rows, fused.get(kernel, ())):
+                site["fused_device_ms"] = device_ms(fn)
+            main = site_rows[0]
+            rows.append(dict(
+                name=kernel, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
+                replaces=replaces, launches=counts[f"{kernel}_f32"],
+                oracle_launches=oracle_counts[f"{kernel}_f32"],
+                max_abs_err=errs[kernel], ms=main["ms"],
+                device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, path=path, sites=site_rows))
+        # The residual epilogue (K3) and K8 at the SVHN halves' shape, as
+        # sites of the existing rows.
+        by_name = {r["name"]: r for r in rows}
+        half_bi = plan.op(half.name).block_i
+        fin_bi = plan.op(final.name).block_i
+        kwf = dict(iters=final.iters, num_classes=final.num_caps)
+        by_name["votes_routing"]["sites"] += timed_sites([
+            (half.name + " (SVHN half, resident + residual, 8)",
+             lambda: k34.votes_routing(x2, wf, r=r1, mode="resident",
+                                       block_i=half_bi, **kwh),
+             lambda: k34.votes_routing_plain(x2, wf, r=r1, mode="resident",
+                                             block_i=half_bi, **kwh), None,
+             4.0 * (x2.numel() + wf.numel() + 2 * r1.numel()),
+             routing_flops(SLOTS, half.in_caps, half.in_dim, half.jd, 3)),
+            (final.name + " (SVHN, resident, 8)",
+             lambda: k34.votes_routing(h0, wfin, mode="resident",
+                                       block_i=fin_bi, **kwf),
+             lambda: k34.votes_routing_plain(h0, wfin, mode="resident",
+                                             block_i=fin_bi, **kwf), None,
+             4.0 * (h0.numel() + wfin.numel() + SLOTS * final.jd),
+             routing_flops(SLOTS, final.in_caps, final.in_dim, final.jd, 3))])
+        by_name["votes_routing"]["max_abs_err"] = max(
+            by_name["votes_routing"]["max_abs_err"], errs["votes_routing"])
+        gh = randn(tb, half.jd, scale=1e-2)
+        tx2 = randn(tb, half.in_caps, half.in_dim, scale=0.1)
+        hbwd = tplan.bwd_op(half.name)
+        by_name["routing_bwd_resident"]["sites"] += timed_sites([
+            (half.name + "-bwd (SVHN half, 16)",
+             lambda: k34.votes_routing_bwd(tx2, wf, gh, mode=hbwd.mode,
+                                           block_i=hbwd.block_i, **kwh),
+             lambda: k34.votes_routing_bwd_plain(
+                 tx2, wf, gh, mode=hbwd.mode, block_i=hbwd.block_i, **kwh),
+             None, routing_bwd_bytes(tx2, wf),
+             routing_bwd_flops(tb, half.in_caps, half.in_dim, half.jd, 3))])
+    for row in rows:
+        sym = row["name"] + "_f32"
+        row["launches_svhn"] = dict(serve=serve_counts.get(sym, 0),
+                                    train=train_counts.get(sym, 0))
 
 
 def main() -> int:
@@ -225,7 +752,6 @@ def main() -> int:
     from repro_torch.kernels import routing as k14b
     from repro_torch.kernels import squash as k10
     from repro_torch.kernels import votes_routing as k34
-    from repro_torch.kernels.ref import squash
     from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
     from repro_torch.train import capsnet_loop
 
@@ -271,15 +797,6 @@ def main() -> int:
         print(f"plan {name}: {json.dumps(p.summary())}", flush=True)
 
     # Activations at the path's shapes, from the plain path.
-    def conv_inputs(cfg_, params_, images_):
-        x1 = torch.relu(capsnet._conv_nhwc(images_, params_["conv1_w"],
-                                           params_["conv1_b"], 1))
-        pre = capsnet._conv_nhwc(x1, params_["pc_w"], params_["pc_b"],
-                                 cfg_.pc_stride)
-        u = squash(pre.reshape(images_.shape[0], cfg_.num_primary,
-                               cfg_.primary_dim))
-        return x1, u
-
     x1, u = conv_inputs(cfg, params, images)
     sx1, su = conv_inputs(smoke, sparams, simages)
     k1, kp = cfg.conv1_kernel, cfg.pc_kernel
@@ -423,7 +940,6 @@ def main() -> int:
     print(f"forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}", flush=True)
     b_ = SLOTS
     i_, jd, c_, it = lay.in_caps, lay.jd, lay.in_dim, lay.iters
-    routing_flops = 2.0 * b_ * i_ * jd * (c_ + 2 * it + 1)  # votes + passes
     x_nchw, x1_nchw = images.permute(0, 3, 1, 2), x1.permute(0, 3, 1, 2)
     w1_oihw = params["conv1_w"].permute(3, 2, 0, 1)
     wpc_oihw = params["pc_w"].permute(3, 2, 0, 1)
@@ -472,7 +988,8 @@ def main() -> int:
                                              num_classes=lay.num_caps,
                                              mode=vr.mode,
                                              block_i=vr.block_i), None,
-             4.0 * (u.numel() + wcc.numel() + b_ * jd), routing_flops),
+             4.0 * (u.numel() + wcc.numel() + b_ * jd),
+             routing_flops(b_, i_, c_, jd, it)),
             # K3 (resident) runs at smoke widths only; its time is a site
             # of this row, outside the per-op path's totals.
             (execplan.FUSED_NAME + " (smoke, resident)", "smoke",
@@ -483,7 +1000,7 @@ def main() -> int:
                                              mode=svr.mode,
                                              block_i=svr.block_i), None,
              4.0 * (su.numel() + swcc.numel() + b_ * slay.jd),
-             2.0 * b_ * slay.in_caps * slay.jd * (slay.in_dim + 2 * it + 1))],
+             routing_flops(b_, slay.in_caps, slay.in_dim, slay.jd, it))],
         "primary_routing": [
             (execplan.PIPE_NAME, "main",
              lambda: k5.primary_routing_patches(
@@ -494,7 +1011,7 @@ def main() -> int:
                  num_classes=lay.num_caps, mode=pr.mode, block_i=pr.block_i),
              None,
              4.0 * (ppc.numel() + wpc.numel() + npc + wcc.numel() + b_ * jd),
-             2.0 * mpc * kkpc * npc + routing_flops)],
+             2.0 * mpc * kkpc * npc + routing_flops(b_, i_, c_, jd, it))],
     }
     meta = {
         "im2col_patches": ("conv_im2col.cu",
@@ -664,20 +1181,6 @@ def main() -> int:
 
     # 10. The backward kernels' times at the training shapes.
     jd_, c_, i_ = lay.jd, lay.in_dim, lay.in_caps
-
-    def routing_bwd_flops(b, i, c, jd, iters):
-        # The function's own work: the votes once (a streamed schedule's
-        # recomputations are its cost, not the function's), the replayed
-        # routing, the seed/reverse rows and the du/dW emit.
-        votes = 2.0 * b * i * jd * c
-        route = (iters + 1) * 4.0 * b * i * jd + 6.0 * b * i * jd
-        emit = 3.0 * b * i * jd + 4.0 * b * i * jd * c
-        return votes + route + emit
-
-    def routing_bwd_bytes(uu, ww):
-        return 4.0 * 2 * (uu.numel() + ww.numel()) + 4.0 * uu.shape[0] * \
-            ww.shape[1]
-
     fold_in = dpatch.reshape(tb, -1, kp * kp, cfg.conv1_channels).permute(
         0, 3, 2, 1).reshape(tb, cfg.conv1_channels * kp * kp, -1).contiguous()
     bwd_sites = [
@@ -945,6 +1448,11 @@ def main() -> int:
           f"(device {fused_dev} ms), each tensor once {fused_once:.0f} B, "
           f"as the plan models it (W per sample per pass, mostly from L2) "
           f"{vr.global_bytes:.0f} B", flush=True)
+
+    # 12. Deep stacks at the full width of capsnet-svhn.
+    deep_stacks(dev, rng, rows, dict(u=u, wcc=wcc, tu=tu, g=g,
+                                     block_i=vr.block_i,
+                                     bwd_block_i=vbwd.block_i))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

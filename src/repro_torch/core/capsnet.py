@@ -14,7 +14,8 @@ counterpart of ``backend="pallas"``).  On CPU tensors every kernel wrapper
 runs its plain twin, so the plan-driven path is testable without a card.
 Both backends are differentiable: ``total_loss`` trains through the
 kernels' ``torch.autograd.Function``s, whose backward runs the backward
-kernels (K6-K9) on the plan's ``-bwd`` schedules.
+kernels (K6-K9; for ResCaps stacks the reversible segment K12) on the
+plan's ``-bwd`` schedules.
 """
 
 from __future__ import annotations
@@ -303,11 +304,14 @@ def forward(params: Params, images, cfg: CapsNetConfig = CapsNetConfig(), *,
 
     ``backend="torch"`` is the plain reference.  ``backend="kernels"``
     runs the network through the port's kernels with tiles and the
-    resident/streamed routing schedule chosen by an ``ExecutionPlan``
-    (compiled here with ``pipeline=True`` unless ``plan`` is passed): a
-    pipelined plan runs Conv1 -> ONE ``primary_routing`` kernel, a per-op
-    plan runs Conv1 -> PrimaryCaps (squash fused, or the standalone
-    ``squash`` after it when the plan cannot fuse) -> ``votes_routing``.
+    routing schedules chosen by an ``ExecutionPlan`` (compiled here with
+    ``pipeline=True`` unless ``plan`` is passed): a pipelined plan runs
+    Conv1 -> ONE ``primary_routing`` kernel (PrimaryCaps and the first
+    routing layer), a per-op plan runs Conv1 -> PrimaryCaps (squash
+    fused, or the standalone ``squash`` after it when the plan cannot
+    fuse) -> the first routing layer; then each further plain layer is one
+    ``votes_routing`` and each run of ResCaps blocks one reversible
+    ``res_caps_segment`` (K12).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
@@ -339,11 +343,6 @@ def _forward_kernels(params: Params, images: torch.Tensor,
 
     b = images.shape[0]
     stack = cfg.routing_stack()
-    if any(lay.residual for lay in stack):
-        raise NotImplementedError(
-            "backend='kernels' cannot run ResCapsBlock stacks yet: the "
-            "reversible segment (K12) is still to be ported (ROADMAP "
-            "queue 1, item 6: deep stacks)")
     if plan is None:
         plan = execplan.compile_plan(cfg, batch=b, pipeline=True)
     x = ops.conv2d(images, params["conv1_w"], params["conv1_b"], stride=1,
@@ -371,10 +370,24 @@ def _forward_kernels(params: Params, images: torch.Tensor,
         h, k = x.reshape(b, cfg.num_primary, cfg.primary_dim), 0
         if not pc.fuses_squash:        # no capsule-aligned tile: K10
             h = ops.squash(h, plan=plan)
-    for lay in stack[k:]:
-        h = ops.votes_routing(
-            h, w_of(lay), plan=plan, op_name=lay.name, iters=lay.iters,
-            num_classes=lay.num_caps).reshape(b, lay.num_caps, lay.caps_dim)
+    # Walk the rest of the routing-layer graph: one votes+routing kernel
+    # per plain layer, one reversible segment (K12) per maximal run of
+    # residual blocks.
+    while k < len(stack):
+        lay = stack[k]
+        if lay.half == "f":
+            pairs = []
+            while k < len(stack) and stack[k].half == "f":
+                pairs.append((stack[k], stack[k + 1]))
+                k += 2
+            ws = tuple(w_of(lyr) for pair in pairs for lyr in pair)
+            h = ops.res_caps_segment(h, ws, tuple(pairs), plan=plan)
+        else:
+            h = ops.votes_routing(
+                h, w_of(lay), plan=plan, op_name=lay.name, iters=lay.iters,
+                num_classes=lay.num_caps).reshape(b, lay.num_caps,
+                                                  lay.caps_dim)
+            k += 1
     return h
 
 

@@ -26,7 +26,15 @@ shared memory and computes it once; ``streamed`` keeps u and the logits
 and recomputes the votes from W on each of the ``iters + 1`` passes.
 At MNIST width one sample's votes (1152 x 160 fp32 = 737,280 B) do not
 fit, so the plan picks ``streamed``; splitting i over a thread-block
-cluster so that ``resident`` fits is later work.
+cluster so that ``resident`` fits is later work.  ``streamed-global`` is
+``streamed`` with the logits ``[I, J]`` moved to a per-sample scratch in
+global memory (B*I*J floats, which stay in the 50 MB L2): the plan picks
+it only when one sample's logits leave no room in a CTA -- the SVHN
+bottleneck's 2048 x 64 logits are 524 KB -- so every plan that fitted
+before plans exactly as before.  It does the same arithmetic in the same
+order as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule:
+an s-pass and a b-pass per iteration) is the oracle of the fused pass
+and never a plan mode; ``ExecutionPlan.validate`` rejects it.
 
 The split ClassCaps path -- ``caps_votes`` (K14a) writing u_hat to
 device memory, then ``routing`` (K14b) reading it back -- is the paper's
@@ -64,7 +72,10 @@ from repro_torch.core.planner import (AT_B_SMEM_BYTES, ELEM_BYTES,
 FUSED_NAME = ROUTING_NAME
 PIPE_NAME = "PrimaryCaps-Routing"
 BWD_SUFFIX = "-bwd"
-MODES = ("resident", "streamed")
+STREAMED_GLOBAL = "streamed-global"
+MODES = ("resident", "streamed", STREAMED_GLOBAL)  # plan-chooseable
+ORACLE_MODE = "streamed-2pass"           # unfused oracle (K13), tests only
+ALL_MODES = MODES + (ORACLE_MODE,)
 
 # Limits of primary_routing's produce phase (csrc/primary_routing.cu):
 # each of its 256 threads accumulates up to 16 output rows x 4 columns.
@@ -156,12 +167,22 @@ class ExecutionPlan:
         if names != expected:
             raise PlanError(f"plan ops {names}, expected {expected}")
         for op in self.ops:
+            if op.mode == ORACLE_MODE:
+                raise PlanError(f"{op.name}: {ORACLE_MODE!r} is the "
+                                f"oracle schedule, never a plan mode")
             if op.mode is not None and op.mode not in MODES:
                 raise PlanError(f"{op.name}: unknown mode {op.mode!r}")
             if op.smem_bytes > self.smem_budget:
                 raise PlanError(
                     f"{op.name}: shared-memory footprint {op.smem_bytes} B "
                     f"exceeds the {self.smem_budget} B budget")
+
+    def activation_residency_bytes(self, *, reversible: bool = True) -> int:
+        """Routing-stack activation bytes a training step keeps live (see
+        the module-level ``activation_residency_bytes``) at this plan's
+        batch."""
+        return activation_residency_bytes(self.cfg, batch=self.batch,
+                                          reversible=reversible)
 
     def summary(self) -> list[dict]:
         def tiles(b):
@@ -174,6 +195,37 @@ class ExecutionPlan:
                 for op in self.ops]
 
 
+def activation_residency_bytes(cfg: CapsNetConfig, *, batch: int = 1,
+                               reversible: bool = True) -> int:
+    """Modeled bytes of routing-stack activations a training step keeps
+    live for the backward.
+
+    ``reversible=False`` is the conventional autodiff accounting: every
+    routing layer saves its input ``[B, in_caps, in_dim]``, so the total
+    grows linearly in depth.  ``reversible=True`` is what the kernels
+    backend runs: a maximal run of residual coupling halves is ONE
+    reversible segment (``res_caps_segment``) that saves only its output
+    (the backward inverts the couplings), so an all-residual stack costs
+    one segment tensor however many blocks it chains.  Plain layers save
+    their input either way.
+    """
+    stack = cfg.routing_stack()
+    total, k = 0, 0
+    while k < len(stack):
+        lay = stack[k]
+        if reversible and lay.residual:
+            # x = [x1 | x2]: the F half consumes x2 and emits x1's width,
+            # so the segment tensor is (in_caps + num_caps) capsules.
+            seg_caps = lay.in_caps + lay.num_caps
+            total += batch * seg_caps * lay.in_dim * ELEM_BYTES
+            while k < len(stack) and stack[k].residual:
+                k += 1
+        else:
+            total += batch * lay.in_caps * lay.in_dim * ELEM_BYTES
+            k += 1
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Routing schedules (votes_routing and the consume phase of primary_routing)
 # ---------------------------------------------------------------------------
@@ -181,12 +233,15 @@ class ExecutionPlan:
 def routing_smem_floats(mode: str, num_caps: int, block_i: int, j: int,
                         jd: int) -> int:
     """Votes + routing scratch of one CTA beyond u, in floats: the logits
-    ``[I, J]``, s and v ``[J*D]``, and the votes rows with their
-    couplings -- all I rows when resident, ``block_i`` rows when
-    streamed.  Votes rows are padded to ``J*D + 1`` floats so that the
-    per-row logits update reads shared memory without bank conflicts."""
+    ``[I, J]`` (in global memory, so no term, under ``streamed-global``),
+    s and v ``[J*D]``, and the votes rows with their couplings -- all I
+    rows when resident, ``block_i`` rows otherwise (the oracle counts as
+    ``streamed``).  Votes rows are padded to ``J*D + 1`` floats so that
+    the per-row logits update reads shared memory without bank
+    conflicts."""
     rows = num_caps if mode == "resident" else block_i
-    return num_caps * j + 2 * jd + rows * (jd + 1 + j)
+    logits = 0 if mode == STREAMED_GLOBAL else num_caps * j
+    return logits + 2 * jd + rows * (jd + 1 + j)
 
 
 def votes_routing_smem(mode: str, num_caps: int, block_i: int, caps_dim: int,
@@ -205,6 +260,13 @@ class VotesRoutingSchedule:
     n_passes: int            # W reads per sample: 1 resident, iters+1 str.
 
 
+def _mode_order(n_streamed: int) -> tuple[tuple[str, int], ...]:
+    """The plan's routing modes in the order it tries them, with their
+    votes passes: resident, then streamed, then streamed-global."""
+    return (("resident", 1), ("streamed", n_streamed),
+            (STREAMED_GLOBAL, n_streamed))
+
+
 def _largest_fit(num_caps: int, smem_of) -> tuple[int, int] | None:
     """Largest i-tile (rows past I are skipped, never padded in memory)
     whose footprint fits, with that footprint."""
@@ -219,33 +281,37 @@ def _largest_fit(num_caps: int, smem_of) -> tuple[int, int] | None:
 def plan_votes_routing(num_caps: int, caps_dim: int, jd: int, j: int, *,
                        iters: int = 3, smem_budget: int = SMEM_BYTES,
                        name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Resident-vs-streamed decision for ``votes_routing``: resident when
-    one sample's votes fit a CTA, else streamed at the largest i-tile
-    that fits.  Raises ``PlanError`` naming the op when even streamed
-    ``block_i=1`` does not fit."""
+    """Schedule of ``votes_routing``: resident when one sample's votes
+    fit a CTA, else streamed at the largest i-tile that fits, else
+    streamed-global (the logits in global memory) at the largest i-tile
+    that fits.  Raises ``PlanError`` naming the op when even
+    streamed-global ``block_i=1`` does not fit."""
     def fits(mode):
         def smem_of(bi):
             need = votes_routing_smem(mode, num_caps, bi, caps_dim, j, jd)
             return need if need <= smem_budget else None
         return smem_of
 
-    for mode, n_passes in (("resident", 1), ("streamed", iters + 1)):
+    for mode, n_passes in _mode_order(iters + 1):
         fit = _largest_fit(num_caps, fits(mode))
         if fit is not None:
             return VotesRoutingSchedule(mode=mode, block_i=fit[0],
                                         smem_bytes=fit[1], n_passes=n_passes)
-    need = votes_routing_smem("streamed", num_caps, 1, caps_dim, j, jd)
+    need = votes_routing_smem(STREAMED_GLOBAL, num_caps, 1, caps_dim, j, jd)
     raise PlanError(
-        f"{name}: no feasible schedule: even streamed block_i=1 needs "
+        f"{name}: no feasible schedule: even {STREAMED_GLOBAL} block_i=1 needs "
         f"{need} B of shared memory per CTA, over the {smem_budget} B "
         f"budget ({num_caps} capsules of {caps_dim}D -> {jd})")
 
 
 def votes_routing_global_bytes(batch: int, num_caps: int, caps_dim: int,
-                               jd: int, n_passes: int) -> float:
-    """u read once, W read ``n_passes`` times per sample, v written once."""
+                               jd: int, n_passes: int,
+                               logits_j: int = 0) -> float:
+    """u read once, W read ``n_passes`` times per sample, v written once;
+    with ``logits_j`` (J of a ``streamed-global`` schedule) the logits
+    ``[I, J]`` are also read and written once per pass."""
     per_sample = (num_caps * caps_dim + n_passes * num_caps * jd * caps_dim
-                  + jd)
+                  + jd + 2 * n_passes * num_caps * logits_j)
     return float(batch * per_sample * ELEM_BYTES)
 
 
@@ -338,7 +404,9 @@ def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
     the forward's layout (u, ONE logits slab, the votes rows and their
     couplings -- reused for ``db``) plus s_{T-1}, ds_T and the dv
     accumulator.  ``b_{T-1}`` goes to global memory row by row before
-    pass T overwrites it, so no second slab is held."""
+    pass T overwrites it, so no second slab is held; under
+    ``streamed-global`` the slab itself is the ``b_T`` output in global
+    memory, so it takes no shared memory."""
     return votes_routing_smem(mode, num_caps, block_i, caps_dim, j,
                               jd) + 3 * jd * ELEM_BYTES
 
@@ -354,13 +422,14 @@ def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int) -> int:
 def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
                            *, iters: int = 3, smem_budget: int = SMEM_BYTES,
                            name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Resident-vs-streamed decision for the routing BACKWARD, made on its
-    own footprint: resident when one sample's votes, logits and the
-    backward's extra rows fit a CTA, else streamed at the largest i-tile
-    that fits.  ``n_passes`` counts votes computations per sample: 1
-    resident, ``iters + 2`` streamed (``iters + 1`` replay passes, then
-    one merged seed+reverse pass).  Raises ``PlanError`` naming the
-    ``-bwd`` op when nothing fits."""
+    """Schedule of the routing BACKWARD, made on its own footprint:
+    resident when one sample's votes, logits and the backward's extra
+    rows fit a CTA, else streamed, else streamed-global (the replay's
+    logits slab in global memory), each at the largest i-tile that fits.
+    ``n_passes`` counts votes computations per sample: 1 resident,
+    ``iters + 2`` streamed (``iters + 1`` replay passes, then one merged
+    seed+reverse pass).  Raises ``PlanError`` naming the ``-bwd`` op when
+    nothing fits."""
     emit = routing_bwd_emit_smem(caps_dim, j, jd)
 
     def fits(mode):
@@ -370,31 +439,36 @@ def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
             return need if need <= smem_budget else None
         return smem_of
 
-    for mode, n_passes in (("resident", 1), ("streamed", iters + 2)):
+    for mode, n_passes in _mode_order(iters + 2):
         fit = _largest_fit(num_caps, fits(mode))
         if fit is not None:
             return VotesRoutingSchedule(mode=mode, block_i=fit[0],
                                         smem_bytes=fit[1], n_passes=n_passes)
-    need = max(votes_routing_bwd_smem("streamed", num_caps, 1, caps_dim, j,
-                                      jd), emit)
+    need = max(votes_routing_bwd_smem(STREAMED_GLOBAL, num_caps, 1, caps_dim,
+                                      j, jd), emit)
     raise PlanError(
-        f"{name}{BWD_SUFFIX}: no feasible backward schedule: even streamed "
+        f"{name}{BWD_SUFFIX}: no feasible backward schedule: even "
+        f"{STREAMED_GLOBAL} "
         f"block_i=1 needs {need} B of shared memory per CTA, over the "
         f"{smem_budget} B budget ({num_caps} capsules of {caps_dim}D -> "
         f"{jd})")
 
 
 def votes_routing_bwd_global_bytes(batch: int, num_caps: int, caps_dim: int,
-                                   jd: int, j: int, n_passes: int) -> float:
+                                   jd: int, j: int, n_passes: int,
+                                   global_slab: bool = False) -> float:
     """Bytes the routing backward requests from global memory per step.
     Replay, per sample: u once, W ``n_passes`` times, the cotangent, and
-    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written.
-    Emit: those read back with u and W once, du and dW written.  No
-    u_hat or d u_hat term: neither reaches device memory."""
+    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written;
+    with ``global_slab`` (``streamed-global``) the logits slab is also
+    read and written once per pass.  Emit: those read back with u and W
+    once, du and dW written.  No u_hat or d u_hat term: neither reaches
+    device memory."""
     u = num_caps * caps_dim
     w = num_caps * jd * caps_dim
     state = 2 * num_caps * j + 2 * jd
-    replay = batch * (u + n_passes * w + jd + state)
+    slab = 2 * n_passes * num_caps * j if global_slab else 0
+    replay = batch * (u + n_passes * w + jd + state + slab)
     emit = batch * (state + 2 * u) + 2 * w
     return float((replay + emit) * ELEM_BYTES)
 
@@ -556,7 +630,8 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
             name=lay.name, kernel="votes_routing", block=None,
             smem_bytes=sched.smem_bytes,
             global_bytes=votes_routing_global_bytes(
-                batch, lay.in_caps, lay.in_dim, lay.jd, sched.n_passes),
+                batch, lay.in_caps, lay.in_dim, lay.jd, sched.n_passes,
+                lay.num_caps if sched.mode == STREAMED_GLOBAL else 0),
             block_i=sched.block_i, mode=sched.mode,
             n_passes=sched.n_passes))
 
@@ -595,7 +670,7 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                 block=None, smem_bytes=sched.smem_bytes,
                 global_bytes=votes_routing_bwd_global_bytes(
                     batch, lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
-                    sched.n_passes),
+                    sched.n_passes, sched.mode == STREAMED_GLOBAL),
                 block_i=sched.block_i, mode=sched.mode,
                 n_passes=sched.n_passes))
         ops.append(_conv_bwd_op(pc_op, pc_wl, pc_in, smem_budget, True))

@@ -105,8 +105,8 @@ primary_routing_kernel(const float* __restrict__ patches,
   for (int i = threadIdx.x; i < I; i += blockDim.x)
     squash_into(u_s + i * C, u_s + i * C, C);
   __syncthreads();
-  route_sample(u_s, W, I, C, J, D, iters, resident != 0, block_i, sc,
-               out + (size_t)blockIdx.x * jd);
+  route_sample(u_s, W, I, C, J, D, iters, resident ? kResident : kStreamed,
+               block_i, sc, nullptr, out + (size_t)blockIdx.x * jd);
 }
 
 }  // namespace repro

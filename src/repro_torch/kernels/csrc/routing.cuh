@@ -13,6 +13,21 @@
 //             into shared memory and every pass reads them there.
 //   streamed  only u and the logits stay; each pass recomputes the votes
 //             i-block by i-block from W, so W is read iters + 1 times.
+//   two-pass  K13, the unfused streamed schedule (the reference's
+//             _streamed_2pass_kernel, mode "streamed-2pass"): iteration t
+//             runs a b-pass (votes recomputed, logits updated) and then an
+//             s-pass of its own, so W is read 2 * iters + 1 times.  It is
+//             the oracle of the fused pass, never a plan mode; per row it
+//             does the same operations in the same order.
+//
+// The logits live in shared memory, or -- the plan's "streamed-global"
+// mode, where one sample's I x J logits do not fit a CTA (2048 x 64 fp32 =
+// 524 KB at the SVHN bottleneck) -- in the sample's slab of a scratch in
+// global memory that the wrapper allocates (B * I * J floats, resident in
+// the 50 MB L2).  That is only where RouteScratch::b points: the schedule
+// and its arithmetic are the same.  An optional residual r [J*D] is added
+// to v just before the store (the ResCapsBlock coupling epilogue); s and v
+// themselves stay pure, as the reference keeps v_scr pure.
 //
 // Rows past I are never computed: the reference zero-pads the i axis to a
 // multiple of block_i, and zero rows add nothing to s and leave their own
@@ -26,8 +41,10 @@
 
 namespace repro {
 
+enum Schedule { kResident = 0, kStreamed = 1, kTwoPass = 2 };
+
 struct RouteScratch {
-  float* b;    // [I][J] logits
+  float* b;    // [I][J] logits: shared memory, or the sample's global slab
   float* s;    // [J*D]
   float* v;    // [J*D]
   float* uh;   // [rows][J*D + 1] votes (row padded against bank conflicts)
@@ -35,12 +52,14 @@ struct RouteScratch {
 };
 
 // Carve the routing scratch from p: I*J + 2*J*D + rows*(J*D + 1 + J)
-// floats (execplan.routing_smem_floats); the votes rows and couplings come
+// floats (execplan.routing_smem_floats), or no I*J term when the logits
+// are given in global memory (b_global); the votes rows and couplings come
 // last, so K5's producer can use that tail for its tiles before routing.
-__device__ inline RouteScratch carve_route(float* p, int I, int J, int jd) {
+__device__ inline RouteScratch carve_route(float* p, int I, int J, int jd,
+                                           float* b_global = nullptr) {
   RouteScratch sc;
-  sc.b = p;
-  sc.s = sc.b + I * J;
+  sc.b = b_global ? b_global : p;
+  sc.s = b_global ? p : p + I * J;
   sc.v = sc.s + jd;
   sc.uh = sc.v + jd;
   sc.c = nullptr;                  // placed by route_sample after the votes
@@ -73,6 +92,24 @@ __device__ inline void votes_rows(const float* __restrict__ u_s,
   }
 }
 
+// The logits update of one row: br[j] += <u_hat[r, j, :], v[j, :]>.
+__device__ inline void update_row(const float* ur, float* br, const float* v,
+                                  int J, int D) {
+  for (int j = 0; j < J; ++j) {
+    float a = 0.f;
+    for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
+    br[j] += a;
+  }
+}
+
+// The b-pass of the two-pass schedule over `rows` rows: update only.
+__device__ inline void update_rows(const float* uh, int ld, int rows,
+                                   float* b, const float* v, int J, int D) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x)
+    update_row(uh + r * ld, b + r * J, v, J, D);
+  __syncthreads();
+}
+
 // One fused s+b step over `rows` rows: update their logits (if `update`),
 // soften them into couplings, and add their share of s.
 __device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
@@ -82,13 +119,7 @@ __device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
     const float* ur = uh + r * ld;
     float* br = b + r * J;
     float* cr = c + r * J;
-    if (update) {
-      for (int j = 0; j < J; ++j) {
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
-        br[j] += a;
-      }
-    }
+    if (update) update_row(ur, br, v, J, D);
     float m = -INFINITY;
     for (int j = 0; j < J; ++j) m = fmaxf(m, br[j]);
     float sum = 0.f;
@@ -110,13 +141,16 @@ __device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
   __syncthreads();
 }
 
-// All routing passes of one sample; writes v [J*D] to out.
+// All routing passes of one sample; writes v [J*D] (plus r [J*D] when r
+// is given) to out.
 __device__ inline void route_sample(const float* u_s,
                                     const float* __restrict__ W, int I,
                                     int C, int J, int D, int iters,
-                                    bool resident, int block_i,
-                                    RouteScratch sc, float* out) {
+                                    int schedule, int block_i,
+                                    RouteScratch sc, const float* r,
+                                    float* out) {
   const int jd = J * D, ld = jd + 1;
+  const bool resident = schedule == kResident;
   sc.c = sc.uh + (resident ? I : block_i) * ld;
   for (int e = threadIdx.x; e < I * J; e += blockDim.x) sc.b[e] = 0.f;
   if (resident) {
@@ -126,6 +160,16 @@ __device__ inline void route_sample(const float* u_s,
   }
   __syncthreads();
   for (int t = 0; t <= iters; ++t) {
+    if (schedule == kTwoPass && t > 0) {
+      // b-pass of iteration t: b_t = b_{t-1} + <u_hat, v_{t-1}>.
+      for (int i0 = 0; i0 < I; i0 += block_i) {
+        const int rows = min(block_i, I - i0);
+        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C,
+                   sc.uh, ld);
+        __syncthreads();
+        update_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.v, J, D);
+      }
+    }
     for (int n = threadIdx.x; n < jd; n += blockDim.x) sc.s[n] = 0.f;
     __syncthreads();
     if (resident) {
@@ -136,15 +180,16 @@ __device__ inline void route_sample(const float* u_s,
         votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C,
                    sc.uh, ld);
         __syncthreads();
-        route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v, t > 0,
-                   J, D);
+        route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v,
+                   schedule == kStreamed && t > 0, J, D);
       }
     }
     for (int j = threadIdx.x; j < J; j += blockDim.x)
       squash_into(sc.s + j * D, sc.v + j * D, D);
     __syncthreads();
   }
-  for (int n = threadIdx.x; n < jd; n += blockDim.x) out[n] = sc.v[n];
+  for (int n = threadIdx.x; n < jd; n += blockDim.x)
+    out[n] = r ? sc.v[n] + r[n] : sc.v[n];
 }
 
 }  // namespace repro

@@ -1,10 +1,11 @@
 // K8 / K9 routing backward: (du, dW) of votes + routing-by-agreement, with
 // neither the votes u_hat nor their cotangent d u_hat in global memory.
 //
-// Replaces src/repro/kernels/votes_routing.py: _resident_bwd_kernel (K8) and
-// _streamed_bwd_kernel with _streamed_bwd_tail (K9), dispatched through
-// _vr_grad.  Both compute the reference's stop-gradient VJP by one explicit
-// formula (T = iters, c_t = softmax_j(b_t)):
+// Replaces src/repro/kernels/votes_routing.py: _resident_bwd_kernel (K8),
+// _streamed_bwd_kernel (K9) and _streamed_2pass_bwd_kernel (K13), each with
+// _streamed_bwd_tail where it has one, dispatched through _vr_grad.  All
+// compute the reference's stop-gradient VJP by one explicit formula
+// (T = iters, c_t = softmax_j(b_t)):
 //
 //   ds_T     = squash_vjp(s_T, g)
 //   db_T     = softmax_vjp(c_T, <u_hat, ds_T>)
@@ -28,6 +29,12 @@
 //           K8 (resident) computes the sample's votes once into shared
 //           memory; K9 (streamed) recomputes each votes block from W on
 //           every pass (iters + 2 passes), keeping u, the logits and s.
+//           K13 (two-pass, the oracle) replays the unfused schedule: a
+//           b-pass and an s-pass per iteration (2 * iters + 2 passes).
+//           Where one sample's logits do not fit a CTA (the plan's
+//           "streamed-global" mode: 524 KB at the SVHN bottleneck) the
+//           slab is the b_T output itself, in global memory: the replay
+//           updates it in place row by row, so b_T needs no copy.
 //   emit    one CTA per capsule i, all samples: it rebuilds the couplings
 //           c_T, c_{T-1} from the logits and d u_hat[b, i, :] in shared
 //           memory, chunk by chunk of samples, then writes du[b, i, :] and
@@ -83,18 +90,22 @@ __global__ void __launch_bounds__(kThreads)
 routing_bwd_replay_kernel(const float* __restrict__ u,
                           const float* __restrict__ W,
                           const float* __restrict__ g,
-                          float* __restrict__ b_prev_out,
-                          float* __restrict__ b_last_out,
+                          float* __restrict__ b_prev_out, float* b_last_out,
                           float* __restrict__ ds_out, int B, int I, int C,
-                          int J, int D, int iters, int resident,
-                          int block_i) {
+                          int J, int D, int iters, int schedule,
+                          int global_slab, int block_i) {
   extern __shared__ float smem[];
   const int jd = J * D, ld = jd + 1;
   const int smp = blockIdx.x;
+  const bool resident = schedule == kResident;
+  const bool two_pass = schedule == kTwoPass;
   const int step = resident ? I : block_i;
+  float* bp = b_prev_out + (size_t)smp * I * J;
+  float* bl = b_last_out + (size_t)smp * I * J;
   float* u_s = smem;               // [I][C]
-  float* b = u_s + I * C;          // [I][J] logits, one slab
-  float* s = b + I * J;            // [J*D] s_t accumulator
+  // [I][J] logits, one slab: in shared memory, or b_T's own rows.
+  float* b = global_slab ? bl : u_s + I * C;
+  float* s = global_slab ? u_s + I * C : b + I * J;  // [J*D] s_t accumulator
   float* v = s + jd;               // [J*D] squash(s_t)
   float* s_prev = v + jd;          // [J*D] s_{T-1}
   float* ds = s_prev + jd;         // [J*D] ds_T
@@ -112,11 +123,25 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
                  jd, C, uh + i0 * ld, ld);
     __syncthreads();
   }
-  float* bp = b_prev_out + (size_t)smp * I * J;
-  float* bl = b_last_out + (size_t)smp * I * J;
 
-  // Replay: passes t = 0 .. T, the forward's fused s+b schedule.
+  // Replay: passes t = 0 .. T, the forward's schedule.  b_{T-1} goes to
+  // global memory just before iteration T's update overwrites it.
   for (int t = 0; t <= iters; ++t) {
+    if (two_pass && t > 0) {             // the b-pass of iteration t
+      for (int i0 = 0; i0 < I; i0 += step) {
+        const int rows = min(step, I - i0);
+        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh,
+                   ld);
+        __syncthreads();
+        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+          float* br = b + (i0 + r) * J;
+          if (t == iters)
+            for (int j = 0; j < J; ++j) bp[(i0 + r) * J + j] = br[j];
+          update_row(uh + r * ld, br, v, J, D);
+        }
+        __syncthreads();
+      }
+    }
     for (int n = threadIdx.x; n < jd; n += blockDim.x) s[n] = 0.f;
     __syncthreads();
     for (int i0 = 0; i0 < I; i0 += step) {
@@ -130,17 +155,12 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
       for (int r = threadIdx.x; r < rows; r += blockDim.x) {
         const float* ur = vb + r * ld;
         float* br = b + (i0 + r) * J;
-        if (t > 0) {
+        if (!two_pass && t > 0) {
           if (t == iters)
             for (int j = 0; j < J; ++j) bp[(i0 + r) * J + j] = br[j];
-          for (int j = 0; j < J; ++j) {
-            float a = 0.f;
-            for (int d = 0; d < D; ++d)
-              a = fmaf(ur[j * D + d], v[j * D + d], a);
-            br[j] += a;
-          }
+          update_row(ur, br, v, J, D);
         }
-        if (t == iters)
+        if (t == iters && !global_slab)
           for (int j = 0; j < J; ++j) bl[(i0 + r) * J + j] = br[j];
         softmax_row(br, c + r * J, J);
       }
@@ -273,11 +293,12 @@ routing_bwd_emit_kernel(const float* __restrict__ u,
   for (int e = threadIdx.x; e < jd * C; e += blockDim.x) dWi[e] = dw_s[e];
 }
 
-cudaError_t launch_routing_bwd(bool resident, const float* u, const float* W,
-                               const float* g, float* b_prev, float* b_last,
-                               float* ds, float* du, float* dW, int B, int I,
-                               int C, int J, int D, int iters, int block_i,
-                               int smem, int emit_smem, cudaStream_t s) {
+cudaError_t launch_routing_bwd(int schedule, bool global_slab, const float* u,
+                               const float* W, const float* g, float* b_prev,
+                               float* b_last, float* ds, float* du, float* dW,
+                               int B, int I, int C, int J, int D, int iters,
+                               int block_i, int smem, int emit_smem,
+                               cudaStream_t s) {
   if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -285,8 +306,8 @@ cudaError_t launch_routing_bwd(bool resident, const float* u, const float* W,
       smem);
   if (err != cudaSuccess) return err;
   routing_bwd_replay_kernel<<<B, kThreads, smem, s>>>(
-      u, W, g, b_prev, b_last, ds, B, I, C, J, D, iters, resident ? 1 : 0,
-      block_i);
+      u, W, g, b_prev, b_last, ds, B, I, C, J, D, iters, schedule,
+      global_slab ? 1 : 0, block_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(routing_bwd_emit_kernel,
@@ -304,17 +325,34 @@ cudaError_t launch_routing_bwd(bool resident, const float* u, const float* W,
 // Scratch in global memory: b_prev, b_last [B, I, J] (the logits b_{T-1},
 // b_T) and ds [2, B, J*D] (ds_{T-1}, ds_T).  smem_bytes / emit_smem are the
 // plan's footprints (execplan.votes_routing_bwd_smem / routing_bwd_emit_smem).
-#define REPRO_ROUTING_BWD(NAME, RESIDENT)                                     \
+#define REPRO_ROUTING_BWD(NAME, SCHEDULE, GLOBAL_SLAB)                        \
   REPRO_EXPORT int NAME(const float* u, const float* W, const float* g,       \
                         float* b_prev, float* b_last, float* ds, float* du,   \
                         float* dW, int B, int I, int C, int J, int D,         \
                         int iters, int block_i, int smem_bytes,               \
                         int emit_smem, void* stream) {                        \
-    return repro::launch_routing_bwd(RESIDENT, u, W, g, b_prev, b_last, ds,   \
-                                     du, dW, B, I, C, J, D, iters, block_i,   \
-                                     smem_bytes, emit_smem,                   \
+    return repro::launch_routing_bwd(SCHEDULE, GLOBAL_SLAB, u, W, g, b_prev,  \
+                                     b_last, ds, du, dW, B, I, C, J, D,       \
+                                     iters, block_i, smem_bytes, emit_smem,   \
                                      (cudaStream_t)stream);                   \
   }
 
-REPRO_ROUTING_BWD(routing_bwd_resident_f32, true)    // K8
-REPRO_ROUTING_BWD(routing_bwd_streamed_f32, false)   // K9
+REPRO_ROUTING_BWD(routing_bwd_resident_f32, repro::kResident, false)  // K8
+REPRO_ROUTING_BWD(routing_bwd_streamed_f32, repro::kStreamed, false)  // K9
+// K9 in the plan's "streamed-global" mode: the replay's slab is b_last.
+REPRO_ROUTING_BWD(routing_bwd_global_f32, repro::kStreamed, true)
+
+// K13, the unfused oracle, with the slab where the streamed schedule it
+// checks keeps it: global_slab != 0 for "streamed-global".
+REPRO_EXPORT int routing_bwd_2pass_f32(const float* u, const float* W,
+                                       const float* g, float* b_prev,
+                                       float* b_last, float* ds, float* du,
+                                       float* dW, int B, int I, int C, int J,
+                                       int D, int iters, int block_i,
+                                       int global_slab, int smem_bytes,
+                                       int emit_smem, void* stream) {
+  return repro::launch_routing_bwd(repro::kTwoPass, global_slab != 0, u, W, g,
+                                   b_prev, b_last, ds, du, dW, B, I, C, J, D,
+                                   iters, block_i, smem_bytes, emit_smem,
+                                   (cudaStream_t)stream);
+}

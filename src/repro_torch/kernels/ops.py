@@ -1,15 +1,16 @@
 """Plan-aware wrappers for the port's kernels, driven by one ExecutionPlan.
 
 The counterparts of ``repro/kernels/ops.py``'s ``conv2d``,
-``votes_routing``, ``primary_routing``, the split path's ``caps_votes``
-and ``routing``, and ``squash``.  Tiles and schedules come from an
+``votes_routing``, ``primary_routing``, ``res_caps_segment`` (the
+reversible ResCaps segment, K12), the split path's ``caps_votes`` and
+``routing``, and ``squash``.  Tiles and schedules come from an
 ``ExecutionPlan`` (``repro_torch.core.execplan.compile_plan``) when one is
 passed; otherwise the planner's pick is computed once per shape and
 memoized in a bounded cache.  CPU tensors run the plain twins, CUDA
 tensors the kernels (see each kernel module).
 
-The conv, routing and squash wrappers are differentiable (``caps_votes``
-and ``routing`` are forward only, as in the reference).  The backward
+The conv, routing, segment and squash wrappers are differentiable
+(``caps_votes`` and ``routing`` are forward only, as in the reference).  The backward
 schedule comes from the plan's ``<op>-bwd`` entry on a training plan
 (``compile_plan(train=True)``); otherwise the routing backward plans its
 own when it runs (``votes_routing.planned_votes_routing_bwd``), so a
@@ -34,6 +35,9 @@ from repro_torch.kernels.primary_routing import \
     primary_routing as _primary_routing
 from repro_torch.kernels.routing import routing as _routing
 from repro_torch.kernels.squash import squash as _squash
+from repro_torch.kernels.votes_routing import RoutingStatics
+from repro_torch.kernels.votes_routing import \
+    res_caps_segment as _res_caps_segment
 from repro_torch.kernels.votes_routing import votes_routing as _votes_routing
 
 
@@ -120,6 +124,48 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
                          bwd_block_i=bwd_block_i, op_name=op_name)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_VOTES_ROUTING, out)
+    return out
+
+
+def _layer_schedule(lay, plan) -> RoutingStatics:
+    """One routing layer's kernel statics: its forward schedule from the
+    plan's op (or the memoized plan decision), its backward schedule from
+    a training plan's ``<op>-bwd`` (else planned when the backward runs,
+    whose ``PlanError`` names the ``-bwd`` op)."""
+    if plan is not None:
+        op = plan.op(lay.name)
+        mode, block_i = op.mode, op.block_i
+    else:
+        mode, block_i = planned_votes_routing(lay.in_caps, lay.in_dim,
+                                              lay.jd, lay.num_caps,
+                                              lay.iters)
+    bwd_mode, bwd_block_i = _bwd_schedule(plan, lay.name)
+    return RoutingStatics(iters=lay.iters, num_classes=lay.num_caps,
+                          mode=mode, block_i=block_i, bwd_mode=bwd_mode,
+                          bwd_block_i=bwd_block_i, op_name=lay.name)
+
+
+def res_caps_segment(x: torch.Tensor, ws, pairs, *,
+                     plan=None) -> torch.Tensor:
+    """Reversible residual capsule segment (K12): x [B, I, C] through a
+    maximal run of ``ResCapsBlock`` coupling pairs -> [B, I, C].
+
+    ``pairs`` is a tuple of ``(f_layer, g_layer)`` ``RoutingLayer`` pairs
+    (from ``CapsNetConfig.routing_stack()``); ``ws`` the matching flat
+    per-half weights ``[in_caps, jd, in_dim]``.  Each half runs the fused
+    votes+routing kernel with the residual-add epilogue on its own plan
+    op's schedule.  Differentiable with no saved activations: the
+    backward inverts the coupling block by block from the segment output
+    (``kernels.votes_routing.ResCapsSegment``)."""
+    if plan is not None and x.shape[0] > plan.batch:
+        raise ValueError(
+            f"res_caps_segment: batch {x.shape[0]} exceeds the plan's "
+            f"batch {plan.batch}; recompile the plan for this batch")
+    blocks = tuple((lf.num_caps, _layer_schedule(lf, plan),
+                    _layer_schedule(lg, plan)) for lf, lg in pairs)
+    out = _res_caps_segment(x, tuple(ws), blocks=blocks)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_RES_CAPS_SEGMENT, out)
     return out
 
 

@@ -1,10 +1,13 @@
-"""Fused ClassCaps votes + routing (K3 resident / K4 streamed) and its
-backward (K8 resident / K9 streamed).
+"""Fused ClassCaps votes + routing (K3 resident / K4 streamed, K13 the
+unfused oracle), its backward (K8 resident / K9 streamed / K13), and the
+reversible residual segment K12.
 
 The counterpart of ``repro/kernels/votes_routing.py``: the forward
-(``_resident_kernel`` / ``_streamed_kernel`` through ``_vr_apply``) and
-the custom VJP's backward (``_resident_bwd_kernel`` /
-``_streamed_bwd_kernel`` through ``_vr_grad``).  ``votes_routing`` is a
+(``_resident_kernel`` / ``_streamed_kernel`` / ``_streamed_2pass_kernel``
+through ``_vr_apply``, with the optional residual-add epilogue), the
+custom VJP's backward (``_resident_bwd_kernel`` / ``_streamed_bwd_kernel``
+/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``), and
+``res_caps_segment`` (``_res_segment``).  ``votes_routing`` is a
 ``torch.autograd.Function``: forward ``votes_routing_plain`` for CPU
 tensors and the CUDA kernel (``csrc/votes_routing.cu``, one CTA per
 sample) for CUDA tensors; backward ``votes_routing_bwd``, whose plain
@@ -15,7 +18,11 @@ multiple of ``block_i``; ``resident`` computes the votes once and
 iterates on them; ``streamed`` folds the logits update of iteration ``t``
 into the same pass as the accumulation of ``s_t``, block by block (the
 kernel recomputes each votes block on every pass; its twin computes them
-once, which gives the same values, and runs ``routing.routing_plain``).
+once, which gives the same values, and runs ``routing.routing_plain``);
+``streamed-global`` is ``streamed`` with the logits in device memory (the
+same twin); ``streamed-2pass`` runs a b-pass and then an s-pass per
+iteration.  ``streamed-2pass`` keeps its logits where ``streamed`` would,
+and in device memory where that does not fit a CTA.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import execplan
-from repro_torch.core.execplan import (FUSED_NAME, MODES,
+from repro_torch.core.execplan import MODES  # noqa: F401  (re-exported)
+from repro_torch.core.execplan import (ALL_MODES, FUSED_NAME, ORACLE_MODE,
+                                       STREAMED_GLOBAL,
                                        routing_bwd_emit_smem,
                                        votes_routing_bwd_smem,
                                        votes_routing_smem)
@@ -37,14 +46,23 @@ from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
 from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",
-                       [_P] * 3 + [_I] * 9 + [_P])
+VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",      # K3/K4
+                       [_P] * 4 + [_I] * 9 + [_P])
+_GLOBAL_ARGS = [_P] * 5 + [_I] * 8 + [_P]
+VOTES_ROUTING_GLOBAL = Kernel("votes_routing", "votes_routing_global_f32",
+                              _GLOBAL_ARGS)          # K4, streamed-global
+VOTES_ROUTING_2PASS = Kernel("votes_routing", "votes_routing_2pass_f32",
+                             _GLOBAL_ARGS)                            # K13
 _BWD_ARGS = [_P] * 8 + [_I] * 9 + [_P]
 ROUTING_BWD = {
     "resident": Kernel("votes_routing_bwd", "routing_bwd_resident_f32",
                        _BWD_ARGS),                                    # K8
     "streamed": Kernel("votes_routing_bwd", "routing_bwd_streamed_f32",
                        _BWD_ARGS),                                    # K9
+    STREAMED_GLOBAL: Kernel("votes_routing_bwd", "routing_bwd_global_f32",
+                            _BWD_ARGS),                   # K9, global slab
+    ORACLE_MODE: Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
+                        [_P] * 8 + [_I] * 10 + [_P]),                 # K13
 }
 
 
@@ -67,8 +85,8 @@ def _padded(u: torch.Tensor, w: torch.Tensor, block_i: int):
 
 def check_schedule(i_dim: int, jd: int, *, iters: int, num_classes: int,
                    mode: str, block_i: int) -> None:
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
+    if mode not in ALL_MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {ALL_MODES}")
     if num_classes < 1 or jd % num_classes:
         raise ValueError(f"votes dim {jd} not divisible by classes "
                          f"{num_classes}")
@@ -78,11 +96,35 @@ def check_schedule(i_dim: int, jd: int, *, iters: int, num_classes: int,
         raise ValueError(f"block_i={block_i} outside [1, {i_dim}]")
 
 
+def routing_2pass_plain(u_hat: torch.Tensor, *, iters: int,
+                        num_classes: int, block_i: int) -> torch.Tensor:
+    """K13's schedule over votes u_hat [B, I, J*D] -> v [B, J*D]: each
+    iteration ``t > 0`` first runs a b-pass (the logits update, block by
+    block), then an s-pass of its own."""
+    bsz, i_dim, jd = u_hat.shape
+    j, d = num_classes, jd // num_classes
+    uh4 = u_hat.reshape(bsz, i_dim, j, d)
+    blocks = [slice(i0, i0 + block_i) for i0 in range(0, i_dim, block_i)]
+    b = torch.zeros((bsz, i_dim, j), dtype=u_hat.dtype, device=u_hat.device)
+    v = None
+    for t in range(iters + 1):
+        if t > 0:
+            for rows in blocks:
+                b[:, rows] += torch.einsum("bijd,bjd->bij", uh4[:, rows], v)
+        s = torch.zeros((bsz, j, d), dtype=u_hat.dtype, device=u_hat.device)
+        for rows in blocks:
+            c = torch.softmax(b[:, rows], dim=2)
+            s = s + torch.einsum("bij,bijd->bjd", c, uh4[:, rows])
+        v = ref.squash(s)
+    return v.reshape(bsz, jd)
+
+
 def votes_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
-                        num_classes: int, mode: str,
-                        block_i: int) -> torch.Tensor:
-    """The schedule both kernels run, in plain PyTorch: u [B, I, C],
-    w [I, J*D, C] -> v [B, J*D]."""
+                        num_classes: int, mode: str, block_i: int,
+                        r: torch.Tensor | None = None) -> torch.Tensor:
+    """The schedule the kernels run, in plain PyTorch: u [B, I, C],
+    w [I, J*D, C] -> v [B, J*D], plus the residual ``r [B, J*D]`` when
+    given (the epilogue: v itself is never changed)."""
     check_schedule(u.shape[1], w.shape[1], iters=iters,
                    num_classes=num_classes, mode=mode, block_i=block_i)
     bsz, _, _ = u.shape
@@ -93,11 +135,17 @@ def votes_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                                     w[ib * block_i:(ib + 1) * block_i])
                        for ib in range(n_blocks)], 1)
     if mode == "resident":
-        return ref.routing(votes.reshape(bsz, -1, j, d),
-                           iters).reshape(bsz, jd)
-    # A recomputed votes block equals the one computed here, so the
-    # streamed schedule is the split routing's fused s+b passes over them.
-    return routing_plain(votes, iters=iters, num_classes=j, block_i=block_i)
+        v = ref.routing(votes.reshape(bsz, -1, j, d), iters).reshape(bsz, jd)
+    elif mode == ORACLE_MODE:
+        v = routing_2pass_plain(votes, iters=iters, num_classes=j,
+                                block_i=block_i)
+    else:
+        # A recomputed votes block equals the one computed here, so the
+        # streamed schedule (wherever its logits live) is the split
+        # routing's fused s+b passes over them.
+        v = routing_plain(votes, iters=iters, num_classes=j,
+                          block_i=block_i)
+    return v if r is None else v + r
 
 
 def _check_shapes(u: torch.Tensor, w: torch.Tensor) -> None:
@@ -114,21 +162,56 @@ def _check_smem(name: str, mode: str, smem: int) -> None:
                          f"shared memory per CTA, over {SMEM_BYTES} B")
 
 
-def _forward(u: torch.Tensor, w: torch.Tensor, *, iters: int,
-             num_classes: int, mode: str, block_i: int) -> torch.Tensor:
-    """K3/K4 (or the plain twin on the CPU), not differentiable."""
-    if on_cpu("votes_routing", u, w):
-        return votes_routing_plain(u, w, iters=iters,
-                                   num_classes=num_classes, mode=mode,
-                                   block_i=block_i)
+def oracle_placement(smem_of) -> str:
+    """Where K13 keeps its logits: ``"streamed"`` (shared memory) when
+    that footprint, ``smem_of(mode)``, fits a CTA, else
+    ``"streamed-global"`` -- the placement of the schedule it checks."""
+    return "streamed" if smem_of("streamed") <= SMEM_BYTES \
+        else STREAMED_GLOBAL
+
+
+def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
+             iters: int, num_classes: int, mode: str,
+             block_i: int) -> torch.Tensor:
+    """K3/K4/K13 (or the plain twin on the CPU), not differentiable; adds
+    ``r [B, J*D]`` to the output when given."""
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
+    if r is not None and r.shape != (bsz, jd):
+        raise ValueError(f"votes_routing: residual {tuple(r.shape)}, "
+                         f"expected {(bsz, jd)}")
+    extra = () if r is None else (r,)
+    if on_cpu("votes_routing", u, w, *extra):
+        return votes_routing_plain(u, w, iters=iters,
+                                   num_classes=num_classes, mode=mode,
+                                   block_i=block_i, r=r)
     j = num_classes
-    smem = votes_routing_smem(mode, i_dim, block_i, c, j, jd)
+
+    def smem_of(m):
+        return votes_routing_smem(m, i_dim, block_i, c, j, jd)
+
+    place = oracle_placement(smem_of) if mode == ORACLE_MODE else mode
+    smem = smem_of(place)
     _check_smem("votes_routing", mode, smem)
-    out = torch.empty((bsz, jd), dtype=u.dtype, device=u.device)
-    VOTES_ROUTING(ptr(u), ptr(w), ptr(out), bsz, i_dim, c, j, jd // j, iters,
-                  int(mode == "resident"), block_i, smem, stream_of(u))
+    f32 = dict(dtype=u.dtype, device=u.device)
+    out = torch.empty((bsz, jd), **f32)
+    # The logits scratch of streamed-global (K13: where it keeps them in
+    # global memory), [B, I, J]: written and read by the kernel alone.
+    logits = (torch.empty((bsz, i_dim, j), **f32)
+              if place == STREAMED_GLOBAL else None)
+    lp = ptr(logits) if logits is not None else None
+    rp = ptr(r) if r is not None else None
+    if mode == ORACLE_MODE:
+        VOTES_ROUTING_2PASS(ptr(u), ptr(w), rp, lp, ptr(out), bsz, i_dim, c,
+                            j, jd // j, iters, block_i, smem, stream_of(u))
+    elif mode == STREAMED_GLOBAL:
+        VOTES_ROUTING_GLOBAL(ptr(u), ptr(w), rp, lp, ptr(out), bsz, i_dim,
+                             c, j, jd // j, iters, block_i, smem,
+                             stream_of(u))
+    else:
+        VOTES_ROUTING(ptr(u), ptr(w), rp, ptr(out), bsz, i_dim, c, j,
+                      jd // j, iters, int(mode == "resident"), block_i, smem,
+                      stream_of(u))
     return out
 
 
@@ -139,7 +222,8 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     """(du, dW) of ``votes_routing`` at output cotangent ``g [B, J*D]``,
     in the reference's stop-gradient convention, by the kernels' schedule.
 
-    Replay the forward (``iters + 1`` passes), keeping ``b_{T-1}``,
+    Replay the forward (``iters + 1`` passes; under ``streamed-2pass`` a
+    b-pass before each s-pass after the first), keeping ``b_{T-1}``,
     ``b_T``, ``s_{T-1}`` and ``s_T`` (T = iters); then, with ``c_t =
     softmax(b_t)``, one seed+reverse pass over the votes blocks::
 
@@ -169,15 +253,19 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
         def uh_of(rows):
             return _votes_block(u_p[:, rows], w_p[rows]).reshape(bsz, -1,
                                                                  j, d)
+    two_pass = mode == ORACLE_MODE
     b = torch.zeros((bsz, u_p.shape[1], j), dtype=u.dtype, device=u.device)
     b_prev = s_prev = v = None
     for t in range(iters + 1):
         if t == iters:
             b_prev = b.clone()
+        if two_pass and t > 0:                  # K13's separate b-pass
+            for rows in blocks:
+                b[:, rows] += torch.einsum("bijd,bjd->bij", uh_of(rows), v)
         s = torch.zeros((bsz, j, d), dtype=u.dtype, device=u.device)
         for rows in blocks:
             uh4 = uh_of(rows)
-            if t > 0:
+            if t > 0 and not two_pass:
                 b[:, rows] += torch.einsum("bijd,bjd->bij", uh4, v)
             c = torch.softmax(b[:, rows], dim=2)
             s = s + torch.einsum("bij,bijd->bjd", c, uh4)
@@ -204,12 +292,14 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                       iters: int = 3, num_classes: int = 10,
                       mode: str = "streamed", block_i: int = 128
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K8 (``resident``) / K9 (``streamed``): (du [B, I, C], dW [I, J*D, C])
-    of ``votes_routing`` at cotangent ``g [B, J*D]``.  On CUDA neither
-    u_hat nor d u_hat reaches device memory: a per-sample replay writes
-    only the logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``, ``ds_T``; a
-    per-capsule emit rebuilds d u_hat on chip and sums dW over the batch
-    inside the CTA."""
+    """K8 (``resident``) / K9 (``streamed``, ``streamed-global``) / K13
+    (``streamed-2pass``): (du [B, I, C], dW [I, J*D, C]) of
+    ``votes_routing`` at cotangent ``g [B, J*D]``.  On CUDA neither u_hat
+    nor d u_hat reaches device memory: a per-sample replay writes only the
+    logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``, ``ds_T`` (under
+    ``streamed-global`` its logits slab is ``b_T`` itself); a per-capsule
+    emit rebuilds d u_hat on chip and sums dW over the batch inside the
+    CTA."""
     _check_shapes(u, w)
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
@@ -224,7 +314,12 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                                        num_classes=num_classes, mode=mode,
                                        block_i=block_i)
     j = num_classes
-    smem = votes_routing_bwd_smem(mode, i_dim, block_i, c, j, jd)
+
+    def smem_of(m):
+        return votes_routing_bwd_smem(m, i_dim, block_i, c, j, jd)
+
+    place = oracle_placement(smem_of) if mode == ORACLE_MODE else mode
+    smem = smem_of(place)
     emit = routing_bwd_emit_smem(c, j, jd)
     _check_smem("votes_routing_bwd", mode, max(smem, emit))
     f32 = dict(dtype=u.dtype, device=u.device)
@@ -232,10 +327,11 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     ds = torch.empty((2, bsz, jd), **f32)                # ds_{T-1}, ds_T
     du = torch.empty((bsz, i_dim, c), **f32)
     dw = torch.empty((i_dim, jd, c), **f32)
-    ROUTING_BWD[mode](ptr(u), ptr(w), ptr(g), ptr(logits[0]),
-                      ptr(logits[1]), ptr(ds), ptr(du), ptr(dw), bsz, i_dim,
-                      c, j, jd // j, iters, block_i, smem, emit,
-                      stream_of(u))
+    args = [ptr(u), ptr(w), ptr(g), ptr(logits[0]), ptr(logits[1]), ptr(ds),
+            ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters, block_i]
+    if mode == ORACLE_MODE:
+        args.append(int(place == STREAMED_GLOBAL))
+    ROUTING_BWD[mode](*args, smem, emit, stream_of(u))
     return du, dw
 
 
@@ -261,7 +357,7 @@ class RoutingStatics(NamedTuple):
     block_i: int
     bwd_mode: str | None
     bwd_block_i: int | None
-    op_name: str
+    op_name: str = FUSED_NAME
 
 
 def routing_statics(i_dim: int, jd: int, *, iters: int, num_classes: int,
@@ -294,38 +390,166 @@ def routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                              block_i=block_i)
 
 
+def _forward_st(u: torch.Tensor, w: torch.Tensor, st: RoutingStatics,
+                r: torch.Tensor | None = None) -> torch.Tensor:
+    return _forward(u, w, r, iters=st.iters, num_classes=st.num_classes,
+                    mode=st.mode, block_i=st.block_i)
+
+
 class _VotesRouting(torch.autograd.Function):
-    """The reference's ``_vr_core`` custom VJP: saves ``(u, w)``; the
-    backward recomputes the routing from them (K8/K9)."""
+    """The reference's ``_vr_core`` custom VJP, and with a residual ``r``
+    its ``_vr_core_res``: saves ``(u, w)``; the backward recomputes the
+    routing from them (K8/K9) and passes ``r``'s cotangent through (the
+    add is linear)."""
 
     @staticmethod
-    def forward(ctx, u, w, st: RoutingStatics):
+    def forward(ctx, u, w, r, st: RoutingStatics):
         ctx.st = st
         ctx.save_for_backward(u, w)
-        return _forward(u, w, iters=st.iters, num_classes=st.num_classes,
-                        mode=st.mode, block_i=st.block_i)
+        return _forward_st(u, w, st, r)
 
     @staticmethod
     def backward(ctx, g):
         u, w = ctx.saved_tensors
         du, dw = routing_bwd(u, w, g, ctx.st)
-        need_u, need_w = ctx.needs_input_grad[:2]
-        return (du if need_u else None), (dw if need_w else None), None
+        need_u, need_w, need_r = ctx.needs_input_grad[:3]
+        return ((du if need_u else None), (dw if need_w else None),
+                (g if need_r else None), None)
 
 
-def votes_routing(u: torch.Tensor, w: torch.Tensor, *, iters: int = 3,
+def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
+                  r: torch.Tensor | None = None, iters: int = 3,
                   num_classes: int = 10, mode: str = "streamed",
                   block_i: int = 128, bwd_mode: str | None = None,
                   bwd_block_i: int | None = None,
                   op_name: str = FUSED_NAME) -> torch.Tensor:
-    """K3/K4: u [B, I, C], w [I, J*D, C] -> v [B, J*D] (votes + routing,
-    u_hat never leaves the chip on CUDA).  Differentiable: the backward
-    runs ``votes_routing_bwd`` on ``bwd_mode`` / ``bwd_block_i`` (the
-    i-tile defaulting to the forward's) when ``bwd_mode`` is given, else
-    on the planner's backward schedule for ``op_name``."""
+    """K3/K4 (K13 under ``mode="streamed-2pass"``): u [B, I, C],
+    w [I, J*D, C] -> v [B, J*D] (votes + routing, u_hat never leaves the
+    chip on CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
+    epilogue.  Differentiable: the backward runs ``votes_routing_bwd`` on
+    ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
+    forward's) when ``bwd_mode`` is given, else on the planner's backward
+    schedule for ``op_name``."""
     _check_shapes(u, w)
     st = routing_statics(u.shape[1], w.shape[1], iters=iters,
                          num_classes=num_classes, mode=mode, block_i=block_i,
                          bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
                          op_name=op_name)
-    return _VotesRouting.apply(u, w, st)
+    return _VotesRouting.apply(u, w, r, st)
+
+
+# ---------------------------------------------------------------------------
+# Reversible residual capsule segment (K12)
+# ---------------------------------------------------------------------------
+
+def _res_segment_run(blocks, x: torch.Tensor, ws) -> torch.Tensor:
+    """Forward walk of a run of additive-coupling blocks: for each block
+    ``(i1, st_f, st_g)`` split the capsule axis at ``i1`` and apply
+    ``y1 = x1 + F(x2)``, ``y2 = x2 + G(y1)``, each half one votes+routing
+    kernel with the residual-add epilogue."""
+    h = x
+    for k, (i1, st_f, st_g) in enumerate(blocks):
+        bsz = h.shape[0]
+        x1, x2 = h[:, :i1].contiguous(), h[:, i1:].contiguous()
+        y1 = _forward_st(x2, ws[2 * k], st_f,
+                         x1.reshape(bsz, -1)).reshape(x1.shape)
+        y2 = _forward_st(y1, ws[2 * k + 1], st_g,
+                         x2.reshape(bsz, -1)).reshape(x2.shape)
+        h = torch.cat([y1, y2], dim=1)
+    return h
+
+
+class ResCapsSegment(torch.autograd.Function):
+    """K12, the reference's ``_res_segment`` custom VJP.
+
+    The forward saves ONLY the segment output and the weights, never x
+    or a per-block intermediate, so activation memory stays flat in
+    depth.  The backward inverts the coupling block by block, last block
+    first: it recomputes ``G(y1)`` and ``F(x2)`` (forward kernels without
+    the epilogue, under ``no_grad``) to rebuild ``x2 = y2 - G(y1)`` and
+    ``x1 = y1 - F(x2)``, then pushes the cotangents through the halves'
+    backward kernels::
+
+        d y1_total = g1 + dG/dy1^T g2,   d x1 = d y1_total,
+        d x2       = g2 + dF/dx2^T d y1_total
+    """
+
+    @staticmethod
+    def forward(ctx, x, blocks, *ws):
+        y = _res_segment_run(blocks, x, ws)
+        ctx.blocks = blocks
+        ctx.save_for_backward(y, *ws)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, *ws = ctx.saved_tensors
+        blocks = ctx.blocks
+        bsz = y.shape[0]
+        dws = [None] * len(ws)
+        for k in range(len(blocks) - 1, -1, -1):
+            i1, st_f, st_g = blocks[k]
+            wf, wg = ws[2 * k], ws[2 * k + 1]
+            y1, y2 = y[:, :i1].contiguous(), y[:, i1:].contiguous()
+            g1 = g[:, :i1].reshape(bsz, -1)
+            g2 = g[:, i1:].reshape(bsz, -1)
+            with torch.no_grad():
+                x2 = y2 - _forward_st(y1, wg, st_g).reshape(y2.shape)
+                x1 = y1 - _forward_st(x2, wf, st_f).reshape(y1.shape)
+            dy1_g, dwg = routing_bwd(y1, wg, g2, st_g)
+            g1_tot = g1 + dy1_g.reshape(bsz, -1)
+            dx2_f, dwf = routing_bwd(x2, wf, g1_tot, st_f)
+            g = torch.cat([g1_tot.reshape(y1.shape),
+                           g2.reshape(y2.shape) + dx2_f], dim=1)
+            y = torch.cat([x1, x2], dim=1)
+            dws[2 * k], dws[2 * k + 1] = dwf, dwg
+        return (g, None, *dws)
+
+
+def _seg_statics(stat, i_dim: int, jd: int) -> RoutingStatics:
+    """One half's schedule -- a ``RoutingStatics`` or the reference's
+    ``(iters, num_out_caps, mode, block_i, bwd_mode, bwd_block_i)`` --
+    checked, with its i-tiles clamped to the half's ``i_dim``."""
+    st = RoutingStatics(*stat)
+    if st.mode not in ALL_MODES or (st.bwd_mode is not None
+                                    and st.bwd_mode not in ALL_MODES):
+        raise ValueError(f"unknown mode {st.mode!r}/{st.bwd_mode!r}; "
+                         f"choose from {ALL_MODES}")
+    bwd_bi = (None if st.bwd_block_i is None
+              else max(1, min(st.bwd_block_i, i_dim)))
+    return routing_statics(i_dim, jd, iters=st.iters,
+                           num_classes=st.num_classes, mode=st.mode,
+                           block_i=max(1, st.block_i), bwd_mode=st.bwd_mode,
+                           bwd_block_i=bwd_bi, op_name=st.op_name)
+
+
+def res_caps_segment(x: torch.Tensor, ws, *, blocks) -> torch.Tensor:
+    """x: [B, I, C] through a run of reversible ResCapsBlocks -> [B, I, C].
+
+    ``blocks`` is a tuple of ``(i1, stats_f, stats_g)`` per block, where
+    ``i1`` is the coupling split point and each ``stats`` is the half's
+    schedule (see ``_seg_statics``; ``repro_torch.kernels.ops`` takes it
+    from the plan).  ``ws`` are the flat per-half weights, F then G per
+    block: ``wf [I-i1, i1*C, C]``, ``wg [i1, (I-i1)*C, C]``.
+    Differentiable with no saved activations (``ResCapsSegment``).
+    """
+    bsz, i_dim, c = x.shape
+    if len(ws) != 2 * len(blocks):
+        raise ValueError(f"res_caps_segment: {len(blocks)} blocks need "
+                         f"{2 * len(blocks)} half-weights, got {len(ws)}")
+    resolved = []
+    for n, (i1, sf, sg) in enumerate(blocks):
+        i2 = i_dim - i1
+        if not 1 <= i1 < i_dim:
+            raise ValueError(f"res_caps_segment: block {n} split i1={i1} "
+                             f"outside [1, {i_dim - 1}]")
+        wf, wg = ws[2 * n], ws[2 * n + 1]
+        if tuple(wf.shape) != (i2, i1 * c, c) or \
+                tuple(wg.shape) != (i1, i2 * c, c):
+            raise ValueError(
+                f"res_caps_segment: block {n} weight shapes "
+                f"{tuple(wf.shape)}/{tuple(wg.shape)} do not match the "
+                f"i1={i1} coupling of [{bsz}, {i_dim}, {c}]")
+        resolved.append((i1, _seg_statics(sf, i2, i1 * c),
+                         _seg_statics(sg, i1, i2 * c)))
+    return ResCapsSegment.apply(x, tuple(resolved), *ws)

@@ -14,10 +14,17 @@ and ``adam`` (AdamW + warmup/cosine from ``train.optimizer``, the horizon
 as ``decay_steps``; checkpoints gain the m/v/step state).  The
 checkpoint / NaN-guard / heartbeat skeleton is ``train.harness``.
 
+A deep-stack arch (``--arch capsnet-svhn``, ``capsnet-cifar10``) trains
+through the per-layer plan and the reversible ResCaps backward (K12);
+the SVHN bottleneck's routing runs with its logits in device memory
+(the plan's ``streamed-global`` mode).
+
 CLI (``--device cpu`` runs every kernel's plain twin):
 
     python -m repro_torch.train.capsnet_loop --device cpu --config smoke \\
         --backend kernels --assert-improves
+    python -m repro_torch.train.capsnet_loop --arch capsnet-svhn --smoke \\
+        --device cpu --backend kernels --assert-improves
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import capsnet
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.core.execplan import compile_plan
@@ -170,6 +178,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--backend", choices=capsnet.BACKENDS,
                     default="kernels")
     ap.add_argument("--config", choices=sorted(CONFIGS), default="smoke")
+    ap.add_argument("--arch", default=None,
+                    help="registry architecture id (capsnet-mnist, "
+                         "capsnet-cifar10, capsnet-svhn); overrides "
+                         "--config.  Deep-stack archs train through the "
+                         "per-layer plan and the reversible backward.")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the arch's smoke_config() (toy "
+                         "widths, same topology)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu runs every kernel's plain PyTorch twin")
     ap.add_argument("--seed", type=int, default=0)
@@ -181,7 +197,15 @@ def main(argv: list[str] | None = None) -> int:
                          "NaN-guard rollback fired")
     args = ap.parse_args(argv)
 
-    loop = CapsTrainLoop(CONFIGS[args.config], CapsLoopConfig(
+    if args.arch is not None:
+        try:
+            cfg = (registry.get_smoke_config(args.arch) if args.smoke
+                   else registry.get_config(args.arch))
+        except KeyError as err:
+            ap.error(str(err))
+    else:
+        cfg = CONFIGS[args.config]
+    loop = CapsTrainLoop(cfg, CapsLoopConfig(
         total_steps=args.steps, batch=args.batch, lr=args.lr,
         optimizer=args.optimizer, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir, backend=args.backend, seed=args.seed),

@@ -132,15 +132,20 @@ def test_init_params_keys_and_shapes_match_reference():
         assert {k: tuple(v.shape) for k, v in got.items()} == want
 
 
-def test_kernels_backend_refuses_residual_stacks():
+def test_kernels_backend_runs_residual_stacks():
+    """The kernels backend walks a ResCaps stack (the reversible segment,
+    K12) and matches the plain backend on the CIFAR-10 smoke config."""
     cfg = to_port(get_smoke_config("capsnet-cifar10"))
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
-    images = torch.zeros(1, cfg.image_hw, cfg.image_hw, cfg.in_channels)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(params, images, cfg, backend="kernels", device="cpu")
-    out = T.forward(params, images, cfg, backend="torch", device="cpu")
-    assert out["lengths"].shape == (1, cfg.num_classes)
+    images = torch.tensor(np.random.default_rng(0).random(
+        (2, cfg.image_hw, cfg.image_hw, cfg.in_channels), np.float32))
+    got = T.forward(params, images, cfg, backend="kernels", device="cpu")
+    want = T.forward(params, images, cfg, backend="torch", device="cpu")
+    assert got["lengths"].shape == (2, cfg.num_classes)
+    for k in KEYS:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 def test_forward_rejects_unknown_backend_and_misplaced_params(smoke):

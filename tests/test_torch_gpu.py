@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import capsnet_mnist
+from repro_torch.configs import capsnet_cifar10, capsnet_mnist, capsnet_svhn
 from repro_torch.core import capsnet, execplan
 from repro_torch.kernels import build
 from repro_torch.kernels import caps_votes as k14a
@@ -229,6 +229,72 @@ def test_unfusable_capsule_forward_and_backward_on_the_card(cuda):
     want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
                                      backend="torch", device=cuda)
     assert counts["squash_f32"] == 1 and counts["squash_bwd_f32"] == 1
+    for k in params:
+        scale = want[k].abs().max().clamp_min(1e-12)
+        assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k
+
+
+def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
+    """The residual epilogue on every schedule, the streamed-global mode
+    (logits in device memory) and K13 (both logits placements), forward
+    and backward, each against its plain twin."""
+    build.reset_launch_counts()
+    u = _rand(16, 3, 70, 4, scale=0.5, device=cuda)
+    w = _rand(17, 70, 32, 4, scale=0.3, device=cuda)
+    r = _rand(18, 3, 32, device=cuda)
+    g = _rand(19, 3, 32, device=cuda)
+    for mode in execplan.ALL_MODES:
+        kw = dict(iters=3, num_classes=4, mode=mode, block_i=24)
+        for rr in (None, r):
+            torch.testing.assert_close(
+                k34.votes_routing(u, w, r=rr, **kw),
+                k34.votes_routing_plain(u, w, r=rr, **kw),
+                rtol=1e-5, atol=1e-6)
+        got = k34.votes_routing_bwd(u, w, g, **kw)
+        want = k34.votes_routing_bwd_plain(u, w, g, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
+    # K13 where streamed does not fit a CTA: its logits go to device memory.
+    ub = _rand(20, 2, 2048, 8, scale=0.5, device=cuda)
+    wb = _rand(21, 2048, 512, 8, scale=0.1, device=cuda)
+    kw = dict(iters=3, num_classes=64, block_i=64)
+    torch.testing.assert_close(
+        k34.votes_routing(ub, wb, mode=execplan.ORACLE_MODE, **kw),
+        k34.votes_routing(ub, wb, mode=execplan.STREAMED_GLOBAL, **kw),
+        rtol=1e-5, atol=1e-6)
+    counts = build.launch_counts()
+    for sym in ("votes_routing_f32", "votes_routing_global_f32",
+                "votes_routing_2pass_f32", "routing_bwd_global_f32",
+                "routing_bwd_2pass_f32"):
+        assert counts[sym] > 0, sym
+
+
+@pytest.mark.parametrize("module", [capsnet_svhn, capsnet_cifar10])
+def test_deep_stack_forward_and_backward_on_the_card(cuda, module):
+    """A ResCaps stack through the reversible segment (K12): forward and
+    every gradient equal to the plain backend."""
+    cfg = module.smoke_config()
+    params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=cuda)
+    images = _rand(22, 4, cfg.image_hw, cfg.image_hw, 3, uniform=True,
+                   device=cuda)
+    labels = torch.tensor([2, 4, 6, 8], device=cuda)
+    plan = execplan.compile_plan(cfg, batch=4, train=True)
+    with torch.no_grad():
+        got = capsnet.forward(params, images, cfg, backend="kernels",
+                              plan=plan, device=cuda)
+        want = capsnet.forward(params, images, cfg, backend="torch",
+                               device=cuda)
+    for k in ("class_caps", "lengths", "reconstruction"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
+    build.reset_launch_counts()
+    got, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                    backend="kernels", plan=plan,
+                                    device=cuda)
+    counts = build.launch_counts()
+    want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                     backend="torch", device=cuda)
+    assert counts["routing_bwd_resident_f32"] >= 5
     for k in params:
         scale = want[k].abs().max().clamp_min(1e-12)
         assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k

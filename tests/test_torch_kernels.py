@@ -140,9 +140,13 @@ def test_every_kernel_has_a_launch_counter():
     assert set(build.REGISTRY) == {"im2col_patches_f32",
                                    "matmul_bias_act_f32",
                                    "votes_routing_f32", "primary_routing_f32",
+                                   "votes_routing_global_f32",
+                                   "votes_routing_2pass_f32",
                                    "matmul_at_b_f32", "col2im_patches_f32",
                                    "routing_bwd_resident_f32",
                                    "routing_bwd_streamed_f32",
+                                   "routing_bwd_global_f32",
+                                   "routing_bwd_2pass_f32",
                                    "caps_votes_f32", "routing_f32",
                                    "squash_f32", "squash_bwd_f32"}
     assert {k.library for k in build.REGISTRY.values()} == set(

@@ -162,11 +162,15 @@ def test_full_width_backward_streams_because_resident_cannot_fit():
 
 
 def test_bwd_plan_error_names_the_bwd_op():
+    # Under 30,000 B not even streamed-global (the logits in device memory)
+    # fits the backward at block_i=1: 40,748 B.
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
         execplan.plan_votes_routing_bwd(1152, 8, 160, 10,
-                                        smem_budget=60_000)
-    # A budget where the forward fits but the backward does not.
-    fwd = execplan.votes_routing_smem("streamed", 1152, 1, 8, 10, 160)
+                                        smem_budget=30_000)
+    # A budget where the forward fits (streamed-global, block_i=1) but the
+    # backward, 3 * J*D floats larger, does not.
+    fwd = execplan.votes_routing_smem(execplan.STREAMED_GLOBAL, 1152, 1, 8,
+                                      10, 160)
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
         execplan.compile_plan(capsnet_mnist.config(), batch=2,
                               smem_budget=fwd + 4, train=True)
@@ -199,11 +203,12 @@ def test_forward_alone_plans_no_routing_backward():
 
 
 def test_infeasible_routing_backward_raises_naming_the_bwd_op():
-    """No backward schedule fits 8000 capsules in a CTA: the forward runs
-    (on its explicit schedule) and the backward raises the planner's
+    """No backward schedule fits 16000 capsules in a CTA (their u alone,
+    256,000 B, is over the budget in every mode): the forward runs (on
+    its explicit schedule) and the backward raises the planner's
     PlanError for the ``-bwd`` op, with no fallback."""
-    u = torch.zeros(1, 8000, 4)
-    w = torch.zeros(8000, 20, 4, requires_grad=True)
+    u = torch.zeros(1, 16000, 4)
+    w = torch.zeros(16000, 20, 4, requires_grad=True)
     v = k34.votes_routing(u, w, num_classes=5, mode="streamed", block_i=128,
                           op_name="Hidden-Routing")
     with pytest.raises(PlanError, match="Hidden-Routing" + BWD_SUFFIX):
