@@ -29,7 +29,16 @@ streamed-global K4/K9 and K13 (the unfused oracle) against their twins
 and the fused kernels, one training gradient through the reversible
 segment K12 (and on the CIFAR-10 smoke config), the SVHN smoke config's
 pipelined plan, 20 full-width training steps, and the new kernels'
-times.  The weights are random, made from a seed.
+times.  Phase 13, LM serving, frees the CapsuleNet's tensors and serves
+``gemma2-9b`` at its published width (42 layers, 9.24 B parameters in
+fp32, drawn on the card): K16 (RMSNorm) and K15 (flash attention) against
+their twins at its shapes (prefill, a 4608-token window layer, decode at
+mixed lengths, the Tq > Tk rows, and head dims 64 and 128), one
+4608-token forward on the kernels backend against the plain one (logits
+and argmax), 8 requests through ``ServeEngine`` on both backends (tokens,
+finish order, and K15/K16 launches equal to 42 and 169 per forward
+call), the engine's times, and both kernels' times beside their bounds,
+twins and library calls.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -43,6 +52,7 @@ of one PyTorch library call computing the same function where one exists.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -86,6 +96,23 @@ SPLIT = (1e-4, 1e-5, "8-term votes, then sums over 1152 capsules through 3 "
          "the routing checks)")
 SQUASH = (1e-4, 1e-5, "a sum of up to 256 squares in another order, and "
           "rsqrtf")
+# Phase 13, LM serving: gemma2-9b at its published width.
+LM_ARCH = "gemma2-9b"
+LM_PROMPT = 4608                # one prompt past the 4096-token window
+LM_SLOTS = 4
+LM_MAX_LEN = 512
+LM_REQUESTS = 8
+LM_NEW_TOKENS = 16
+LM_PROMPT_LENGTHS = (17, 300)   # the engine's shortest and longest prompt
+FLASH = (2e-5, 2e-5, "the reference's own (tests/test_kernels.py:173-174): "
+         "fp32 logits over D <= 256 and sums over up to 4608 keys in "
+         "another order")
+RMS = (2e-5, 2e-5, "the reference's own fp32 tolerance: a sum of 3584 "
+       "squares in another order, and rsqrtf")
+RMS_BF16 = (2e-2, 2e-2, "the reference's bf16 tolerance: the output is "
+            "rounded to bf16 once")
+LOGITS = (1e-4, "fp32 through 42 layers, attention summed in another "
+          "order (online softmax over 64-key tiles)")
 
 
 def check(name: str, got, want, tol) -> dict:
@@ -727,6 +754,379 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                     train=train_counts.get(sym, 0))
 
 
+def attention_work(lens, tq: int, h: int, kvh: int, d: int, causal: bool,
+                   window: int | None, q_bytes: int = 4,
+                   kv_bytes: int = 4) -> tuple[float, float]:
+    """(bytes, flops) K15's function needs on these inputs: q read and o
+    written once, each row's visible keys read once from K and V, and
+    4 * D flops per (query, visible key) pair and head (q.k and p.v).  A
+    row with no valid key weighs all its keys (the mean-of-V rows)."""
+    import numpy as np
+    nbytes = flops = 0.0
+    for kv_len in lens:
+        pos = kv_len - tq + np.arange(tq)
+        hi = np.minimum(kv_len, pos + 1) if causal else np.full(tq, kv_len)
+        lo = (np.maximum(0, pos - window + 1) if window is not None
+              else np.zeros(tq, np.int64))
+        seen = np.maximum(hi - lo, 0)
+        seen = np.where(seen == 0, kv_len, seen)
+        keys = kv_len if (causal and pos[0] < 0) else hi.max() - lo.min()
+        flops += 4.0 * d * h * float(seen.sum())
+        nbytes += (2.0 * tq * h * d * q_bytes
+                   + 2.0 * float(keys) * kvh * d * kv_bytes)
+    return nbytes, flops
+
+
+def lm_serving(dev, rows: list[dict]) -> None:
+    """Phase 13, LM serving at the full width of ``gemma2-9b`` (42 layers,
+    d_model 3584, 16 heads over 8 KV heads of 256, d_ff 14336, vocab
+    256000, window 4096, softcaps 50/30): K16 and K15 against their twins
+    at its shapes (and K15 at granite's and chameleon's head dims), one
+    4608-token forward on the kernels backend against the plain one, 8
+    requests through ``ServeEngine`` on both backends, and the two
+    kernels' times beside their bounds, their twins and the library
+    calls.  Appends the K15 and K16 rows to ``rows``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as k15
+    from repro_torch.kernels import rmsnorm as k16
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = registry.get_config(LM_ARCH)
+    h, kvh, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.d_model
+    scale, cap, win = cfg.query_scale, cfg.attn_logit_softcap, \
+        cfg.sliding_window
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(s)
+
+    # 13a. K16 against its twin at gemma2's rows.
+    x = randn(LM_PROMPT, dm)
+    x4 = randn(LM_SLOTS, dm)
+    w = randn(dm, s=0.1)
+    xb = x.bfloat16()
+    with torch.no_grad():
+        for label, xx, tol in (("[4608, 3584] fp32", x, RMS),
+                               ("[4, 3584] fp32", x4, RMS),
+                               ("[4608, 3584] bf16", xb, RMS_BF16)):
+            got = k16.rmsnorm(xx, w)
+            r = check(f"rmsnorm {label}", got.float(),
+                      k16.rmsnorm_plain(xx, w).float(), tol)
+            if xx.dtype == torch.float32:
+                errs["rmsnorm"] = max(errs["rmsnorm"], r["max_abs"])
+
+    # 13b. K15 against its twin at gemma2's heads (and two other dims).
+    def qkv(b, tq, tk, hh=h, kk=kvh, dd=d):
+        return (randn(b, tq, hh, dd), randn(b, tk, kk, dd),
+                randn(b, tk, kk, dd))
+
+    mixed = [LM_PROMPT, LM_PROMPT - 508, 300, 17]   # two past the window
+    flash_cases = [
+        ("prefill T=128 global", qkv(1, 128, 128), None, {}),
+        ("prefill T=300 global (ragged tail)", qkv(1, 300, 300), None, {}),
+        ("prefill T=4608 local (window 4096)", qkv(1, LM_PROMPT, LM_PROMPT),
+         None, dict(window=win)),
+        ("prefill T=4608 global", qkv(1, LM_PROMPT, LM_PROMPT), None, {}),
+        ("decode Tq=1 local, kv_len " + str(mixed),
+         qkv(4, 1, LM_PROMPT), mixed, dict(window=win)),
+        ("decode Tq=1 global, kv_len " + str(mixed),
+         qkv(4, 1, LM_PROMPT), mixed, {}),
+        ("decode Tq=1, kv_len [5000, 0, 300, 17] (clamped to Tk; an empty "
+         "row is 0)", qkv(4, 1, LM_PROMPT), [5000, 0, 300, 17],
+         dict(window=win)),
+        ("Tq=300 > Tk=128 causal (mean-of-V rows)", qkv(1, 300, 128), None,
+         {}),
+        ("granite D=64 (H 32, KvH 8) T=300", qkv(1, 300, 300, 32, 8, 64),
+         None, dict(scale=None, softcap=None)),
+        ("chameleon D=128 (H 64, KvH 8) T=300",
+         qkv(1, 300, 300, 64, 8, 128), None, dict(scale=None, softcap=None)),
+    ]
+    with torch.no_grad():
+        for label, (q, k, v), lens, extra in flash_cases:
+            kw = dict(causal=True, window=None, softcap=cap, scale=scale)
+            kw.update(extra)
+            kv_len = (torch.tensor(lens, dtype=torch.int32, device=dev)
+                      if lens else None)
+            got = k15.flash_attention(q, k, v, kv_len=kv_len, **kw)
+            want = k15.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)
+            r = check(f"flash_attention {label}", got, want, FLASH)
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          r["max_abs"])
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # 13c. The full-width model: one 4608-token forward, kernels vs plain.
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 5),
+                          cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {count_params(cfg)} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    tokens = rng.integers(0, cfg.vocab_size, (1, LM_PROMPT))
+    per_forward = {"flash_attention": cfg.num_layers,
+                   "rmsnorm": 4 * cfg.num_layers + 1}
+    fwd_s = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = {}
+        for backend in ("kernels", "torch"):
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits[backend] = T.forward(params, tokens, cfg=cfg,
+                                        backend=backend)[0][0]
+            torch.cuda.synchronize()
+            fwd_s[backend] = time.perf_counter() - t0
+            counts = build.launch_counts()
+            want_counts = (per_forward if backend == "kernels"
+                           else dict.fromkeys(per_forward, 0))
+            got_counts = {kk: counts[kk] for kk in per_forward}
+            if got_counts != want_counts:
+                raise AssertionError(f"forward ({backend}): launches "
+                                     f"{got_counts}, expected {want_counts}")
+        lk, lt = logits["kernels"], logits["torch"]
+        logit_err = check_scaled(f"{LM_ARCH} logits [4608, 256000]", lk, lt,
+                                 LOGITS)
+        ak, at = lk.argmax(-1), lt.argmax(-1)
+        flips = torch.nonzero(ak != at).flatten().tolist()
+        for pos in flips:
+            gap = float(lt[pos, at[pos]] - lt[pos, ak[pos]])
+            print(f"  argmax differs at position {pos}: kernels "
+                  f"{int(ak[pos])}, plain {int(at[pos])}, plain gap "
+                  f"{gap:.3e}", flush=True)
+            if gap > 2 * logit_err:
+                raise AssertionError(f"argmax at position {pos} differs by "
+                                     f"more than the logits' error")
+        print(f"check {LM_ARCH} argmax: equal at {LM_PROMPT - len(flips)}/"
+              f"{LM_PROMPT} positions; the rest are ties within twice the "
+              f"max logit error {logit_err:.3e}", flush=True)
+        print(f"{LM_ARCH} forward of {LM_PROMPT} tokens: kernels "
+              f"{fwd_s['kernels']:.3f} s, plain {fwd_s['torch']:.3f} s; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del logits, lk, lt, ak, at
+    torch.cuda.empty_cache()
+
+    # 13d. The engine: 8 requests through 4 slots, kernels vs plain.
+    lo, hi = LM_PROMPT_LENGTHS
+    lengths = rng.integers(lo, hi + 1, LM_REQUESTS)
+    lengths[:2] = (lo, hi)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    gaps: dict[tuple[int, int], float] = {}
+
+    def recording_sampler(lg):           # the plain engine's decode gaps
+        if lg.shape[0] == LM_SLOTS:
+            for s_, req in enumerate(eng_r.active):
+                if req is not None:
+                    top = np.sort(lg[s_])[-2:]
+                    gaps[(req.rid, len(req.output))] = float(top[1] - top[0])
+        return np.argmax(lg, -1)
+
+    def serve(backend, sampler=None):
+        eng = ServeEngine(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          backend=backend, device=dev, sampler=sampler)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p,
+                               max_new_tokens=LM_NEW_TOKENS))
+        return eng
+
+    # Both timed runs take the argmax on the device; the plain top-2 gaps
+    # come from a third, untimed plain run whose sampler records them on
+    # the host (its tokens must equal the timed plain run's).
+    served = {}
+    for backend in ("kernels", "torch"):
+        eng = serve(backend)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        run_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+        served[backend] = dict(engine=eng, done=done, run_s=run_s,
+                               counts=counts)
+    eng_r = serve("torch", recording_sampler)
+    recorded = {r.rid: r.output for r in eng_r.run()}
+    if recorded != {r.rid: r.output for r in served["torch"]["done"]}:
+        raise AssertionError("the plain engine's tokens differ between its "
+                             "timed run and its recording run")
+    del eng_r
+    eng_k = served["kernels"]["engine"]
+    n_fwd = len(eng_k.timings["prefill_s"]) + len(eng_k.timings["decode_s"])
+    engine_counts = {kk: served["kernels"]["counts"][kk]
+                     for kk in per_forward}
+    want_counts = {kk: n * n_fwd for kk, n in per_forward.items()}
+    print(f"engine launches over {n_fwd} forward calls: {engine_counts}, "
+          f"expected {want_counts}", flush=True)
+    if engine_counts != want_counts:
+        raise AssertionError("the engine did not run every attention on "
+                             "K15 and every norm on K16")
+    order = {b: [r.rid for r in served[b]["done"]] for b in served}
+    if order["kernels"] != order["torch"]:
+        raise AssertionError(f"finish order differs: {order}")
+    by_rid = {b: {r.rid: r for r in served[b]["done"]} for b in served}
+    ties = 0
+    for rid in range(LM_REQUESTS):
+        ok_, ot_ = by_rid["kernels"][rid].output, by_rid["torch"][rid].output
+        if len(ok_) != LM_NEW_TOKENS or len(ot_) != LM_NEW_TOKENS:
+            raise AssertionError(f"request {rid}: {len(ok_)} / {len(ot_)} "
+                                 f"tokens, expected {LM_NEW_TOKENS}")
+        for j, (a_, b_) in enumerate(zip(ok_, ot_)):
+            if a_ == b_:
+                continue
+            if j == 0:
+                top = np.sort(by_rid["torch"][rid].prefill_logits)[-2:]
+                gap = float(top[1] - top[0])
+            else:
+                gap = gaps[(rid, j)]
+            print(f"  request {rid} token {j}: kernels {a_}, plain {b_}, "
+                  f"plain top-2 gap {gap:.3e}", flush=True)
+            if gap > 2 * logit_err:
+                raise AssertionError(f"request {rid} token {j} differs "
+                                     f"beyond a tie")
+            ties += 1
+            break                        # the continuations diverge
+    print(f"check engine tokens: {LM_REQUESTS - ties}/{LM_REQUESTS} requests "
+          f"equal to the plain engine's, {ties} diverge at a tie; finish "
+          f"order {order['kernels']}", flush=True)
+    stats = {}
+    for backend, sv in served.items():
+        tm = sv["engine"].timings
+        n_tok = sum(len(r.output) for r in sv["done"])
+        stats[backend] = dict(
+            prefill_ms_mean=1e3 * statistics.mean(tm["prefill_s"]),
+            prefill_ms=[1e3 * t_ for t_ in tm["prefill_s"]],
+            decode_ms_per_tick_median=1e3 * statistics.median(
+                tm["decode_s"]),
+            ticks=len(tm["decode_s"]), tokens=n_tok, run_s=sv["run_s"],
+            tokens_per_s=n_tok / sv["run_s"])
+    stats["prompt_lengths"] = lengths.tolist()
+    print(f"lm_engine: {json.dumps(stats)}", flush=True)
+
+    # 13e. Times at the path's shapes: K16 and K15 beside their bounds,
+    # their twins and the library calls (timed here, never called by the
+    # port); a profile of one decode tick and of the 4608 forward.
+    lens_dec = [int(n) + LM_NEW_TOKENS // 2 for n in lengths[:LM_SLOTS]]
+    kv_dec = torch.tensor(lens_dec, dtype=torch.int32, device=dev)
+    qd = randn(LM_SLOTS, 1, h, d)
+    kd, vd = eng_k.cache["blocks"]["s1"]["k"][0], \
+        eng_k.cache["blocks"]["s1"]["v"][0]
+    qp, kp, vp = qkv(1, LM_PROMPT, LM_PROMPT)
+    w1 = 1.0 + w
+    keymask = (torch.arange(LM_MAX_LEN, device=dev)[None]
+               < kv_dec[:, None].long())[:, None, None, :]
+
+    def sdpa(q_, k_, v_, **kw):
+        return F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            scale=scale, enable_gqa=True, **kw)
+
+    def fa_site(label, q_, k_, v_, kv_len, lens, window, softcap, lib):
+        kw = dict(kv_len=kv_len, causal=True, window=window,
+                  softcap=softcap, scale=scale)
+        nbytes, flops = attention_work(lens, q_.shape[1], h, kvh, d, True,
+                                       window)
+        return (label, lambda: k15.flash_attention(q_, k_, v_, **kw),
+                lambda: k15.flash_attention_plain(q_, k_, v_, **kw), lib,
+                nbytes, flops)
+
+    full = [LM_PROMPT]
+    with torch.no_grad():
+        fa_sites = timed_sites([
+            fa_site("prefill T=4608 global, softcap 50 (main path)", qp, kp,
+                    vp, None, full, None, cap, None),
+            fa_site("prefill T=4608 local (window 4096), softcap 50", qp, kp,
+                    vp, None, full, win, cap, None),
+            fa_site(f"decode 4 slots x Tq=1, kv_len {lens_dec} of a 512 "
+                    f"cache, softcap 50", qd, kd, vd, kv_dec, lens_dec, None,
+                    cap, lambda: sdpa(qd, kd, vd, attn_mask=keymask)),
+            fa_site("prefill T=4608 global, no softcap (vs SDPA)", qp, kp,
+                    vp, None, full, None, None,
+                    lambda: sdpa(qp, kp, vp, is_causal=True)),
+        ])
+        xd = x4
+
+        def rms_site(label, xx):
+            return (label, lambda: k16.rmsnorm(xx, w),
+                    lambda: k16.rmsnorm_plain(xx, w),
+                    lambda: F.rms_norm(xx, (dm,), w1.to(xx.dtype), 1e-6),
+                    2.0 * xx.numel() * xx.element_size() + 4.0 * dm,
+                    4.0 * xx.numel())
+
+        rms_sites = timed_sites([
+            rms_site("prefill [4608, 3584] fp32 (main path)", x),
+            rms_site("decode [4, 3584] fp32", xd),
+            rms_site("prefill [4608, 3584] bf16", xb)])
+        # K15's KV tile at the three head dims (plan_tiles picks 64, 32, 64
+        # keys for D = 64, 128, 256), each timed with both tiles.
+        tile_sweep = {}
+        for label, (hh, kk, dd, tt) in (("granite D=64 T=4096", (32, 8, 64,
+                                                                 4096)),
+                                        ("chameleon D=128 T=2048",
+                                         (64, 8, 128, 2048)),
+                                        ("gemma2 D=256 T=4608",
+                                         (h, kvh, d, LM_PROMPT))):
+            qs, ks, vs = qkv(1, tt, tt, hh, kk, dd)
+            for bk in k15.BLOCK_K_CHOICES:
+                tile_sweep[f"{label} block_k {bk}"] = device_ms(
+                    lambda bk=bk: k15.flash_attention(qs, ks, vs,
+                                                      softcap=cap,
+                                                      block_k=bk), reps=5)
+            tile_sweep[f"{label} planned"] = k15.plan_tiles(dd)[1]
+            del qs, ks, vs
+        print(f"flash_attention device ms by block_k: "
+              f"{json.dumps(tile_sweep)}", flush=True)
+        tok4 = torch.zeros(LM_SLOTS, 1, dtype=torch.long, device=dev)
+        len4 = torch.tensor(lens_dec, device=dev)
+        decode_profile = device_breakdown(lambda: T.forward(
+            params, tok4, cfg=cfg, cache=eng_k.cache, cache_index=len4,
+            backend="kernels"), reps=3, top=8)
+        prefill_profile = device_breakdown(lambda: T.forward(
+            params, tokens, cfg=cfg, backend="kernels", last_only=True),
+            reps=1, top=8)
+    print(f"lm profile, one decode tick (device ms by kernel): "
+          f"{json.dumps(decode_profile)}", flush=True)
+    print(f"lm profile, one 4608-token forward (device ms by kernel): "
+          f"{json.dumps(prefill_profile)}", flush=True)
+    for name, source, replaces, site_rows, lib_note in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:29", fa_sites,
+             "no PyTorch call computes the softcapped form: library_ms is "
+             "F.scaled_dot_product_attention (is_causal, enable_gqa) at the "
+             "main shape without softcap, against K15 without softcap in "
+             "the last site"),
+            ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:18",
+             rms_sites, "F.rms_norm(x, (D,), 1 + w, eps)")):
+        main_site = site_rows[0]
+        library_ms = (site_rows[-1]["library_ms"] if name == "flash_attention"
+                      else main_site["library_ms"])
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=replaces, launches=engine_counts[name],
+            forward_launches=per_forward[name], max_abs_err=errs[name],
+            ms=main_site["ms"], device_ms=main_site["device_ms"],
+            plain_ms=main_site["plain_ms"], bound_ms=main_site["bound_ms"],
+            bound_by=main_site["bound_by"], library_ms=library_ms,
+            library_note=lib_note,
+            tile_sweep=tile_sweep if name == "flash_attention" else None,
+            path=f"{LM_ARCH} served by ServeEngine(backend='kernels'): "
+                 f"{LM_REQUESTS} requests, {LM_SLOTS} slots",
+            sites=site_rows))
+    del params, eng_k, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -739,21 +1139,7 @@ def main() -> int:
         print("chip_smoke: the repro_torch package is not beside this "
               "script (run it from the root of a checkout)", file=sys.stderr)
         return 2
-    import numpy as np
-    import torch.nn.functional as F
-
-    from repro_torch.configs import capsnet_mnist
-    from repro_torch.core import capsnet, execplan
     from repro_torch.kernels import build
-    from repro_torch.kernels import caps_votes as k14a
-    from repro_torch.kernels import conv_im2col as k12
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import primary_routing as k5
-    from repro_torch.kernels import routing as k14b
-    from repro_torch.kernels import squash as k10
-    from repro_torch.kernels import votes_routing as k34
-    from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
-    from repro_torch.train import capsnet_loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -773,6 +1159,38 @@ def main() -> int:
     built = build.build()
     print(f"build: compiled {built or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 3.-12. The CapsuleNet phases; their tensors are freed on return.
+    rows = capsnet_phases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 13. LM serving at the full width of gemma2-9b.
+    lm_serving(dev, rows)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def capsnet_phases(dev) -> list[dict]:
+    """Phases 3-12 at the CapsuleNet's shapes; returns the kernels' rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import capsnet_mnist
+    from repro_torch.core import capsnet, execplan
+    from repro_torch.kernels import build
+    from repro_torch.kernels import caps_votes as k14a
+    from repro_torch.kernels import conv_im2col as k12
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import primary_routing as k5
+    from repro_torch.kernels import routing as k14b
+    from repro_torch.kernels import squash as k10
+    from repro_torch.kernels import votes_routing as k34
+    from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
+    from repro_torch.train import capsnet_loop
 
     # Full-width MNIST CapsuleNet, random weights from the seed.
     cfg = capsnet_mnist.config()
@@ -1453,11 +1871,7 @@ def main() -> int:
     deep_stacks(dev, rng, rows, dict(u=u, wcc=wcc, tu=tu, g=g,
                                      block_i=vr.block_i,
                                      bwd_block_i=vbwd.block_i))
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Model configurations of the port (the CapsuleNet ones ported so far)."""
+"""Model configurations of the port: the CapsuleNet archs and the dense
+LM archs ported so far (``registry``)."""

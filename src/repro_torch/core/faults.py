@@ -14,9 +14,10 @@ Sites wired in the port so far: ``train.step`` (``train/harness.py``:
 rollback runs, ``stall`` inflates the step's measured time) and the
 kernel wrappers' outputs in ``kernels/ops.py`` (``ops.conv2d``,
 ``ops.votes_routing``, ``ops.primary_routing``, ``ops.caps_votes``,
-``ops.routing``, ``ops.squash``, through ``corrupt_array``).  The other
-``ops.*`` and the ``engine.*`` names are kept for the sites still to be
-wired (the deep-stack segment, the LM kernels, the engine's ticks).
+``ops.routing``, ``ops.res_caps_segment``, ``ops.squash``, and the LM
+kernels' ``ops.rmsnorm`` and ``ops.flash_attention``, through
+``corrupt_array``).  The ``engine.*`` names are kept for the sites still
+to be wired (the engine's ticks).
 """
 
 from __future__ import annotations

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 LIBRARIES = ("conv_im2col", "votes_routing", "primary_routing", "conv_bwd",
-             "votes_routing_bwd", "caps_votes", "routing", "squash")
+             "votes_routing_bwd", "caps_votes", "routing", "squash",
+             "rmsnorm", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -152,10 +153,12 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+def on_cpu(name: str, *tensors: torch.Tensor,
+           dtypes: tuple = (torch.float32,), contiguous: bool = True) -> bool:
     """True when every tensor lies on the CPU (the wrapper then runs its
-    plain twin); False when all are contiguous fp32 on one CUDA device
-    (it launches its kernel).  Anything else raises."""
+    plain twin); False when all lie on one CUDA device, each of a type in
+    ``dtypes`` and (unless ``contiguous=False``) contiguous: the wrapper
+    then launches its kernel.  Anything else raises."""
     dev = tensors[0].device
     if all(t.device.type == "cpu" for t in tensors):
         return True
@@ -164,8 +167,18 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
             raise ValueError(f"{name}: tensors must share one CUDA device "
                              f"(or all lie on the CPU), got {t.device} and "
                              f"{dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expects float32, got {t.dtype}")
-        if not t.is_contiguous():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expects {' or '.join(map(str, dtypes))}"
+                            f", got {t.dtype}")
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
     return False
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record through a forward-only kernel: a
+    launch would cut the graph without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
+                           f"call it under torch.no_grad() or on tensors "
+                           f"that do not require grad")

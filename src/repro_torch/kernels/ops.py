@@ -3,14 +3,16 @@
 The counterparts of ``repro/kernels/ops.py``'s ``conv2d``,
 ``votes_routing``, ``primary_routing``, ``res_caps_segment`` (the
 reversible ResCaps segment, K12), the split path's ``caps_votes`` and
-``routing``, and ``squash``.  Tiles and schedules come from an
+``routing``, ``squash``, and the LM side's ``rmsnorm`` (K16) and
+``flash_attention`` (K15).  Tiles and schedules come from an
 ``ExecutionPlan`` (``repro_torch.core.execplan.compile_plan``) when one is
 passed; otherwise the planner's pick is computed once per shape and
 memoized in a bounded cache.  CPU tensors run the plain twins, CUDA
 tensors the kernels (see each kernel module).
 
 The conv, routing, segment and squash wrappers are differentiable
-(``caps_votes`` and ``routing`` are forward only, as in the reference).  The backward
+(``caps_votes``, ``routing``, ``rmsnorm`` and ``flash_attention`` are
+forward only, as in the reference).  The backward
 schedule comes from the plan's ``<op>-bwd`` entry on a training plan
 (``compile_plan(train=True)``); otherwise the routing backward plans its
 own when it runs (``votes_routing.planned_votes_routing_bwd``), so a
@@ -31,8 +33,11 @@ from repro_torch.core import execplan, faults
 from repro_torch.core.planner import SMEM_BYTES, MatmulWorkload, plan_matmul
 from repro_torch.kernels.caps_votes import caps_votes as _caps_votes
 from repro_torch.kernels.conv_im2col import conv2d_im2col, out_size
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.primary_routing import \
     primary_routing as _primary_routing
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.routing import routing as _routing
 from repro_torch.kernels.squash import squash as _squash
 from repro_torch.kernels.votes_routing import RoutingStatics
@@ -292,4 +297,41 @@ def squash(x: torch.Tensor, *, plan=None,
     out = _squash(x, block_rows=block_rows)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_SQUASH, out)
+    return out
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x [..., D] (fp32 or bf16), weight [D] -> RMSNorm with fp32
+    statistics in x's type (K16)."""
+    out = _rmsnorm(x, weight, eps=eps)
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_RMSNORM, out)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None,
+                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """q: [B, H, Tq, D], k/v: [B, KvH, Tk, D] -> [B, H, Tq, D] (K15).
+
+    The reference's signature and layout; its TPU tiles (``block_q``,
+    ``block_k``) give way to the shared-memory planner's
+    (``flash_attention.plan_tiles``).  K/V may hold fewer heads than q
+    (GQA by index), and ``kv_len`` gives each batch row its own key count
+    (``q_offset = kv_len - Tq``), clamped to ``0 .. Tk``; a row of no
+    keys returns 0.  The kernel reads the transposed views
+    in place; the result is a ``[B, H, Tq, D]`` view of ``[B, Tq, H, D]``
+    memory, so a caller in the model's layout transposes it back for
+    free."""
+    b, h, tq, d = q.shape
+    out = torch.empty((b, tq, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    _flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), kv_len=kv_len, causal=causal,
+                     window=window, softcap=softcap, scale=scale,
+                     out=out.transpose(1, 2))
+    if faults.enabled():                 # chaos-test site; zero cost when off
+        out = faults.corrupt_array(faults.SITE_FLASH_ATTENTION, out)
     return out

@@ -1,7 +1,6 @@
-"""Plain PyTorch oracles for the capsule kernels of this package: the
-counterparts of ``repro/kernels/ref.py``'s capsule entries.  Each is the
-ground truth the kernels and their schedule-following twins are held
-against."""
+"""Plain PyTorch oracles for the kernels of this package: the
+counterparts of ``repro/kernels/ref.py``.  Each is the ground truth the
+kernels and their schedule-following twins are held against."""
 
 from __future__ import annotations
 
@@ -51,3 +50,39 @@ def softmax_vjp(c: torch.Tensor, dc: torch.Tensor,
                 dim: int = -1) -> torch.Tensor:
     """VJP of a softmax over ``dim`` given its OUTPUT ``c``."""
     return c * (dc - torch.sum(c * dc, dim=dim, keepdim=True))
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + weight.float())
+            ).to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """q: [B, H, Tq, D], k/v: [B, H, Tk, D] -> [B, H, Tq, D] (fp32 softmax).
+
+    ``window`` is a sliding-window radius: query t attends to keys in
+    (t - window, t] (causal) -- Gemma-style local attention.  Query rows
+    align with the keys' end (``q_offset = Tk - Tq``, decode-friendly).
+    """
+    d = q.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    tq, tk = q.shape[2], k.shape[2]
+    qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)

@@ -1,1 +1,2 @@
-"""Serving of the port: the slot-batched CapsuleNet engine."""
+"""Serving of the port: the slot-batched CapsuleNet engine (``capsule``)
+and the slot-batched LM engine (``engine``)."""

@@ -198,6 +198,9 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     if args.arch is not None:
+        if registry.canonical(args.arch) in registry.LM_ARCHS:
+            ap.error(f"{args.arch} is an LM arch: LM training is not "
+                     f"ported yet (ROADMAP queue 1, item 11a)")
         try:
             cfg = (registry.get_smoke_config(args.arch) if args.smoke
                    else registry.get_config(args.arch))

@@ -298,3 +298,119 @@ def test_deep_stack_forward_and_backward_on_the_card(cuda, module):
     for k in params:
         scale = want[k].abs().max().clamp_min(1e-12)
         assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k
+
+
+# ---------------------------------------------------------------------------
+# LM side: K15 flash attention and K16 RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(7, 384), (33, 3584), (4, 8192)])
+def test_rmsnorm_kernel_matches_twin_on_the_card(cuda, rows, d, dtype):
+    from repro_torch.kernels import rmsnorm as k16
+    x = _rand(1, rows, d, device=cuda).to(dtype)
+    w = _rand(2, d, scale=0.1, device=cuda)
+    k16.RMSNORM.launches = 0
+    got = ops.rmsnorm(x, w)
+    assert k16.RMSNORM.launches == 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               k16.rmsnorm_plain(x, w).float(), rtol=tol,
+                               atol=tol)
+    # An unaligned row start takes the scalar path.
+    xs = x.reshape(-1)[1:1 + (rows - 1) * d].reshape(rows - 1, d)
+    torch.testing.assert_close(ops.rmsnorm(xs, w).float(),
+                               k16.rmsnorm_plain(xs, w).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("block_k", [None, 32, 64])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("case", ["prefill", "ragged", "window", "decode",
+                                  "no_key_rows", "bidir", "bf16_cache",
+                                  "bf16_model", "kv_len_past_tk",
+                                  "kv_len_zero"])
+def test_flash_kernel_matches_twin_on_the_card(cuda, d, case, block_k):
+    from repro_torch.kernels import flash_attention as k15
+    b, h, kvh = 2, 4, 2
+    tq, tk, kw, lens = {
+        "prefill": (128, 128, dict(softcap=50.0), None),
+        "ragged": (75, 75, dict(), None),
+        "window": (150, 150, dict(window=40, softcap=30.0), None),
+        "decode": (1, 300, dict(window=100), [300, 17]),
+        "no_key_rows": (40, 24, dict(), None),
+        "bidir": (33, 70, dict(causal=False, window=9), None),
+        "bf16_cache": (3, 90, dict(), [90, 50]),
+        "bf16_model": (70, 70, dict(softcap=50.0), None),
+        # kv_len is clamped to 0..Tk: no read past K/V, an empty row is 0.
+        "kv_len_past_tk": (4, 60, dict(window=20), [500, 33]),
+        "kv_len_zero": (5, 60, dict(), [0, 60]),
+    }[case]
+    q = _rand(3, b, tq, h, d, device=cuda)
+    k = _rand(4, b, tk, kvh, d, device=cuda)
+    v = _rand(5, b, tk, kvh, d, device=cuda)
+    if case == "bf16_cache":
+        k, v = k.bfloat16(), v.bfloat16()
+    tol = 2e-5
+    if case == "bf16_model":            # the output rounds to bf16 once
+        q, k, v, tol = q.bfloat16(), k.bfloat16(), v.bfloat16(), 2e-2
+    kv_len = (torch.tensor(lens, dtype=torch.int32, device=cuda)
+              if lens else None)
+    k15.FLASH.launches = 0
+    got = k15.flash_attention(q, k, v, kv_len=kv_len, block_k=block_k, **kw)
+    assert k15.FLASH.launches == 1
+    want = k15.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_footprint_model_matches_the_kernel(cuda):
+    """The planner's shared-memory model is the bytes the kernel asks
+    for at launch, for every tile the library is built for."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as k15
+    fn = build._library("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for d in k15.HEAD_DIMS:
+        for bk in k15.BLOCK_K_CHOICES:
+            assert fn(d, bk) == k15.smem_bytes(d, bk)
+
+
+def test_lm_kernels_refuse_grad_on_the_card(cuda):
+    x = torch.zeros(1, 4, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rmsnorm(x, torch.zeros(16, device=cuda))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(x, x, x)
+
+
+def test_gemma2_smoke_forward_and_engine_on_the_card(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = registry.get_smoke_config("gemma2-9b")
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          device=cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21))
+    build.reset_launch_counts()
+    with torch.no_grad():
+        got, _, _ = T.forward(params, toks, cfg=cfg, backend="kernels")
+        want, _, _ = T.forward(params, toks, cfg=cfg, backend="torch")
+    counts = build.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["rmsnorm"] == 4 * cfg.num_layers + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    with torch.no_grad():                   # fp32 q reading a bf16 cache
+        got, _ = T.prefill(params, toks, cfg, 32, backend="kernels")
+        want, _ = T.prefill(params, toks, cfg, 32, backend="torch")
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    outs = {}
+    for backend in ("kernels", "torch"):
+        eng = ServeEngine(params, cfg, slots=2, max_len=40, backend=backend,
+                          device=cuda)
+        for i, n in enumerate((12, 3, 20)):
+            eng.submit(Request(rid=i, prompt=toks[0, :n].astype(np.int32),
+                               max_new_tokens=5))
+        outs[backend] = [(r.rid, r.output) for r in eng.run()]
+    assert outs["kernels"] == outs["torch"]

@@ -148,7 +148,8 @@ def test_every_kernel_has_a_launch_counter():
                                    "routing_bwd_global_f32",
                                    "routing_bwd_2pass_f32",
                                    "caps_votes_f32", "routing_f32",
-                                   "squash_f32", "squash_bwd_f32"}
+                                   "squash_f32", "squash_bwd_f32",
+                                   "rmsnorm", "flash_attention"}
     assert {k.library for k in build.REGISTRY.values()} == set(
         build.LIBRARIES)
     assert all(isinstance(n, int) for n in build.launch_counts().values())

@@ -333,15 +333,17 @@ def _c_params(library: str, symbol: str) -> list[str]:
 
 def test_every_binding_matches_its_c_signature():
     """Each Kernel's argtypes: a pointer for each pointer parameter, a
-    64-bit int for ``long long`` and a 32-bit int for ``int``, in order."""
+    64-bit int for ``long long``, a C float for ``float`` and a 32-bit int
+    for ``int``, in order."""
     import ctypes
     from repro_torch.kernels import build
     want_type = {"ptr": ctypes.c_void_p, "long long": ctypes.c_longlong,
-                 "int": ctypes.c_int}
+                 "float": ctypes.c_float, "int": ctypes.c_int}
     for kernel in build.REGISTRY.values():
         params = _c_params(kernel.library, kernel.symbol)
         kinds = ["ptr" if "*" in p else
-                 "long long" if p.startswith("long long") else "int"
+                 "long long" if p.startswith("long long") else
+                 "float" if p.startswith("float") else "int"
                  for p in params]
         assert [want_type[k] for k in kinds] == list(kernel.argtypes), \
             kernel.symbol

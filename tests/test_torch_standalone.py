@@ -54,9 +54,18 @@ def _entry_points():
     from repro_torch.serve.capsule import CapsuleEngine
     from repro_torch.train import capsnet_loop
 
+    from repro_torch.configs import registry
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import init_model
+    from repro_torch.serve.engine import ServeEngine
+
     cfg = capsnet_mnist.smoke_config()
     params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
                                  device="cpu")
+    lm_cfg = registry.get_smoke_config("granite-3-2b")
+    lm_params = init_model(torch.Generator().manual_seed(0), lm_cfg,
+                           device="cpu")
+
     images = np.zeros((1, cfg.image_hw, cfg.image_hw, 1), np.float32)
     return {
         "forward": lambda: capsnet.forward(params, images, cfg),
@@ -73,6 +82,11 @@ def _entry_points():
         "CapsTrainLoop": lambda: capsnet_loop.CapsTrainLoop(
             capsnet_loop.SMOKE, capsnet_loop.CapsLoopConfig(total_steps=1)),
         "capsnet_loop.main": lambda: capsnet_loop.main(["--steps", "1"]),
+        "ServeEngine": lambda: ServeEngine(lm_params, lm_cfg),
+        "models.init_model": lambda: init_model(
+            torch.Generator().manual_seed(0), lm_cfg),
+        "lm_params_from_numpy": lambda: lm_params_from_numpy(
+            {"embed": np.zeros((4, 2), np.float32), "prefix": []}),
     }
 
 
@@ -80,9 +94,24 @@ def _entry_points():
                                    "init_params", "params_from_numpy",
                                    "CapsuleEngine", "total_loss",
                                    "opt_state_from_numpy", "CapsTrainLoop",
-                                   "capsnet_loop.main"])
+                                   "capsnet_loop.main", "ServeEngine",
+                                   "models.init_model",
+                                   "lm_params_from_numpy"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[entry]()
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "flash_attention"])
+def test_lm_kernel_wrappers_never_fall_back_to_the_twin(op):
+    """A tensor that is not on the CPU reaches the kernel or raises: the
+    wrappers take the twin only for CPU tensors."""
+    from repro_torch.kernels import ops
+    x = torch.zeros(1, 2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        if op == "rmsnorm":
+            ops.rmsnorm(x, torch.zeros(16, device="meta"))
+        else:
+            ops.flash_attention(x, x, x)
