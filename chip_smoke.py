@@ -7,13 +7,18 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds every kernel against its plain PyTorch twin on the card at the
-MNIST CapsuleNet's shapes (both routing schedules), runs the full-width
-forward on the pipelined and the per-op plan against the plain forward,
+MNIST CapsuleNet's shapes (both routing schedules; the K2 GEMM also at
+capsnet-svhn's PrimaryCaps shape, twice each for identical bits, then
+timed beside ``F.conv2d`` and ``torch.addmm`` with a sweep of its split
+of K), runs the full-width forward on the pipelined and the per-op plan
+against the plain forward,
 serves 32 seeded requests through ``CapsuleEngine``, and times each
 kernel at the engine's batch.  Then it trains: the backward kernels (K6
 dW, K7 col2im, K8/K9 routing backward) against their twins at the
-training shapes (batch 16), one full-width ``total_loss`` backward on
-both training plans against the plain backend's autograd gradients, 20
+training shapes (batch 16; K6 and the dpatches GEMM twice each for
+identical bits, then timed, K6 also on 128 x 128 tiles only against its
+plan), one full-width ``total_loss`` backward on both training plans
+against the plain backend's autograd gradients, 20
 SGD steps of ``CapsTrainLoop`` on the full-width network (the loss must
 fall) and 4 on the CLI's default smoke config, and the backward kernels'
 times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
@@ -88,6 +93,8 @@ TAPS = (1e-6, 1e-7, "up to 25 window taps summed in the twin's order: "
 # that cancel to near zero, so the error is normalised by the largest one.
 AT_B_SUM = (2e-5, "576- and 6400-term fp32 sums (K6's reduction, split "
             "across CTAs) in another order")
+DPATCHES = (1e-5, "256-term fp32 dot products (the dpatches GEMM, K2) in "
+            "another order")
 GRAD = (1e-4, "fp32 backward through 3 routing iterations and sums over "
         "up to 1152 capsules, 16 samples and 20,736-term GEMMs, in "
         "another order")
@@ -281,6 +288,54 @@ def conv_inputs(cfg, params, images):
                              cfg.pc_stride)
     return x1, squash(pre.reshape(images.shape[0], cfg.num_primary,
                                   cfg.primary_dim))
+
+
+def gemm_extras(row: dict, lib, *, split_k: int, ctas: int,
+                addmm) -> dict:
+    """A GEMM site's split and grid, and the device times of its library
+    call and of ``torch.addmm`` (timed here, never called by the port);
+    printed beside the kernel's."""
+    extra = dict(split_k=split_k, ctas=ctas, addmm_ms=time_ms(addmm),
+                 addmm_device_ms=device_ms(addmm),
+                 library_device_ms=device_ms(lib) if lib else None)
+    print(f"{row['op']}: split_k {split_k}, {ctas} CTAs, device "
+          f"{row['device_ms']} ms (bound {row['bound_ms']:.4f}); library "
+          f"{extra['library_device_ms']} ms, addmm "
+          f"{extra['addmm_device_ms']} ms device", flush=True)
+    return extra
+
+
+def same_bits(name: str, fn):
+    """Call ``fn`` twice; fail unless both results hold the same bits.
+    Returns the first."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"gave different bits")
+    print(f"check {name}: two launches, identical bits -> ok", flush=True)
+    return first
+
+
+def svhn_pc_inputs(dev):
+    """Seeded inputs of the PrimaryCaps conv at capsnet-svhn's serving
+    shape: a non-negative Conv1 output (a ReLU's) [SLOTS, 24, 24, 256],
+    He-normal HWIO weights and a small bias."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import capsnet_svhn
+    cfg = capsnet_svhn.config()
+    k = cfg.pc_kernel ** 2 * cfg.conv1_channels
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.tensor(rng.random((SLOTS, cfg.conv1_out, cfg.conv1_out,
+                                 cfg.conv1_channels), np.float32), device=dev)
+    w = torch.tensor((2.0 / k) ** 0.5 * rng.standard_normal(
+        (cfg.pc_kernel, cfg.pc_kernel, cfg.conv1_channels, cfg.pc_channels),
+        np.float32), device=dev)
+    b = torch.tensor(0.1 * rng.standard_normal(cfg.pc_channels, np.float32),
+                     device=dev)
+    return x, w, b
 
 
 def timed_sites(sites) -> list[dict]:
@@ -607,10 +662,29 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         ops.res_caps_segment(x, ws_, pairs, plan=tplan).sum().backward()
         return x.grad
 
+    def seg_bound(b: int, backward: bool) -> float:
+        """K12's bound: the sum of its kernels' bounds at the segment's
+        shapes (each half's forward, and with ``backward`` its backward;
+        the backward's recompute is the schedule's cost, not the
+        function's)."""
+        total = 0.0
+        for lyr in (lyr for pair in pairs for lyr in pair):
+            u_n = b * lyr.in_caps * lyr.in_dim
+            w_n = lyr.in_caps * lyr.jd * lyr.in_dim
+            args = (b, lyr.in_caps, lyr.in_dim, lyr.jd, lyr.iters)
+            total += bound(4.0 * (u_n + w_n + 2 * b * lyr.jd),
+                           routing_flops(*args))[0]
+            if backward:
+                total += bound(4.0 * (2 * (u_n + w_n) + b * lyr.jd),
+                               routing_bwd_flops(*args))[0]
+        return total
+
     with torch.no_grad():
         seg = dict(fwd_ms=time_ms(seg_fwd), fwd_device_ms=device_ms(seg_fwd))
     seg.update(fwd_bwd_ms=time_ms(seg_fwd_bwd),
-               fwd_bwd_device_ms=device_ms(seg_fwd_bwd))
+               fwd_bwd_device_ms=device_ms(seg_fwd_bwd),
+               fwd_bound_ms=seg_bound(SLOTS, False),
+               fwd_bwd_bound_ms=seg_bound(tb, True))
     print(f"svhn forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}; "
           f"train step median {step_ms:.2f} ms at batch {tb}; K12 segment "
           f"(2 blocks): {json.dumps(seg)}", flush=True)
@@ -1179,8 +1253,8 @@ def capsnet_phases(dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import capsnet_mnist
-    from repro_torch.core import capsnet, execplan
+    from repro_torch.configs import capsnet_mnist, capsnet_svhn
+    from repro_torch.core import capsnet, execplan, planner
     from repro_torch.kernels import build
     from repro_torch.kernels import caps_votes as k14a
     from repro_torch.kernels import conv_im2col as k12
@@ -1226,6 +1300,14 @@ def capsnet_phases(dev) -> list[dict]:
     swcc = sparams["cc_w"].reshape(slay.in_caps, slay.jd, slay.in_dim)
     swpc = sparams["pc_w"].reshape(-1, smoke.pc_channels)
     c1, pc = plan.op("Conv1").block, perop.op("PrimaryCaps").block
+    svcfg = capsnet_svhn.config()
+    svpc = execplan.compile_plan(svcfg, batch=SLOTS,
+                                 pipeline=False).op("PrimaryCaps").block
+    svx1, svw, svb = svhn_pc_inputs(dev)
+    psv = k12.im2col_patches_plain(svx1, kh=svcfg.pc_kernel,
+                                   kw=svcfg.pc_kernel, stride=svcfg.pc_stride)
+    psv = psv.reshape(psv.shape[0] * psv.shape[1], -1)
+    wsv = svw.reshape(-1, svcfg.pc_channels)
     vr, pr = perop.op(execplan.FUSED_NAME), plan.op(execplan.PIPE_NAME)
     svr, spr = sperop.op(execplan.FUSED_NAME), splan.op(execplan.PIPE_NAME)
     p1 = k12.im2col_patches_plain(images, kh=k1, kw=k1)
@@ -1247,20 +1329,27 @@ def capsnet_phases(dev) -> list[dict]:
     held("im2col_patches", "K1 im2col PrimaryCaps",
          k12.im2col_patches(x1, kh=kp, kw=kp, stride=cfg.pc_stride), ppc,
          EXACT)
-    held("matmul_bias_act", "K2 GEMM Conv1 bias+ReLU",
-         k12.matmul_bias_act(p1.reshape(m1, -1), w1, params["conv1_b"],
-                             block_m=c1.block_m, block_k=c1.block_k,
-                             block_n=c1.block_n, epilogue="relu"),
-         k12.matmul_bias_act_plain(p1.reshape(m1, -1), w1, params["conv1_b"],
-                                   epilogue="relu"), SHORT_SUM)
-    held("matmul_bias_act", "K2 GEMM PrimaryCaps bias+squash",
-         k12.matmul_bias_act(ppc.reshape(mpc, -1), wpc, params["pc_b"],
-                             block_m=pc.block_m, block_k=pc.block_k,
-                             block_n=pc.block_n, epilogue="squash",
-                             squash_dim=cfg.primary_dim),
-         k12.matmul_bias_act_plain(ppc.reshape(mpc, -1), wpc, params["pc_b"],
-                                   epilogue="squash",
-                                   squash_dim=cfg.primary_dim), LONG_SUM)
+    # K2 at each forward site (the SVHN PrimaryCaps shape on seeded
+    # inputs), against its twin summed in the kernel's split order; each
+    # twice, for identical bits.
+    gemm_sites = {
+        "Conv1": (p1.reshape(m1, -1), w1, params["conv1_b"], c1,
+                  dict(epilogue="relu"), SHORT_SUM),
+        "PrimaryCaps": (ppc.reshape(mpc, -1), wpc, params["pc_b"], pc,
+                        dict(epilogue="squash", squash_dim=cfg.primary_dim),
+                        LONG_SUM),
+        "PrimaryCaps (SVHN)": (psv, wsv, svb, svpc,
+                               dict(epilogue="squash",
+                                    squash_dim=svcfg.primary_dim), LONG_SUM)}
+    for label, (pp, ww, bb, blk, kw, tol) in gemm_sites.items():
+        print(f"K2 {label}: [{pp.shape[0]}, {pp.shape[1]}] x "
+              f"[{ww.shape[0]}, {ww.shape[1]}], tiles {blk.tiles}, split_k "
+              f"{blk.split_k}, {blk.ctas} CTAs", flush=True)
+        held("matmul_bias_act", f"K2 GEMM {label} {kw['epilogue']}",
+             same_bits(f"K2 GEMM {label}", lambda: k12.gemm_tiles(
+                 blk.tiles, pp, ww, bb, **kw)),
+             k12.matmul_bias_act_plain(pp, ww, bb, split_k=blk.split_k,
+                                       block_k=blk.block_k, **kw), tol)
     for (label, uu, ww, op) in (
             ("K4 votes_routing streamed, MNIST", u, wcc, vr),
             ("K3 votes_routing resident, smoke", su, swcc, svr)):
@@ -1362,7 +1451,24 @@ def capsnet_phases(dev) -> list[dict]:
     w1_oihw = params["conv1_w"].permute(3, 2, 0, 1)
     wpc_oihw = params["pc_w"].permute(3, 2, 0, 1)
     n1, npc = cfg.conv1_channels, cfg.pc_channels
-    kk1, kkpc = p1.shape[2], ppc.shape[2]
+    kkpc = ppc.shape[2]
+    svx1_nchw, svw_oihw = svx1.permute(0, 3, 1, 2), svw.permute(3, 2, 0, 1)
+
+    def k2_site(label, path, lib):
+        """A K2 site of ``gemm_sites``: the kernel on the plan's tiles and
+        split, its split-order twin, ``lib`` (``F.conv2d``) and, timed
+        beside it, ``torch.addmm`` (the same product, no epilogue)."""
+        pp, ww, bb, blk, kw, _ = gemm_sites[label]
+        (m_, k_), n_ = pp.shape, ww.shape[1]
+        return (label, path,
+                lambda: k12.gemm_tiles(blk.tiles, pp, ww, bb, **kw),
+                lambda: k12.matmul_bias_act_plain(
+                    pp, ww, bb, split_k=blk.split_k, block_k=blk.block_k,
+                    **kw), lib,
+                4.0 * (m_ * k_ + k_ * n_ + n_ + m_ * n_), 2.0 * m_ * k_ * n_,
+                dict(split_k=blk.split_k, ctas=blk.ctas,
+                     addmm=lambda: torch.addmm(bb, pp, ww)))
+
     sites = {
         "im2col_patches": [
             ("Conv1", "main",
@@ -1376,28 +1482,14 @@ def capsnet_phases(dev) -> list[dict]:
                                               stride=cfg.pc_stride), None,
              4.0 * (x1.numel() + ppc.numel()), 0.0)],
         "matmul_bias_act": [
-            ("Conv1", "main",
-             lambda: k12.matmul_bias_act(
-                 p1.reshape(m1, -1), w1, params["conv1_b"],
-                 block_m=c1.block_m, block_k=c1.block_k, block_n=c1.block_n,
-                 epilogue="relu"),
-             lambda: k12.matmul_bias_act_plain(
-                 p1.reshape(m1, -1), w1, params["conv1_b"], epilogue="relu"),
-             lambda: F.conv2d(x_nchw, w1_oihw, params["conv1_b"]),
-             4.0 * (m1 * kk1 + kk1 * n1 + n1 + m1 * n1),
-             2.0 * m1 * kk1 * n1),
-            ("PrimaryCaps", "per-op",
-             lambda: k12.matmul_bias_act(
-                 ppc.reshape(mpc, -1), wpc, params["pc_b"],
-                 block_m=pc.block_m, block_k=pc.block_k, block_n=pc.block_n,
-                 epilogue="squash", squash_dim=cfg.primary_dim),
-             lambda: k12.matmul_bias_act_plain(
-                 ppc.reshape(mpc, -1), wpc, params["pc_b"],
-                 epilogue="squash", squash_dim=cfg.primary_dim),
-             lambda: F.conv2d(x1_nchw, wpc_oihw, params["pc_b"],
-                              stride=cfg.pc_stride),
-             4.0 * (mpc * kkpc + kkpc * npc + npc + mpc * npc),
-             2.0 * mpc * kkpc * npc)],
+            k2_site("Conv1", "main",
+                    lambda: F.conv2d(x_nchw, w1_oihw, params["conv1_b"])),
+            k2_site("PrimaryCaps", "per-op",
+                    lambda: F.conv2d(x1_nchw, wpc_oihw, params["pc_b"],
+                                     stride=cfg.pc_stride)),
+            k2_site("PrimaryCaps (SVHN)", "svhn",
+                    lambda: F.conv2d(svx1_nchw, svw_oihw, svb,
+                                     stride=svcfg.pc_stride))],
         "votes_routing": [
             (execplan.FUSED_NAME, "per-op",
              lambda: k34.votes_routing(u, wcc, mode=vr.mode,
@@ -1447,13 +1539,16 @@ def capsnet_phases(dev) -> list[dict]:
     for kernel, kernel_sites in sites.items():
         source, replaces, path = meta[kernel]
         site_rows = []
-        for (op, on, fn, plain, lib, nbytes, flops) in kernel_sites:
+        for (op, on, fn, plain, lib, nbytes, flops, *extra) in kernel_sites:
             bms, by = bound(nbytes, flops)
             site_rows.append(dict(
                 op=op, path=on, ms=time_ms(fn), device_ms=device_ms(fn),
                 plain_ms=time_ms(plain),
                 library_ms=time_ms(lib) if lib is not None else None,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+            if extra:
+                site_rows[-1].update(gemm_extras(site_rows[-1], lib,
+                                                 **extra[0]))
         main = [s for s in site_rows if s["path"] == path]
         counts = serve_launches if path == "main" else launches["per-op"]
         libs = [s["library_ms"] for s in main]
@@ -1476,6 +1571,24 @@ def capsnet_phases(dev) -> list[dict]:
                   else "forward, per-op plan"),
             sites=site_rows))
 
+    # K2's split of K at the PrimaryCaps sites: the plan's, half and twice
+    # it, and none (one CTA per tile, as the TPU's grid walked K); device
+    # ms, the plan's pick beside the splits it passed over.
+    k2_row = next(r for r in rows if r["name"] == "matmul_bias_act")
+    k2_row["split_sweep"] = {}
+    for label in ("PrimaryCaps", "PrimaryCaps (SVHN)"):
+        pp, ww, bb, blk, kw, _ = gemm_sites[label]
+        tiles = blk.ctas // blk.split_k
+        for want in sorted({1, max(1, blk.split_k // 2), blk.split_k,
+                            2 * blk.split_k}):
+            split = planner.split_slab(pp.shape[1], want, blk.block_k)[0]
+            t = device_ms(lambda split=split: k12.gemm_tiles(
+                blk.tiles[:3] + (split,), pp, ww, bb, **kw), reps=5)
+            k2_row["split_sweep"][f"{label} split_k {split}"] = t
+            print(f"K2 {label} split_k {split} ({tiles * split} CTAs"
+                  f"{', the plan' if split == blk.split_k else ''}): "
+                  f"device {t} ms", flush=True)
+
     # 7. The backward kernels against their twins at the training shapes.
     tb = TRAIN_BATCH
     timages = torch.tensor(
@@ -1493,6 +1606,7 @@ def capsnet_phases(dev) -> list[dict]:
 
     dpre1 = randn(tm1, cfg.conv1_channels, scale=1e-3)
     dprepc = randn(tmpc, cfg.pc_channels, scale=1e-3)
+    npc_ = cfg.pc_channels
     dpatch = randn(tb, tppc.shape[1], tppc.shape[2], scale=1e-3)
     g = randn(tb, lay.jd, scale=1e-2)
     su16 = conv_inputs(smoke, sparams, torch.tensor(
@@ -1519,11 +1633,23 @@ def capsnet_phases(dev) -> list[dict]:
             err = check_scaled(name, got, want, tol)
         berrs[kernel] = max(berrs.get(kernel, 0.0), err)
 
-    held_scaled("matmul_at_b", "K6 dW PrimaryCaps",
-                k12.matmul_at_b(apc, dprepc),
-                k12.matmul_at_b_plain(apc, dprepc), AT_B_SUM)
-    held_scaled("matmul_at_b", "K6 dW Conv1", k12.matmul_at_b(a1, dpre1),
-                k12.matmul_at_b_plain(a1, dpre1), AT_B_SUM)
+    for label, aa, dd in (("PrimaryCaps", apc, dprepc), ("Conv1", a1, dpre1)):
+        held_scaled("matmul_at_b", f"K6 dW {label}",
+                    same_bits(f"K6 dW {label}",
+                              lambda aa=aa, dd=dd: k12.matmul_at_b(aa, dd)),
+                    k12.matmul_at_b_plain(aa, dd), AT_B_SUM)
+    # The dpatches GEMM (K2 on the training plan's dx tiles): dpre W^T.
+    dxb = tperop.bwd_op("PrimaryCaps").dx_block
+    wpc_t = wpc.t().contiguous()
+    zero_k = torch.zeros(wpc.shape[0], device=dev)
+    print(f"K2 dpatches: [{tmpc}, {npc_}] x [{npc_}, {wpc.shape[0]}], tiles "
+          f"{dxb.tiles}, split_k {dxb.split_k}, {dxb.ctas} CTAs", flush=True)
+    held_scaled("matmul_bias_act", "K2 dpatches PrimaryCaps-bwd",
+                same_bits("K2 dpatches", lambda: k12.gemm_tiles(
+                    dxb.tiles, dprepc, wpc_t, zero_k)),
+                k12.matmul_bias_act_plain(dprepc, wpc_t, zero_k,
+                                          split_k=dxb.split_k,
+                                          block_k=dxb.block_k), DPATCHES)
     col_kw = dict(kh=kp, kw=kp, stride=cfg.pc_stride, h=h, w=w_)
     r = check("K7 col2im PrimaryCaps", k12.col2im_patches(dpatch, **col_kw),
               k12.col2im_patches_plain(dpatch, **col_kw), TAPS)
@@ -1608,13 +1734,13 @@ def capsnet_phases(dev) -> list[dict]:
            lambda: k12.matmul_at_b_plain(apc, dprepc),
            lambda: torch.matmul(apc.t(), dprepc),
            4.0 * (apc.numel() + dprepc.numel() + apc.shape[1] * npc),
-           2.0 * tmpc * apc.shape[1] * npc),
+           2.0 * tmpc * apc.shape[1] * npc, tmpc, apc.shape[1], npc),
           ("Conv1-bwd",
            lambda: k12.matmul_at_b(a1, dpre1),
            lambda: k12.matmul_at_b_plain(a1, dpre1),
            lambda: torch.matmul(a1.t(), dpre1),
            4.0 * (a1.numel() + dpre1.numel() + a1.shape[1] * n1),
-           2.0 * tm1 * a1.shape[1] * n1)]),
+           2.0 * tm1 * a1.shape[1] * n1, tm1, a1.shape[1], n1)]),
         ("col2im_patches", "conv_bwd.cu",
          "src/repro/kernels/conv_im2col.py:275",
          [("PrimaryCaps-bwd",
@@ -1649,13 +1775,23 @@ def capsnet_phases(dev) -> list[dict]:
                   else main_counts)
         steps = 4 if kernel == "routing_bwd_resident" else TRAIN_STEPS
         site_rows = []
-        for (op, fn, plain, lib, nbytes, flops) in kernel_sites:
+        for (op, fn, plain, lib, nbytes, flops, *shape) in kernel_sites:
             bms, by = bound(nbytes, flops)
             site_rows.append(dict(
                 op=op, ms=time_ms(fn), device_ms=device_ms(fn),
                 plain_ms=time_ms(plain),
                 library_ms=time_ms(lib) if lib is not None else None,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+            if shape:                  # K6: its split of M and its grid
+                sched = planner.at_b_plan(*shape)
+                site_rows[-1].update(splits=sched.splits, rows=sched.rows,
+                                     wide_rows=sched.wide_rows,
+                                     ctas=sched.ctas,
+                                     library_device_ms=device_ms(lib))
+                print(f"K6 {op}: {sched}, device "
+                      f"{site_rows[-1]['device_ms']} ms (bound {bms:.4f}); "
+                      f"torch.matmul {site_rows[-1]['library_device_ms']} "
+                      f"ms device", flush=True)
         libs = [s_["library_ms"] for s_ in site_rows]
         t_bytes = sum(s_["bytes"] for s_ in site_rows) / PEAK_HBM_BYTES * 1e3
         t_ops = sum(s_["flops"] for s_ in site_rows) / PEAK_FP32_FLOPS * 1e3
@@ -1677,6 +1813,43 @@ def capsnet_phases(dev) -> list[dict]:
                   if kernel == "routing_bwd_resident"
                   else "train, MNIST full width, pipelined train plan"),
             sites=site_rows))
+    # The dpatches GEMM, a site of K2's row on the training path.
+    k2_row = next(r for r in rows if r["name"] == "matmul_bias_act")
+    kpc = wpc.shape[0]
+    dsite = timed_sites([(
+        "PrimaryCaps-bwd dpatches (16)",
+        lambda: k12.gemm_tiles(dxb.tiles, dprepc, wpc_t, zero_k),
+        lambda: k12.matmul_bias_act_plain(dprepc, wpc_t, zero_k,
+                                          split_k=dxb.split_k,
+                                          block_k=dxb.block_k),
+        lambda: torch.addmm(zero_k, dprepc, wpc_t),
+        4.0 * (tmpc * npc + npc * kpc + kpc + tmpc * kpc),
+        2.0 * tmpc * npc * kpc)])[0]
+    dsite.update(path="train", split_k=dxb.split_k, ctas=dxb.ctas,
+                 library_device_ms=device_ms(
+                     lambda: torch.addmm(zero_k, dprepc, wpc_t)))
+    print(f"K2 dpatches: split_k {dxb.split_k}, {dxb.ctas} CTAs, device "
+          f"{dsite['device_ms']} ms (bound {dsite['bound_ms']:.4f}); addmm "
+          f"{dsite['library_device_ms']} ms device", flush=True)
+    k2_row["sites"].append(dsite)
+    # K6's schedule at the PrimaryCaps dW: the plan's against every tile
+    # 128 x 128 (one CTA per tile over all of M, the TPU grid's shape).
+    k6_row = next(r for r in rows if r["name"] == "matmul_at_b")
+    sched = planner.at_b_plan(tmpc, kpc, npc)
+    assert sched.splits == 1, sched
+    out_ = torch.empty(kpc, npc, device=dev)
+    k6_row["schedule_sweep"] = {}
+    for label, wide in (("the plan", sched.wide_rows),
+                        ("128 x 128 tiles only", kpc)):
+        t = device_ms(lambda wide=wide: k12.AT_B(
+            build.ptr(apc), build.ptr(dprepc), build.ptr(out_),
+            build.ptr(out_), tmpc, kpc, npc, 1, sched.rows, wide,
+            build.stream_of(apc)), reps=10)
+        k6_row["schedule_sweep"][label] = dict(wide_rows=wide, device_ms=t)
+        print(f"K6 PrimaryCaps dW, {label} (wide rows {wide} of {kpc}): "
+              f"device {t} ms", flush=True)
+    k2_row["max_abs_err"] = max(k2_row["max_abs_err"],
+                                berrs["matmul_bias_act"])
     print(f"train ms per step at batch {tb}: {json.dumps(train_ms)}",
           flush=True)
 

@@ -5,7 +5,10 @@ H100.  ``compile_plan`` turns a ``CapsNetConfig`` into one ``OpPlan`` per
 executed kernel call, with the reference's op names:
 
   Conv1, PrimaryCaps   ``conv_im2col``: patch extraction (K1) + the tiled
-                       GEMM (K2) over ``planner.plan_matmul``'s tiles.
+                       GEMM (K2) over ``planner.plan_matmul``'s tiles and
+                       K split (PrimaryCaps's long K is cut across CTAs
+                       so the grid fills the card; its partials count in
+                       the op's global bytes).
                        PrimaryCaps fuses the capsule squash into the GEMM
                        epilogue when a tile width that is a multiple of
                        the capsule size exists (every capsule up to 128
@@ -66,8 +69,7 @@ import functools
 from repro_torch.core.capsnet import ROUTING_NAME, CapsNetConfig
 from repro_torch.core.planner import (AT_B_SMEM_BYTES, ELEM_BYTES,
                                       NUM_SMS, SMEM_BYTES, BlockPlan,
-                                      MatmulWorkload, at_b_splits,
-                                      plan_matmul)
+                                      MatmulWorkload, at_b_plan, plan_matmul)
 
 FUSED_NAME = ROUTING_NAME
 PIPE_NAME = "PrimaryCaps-Routing"
@@ -186,7 +188,7 @@ class ExecutionPlan:
 
     def summary(self) -> list[dict]:
         def tiles(b):
-            return (b.block_m, b.block_k, b.block_n) if b else None
+            return b.tiles if b else None
         return [dict(name=op.name, kernel=op.kernel, block=tiles(op.block),
                      dx_block=tiles(op.dx_block), block_rows=op.block_rows,
                      block_i=op.block_i, block_k=op.block_k, mode=op.mode,
@@ -582,7 +584,7 @@ def _conv_bwd_op(fwd: OpPlan, wl: MatmulWorkload, in_elems: int,
         raise PlanError(f"{fwd.name}{BWD_SUFFIX}: no feasible dpatches "
                         f"tiling: {err}") from None
     patches = wl.m * wl.k
-    splits, _ = at_b_splits(wl.m, wl.k, wl.n)
+    splits = at_b_plan(wl.m, wl.k, wl.n).splits
     elems = (in_elems + patches                           # K1 recompute
              + patches + wl.m * wl.n + wl.k * wl.n        # K6
              + (2 * splits * wl.k * wl.n if splits > 1 else 0))

@@ -18,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.planner import TILE_MN, at_b_splits, gemm_tile_n
+from repro_torch.core.planner import (AT_B_STEP, TILE_K, TILE_MN,
+                                      at_b_plan, gemm_tile_n, split_slab)
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
 
@@ -28,8 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 PATCHES = Kernel("conv_im2col", "im2col_patches_f32",
                  [_P, _P] + [_I] * 7 + [_P])
 GEMM = Kernel("conv_im2col", "matmul_bias_act_f32",
-              [_P] * 4 + [_I] * 9 + [_P])
-AT_B = Kernel("conv_bwd", "matmul_at_b_f32", [_P] * 4 + [_I] * 5 + [_P])
+              [_P] * 5 + [_I] * 11 + [_P])
+AT_B = Kernel("conv_bwd", "matmul_at_b_f32", [_P] * 4 + [_I] * 6 + [_P])
 COL2IM = Kernel("conv_bwd", "col2im_patches_f32", [_P, _P] + [_I] * 7 + [_P])
 
 
@@ -72,9 +73,21 @@ def im2col_patches(x: torch.Tensor, *, kh: int, kw: int,
 
 def matmul_bias_act_plain(p: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, *, epilogue: str = "none",
-                          squash_dim: int = 0) -> torch.Tensor:
-    """epilogue(p @ w + bias) with the reference's epilogues."""
-    out = p @ w + bias
+                          squash_dim: int = 0, split_k: int = 1,
+                          block_k: int = 16) -> torch.Tensor:
+    """epilogue(p @ w + bias) with the reference's epilogues.  With
+    ``split_k > 1``, K is cut as K2 cuts it (``planner.split_slab`` on
+    ``block_k``): one partial product per slab, summed in slab order,
+    then the bias and the epilogue."""
+    if split_k > 1:
+        _, slab = split_slab(p.shape[1], split_k, block_k)
+        out = None
+        for k0 in range(0, p.shape[1], slab):
+            part = p[:, k0:k0 + slab] @ w[k0:k0 + slab]
+            out = part if out is None else out + part
+        out = out + bias
+    else:
+        out = p @ w + bias
     if epilogue == "relu":
         out = torch.relu(out)
     elif epilogue == "squash":
@@ -86,15 +99,18 @@ def matmul_bias_act_plain(p: torch.Tensor, w: torch.Tensor,
 
 def matmul_bias_act(p: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
                     block_m: int = 64, block_k: int = 16, block_n: int = 64,
-                    epilogue: str = "none",
-                    squash_dim: int = 0) -> torch.Tensor:
+                    epilogue: str = "none", squash_dim: int = 0,
+                    split_k: int = 1) -> torch.Tensor:
     """K2: p [M, K], w [K, N], bias [N] -> epilogue(p @ w + bias) [M, N].
 
     ``epilogue="squash"`` squashes every ``squash_dim`` consecutive
     output channels as one capsule, which needs ``block_n`` and N to be
-    multiples of ``squash_dim`` so no capsule straddles a tile.  On CUDA
-    ``block_m`` must be one of ``planner.TILE_MN`` and ``block_n`` at
-    most its widest entry.
+    multiples of ``squash_dim`` so no capsule straddles a tile.
+    ``split_k`` CTAs share each output tile's K (``planner.plan_matmul``
+    picks it); their partials are summed in order, so the result is the
+    same on every launch.  On CUDA ``block_m`` must be one of
+    ``planner.TILE_MN``, ``block_k`` one of ``planner.TILE_K`` and
+    ``block_n`` at most the widest ``TILE_MN``.
     """
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -110,28 +126,47 @@ def matmul_bias_act(p: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
         raise ValueError(
             f"squash epilogue needs a positive capsule dim dividing both "
             f"block_n ({block_n}) and N ({n}); got squash_dim={squash_dim}")
+    if split_k < 1:
+        raise ValueError(f"matmul_bias_act: split_k={split_k} < 1")
     if on_cpu("matmul_bias_act", p, w, bias):
         return matmul_bias_act_plain(p, w, bias, epilogue=epilogue,
-                                     squash_dim=squash_dim)
-    if block_m not in TILE_MN or block_k < 1:
+                                     squash_dim=squash_dim, split_k=split_k,
+                                     block_k=block_k)
+    if block_m not in TILE_MN or block_k not in TILE_K:
         raise ValueError(f"matmul_bias_act: block_m={block_m} is not one of "
-                         f"{TILE_MN}, or block_k={block_k} < 1")
+                         f"{TILE_MN}, or block_k={block_k} not one of "
+                         f"{TILE_K}")
+    split_k, slab = split_slab(k, split_k, block_k)
     out = torch.empty((m, n), dtype=p.dtype, device=p.device)
-    GEMM(ptr(p), ptr(w), ptr(bias), ptr(out), m, n, k, block_m,
-         gemm_tile_n(block_n), block_n, block_k, EPILOGUES.index(epilogue),
-         squash_dim, stream_of(p))
+    part = (torch.empty((split_k, m, n), dtype=p.dtype, device=p.device)
+            if split_k > 1 else out)
+    GEMM(ptr(p), ptr(w), ptr(bias), ptr(out), ptr(part), m, n, k, block_m,
+         gemm_tile_n(block_n), block_n, block_k, split_k, slab,
+         EPILOGUES.index(epilogue), squash_dim, stream_of(p))
+    return out
+
+
+def _at_b_stepped(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T b`` as one K6 CTA sums it: ``AT_B_STEP`` rows at a time, each
+    step's product added to the running tile."""
+    out = None
+    for s0 in range(0, a.shape[0], AT_B_STEP):
+        step = a[s0:s0 + AT_B_STEP].t() @ b[s0:s0 + AT_B_STEP]
+        out = step if out is None else out + step
     return out
 
 
 def matmul_at_b_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a^T @ b`` as K6 computes it: the M axis cut into the kernel's
-    splits (``planner.at_b_splits``), one partial product per split, the
-    partials summed in split order."""
+    """``a^T @ b`` in K6's order (``planner.at_b_plan``): each tile over
+    all of M, or over the plan's splits of M with the partials summed in
+    split order."""
     m, k = a.shape
-    _, rows = at_b_splits(m, k, b.shape[1])
+    plan = at_b_plan(m, k, b.shape[1])
+    if plan.splits == 1:
+        return _at_b_stepped(a, b)
     out = None
-    for r0 in range(0, m, rows):
-        part = a[r0:r0 + rows].t() @ b[r0:r0 + rows]
+    for m0 in range(0, m, plan.rows):
+        part = _at_b_stepped(a[m0:m0 + plan.rows], b[m0:m0 + plan.rows])
         out = part if out is None else out + part
     return out
 
@@ -148,12 +183,12 @@ def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     if on_cpu("matmul_at_b", a, b):
         return matmul_at_b_plain(a, b)
-    splits, rows = at_b_splits(m, k, n)
+    plan = at_b_plan(m, k, n)
     out = torch.empty((k, n), dtype=a.dtype, device=a.device)
-    partial = (torch.empty((splits, k, n), dtype=a.dtype, device=a.device)
-               if splits > 1 else out)
-    AT_B(ptr(a), ptr(b), ptr(out), ptr(partial), m, k, n, splits, rows,
-         stream_of(a))
+    partial = (torch.empty((plan.splits, k, n), dtype=a.dtype,
+                           device=a.device) if plan.splits > 1 else out)
+    AT_B(ptr(a), ptr(b), ptr(out), ptr(partial), m, k, n, plan.splits,
+         plan.rows, plan.wide_rows, stream_of(a))
     return out
 
 
@@ -205,8 +240,8 @@ class ConvStatics(NamedTuple):
     backward's pre-activation recompute) and the dpatches GEMM's."""
 
     stride: int
-    block: tuple[int, int, int]          # (block_m, block_k, block_n)
-    dx_block: tuple[int, int, int]
+    block: tuple[int, ...]        # (block_m, block_k, block_n[, split_k])
+    dx_block: tuple[int, ...]
     epilogue: str
     squash_dim: int
 
@@ -218,17 +253,17 @@ def _geometry(st: ConvStatics, x: torch.Tensor, w: torch.Tensor):
     return b * oh * ow, kh * kw * cin, cout, oh, ow
 
 
-def gemm_tiles(block: tuple[int, int, int], p2, w2, bias,
-               **kw) -> torch.Tensor:
-    """``matmul_bias_act`` on ``block = (block_m, block_k, block_n)``."""
-    bm, bk, bn = block
+def gemm_tiles(block: tuple[int, ...], p2, w2, bias, **kw) -> torch.Tensor:
+    """``matmul_bias_act`` on ``block = (block_m, block_k, block_n)`` or
+    ``(block_m, block_k, block_n, split_k)`` (``BlockPlan.tiles``)."""
+    bm, bk, bn, *split = block
     return matmul_bias_act(p2, w2, bias, block_m=bm, block_k=bk, block_n=bn,
-                           **kw)
+                           split_k=split[0] if split else 1, **kw)
 
 
 def conv_bwd_from_dpre(dpre: torch.Tensor, p2: torch.Tensor | None,
                        w: torch.Tensor, *, stride: int,
-                       dx_block: tuple[int, int, int], x_shape,
+                       dx_block: tuple[int, ...], x_shape,
                        need: tuple[bool, bool, bool]):
     """(dx, dW, dbias) of a conv from the cotangent of its pre-activation
     ``dpre [M, Cout]``: dbias sums it, K6 gives dW = patches^T dpre (``p2``
@@ -303,8 +338,8 @@ class _Conv(torch.autograd.Function):
 
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
                   stride: int = 1,
-                  block: tuple[int, int, int] = (64, 16, 64),
-                  dx_block: tuple[int, int, int] = (64, 16, 64),
+                  block: tuple[int, ...] = (64, 16, 64),
+                  dx_block: tuple[int, ...] = (64, 16, 64),
                   epilogue: str = "none",
                   squash_dim: int = 0) -> torch.Tensor:
     """VALID conv as an im2col GEMM: x [B,H,W,Cin], w [KH,KW,Cin,Cout]

@@ -5,19 +5,31 @@
 // col2im_patches), both called by _conv_core_bwd and by
 // primary_routing.py's _pr_grad.
 //
-// K6 computes out[K, N] = A[M, K]^T B[M, N] with M the reduction, reading A
-// row by row so no transpose of the patch matrix is ever stored.  A CTA of
-// 256 threads owns a 64 x 64 output tile, each thread a 4 x 4 micro-tile in
-// registers (IEEE fp32 FMA, no tensor cores); the reduction walks 16 rows of
-// A and B at a time through shared memory, each row loaded with coalesced
-// 256-byte reads.  It is bound by fp32 operations: at PrimaryCaps, batch 16,
-// 2 * 576 * 20,736 * 256 = 6.1 GFLOP, 0.091 ms at 67 TFLOP/s.  There the
-// output alone gives 324 x 4 CTAs.  At Conv1 the output is only [81, 256]
-// (8 CTAs) over a 6400-long reduction, so the wrapper splits M across CTAs
-// (planner.at_b_splits, about two CTAs per SM); each split writes its
-// partial tile, and a second pass sums the partials in split order.  That
-// keeps the result deterministic, which atomics would not.
-//
+// K6 computes out[K, N] = A[M, K]^T B[M, N], the reduction over M.  It is
+// bound by fp32 operations: at PrimaryCaps, batch 16, 2 * 576 * 20,736 *
+// 256 = 6.1 GFLOP, 0.091 ms at 67 TFLOP/s.  The TPU kernel
+// (conv_im2col.py:226 _at_b_kernel) walks M in blocks per output tile,
+// adding each block's product to the tile.  K6 runs on the shared core of
+// gemm_sm90.cuh, where 128 x 128 tiles and float4 shared-memory reads
+// take 4 loads per 64 FMAs: A's and B's row slabs [m][k] and [m][n] are
+// already the outer-product layout (A "M-major" there), so both stream
+// through the 3-stage cp.async ring as float4 and no transpose is ever
+// stored.  Each 16-row stage is summed apart and added to the tile, the
+// TPU kernel's order, so kernel, twin and reference agree; the stage
+// sums cost one add per 16 FMAs and 64 registers a thread, which hold the
+// 128 x 128 tile to one CTA an SM.  The PrimaryCaps
+// dW's 162 x 2 tiles of 128 x 128 make 2.45 waves of 132 CTAs, so
+// planner.at_b_plan runs the rows of tiles that fill whole waves on
+// 128 x 128 tiles and the rest on 128 x 64 tiles, half the work each, in
+// a second launch: 2.5 waves' time instead of 3, with no partials.
+// Where the output alone cannot fill the card (Conv1: [81, 256], 2 tiles,
+// over a 6400-row reduction) the M axis is cut into splits of `rows`
+// rows instead (a multiple of the 16-row step, none empty); each split
+// writes its partial tile and a second pass sums the partials in split
+// order, so the result is deterministic, which atomics would not make it.
+// Conv1's rows (K = 81 floats) are not 16-byte aligned and load through
+// 4-byte copies.
+
 // K7 is the exact transpose of K1: dx[b, y, x, c] sums dp over every window
 // tap (i, j) whose strided window covers (y, x).  The TPU's version
 // scatter-adds tap slabs and relies on its sequential grid for the
@@ -29,78 +41,15 @@
 // batch 16, 47.8 MB of dp read and 6.6 MB of dx written, 0.016 ms at
 // 3.35 TB/s.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace repro {
 
-constexpr int kAtbTile = 64;   // planner.AT_B_TILE
-constexpr int kAtbStep = 16;   // planner.AT_B_STEP
-
-__global__ void __launch_bounds__(kThreads)
-at_b_kernel(const float* __restrict__ A, const float* __restrict__ B,
-            float* __restrict__ part, int M, int K, int N, int rows) {
-  __shared__ float As[kAtbStep][kAtbTile];   // [m][k]
-  __shared__ float Bs[kAtbStep][kAtbTile];   // [m][n]
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int n0 = blockIdx.x * kAtbTile;
-  const int k0 = blockIdx.y * kAtbTile;
-  const int m_begin = blockIdx.z * rows;
-  const int m_end = min(M, m_begin + rows);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = m_begin; m0 < m_end; m0 += kAtbStep) {
-    for (int e = threadIdx.x; e < kAtbStep * kAtbTile; e += kThreads) {
-      const int r = e / kAtbTile, col = e % kAtbTile;
-      const int m = m0 + r;
-      const bool in = m < m_end;
-      As[r][col] = (in && k0 + col < K) ? A[(size_t)m * K + k0 + col] : 0.f;
-      Bs[r][col] = (in && n0 + col < N) ? B[(size_t)m * N + n0 + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kAtbStep; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[r][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part + (size_t)blockIdx.z * K * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (k < K && n < N) out[(size_t)k * N + n] = acc[i][j];
-    }
-  }
-}
-
-// out[e] = sum over splits z, in order, of part[z][e].
-__global__ void __launch_bounds__(kThreads)
-at_b_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                   long long kn, int splits) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < kn; e += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[z * kn + e];
-    out[e] = s;
-  }
-}
+// K6's tiles: 128 x 128 (planner.AT_B_TILE_K x AT_B_TILE_N), and
+// 128 x 64 (AT_B_NARROW_N) for the rows past the plan's wide_rows.
+constexpr int kAtbStep = 16;            // planner.AT_B_STEP
+using AtbWide = gemm::Tile<8, 8, kAtbStep, gemm::kAMMajor>;
+using AtbNarrow = gemm::Tile<8, 4, kAtbStep, gemm::kAMMajor>;
 
 __global__ void __launch_bounds__(kThreads)
 col2im_kernel(const float* __restrict__ dp, float* __restrict__ dx, int B,
@@ -142,26 +91,47 @@ inline unsigned grid_for(long long total) {
 
 }  // namespace repro
 
-// A [M, K], B [M, N] -> out [K, N] = A^T B.  With splits > 1 each split
-// takes `rows` consecutive rows of M and writes part[split] ([splits, K,
-// N] scratch); a second kernel sums them into out.  With splits == 1 the
-// only split writes out directly.
+// A [M, K], B [M, N] -> out [K, N] = A^T B.  With splits > 1 every
+// 128 x 128 tile takes `splits` CTAs of `rows` consecutive rows of M (a
+// multiple of the 16-row step, none empty) that write part ([splits, K,
+// N]), which a second kernel sums into out in split order.  With one
+// split the rows [0, wide_rows) of out (a multiple of 128) run on 128 x
+// 128 tiles and the rest on 128 x 64 tiles, a second launch whose CTAs,
+// half as long, even out the first one's last wave.
 REPRO_EXPORT int matmul_at_b_f32(const float* A, const float* B, float* out,
                                  float* part, int M, int K, int N,
-                                 int splits, int rows, void* stream) {
-  if (M < 1 || splits < 1 || (long long)splits * rows < M)
+                                 int splits, int rows, int wide_rows,
+                                 void* stream) {
+  namespace g = repro::gemm;
+  using repro::AtbNarrow;
+  using repro::AtbWide;
+  if (M < 1 || K < 1 || N < 1 || splits < 1 || rows < 1 ||
+      rows % repro::kAtbStep || (long long)(splits - 1) * rows >= M ||
+      (long long)splits * rows < M || wide_rows < 0 || wide_rows > K ||
+      (wide_rows % AtbWide::BM && wide_rows != K) ||
+      (splits > 1 && wide_rows != K))
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((N + repro::kAtbTile - 1) / repro::kAtbTile,
-                  (K + repro::kAtbTile - 1) / repro::kAtbTile, splits);
-  repro::at_b_kernel<<<grid, repro::kThreads, 0, s>>>(
-      A, B, splits > 1 ? part : out, M, K, N, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long kn = (long long)K * N;
-  repro::at_b_reduce_kernel<<<repro::grid_for(kn), repro::kThreads, 0, s>>>(
-      part, out, kn, splits);
-  return cudaGetLastError();
+  const bool vec_b = N % 4 == 0 && g::aligned16(B);
+  // The GEMM's (M, N, K) are (K, N, M): A is M-major with a row of K.
+  cudaError_t err = cudaSuccess;
+  if (wide_rows > 0) {
+    const g::Problem p{A, B, wide_rows, N, M, K, AtbWide::BN, rows,
+                       K % 4 == 0 && g::aligned16(A), vec_b};
+    err = g::launch<8, 8, repro::kAtbStep, g::kAMMajor>(
+        p, nullptr, out, part, splits, g::kNone, 0, s);
+  }
+  if (err != cudaSuccess || wide_rows == K) return err;
+  const float* An = A + wide_rows;
+  const g::Problem p{An, B, K - wide_rows, N, M, K, AtbNarrow::BN, rows,
+                     K % 4 == 0 && g::aligned16(An), vec_b};
+  return g::launch<8, 4, repro::kAtbStep, g::kAMMajor>(
+      p, nullptr, out + (size_t)wide_rows * N, nullptr, 1, g::kNone, 0, s);
+}
+
+// Dynamic shared memory of the larger K6 CTA (planner.AT_B_SMEM_BYTES).
+REPRO_EXPORT int matmul_at_b_smem_bytes() {
+  return repro::AtbWide::smem_bytes(false);
 }
 
 // dp [B, OH*OW, KH*KW*C] -> dx [B, H, W, C]

@@ -48,16 +48,12 @@ from repro_torch.kernels.votes_routing import votes_routing as _votes_routing
 
 @functools.lru_cache(maxsize=64)            # m folds in the batch: bounded
 def planned_conv_blocks(m: int, k: int, n: int,
-                        squash_dim: int = 0) -> tuple[int, int, int]:
-    """Planner pick of a conv's GEMM tiles (memoized)."""
-    plan = plan_matmul(MatmulWorkload(m=m, k=k, n=n),
+                        squash_dim: int = 0) -> tuple[int, int, int, int]:
+    """Planner pick of a conv's GEMM tiles and K split, ``(block_m,
+    block_k, block_n, split_k)`` (memoized)."""
+    return plan_matmul(MatmulWorkload(m=m, k=k, n=n),
                        n_multiple=max(squash_dim, 1),
-                       stage_output=squash_dim > 0)
-    return plan.block_m, plan.block_k, plan.block_n
-
-
-def _tiles(block) -> tuple[int, int, int]:
-    return block.block_m, block.block_k, block.block_n
+                       stage_output=squash_dim > 0).tiles
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -73,13 +69,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     ow = out_size(x.shape[2], kw, stride)
     m, k = x.shape[0] * oh * ow, kh * kw * cin
     if plan_op is not None:
-        block = _tiles(plan_op.block)
+        block = plan_op.block.tiles
         if plan_op.fuses_squash:
             epilogue = "squash"
     else:
         block = planned_conv_blocks(
             m, k, cout, squash_dim if epilogue == "squash" else 0)
-    dx_block = (_tiles(bwd_op.dx_block) if bwd_op is not None
+    dx_block = (bwd_op.dx_block.tiles if bwd_op is not None
                 else planned_conv_blocks(m, cout, k))
     out = conv2d_im2col(x, w, b, stride=stride, block=block,
                         dx_block=dx_block, epilogue=epilogue,
@@ -218,7 +214,7 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     bwd_mode, bwd_block_i = _bwd_schedule(plan, routing_op_name)
     pc_bwd = plan.bwd_op("PrimaryCaps") if plan is not None else None
     if pc_bwd is not None:
-        conv_block, dx_block = _tiles(pc_bwd.block), _tiles(pc_bwd.dx_block)
+        conv_block, dx_block = pc_bwd.block.tiles, pc_bwd.dx_block.tiles
     else:
         conv_block = planned_conv_blocks(m, k, n_ch, caps_dim)
         dx_block = planned_conv_blocks(m, n_ch, k)

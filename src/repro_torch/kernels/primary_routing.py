@@ -108,8 +108,8 @@ class PrimaryStatics(NamedTuple):
     stride: int
     routing: RoutingStatics
     block_k: int
-    conv_block: tuple[int, int, int]
-    dx_block: tuple[int, int, int]
+    conv_block: tuple[int, ...]
+    dx_block: tuple[int, ...]
 
 
 class _PrimaryRouting(torch.autograd.Function):
@@ -154,8 +154,8 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
                     bwd_mode: str | None = None,
                     bwd_block_i: int | None = None,
                     routing_op_name: str = FUSED_NAME,
-                    conv_block: tuple[int, int, int] = (64, 16, 64),
-                    dx_block: tuple[int, int, int] = (64, 16, 64)
+                    conv_block: tuple[int, ...] = (64, 16, 64),
+                    dx_block: tuple[int, ...] = (64, 16, 64)
                     ) -> torch.Tensor:
     """x: [B, H, W, Cin] (Conv1 output), w_pc: [KH, KW, Cin, N] HWIO,
     b_pc: [N], w_cc: [I, J*D, C] -> v: [B, J*D].

@@ -10,7 +10,7 @@ import torch
 
 from repro.configs import capsnet_mnist as ref_mnist
 from repro.core import execplan as ref_execplan
-from repro_torch.configs import capsnet_mnist
+from repro_torch.configs import capsnet_mnist, capsnet_svhn
 from repro_torch.core import capsnet, execplan, planner
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.core.execplan import (FUSED_NAME, PIPE_NAME, PlanError,
@@ -81,6 +81,32 @@ def test_primary_caps_squash_always_fuses():
         op = compile_plan(cfg, batch=2).op("PrimaryCaps")
         assert op.fuses_squash
         assert op.block.block_n % pd == 0
+
+
+@pytest.mark.parametrize("arch", ["mnist", "svhn"])
+def test_primary_caps_gemm_fills_the_card_and_short_k_does_not_split(arch):
+    """At serving batch 8 the PrimaryCaps GEMM's tiles x K splits give at
+    least one CTA per SM; Conv1 (K = 81 or 243) and the dpatches GEMM
+    (K = 256, hundreds of tiles) keep one split.  The partials count in
+    the modeled bytes."""
+    cfg = {"mnist": capsnet_mnist.config(), "svhn": capsnet_svhn.config()}[
+        arch]
+    plan = compile_plan(cfg, batch=8, pipeline=False, train=True)
+    pc, conv1 = plan.op("PrimaryCaps").block, plan.op("Conv1").block
+    m = 8 * cfg.pc_out ** 2
+    assert pc.split_k > 1 and pc.ctas >= planner.NUM_SMS
+    assert pc.ctas == (-(-m // pc.block_m)
+                       * -(-cfg.pc_channels // pc.block_n) * pc.split_k)
+    assert pc.hbm_bytes >= 2 * pc.split_k * m * cfg.pc_channels * 4
+    # Split, the squash runs in the reduction pass: no staged output.
+    assert pc.smem_bytes == planner.gemm_smem_bytes(
+        pc.block_m, pc.block_k, pc.block_n)
+    assert conv1.split_k == 1
+    assert plan.bwd_op("PrimaryCaps").dx_block.split_k == 1
+    split, slab = planner.split_slab(cfg.pc_kernel ** 2 * cfg.conv1_channels,
+                                     pc.split_k, pc.block_k)
+    assert split == pc.split_k and slab % pc.block_k == 0
+    assert slab >= planner.SPLIT_K_MIN
 
 
 def test_plan_error_names_the_op():

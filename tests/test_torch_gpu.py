@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import capsnet_cifar10, capsnet_mnist, capsnet_svhn
-from repro_torch.core import capsnet, execplan
+from repro_torch.core import capsnet, execplan, planner
 from repro_torch.kernels import build
 from repro_torch.kernels import caps_votes as k14a
 from repro_torch.kernels import conv_im2col as k12
@@ -54,7 +54,7 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
     w2 = w_pc.reshape(-1, 16)
     for epi, sd in (("none", 0), ("relu", 0), ("squash", 4)):
         torch.testing.assert_close(
-            k12.matmul_bias_act(p2, w2, b_pc, block_m=32, block_k=16,
+            k12.matmul_bias_act(p2, w2, b_pc, block_m=64, block_k=16,
                                 block_n=32, epilogue=epi, squash_dim=sd),
             k12.matmul_bias_act_plain(p2, w2, b_pc, epilogue=epi,
                                       squash_dim=sd), rtol=1e-5, atol=1e-5)
@@ -72,6 +72,74 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
                 "votes_routing_f32", "primary_routing_f32"):
         assert counts[sym] > 0, sym
+
+
+@pytest.mark.parametrize("epi,sd", [("none", 0), ("relu", 0), ("squash", 4)])
+@pytest.mark.parametrize("m,k,n,bm,bk,bn,split", [
+    (200, 1000, 72, 128, 16, 128, 3),  # ragged M, N and K (K % 4 == 0)
+    (150, 81, 40, 64, 16, 64, 2),      # Conv1's K = 81: 4-byte copies
+    (150, 81, 40, 64, 16, 40, 1),      # output tile narrower than the build
+    (96, 2049, 256, 128, 16, 128, 5),  # ragged last slab, unaligned rows
+], ids=["ragged", "k81-split", "k81-narrow", "odd-k-split5"])
+def test_gemm_split_k_matches_twin_on_the_card(cuda, epi, sd, m, k, n, bm,
+                                               bk, bn, split):
+    """K2 against its twin summed in the kernel's split order, every
+    epilogue; two launches on the same inputs give the same bits."""
+    p = _rand(m, m, k, uniform=True, device=cuda)
+    w = _rand(k, k, n, scale=0.1, device=cuda)
+    bias = _rand(n, n, scale=0.1, device=cuda)
+    kw = dict(block_m=bm, block_k=bk, block_n=bn, epilogue=epi,
+              squash_dim=sd, split_k=split)
+    build.reset_launch_counts()
+    got = k12.matmul_bias_act(p, w, bias, **kw)
+    again = k12.matmul_bias_act(p, w, bias, **kw)
+    assert k12.GEMM.launches == 2
+    want = k12.matmul_bias_act_plain(p, w, bias, epilogue=epi, squash_dim=sd,
+                                     split_k=split, block_k=bk)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+def test_at_b_ragged_matches_twin_and_repeats_bits_on_the_card(cuda):
+    """K6 at a ragged K x N with one split and with several (the M axis
+    not a multiple of the split), twice each: identical bits.  Inputs
+    are non-negative, so the sums, taken in another order than the
+    twin's, do not cancel below the tolerance."""
+    for m, k, n in ((333, 150, 70), (5000, 81, 256)):
+        a = _rand(m, m, k, uniform=True, device=cuda)
+        b = _rand(m + 1, m, n, uniform=True, device=cuda)
+        got = k12.matmul_at_b(a, b)
+        torch.testing.assert_close(got, k12.matmul_at_b_plain(a, b),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, k12.matmul_at_b(a, b))
+    assert planner.at_b_plan(5000, 81, 256).splits > 1
+    # One split, 128 x 128 tiles for the first 9 rows of tiles and 128 x 64
+    # past them (a ragged K): every tile in the twin's order, to the bit.
+    a = _rand(7, 200, 2100, uniform=True, device=cuda)
+    b = _rand(8, 200, 256, uniform=True, device=cuda)
+    for wide_rows in (9 * planner.AT_B_TILE_K, 0, 2100):
+        got = torch.empty((2100, 256), device=cuda)
+        k12.AT_B(build.ptr(a), build.ptr(b), build.ptr(got), build.ptr(got),
+                 200, 2100, 256, 1, 208, wide_rows, build.stream_of(a))
+        assert torch.equal(got, k12._at_b_stepped(a, b)), wide_rows
+
+
+def test_gemm_footprint_model_matches_the_kernels(cuda):
+    """The planner's shared-memory model is the bytes K2 and K6 ask for
+    at launch, for every build, with and without the staged output."""
+    import ctypes
+    fn = build._library("conv_im2col").matmul_bias_act_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for bm in planner.TILE_MN:
+        for bn in planner.TILE_MN:
+            for bk in planner.TILE_K:
+                for stage in (False, True):
+                    assert fn(bm, bn, bk, int(stage)) == \
+                        planner.gemm_smem_bytes(bm, bk, bn,
+                                                stage_output=stage)
+    at_b = build._library("conv_bwd").matmul_at_b_smem_bytes
+    at_b.restype = ctypes.c_int
+    assert at_b() == planner.AT_B_SMEM_BYTES
 
 
 @pytest.mark.parametrize("pipeline", [True, False])

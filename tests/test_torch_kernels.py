@@ -51,20 +51,31 @@ def test_im2col_patches_matches_reference(b, hw, c, k, stride):
 
 @pytest.mark.parametrize("epilogue,sd", [("none", 0), ("relu", 0),
                                          ("squash", 4)])
-@pytest.mark.parametrize("m,k,n", [(37, 75, 24), (16, 8, 8)])
-def test_matmul_bias_act_matches_reference(epilogue, sd, m, k, n):
-    """Ragged M/N tiles and a K that is not a multiple of block_k."""
+@pytest.mark.parametrize("m,k,n,split_k", [
+    (37, 75, 24, 1), (16, 8, 8, 1),
+    (37, 75, 24, 2),           # K = 75 cut into slabs of 48: 48 + 27
+    (37, 75, 24, 3),           # slabs of 32: 32 + 32 + 11
+], ids=["37-75-24", "16-8-8", "37-75-24-split2", "37-75-24-split3"])
+def test_matmul_bias_act_matches_reference(epilogue, sd, m, k, n, split_k):
+    """Ragged M/N tiles and a K that is not a multiple of block_k nor of
+    the split's slab; the split twin sums its partials in K2's order."""
     p = _rand(m, m, k, uniform=True)
     w = _rand(k, k, n, scale=0.3)
     bias = _rand(n, n, scale=0.1)
     want = ref_matmul(jnp.asarray(p), jnp.asarray(w), jnp.asarray(bias),
                       block_m=8, block_k=16, block_n=8, epilogue=epilogue,
                       squash_dim=sd)
-    got = k12.matmul_bias_act(torch.from_numpy(p), torch.from_numpy(w),
-                              torch.from_numpy(bias), block_m=32, block_k=16,
-                              block_n=8, epilogue=epilogue, squash_dim=sd)
+    args = (torch.from_numpy(p), torch.from_numpy(w), torch.from_numpy(bias))
+    got = k12.matmul_bias_act(*args, block_m=64, block_k=16, block_n=8,
+                              epilogue=epilogue, squash_dim=sd,
+                              split_k=split_k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+    plain = k12.matmul_bias_act_plain(*args, epilogue=epilogue,
+                                      squash_dim=sd, split_k=split_k,
+                                      block_k=16)
+    assert torch.equal(got, plain)
+    assert planner.split_slab(k, split_k, 16)[0] == split_k
 
 
 def test_matmul_squash_rejects_misaligned_tile():
@@ -178,9 +189,34 @@ def test_matmul_at_b_matches_reference(m, k, n):
     got = k12.matmul_at_b(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
-    splits, rows = planner.at_b_splits(m, k, n)
+    plan = planner.at_b_plan(m, k, n)
+    splits, rows = plan.splits, plan.rows
     assert (splits > 1) == (m > planner.AT_B_MIN_ROWS)
     assert (splits - 1) * rows < m <= splits * rows
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (45, 13, 21), (64, 81, 256), (200, 81, 256), (576, 20736, 256),
+    (1024, 20736, 256), (6400, 81, 256), (9216, 243, 256), (3000, 81, 32),
+])
+def test_at_b_splits_leave_no_split_empty(m, k, n):
+    """K6's schedule: split slabs a multiple of the 16-row step, at least
+    ``AT_B_MIN_ROWS`` long, none empty; one split covers all of M, its
+    wide (128 x 128) rows a whole number of tile rows."""
+    plan = planner.at_b_plan(m, k, n)
+    assert plan.rows % planner.AT_B_STEP == 0
+    assert (plan.splits - 1) * plan.rows < m <= plan.splits * plan.rows
+    tiles_m = -(-k // planner.AT_B_TILE_K)
+    tiles_n = -(-n // planner.AT_B_TILE_N)
+    if plan.splits > 1:
+        assert plan.rows >= planner.AT_B_MIN_ROWS and plan.wide_rows == k
+        assert plan.ctas == tiles_m * tiles_n * plan.splits
+    else:
+        assert plan.wide_rows == k or \
+            plan.wide_rows % planner.AT_B_TILE_K == 0
+        wide = -(-plan.wide_rows // planner.AT_B_TILE_K)
+        assert plan.ctas == wide * tiles_n + (tiles_m - wide) * -(
+            -n // planner.AT_B_NARROW_N)
 
 
 @pytest.mark.parametrize("stride,block_p", [
