@@ -10,31 +10,35 @@ holds every kernel against its plain PyTorch twin on the card at the
 MNIST CapsuleNet's shapes (both routing schedules; the K2 GEMM also at
 capsnet-svhn's PrimaryCaps shape, twice each for identical bits, then
 timed beside ``F.conv2d`` and ``torch.addmm`` with a sweep of its split
-of K), runs the full-width forward on the pipelined and the per-op plan
-against the plain forward,
-serves 32 seeded requests through ``CapsuleEngine``, and times each
-kernel at the engine's batch.  Then it trains: the backward kernels (K6
+of K; K5 and K9, which route each sample over a thread-block cluster, at
+MNIST batch 8 and 16 and the SVHN bottleneck, twice each for identical
+bits, then swept over every cluster size beside the plan's model and the
+card's co-resident clusters, K9's replay and emit timed apart), runs the
+full-width forward on the pipelined and the per-op plan against the plain
+forward, serves 32 seeded requests through ``CapsuleEngine`` on both
+plans, and times each kernel at the engine's batch.  Then it trains: the backward kernels (K6
 dW, K7 col2im, K8/K9 routing backward) against their twins at the
 training shapes (batch 16; K6 and the dpatches GEMM twice each for
 identical bits, then timed, K6 also on 128 x 128 tiles only against its
 plan), one full-width ``total_loss`` backward on both training plans
 against the plain backend's autograd gradients, 20
-SGD steps of ``CapsTrainLoop`` on the full-width network (the loss must
-fall) and 4 on the CLI's default smoke config, and the backward kernels'
-times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
+SGD steps of ``CapsTrainLoop`` on the full-width network on each plan
+(the loss must fall) and 4 on the CLI's default smoke config, and the
+backward kernels' times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
 device memory, K14b routing reading it back) and the standalone squash
 (K10) with its backward: the path at full width (and one gradient of a
 network whose capsule cannot fuse), each kernel against its twin, the
 split v against the fused kernel's, and their times and modeled bytes
 side by side.  Phase 12, deep stacks, runs the full-width SVHN
-CapsuleNet (a plain bottleneck routed with its logits in device memory,
-two reversible ResCaps blocks, ClassCaps): its forward against the plain
-forward, 16 requests through the engine, the residual epilogue, the
-streamed-global K4/K9 and K13 (the unfused oracle) against their twins
-and the fused kernels, one training gradient through the reversible
-segment K12 (and on the CIFAR-10 smoke config), the SVHN smoke config's
-pipelined plan, 20 full-width training steps, and the new kernels'
-times.  Phase 13, LM serving, frees the CapsuleNet's tensors and serves
+CapsuleNet (a plain bottleneck -- K5 on the pipelined plan, K4 with its
+logits in device memory on the per-op plan -- two reversible ResCaps
+blocks, ClassCaps): its forward on both plans against the plain forward,
+16 requests through the engine on both plans, the residual epilogue,
+K5 and K9 on their clusters, the streamed-global K4 and K13 (the
+unfused oracle) against their twins and the fused kernels, one training
+gradient through the reversible segment K12 (and on the CIFAR-10 smoke
+config), the SVHN smoke config's pipelined plan, 20 full-width training
+steps on each plan, and the new kernels' times.  Phase 13, LM serving, frees the CapsuleNet's tensors and serves
 ``gemma2-9b`` at its published width (42 layers, 9.24 B parameters in
 fp32, drawn on the card): K16 (RMSNorm) and K15 (flash attention) against
 their twins at its shapes (prefill, a 4608-token window layer, decode at
@@ -244,6 +248,17 @@ def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
     return dict(ranked[:top], total=sum(times.values()))
 
 
+def replay_emit_ms(fn) -> dict:
+    """Device ms per call of K9's two kernels, the cluster replay and the
+    per-capsule emit, from one profile of ``fn``."""
+    split_ = device_breakdown(fn, reps=5) or {}
+    return dict(
+        replay_device_ms=sum(v for k, v in split_.items()
+                             if "routing_bwd_cluster_kernel" in k),
+        emit_device_ms=sum(v for k, v in split_.items()
+                           if "routing_bwd_emit_kernel" in k))
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -290,6 +305,15 @@ def conv_inputs(cfg, params, images):
                                   cfg.primary_dim))
 
 
+def conv_patches(cfg, params, images):
+    """The PrimaryCaps patches [B, P, K] of the plain path's Conv1 output
+    (K5's input)."""
+    from repro_torch.kernels.conv_im2col import im2col_patches_plain
+    x1, _ = conv_inputs(cfg, params, images)
+    return im2col_patches_plain(x1, kh=cfg.pc_kernel, kw=cfg.pc_kernel,
+                                stride=cfg.pc_stride)
+
+
 def gemm_extras(row: dict, lib, *, split_k: int, ctas: int,
                 addmm) -> dict:
     """A GEMM site's split and grid, and the device times of its library
@@ -306,16 +330,45 @@ def gemm_extras(row: dict, lib, *, split_k: int, ctas: int,
 
 
 def same_bits(name: str, fn):
-    """Call ``fn`` twice; fail unless both results hold the same bits.
-    Returns the first."""
+    """Call ``fn`` twice; fail unless both results (a tensor or a tuple of
+    them) hold the same bits.  Returns the first."""
     import torch
     first, second = fn(), fn()
     torch.cuda.synchronize()
-    if not torch.equal(first, second):
+    pairs = zip(first, second) if isinstance(first, tuple) else [(first,
+                                                                  second)]
+    if not all(torch.equal(a, b) for a, b in pairs):
         raise AssertionError(f"{name}: two launches on the same inputs "
                              f"gave different bits")
     print(f"check {name}: two launches, identical bits -> ok", flush=True)
     return first
+
+
+def cluster_sweep(label: str, plan_at, run, occupancy) -> dict:
+    """Device ms of a cluster kernel at every cluster size its plan allows
+    (``plan_at(cs)``: the schedule at that size, None where none fits)
+    and the card's co-resident clusters and registers; one printed line
+    per size, with the plan's modeled waves and time beside them."""
+    from repro_torch.core import execplan
+    out = {}
+    for cs in execplan.CLUSTER_SIZES:
+        sched = plan_at(cs)
+        if sched is None:
+            print(f"{label} cluster {cs}: no schedule fits", flush=True)
+            continue
+        occ = occupancy(sched, cs)
+        t = device_ms(lambda: run(sched, cs), reps=5)
+        out[str(cs)] = dict(mode=sched.mode, block_i=sched.block_i,
+                            device_ms=t,
+                            max_active_clusters=occ["max_active_clusters"],
+                            registers=occ["registers"])
+        print(f"{label} cluster {cs}: {sched.mode} block_i "
+              f"{sched.block_i}, {sched.smem_bytes} B a CTA, "
+              f"{occ['max_active_clusters']} clusters at once "
+              f"({occ['registers']} registers), {sched.cluster.waves} "
+              f"modeled waves: device {t} ms, model "
+              f"{1e3 * sched.seconds:.4f} ms", flush=True)
+    return out
 
 
 def svhn_pc_inputs(dev):
@@ -389,6 +442,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     from repro_torch.configs import capsnet_cifar10, capsnet_svhn
     from repro_torch.core import capsnet, execplan
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import primary_routing as k5
     from repro_torch.kernels import votes_routing as k34
     from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
     from repro_torch.train import capsnet_loop
@@ -410,76 +464,101 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     images, timages = uniform(SLOTS, hw, hw, ch), uniform(tb, hw, hw, ch)
     labels = torch.tensor(rng.integers(0, cfg.num_classes, tb), device=dev)
     plan = execplan.compile_plan(cfg, batch=SLOTS, pipeline=True)
+    pplan = execplan.compile_plan(cfg, batch=SLOTS, pipeline=False)
     tplan = execplan.compile_plan(cfg, batch=tb, pipeline=True, train=True)
-    for name, p in (("SVHN serving", plan), ("SVHN train", tplan)):
+    for name, p in (("SVHN serving", plan), ("SVHN serving per-op", pplan),
+                    ("SVHN train", tplan)):
         print(f"plan {name}: pipelined={p.pipelined}, ops " + json.dumps(
-            [(o.name, o.kernel, o.mode, o.block_i, o.smem_bytes)
+            [(o.name, o.kernel, o.mode, o.block_i, o.smem_bytes, o.cluster)
              for o in p.ops]), flush=True)
     stack = cfg.routing_stack()
     lay0, half, final = stack[0], stack[1], stack[-1]
-    neck, nbwd = plan.op(lay0.name), tplan.bwd_op(lay0.name)
-    if plan.pipelined or (neck.mode, nbwd.mode) != (GLOBAL, GLOBAL):
-        raise AssertionError("SVHN plan: expected the per-op fallback with "
-                             "the bottleneck in streamed-global")
+    neck, nbwd = pplan.op(lay0.name), tplan.bwd_op(lay0.name)
+    spr = plan.op(execplan.PIPE_NAME)
+    if not plan.pipelined or neck.mode != GLOBAL or not nbwd.cluster:
+        raise AssertionError("SVHN plans: expected K5 on the pipelined "
+                             "plan, K4 streamed-global on the per-op plan "
+                             "and K9 on a cluster")
 
     def w_of(lay_):
         return params[lay_.param].reshape(lay_.in_caps, lay_.jd, lay_.in_dim)
 
     w0, wf, wfin = w_of(lay0), w_of(half), w_of(final)
 
-    # The forward at the engine's batch against the plain forward.
+    # The forward at the engine's batch on both plans against the plain
+    # forward, with the launches each plan must make.
     with torch.no_grad():
-        build.reset_launch_counts()
-        out = capsnet.forward(params, images, cfg, backend="kernels",
-                              plan=plan, device=dev)
-        torch.cuda.synchronize()
-        fwd_counts = build.launch_counts()
         ref_out = capsnet.forward(params, images, cfg, backend="torch",
                                   device=dev)
-    print(f"svhn forward: launches {fwd_counts}", flush=True)
-    for key in ("class_caps", "lengths", "reconstruction"):
-        check(f"svhn forward {key}", out[key], ref_out[key], ROUTING)
-    for key in ("class_caps", "lengths"):     # small at this init: below atol
-        err = (out[key] - ref_out[key]).abs().max().item()
-        scale = ref_out[key].abs().max().item()
-        print(f"svhn forward {key}: max|want| {scale:.3e}, max_abs "
-              f"{err:.3e}, normalised {err / scale:.3e}", flush=True)
-    same_predictions("svhn forward", out["lengths"].cpu(),
-                     ref_out["lengths"].cpu(), ROUTING[1])
-    for sym, n in (("im2col_patches_f32", 2), ("matmul_bias_act_f32", 2),
-                   ("votes_routing_global_f32", 1), ("votes_routing_f32", 5),
-                   ("votes_routing_2pass_f32", 0)):
-        if fwd_counts[sym] != n:
-            raise AssertionError(f"svhn forward: {sym} launched "
-                                 f"{fwd_counts[sym]} times, not {n}")
+        for label, p, want_counts in (
+                ("pipelined", plan, (("im2col_patches_f32", 2),
+                                     ("matmul_bias_act_f32", 1),
+                                     ("primary_routing_f32", 1),
+                                     ("votes_routing_global_f32", 0),
+                                     ("votes_routing_f32", 5),
+                                     ("votes_routing_2pass_f32", 0))),
+                ("per-op", pplan, (("im2col_patches_f32", 2),
+                                   ("matmul_bias_act_f32", 2),
+                                   ("primary_routing_f32", 0),
+                                   ("votes_routing_global_f32", 1),
+                                   ("votes_routing_f32", 5),
+                                   ("votes_routing_2pass_f32", 0)))):
+            build.reset_launch_counts()
+            out = capsnet.forward(params, images, cfg, backend="kernels",
+                                  plan=p, device=dev)
+            torch.cuda.synchronize()
+            fwd_counts = build.launch_counts()
+            print(f"svhn forward {label}: launches {fwd_counts}", flush=True)
+            for key in ("class_caps", "lengths", "reconstruction"):
+                check(f"svhn forward {label} {key}", out[key], ref_out[key],
+                      ROUTING)
+            for key in ("class_caps", "lengths"):  # small at this init
+                err = (out[key] - ref_out[key]).abs().max().item()
+                scale = ref_out[key].abs().max().item()
+                print(f"svhn forward {label} {key}: max|want| {scale:.3e}, "
+                      f"max_abs {err:.3e}, normalised {err / scale:.3e}",
+                      flush=True)
+            same_predictions(f"svhn forward {label}", out["lengths"].cpu(),
+                             ref_out["lengths"].cpu(), ROUTING[1])
+            for sym, n in want_counts:
+                if fwd_counts[sym] != n:
+                    raise AssertionError(
+                        f"svhn forward {label}: {sym} launched "
+                        f"{fwd_counts[sym]} times, not {n}")
 
-    # Serve seeded requests through the engine.
+    # Serve seeded requests through the engine on both plans.
     reqs = [CapsRequest(rid=i, image=rng.random((hw, hw, ch), np.float32))
             for i in range(SVHN_REQUESTS)]
-    engine = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
-                           device=dev)
-    build.reset_launch_counts()
-    for r in reqs:
-        engine.submit(r)
-    done = engine.run()
-    torch.cuda.synchronize()
-    serve_counts = build.launch_counts()
-    stats = engine.stats()
-    print(f"svhn serve: {json.dumps(stats)}", flush=True)
-    print(f"svhn serve: launches {serve_counts}", flush=True)
-    if len(done) != SVHN_REQUESTS or any(r.status != "ok" for r in done):
-        raise AssertionError(f"svhn serve: statuses "
-                             f"{[r.status for r in done]}")
-    if serve_counts["votes_routing_global_f32"] < 1:
-        raise AssertionError("svhn serve: K4 (streamed-global) never ran")
     with torch.no_grad():
         all_imgs = torch.tensor(np.stack([r.image for r in reqs]),
                                 device=dev)
         plain_len = capsnet.forward(params, all_imgs, cfg, backend="torch",
                                     device=dev)["lengths"].cpu()
-    same_predictions("svhn serve", torch.tensor(np.stack(
-        [r.lengths for r in sorted(done, key=lambda r: r.rid)])),
-        plain_len, ROUTING[1])
+    served = {}
+    for label, plan_, sym in (("pipelined", plan, "primary_routing_f32"),
+                              ("per-op", pplan, "votes_routing_global_f32")):
+        engine = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
+                               device=dev)
+        engine.plan = plan_
+        build.reset_launch_counts()
+        for r in reqs:
+            engine.submit(CapsRequest(rid=r.rid, image=r.image))
+        done = engine.run()
+        torch.cuda.synchronize()
+        served[label] = build.launch_counts()
+        stats = engine.stats()
+        print(f"svhn serve {label}: {json.dumps(stats)}", flush=True)
+        print(f"svhn serve {label}: launches {served[label]}", flush=True)
+        if len(done) != SVHN_REQUESTS or any(r.status != "ok"
+                                             for r in done):
+            raise AssertionError(f"svhn serve {label}: statuses "
+                                 f"{[r.status for r in done]}")
+        if served[label][sym] < 1:
+            raise AssertionError(f"svhn serve {label}: {sym} never ran")
+        same_predictions(f"svhn serve {label}", torch.tensor(np.stack(
+            [r.lengths for r in sorted(done, key=lambda r: r.rid)])),
+            plain_len, ROUTING[1])
+    serve_counts = served["pipelined"]
 
     # Each new kernel against its twin, and K13 against K4/K9, at the
     # path's shapes (activations from the plain path).
@@ -493,7 +572,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     r1 = x1.reshape(SLOTS, -1)
     g0 = randn(tb, lay0.jd, scale=1e-2)
     u, wcc, tu, g = mnist["u"], mnist["wcc"], mnist["tu"], mnist["g"]
-    mb_i, mbwd_i = mnist["block_i"], mnist["bwd_block_i"]
+    mb_i, mbwd = mnist["block_i"], mnist["bwd"]
     kw0 = dict(iters=lay0.iters, num_classes=lay0.num_caps)
     kwh = dict(iters=half.iters, num_classes=half.num_caps)
     kwm = dict(iters=3, num_classes=10)
@@ -523,11 +602,28 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
              v_neck, k34.votes_routing_plain(u0, w0, mode=GLOBAL,
                                              block_i=neck.block_i, **kw0),
              ROUTING)
-    held_bwd("routing_bwd_global", "K9 streamed-global, SVHN bottleneck",
-             k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
-                                   block_i=nbwd.block_i, **kw0),
-             k34.votes_routing_bwd_plain(tu0, w0, g0, mode=GLOBAL,
-                                         block_i=nbwd.block_i, **kw0))
+        # K5 on the pipelined plan's cluster, from the plain path's
+        # patches, twice for identical bits.
+        svp = conv_patches(cfg, params, images)
+        wpc0 = params["pc_w"].reshape(-1, cfg.pc_channels)
+        kw5 = dict(mode=spr.mode, block_i=spr.block_i, cluster=spr.cluster)
+        print(f"K5 SVHN batch {SLOTS}: {spr.mode} votes, block_i "
+              f"{spr.block_i}, clusters of {spr.cluster} ({spr.block.ctas} "
+              f"CTAs), {spr.smem_bytes} B a CTA", flush=True)
+        held("primary_routing", f"K5 primary_routing, SVHN batch {SLOTS}, "
+             f"{spr.mode}, {spr.cluster}-CTA clusters",
+             same_bits("K5 SVHN", lambda: k5.primary_routing_patches(
+                 svp, wpc0, params["pc_b"], w0, **kw5, **kw0)),
+             k5.primary_routing_patches_plain(svp, wpc0, params["pc_b"], w0,
+                                              **kw5, **kw0), ROUTING)
+    print(f"K9 SVHN bottleneck batch {tb}: {nbwd.mode} votes, block_i "
+          f"{nbwd.block_i}, clusters of {nbwd.cluster} ({nbwd.block.ctas} "
+          f"CTAs), {nbwd.smem_bytes} B a CTA", flush=True)
+    kw9 = dict(mode=nbwd.mode, block_i=nbwd.block_i, cluster=nbwd.cluster)
+    held_bwd("routing_bwd_cluster", f"K9 on the cluster, SVHN bottleneck "
+             f"batch {tb}", same_bits("K9 SVHN", lambda: k34.votes_routing_bwd(
+                 tu0, w0, g0, **kw9, **kw0)),
+             k34.votes_routing_bwd_plain(tu0, w0, g0, **kw9, **kw0))
     build.reset_launch_counts()
     with torch.no_grad():
         for label, uu, ww, bi, kw, fused in (
@@ -541,17 +637,20 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                          **kw), ROUTING)
             held("votes_routing_2pass", f"K13 forward against the fused "
                  f"kernel, {label}", got, fused, ROUTING)
-    for label, uu, ww, gg, bi, mode, kw in (
-            ("MNIST ClassCaps", tu, wcc, g, mbwd_i, "streamed", kwm),
-            ("SVHN bottleneck", tu0, w0, g0, nbwd.block_i, GLOBAL, kw0)):
+    # K13b against the fused K9 (on its cluster): within GRAD, no longer
+    # bit for bit -- the cluster sums s and dv rank by rank.
+    for label, uu, ww, gg, bi, fsched, kw in (
+            ("MNIST ClassCaps", tu, wcc, g, 128, mbwd, kwm),
+            ("SVHN bottleneck", tu0, w0, g0, 64, nbwd, kw0)):
         got = k34.votes_routing_bwd(uu, ww, gg, mode=ORACLE, block_i=bi, **kw)
         held_bwd("routing_bwd_2pass", f"K13 backward, {label}", got,
                  k34.votes_routing_bwd_plain(uu, ww, gg, mode=ORACLE,
                                              block_i=bi, **kw))
         held_bwd("routing_bwd_2pass", f"K13 backward against the fused "
-                 f"kernel, {label}", got,
-                 k34.votes_routing_bwd(uu, ww, gg, mode=mode, block_i=bi,
-                                       **kw))
+                 f"kernel (K9, {fsched.cluster}-CTA clusters), {label}", got,
+                 k34.votes_routing_bwd(uu, ww, gg, mode=fsched.mode,
+                                       block_i=fsched.block_i,
+                                       cluster=fsched.cluster, **kw))
     torch.cuda.synchronize()
     oracle_counts = build.launch_counts()
 
@@ -583,9 +682,10 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         if grad_counts[label]["routing_bwd_resident_f32"] < k12_halves + 1:
             raise AssertionError(f"backward {label}: the K12 halves' "
                                  f"backward kernels did not all run")
-    if grad_counts["svhn"]["routing_bwd_global_f32"] != 1:
-        raise AssertionError("backward svhn: K9 (streamed-global) did not "
-                             "run once")
+    if grad_counts["svhn"]["routing_bwd_cluster_f32"] != 1 or \
+            grad_counts["svhn"]["primary_routing_f32"] != 1:
+        raise AssertionError("backward svhn: K5 and K9 (on clusters) did "
+                             "not run once each")
 
     # The SVHN smoke config's pipelined plan: K5 (J = 16) leads the stack.
     scfg = capsnet_svhn.smoke_config()
@@ -614,40 +714,59 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     # lengths are ~1e-4 and the margin loss's gradient through them
     # vanishes, so plain SGD barely moves the loss; AdamW rescales each
     # parameter's step.
-    for opt, lr in (("sgd", 3e-2), ("adam", 3e-3)):
+    # Both plans: SGD and AdamW on the pipelined plan, AdamW on the per-op
+    # plan; under AdamW the loss must fall.
+    step_ms, counts_by = {}, {}
+    for opt, lr, pipe in (("sgd", 3e-2, True), ("adam", 3e-3, True),
+                          ("adam", 3e-3, False)):
         with tempfile.TemporaryDirectory() as tmp:
             loop = capsnet_loop.CapsTrainLoop(
                 cfg, capsnet_loop.CapsLoopConfig(
                     total_steps=TRAIN_STEPS, batch=tb, lr=lr, optimizer=opt,
                     ckpt_every=10, ckpt_dir=tmp, log_every=5, seed=SEED),
                 device=dev)
+            if not pipe:
+                loop.plan = execplan.compile_plan(cfg, batch=tb, train=True,
+                                                  pipeline=False)
             build.reset_launch_counts()
             hist = loop.run(resume=False)
             torch.cuda.synchronize()
             train_counts = build.launch_counts()
-        step_ms = 1e3 * statistics.median(h["time_s"] for h in hist)
+        key = f"{opt} {'pipelined' if pipe else 'per-op'}"
+        step_ms[key] = 1e3 * statistics.median(h["time_s"] for h in hist)
+        counts_by[key] = train_counts
         ok = len(hist) == TRAIN_STEPS and capsnet_loop.improved(
             hist, loop.nan_skips)
-        print(f"train svhn {opt} lr {lr:g}: {TRAIN_STEPS} steps at batch "
+        print(f"train svhn {key} lr {lr:g}: {TRAIN_STEPS} steps at batch "
               f"{tb}, loss {[round(h['loss'], 4) for h in hist]}, means of "
               f"the first and last 3 {capsnet_loop.loss_ends(hist)}, "
-              f"improved {ok}, median step {step_ms:.2f} ms, launches "
+              f"improved {ok}, median step {step_ms[key]:.2f} ms, launches "
               f"{train_counts}", flush=True)
-    if not ok:
-        raise AssertionError("train svhn: the loss did not fall under "
-                             "AdamW, or a rollback fired")
-    for sym in ("votes_routing_global_f32", "routing_bwd_global_f32",
-                "votes_routing_f32", "routing_bwd_resident_f32"):
-        if train_counts[sym] < TRAIN_STEPS:
-            raise AssertionError(f"train svhn: {sym} ran "
-                                 f"{train_counts[sym]} times")
+        if opt == "adam" and not ok:
+            raise AssertionError(f"train svhn {key}: the loss did not fall "
+                                 f"under AdamW, or a rollback fired")
+    train_counts = counts_by["sgd pipelined"]
+    for key, syms in (("sgd pipelined", ("primary_routing_f32",
+                                         "routing_bwd_cluster_f32",
+                                         "votes_routing_f32",
+                                         "routing_bwd_resident_f32")),
+                      ("adam per-op", ("votes_routing_global_f32",
+                                       "routing_bwd_cluster_f32",
+                                       "votes_routing_f32",
+                                       "routing_bwd_resident_f32"))):
+        for sym in syms:
+            if counts_by[key][sym] < TRAIN_STEPS:
+                raise AssertionError(f"train svhn {key}: {sym} ran "
+                                     f"{counts_by[key][sym]} times")
 
     # Times: the forward and the K12 segment, then each new kernel against
     # its twin and its bound (K13 also against the fused kernel).
     with torch.no_grad():
-        fwd_ms = {b: time_ms(lambda b=b: capsnet.forward(
-            params, images, cfg, backend=b, plan=plan if b == "kernels"
-            else None, device=dev)) for b in ("kernels", "torch")}
+        fwd_ms = {label: time_ms(lambda b=b, p=p: capsnet.forward(
+            params, images, cfg, backend=b, plan=p, device=dev))
+            for label, b, p in (("kernels, pipelined plan", "kernels", plan),
+                                ("kernels, per-op plan", "kernels", pplan),
+                                ("torch", "torch", None))}
     pairs = tuple((stack[k], stack[k + 1]) for k in (1, 3))
     seg_ws = tuple(w_of(lyr) for pair in pairs for lyr in pair)
     h_seg = h0.detach().clone()
@@ -686,18 +805,19 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                fwd_bound_ms=seg_bound(SLOTS, False),
                fwd_bwd_bound_ms=seg_bound(tb, True))
     print(f"svhn forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}; "
-          f"train step median {step_ms:.2f} ms at batch {tb}; K12 segment "
-          f"(2 blocks): {json.dumps(seg)}", flush=True)
-    # Where the device time goes: one forward at the engine's batch, one
-    # training gradient at the trainer's batch.
+          f"train step median ms at batch {tb}: {json.dumps(step_ms)}; K12 "
+          f"segment (2 blocks): {json.dumps(seg)}", flush=True)
+    # Where the device time goes: one forward at the engine's batch on
+    # each plan, one training gradient at the trainer's batch.
     with torch.no_grad():
-        fwd_split = device_breakdown(lambda: capsnet.forward(
-            params, images, cfg, backend="kernels", plan=plan, device=dev))
+        for label, p in (("pipelined", plan), ("per-op", pplan)):
+            fwd_split = device_breakdown(lambda p=p: capsnet.forward(
+                params, images, cfg, backend="kernels", plan=p, device=dev))
+            print(f"svhn forward {label} device ms by kernel (batch "
+                  f"{SLOTS}): {json.dumps(fwd_split)}", flush=True)
     step_split = device_breakdown(lambda: capsnet.loss_and_grads(
         params, timages, labels, cfg, backend="kernels", plan=tplan,
         device=dev))
-    print(f"svhn forward device ms by kernel (batch {SLOTS}): "
-          f"{json.dumps(fwd_split)}", flush=True)
     print(f"svhn gradient device ms by kernel (batch {tb}): "
           f"{json.dumps(step_split)}", flush=True)
     neck_bytes = 4.0 * (u0.numel() + w0.numel() + SLOTS * lay0.jd)
@@ -708,8 +828,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     new = [
         ("votes_routing_global", "votes_routing.cu",
          "src/repro/kernels/votes_routing.py:139",
-         "serve, SVHN full width (bottleneck, streamed-global)",
-         serve_counts, [
+         "serve, SVHN full width, per-op plan (bottleneck, "
+         "streamed-global)", served["per-op"], [
              (lay0.name + " (SVHN, 8)",
               lambda: k34.votes_routing(u0, w0, mode=GLOBAL,
                                         block_i=neck.block_i, **kw0),
@@ -731,34 +851,22 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
               lambda: k34.votes_routing_plain(u0, w0, mode=ORACLE,
                                               block_i=neck.block_i, **kw0),
               None, neck_bytes, neck_flops)]),
-        ("routing_bwd_global", "votes_routing_bwd.cu",
-         "src/repro/kernels/votes_routing.py:367",
-         "train, SVHN full width (bottleneck, streamed-global)",
-         train_counts, [
-             (lay0.name + "-bwd (SVHN, 16)",
-              lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
-                                            block_i=nbwd.block_i, **kw0),
-              lambda: k34.votes_routing_bwd_plain(
-                  tu0, w0, g0, mode=GLOBAL, block_i=nbwd.block_i, **kw0),
-              None, routing_bwd_bytes(tu0, w0),
-              routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd,
-                                3))]),
         ("routing_bwd_2pass", "votes_routing_bwd.cu",
          "src/repro/kernels/votes_routing.py:426",
          "oracle only: 0 launches on the SVHN training path", train_counts, [
              ("ClassCaps-Routing-bwd (MNIST, 16)",
               lambda: k34.votes_routing_bwd(tu, wcc, g, mode=ORACLE,
-                                            block_i=mbwd_i, **kwm),
+                                            block_i=128, **kwm),
               lambda: k34.votes_routing_bwd_plain(tu, wcc, g, mode=ORACLE,
-                                                  block_i=mbwd_i, **kwm),
+                                                  block_i=128, **kwm),
               None, routing_bwd_bytes(tu, wcc),
               routing_bwd_flops(tb, tu.shape[1], tu.shape[2], wcc.shape[1],
                                 3)),
              (lay0.name + "-bwd (SVHN, 16)",
               lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=ORACLE,
-                                            block_i=nbwd.block_i, **kw0),
+                                            block_i=64, **kw0),
               lambda: k34.votes_routing_bwd_plain(
-                  tu0, w0, g0, mode=ORACLE, block_i=nbwd.block_i, **kw0),
+                  tu0, w0, g0, mode=ORACLE, block_i=64, **kw0),
               None, routing_bwd_bytes(tu0, w0),
               routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd,
                                 3))]),
@@ -769,10 +877,10 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         lambda: k34.votes_routing(u0, w0, mode=GLOBAL, block_i=neck.block_i,
                                   **kw0)],
         "routing_bwd_2pass": [
-        lambda: k34.votes_routing_bwd(tu, wcc, g, mode="streamed",
-                                      block_i=mbwd_i, **kwm),
-        lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=GLOBAL,
-                                      block_i=nbwd.block_i, **kw0)]}
+        lambda: k34.votes_routing_bwd(tu, wcc, g, mode=mbwd.mode,
+                                      block_i=mbwd.block_i,
+                                      cluster=mbwd.cluster, **kwm),
+        lambda: k34.votes_routing_bwd(tu0, w0, g0, **kw9, **kw0)]}
     with torch.no_grad():
         for kernel, source, replaces, path, counts, sites in new:
             site_rows = timed_sites(sites)
@@ -822,10 +930,76 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                  tx2, wf, gh, mode=hbwd.mode, block_i=hbwd.block_i, **kwh),
              None, routing_bwd_bytes(tx2, wf),
              routing_bwd_flops(tb, half.in_caps, half.in_dim, half.jd, 3))])
+        # K5 and K9 at the SVHN bottleneck, as sites of their rows, with
+        # every cluster size.
+        k5_row = by_name["primary_routing"]
+        svn = cfg.pc_channels
+        k5_row["sites"] += timed_sites([
+            (execplan.PIPE_NAME + " (SVHN, 8)",
+             lambda: k5.primary_routing_patches(svp, wpc0, params["pc_b"],
+                                                w0, **kw5, **kw0),
+             lambda: k5.primary_routing_patches_plain(
+                 svp, wpc0, params["pc_b"], w0, **kw5, **kw0), None,
+             4.0 * (svp.numel() + wpc0.numel() + svn + w0.numel()
+                    + SLOTS * lay0.jd),
+             2.0 * svp.shape[0] * svp.shape[1] * svp.shape[2] * svn
+             + neck_flops)])
+        k5_row["sites"][-1].update(cluster=spr.cluster, ctas=spr.block.ctas,
+                                   mode=spr.mode)
+
+        def k5_plan_at(cs):
+            try:
+                return execplan.plan_primary_routing(
+                    svp.shape[1], svp.shape[2], svn, lay0.in_caps,
+                    lay0.in_dim, lay0.jd, lay0.num_caps, batch=SLOTS,
+                    cluster=cs)
+            except execplan.PlanError:
+                return None
+
+        k5_row["cluster_sweep"]["SVHN, 8"] = cluster_sweep(
+            f"K5 SVHN batch {SLOTS}", k5_plan_at,
+            lambda sc, cs: k5.primary_routing_patches(
+                svp, wpc0, params["pc_b"], w0, mode=sc.mode,
+                block_i=sc.block_i, cluster=cs, **kw0),
+            lambda sc, cs: k5.occupancy(
+                svp.shape[1], svn, cfg.primary_dim, lay0.num_caps,
+                lay0.caps_dim, mode=sc.mode, block_i=sc.block_i,
+                cluster=cs))
+    k9_row = by_name["routing_bwd_cluster"]
+    k9_row["sites"] += timed_sites([
+        (lay0.name + "-bwd (SVHN, 16)",
+         lambda: k34.votes_routing_bwd(tu0, w0, g0, **kw9, **kw0),
+         lambda: k34.votes_routing_bwd_plain(tu0, w0, g0, **kw9, **kw0),
+         None, routing_bwd_bytes(tu0, w0),
+         routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd, 3))])
+    k9_row["sites"][-1].update(
+        cluster=nbwd.cluster, ctas=nbwd.block.ctas, mode=nbwd.mode,
+        **replay_emit_ms(lambda: k34.votes_routing_bwd(tu0, w0, g0, **kw9,
+                                                       **kw0)))
+    print(f"K9 SVHN batch {tb}: replay "
+          f"{k9_row['sites'][-1]['replay_device_ms']} ms, emit "
+          f"{k9_row['sites'][-1]['emit_device_ms']} ms (device)", flush=True)
+    k9_row["max_abs_err"] = max(k9_row["max_abs_err"],
+                                errs["routing_bwd_cluster"])
+    by_name["primary_routing"]["max_abs_err"] = max(
+        by_name["primary_routing"]["max_abs_err"], errs["primary_routing"])
+    k9_row["cluster_sweep"]["SVHN, 16"] = cluster_sweep(
+        f"K9 SVHN bottleneck batch {tb}",
+        lambda cs: execplan.plan_routing_bwd_cluster(
+            lay0.in_caps, lay0.in_dim, lay0.jd, lay0.num_caps, batch=tb,
+            cluster=cs),
+        lambda sc, cs: k34.votes_routing_bwd(
+            tu0, w0, g0, mode=sc.mode, block_i=sc.block_i, cluster=cs,
+            **kw0),
+        lambda sc, cs: k34.bwd_cluster_occupancy(
+            lay0.in_caps, lay0.in_dim, lay0.num_caps, lay0.caps_dim,
+            mode=sc.mode, block_i=sc.block_i, cluster=cs))
     for row in rows:
         sym = row["name"] + "_f32"
-        row["launches_svhn"] = dict(serve=serve_counts.get(sym, 0),
-                                    train=train_counts.get(sym, 0))
+        row["launches_svhn"] = dict(
+            serve=serve_counts.get(sym, 0),
+            serve_per_op=served["per-op"].get(sym, 0),
+            train=train_counts.get(sym, 0))
 
 
 def attention_work(lens, tq: int, h: int, kvh: int, d: int, causal: bool,
@@ -1362,21 +1536,25 @@ def capsnet_phases(dev) -> list[dict]:
          k34.votes_routing(su, swcc, mode="streamed", block_i=24),
          k34.votes_routing_plain(su, swcc, iters=3, num_classes=10,
                                  mode="streamed", block_i=24), ROUTING)
+    # K5 on the plan's cluster (MNIST at batch 8; batch 16 in phase 7), each
+    # twice for identical bits.
     for (label, pp, wp, bp, ww, op) in (
-            ("K5 primary_routing streamed, MNIST", ppc, wpc, params["pc_b"],
+            ("K5 primary_routing, MNIST batch 8", ppc, wpc, params["pc_b"],
              wcc, pr),
-            ("K5 primary_routing resident, smoke", sppc, swpc,
-             sparams["pc_b"], swcc, spr)):
-        held("primary_routing", label,
-             k5.primary_routing_patches(pp, wp, bp, ww, mode=op.mode,
-                                        block_i=op.block_i,
-                                        block_k=op.block_k),
+            ("K5 primary_routing, smoke", sppc, swpc, sparams["pc_b"], swcc,
+             spr)):
+        kw5 = dict(mode=op.mode, block_i=op.block_i, cluster=op.cluster)
+        print(f"{label}: {op.mode} votes, clusters of {op.cluster} "
+              f"({op.block.ctas} CTAs), {op.smem_bytes} B a CTA", flush=True)
+        held("primary_routing", f"{label}, {op.mode}, {op.cluster}-CTA "
+             f"clusters", same_bits(label, lambda: k5.primary_routing_patches(
+                 pp, wp, bp, ww, **kw5)),
              k5.primary_routing_patches_plain(pp, wp, bp, ww, iters=3,
-                                              num_classes=10, mode=op.mode,
-                                              block_i=op.block_i), ROUTING)
-    assert plan.op(execplan.PIPE_NAME).mode == "streamed"
-    assert perop.op(execplan.FUSED_NAME).mode == "streamed"
-    assert splan.op(execplan.PIPE_NAME).mode == "resident"
+                                              num_classes=10, **kw5),
+             ROUTING)
+    assert (pr.mode, perop.op(execplan.FUSED_NAME).mode) == ("resident",
+                                                             "streamed")
+    assert pr.cluster > 1 and splan.op(execplan.PIPE_NAME).mode == "resident"
 
     # 4. Full-width forward on both plans against the plain forward.
     with torch.no_grad():
@@ -1435,6 +1613,23 @@ def capsnet_phases(dev) -> list[dict]:
     print(f"serve: {N_REQUESTS} requests ok, "
           f"{stats['requests_per_s']:.1f} req/s, mean latency "
           f"{stats['mean_latency_ms']:.2f} ms", flush=True)
+    # The same requests through the engine on the per-op plan.
+    engine_po = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
+                              device=dev)
+    engine_po.plan = perop
+    for r in reqs:
+        engine_po.submit(CapsRequest(rid=r.rid, image=r.image))
+    done_po = engine_po.run()
+    torch.cuda.synchronize()
+    if len(done_po) != N_REQUESTS or any(r.status != "ok" for r in done_po):
+        raise AssertionError("serve per-op: a request failed")
+    same_predictions("serve per-op", torch.tensor(np.stack(
+        [r.lengths for r in sorted(done_po, key=lambda r: r.rid)])),
+        plain_len, ROUTING[1])
+    stats_po = engine_po.stats()
+    print(f"serve per-op plan: {N_REQUESTS} requests ok, "
+          f"{stats_po['requests_per_s']:.1f} req/s, mean latency "
+          f"{stats_po['mean_latency_ms']:.2f} ms", flush=True)
 
     # 6. Each kernel's time at the engine's batch against its bound, after
     # the whole forward's on each plan.
@@ -1512,13 +1707,14 @@ def capsnet_phases(dev) -> list[dict]:
              4.0 * (su.numel() + swcc.numel() + b_ * slay.jd),
              routing_flops(b_, slay.in_caps, slay.in_dim, slay.jd, it))],
         "primary_routing": [
-            (execplan.PIPE_NAME, "main",
+            (execplan.PIPE_NAME + " (MNIST, 8)", "main",
              lambda: k5.primary_routing_patches(
                  ppc, wpc, params["pc_b"], wcc, mode=pr.mode,
-                 block_i=pr.block_i, block_k=pr.block_k),
+                 block_i=pr.block_i, cluster=pr.cluster),
              lambda: k5.primary_routing_patches_plain(
                  ppc, wpc, params["pc_b"], wcc, iters=it,
-                 num_classes=lay.num_caps, mode=pr.mode, block_i=pr.block_i),
+                 num_classes=lay.num_caps, mode=pr.mode, block_i=pr.block_i,
+                 cluster=pr.cluster),
              None,
              4.0 * (ppc.numel() + wpc.numel() + npc + wcc.numel() + b_ * jd),
              2.0 * mpc * kkpc * npc + routing_flops(b_, i_, c_, jd, it))],
@@ -1589,6 +1785,29 @@ def capsnet_phases(dev) -> list[dict]:
                   f"{', the plan' if split == blk.split_k else ''}): "
                   f"device {t} ms", flush=True)
 
+    # K5's cluster size at MNIST batch 8: the plan's among every size.
+    k5_row = next(r for r in rows if r["name"] == "primary_routing")
+    k5_row.update(cluster=pr.cluster, ctas=pr.block.ctas, mode=pr.mode)
+
+    def k5_plan_at(cs, pp=ppc, c=cfg, ly=lay):
+        try:
+            return execplan.plan_primary_routing(
+                pp.shape[1], pp.shape[2], c.pc_channels, ly.in_caps,
+                ly.in_dim, ly.jd, ly.num_caps, batch=pp.shape[0], cluster=cs)
+        except execplan.PlanError:
+            return None
+
+    def k5_occupancy(sched, cs, c=cfg, ly=lay, pp=ppc):
+        return k5.occupancy(pp.shape[1], c.pc_channels, c.primary_dim,
+                            ly.num_caps, ly.caps_dim, mode=sched.mode,
+                            block_i=sched.block_i, cluster=cs)
+
+    k5_row["cluster_sweep"] = {"MNIST, 8": cluster_sweep(
+        "K5 MNIST batch 8", k5_plan_at,
+        lambda sc, cs: k5.primary_routing_patches(
+            ppc, wpc, params["pc_b"], wcc, mode=sc.mode,
+            block_i=sc.block_i, cluster=cs), k5_occupancy)}
+
     # 7. The backward kernels against their twins at the training shapes.
     tb = TRAIN_BATCH
     timages = torch.tensor(
@@ -1618,7 +1837,8 @@ def capsnet_phases(dev) -> list[dict]:
     vbwd = tplan.op(execplan.FUSED_NAME + execplan.BWD_SUFFIX)
     sbwd = execplan.compile_plan(smoke, batch=tb, train=True).op(
         execplan.FUSED_NAME + execplan.BWD_SUFFIX)
-    assert (vbwd.mode, sbwd.mode) == ("streamed", "resident")
+    assert vbwd.cluster > 1 and (sbwd.mode, sbwd.cluster) == ("resident",
+                                                              None)
     for name, p in (("MNIST pipelined train", tplan),
                     ("MNIST per-op train", tperop)):
         print(f"plan {name}: {json.dumps(p.summary())}", flush=True)
@@ -1654,16 +1874,36 @@ def capsnet_phases(dev) -> list[dict]:
     r = check("K7 col2im PrimaryCaps", k12.col2im_patches(dpatch, **col_kw),
               k12.col2im_patches_plain(dpatch, **col_kw), TAPS)
     berrs["col2im_patches"] = r["max_abs"]
-    for label, kern, uu, ww, gg, mode, bi in (
-            ("K9 routing bwd streamed, MNIST", "routing_bwd_streamed", tu,
-             wcc, g, vbwd.mode, vbwd.block_i),
-            ("K9 routing bwd streamed, smoke, ragged i",
-             "routing_bwd_streamed", su16, swcc, sg, "streamed", 24),
+    print(f"K9 MNIST batch {tb}: {vbwd.mode} votes, clusters of "
+          f"{vbwd.cluster} ({vbwd.block.ctas} CTAs), {vbwd.smem_bytes} B a "
+          f"CTA", flush=True)
+    for label, kern, uu, ww, gg, mode, bi, cs in (
+            ("K9 routing bwd, MNIST batch 16", "routing_bwd_cluster", tu,
+             wcc, g, vbwd.mode, vbwd.block_i, vbwd.cluster),
+            ("K9 routing bwd, smoke, 16-CTA clusters, ragged blocks",
+             "routing_bwd_cluster", su16, swcc, sg, "streamed", 3, 16),
+            ("K9 routing bwd, smoke, 1-CTA clusters, ragged blocks",
+             "routing_bwd_cluster", su16, swcc, sg, "streamed", 24, 1),
             ("K8 routing bwd resident, smoke", "routing_bwd_resident", su16,
-             swcc, sg, sbwd.mode, sbwd.block_i)):
-        kw = dict(iters=3, num_classes=10, mode=mode, block_i=bi)
-        held_scaled(kern, label, k34.votes_routing_bwd(uu, ww, gg, **kw),
-                    k34.votes_routing_bwd_plain(uu, ww, gg, **kw), GRAD)
+             swcc, sg, sbwd.mode, sbwd.block_i, None)):
+        kw = dict(iters=3, num_classes=10, mode=mode, block_i=bi, cluster=cs)
+        held_scaled(kern, label, same_bits(label, lambda: (
+            k34.votes_routing_bwd(uu, ww, gg, **kw))),
+            k34.votes_routing_bwd_plain(uu, ww, gg, **kw), GRAD)
+    # K5 at the training plan's batch and cluster.
+    tpr = tplan.op(execplan.PIPE_NAME)
+    kw5 = dict(mode=tpr.mode, block_i=tpr.block_i, cluster=tpr.cluster)
+    print(f"K5 MNIST batch {tb}: {tpr.mode} votes, clusters of "
+          f"{tpr.cluster} ({tpr.block.ctas} CTAs)", flush=True)
+    r = check(f"K5 primary_routing, MNIST batch {tb}, {tpr.mode}, "
+              f"{tpr.cluster}-CTA clusters",
+              same_bits(f"K5 MNIST batch {tb}",
+                        lambda: k5.primary_routing_patches(
+                            tppc, wpc, params["pc_b"], wcc, **kw5)),
+              k5.primary_routing_patches_plain(tppc, wpc, params["pc_b"],
+                                               wcc, iters=3, num_classes=10,
+                                               **kw5), ROUTING)
+    errs["primary_routing"] = max(errs["primary_routing"], r["max_abs"])
 
     # 8. One full-width total_loss backward on both training plans against
     # the plain backend's autograd gradients.
@@ -1683,7 +1923,7 @@ def capsnet_phases(dev) -> list[dict]:
         for k in params:               # loss_and_grads refuses a None grad
             check_scaled(f"backward {label} d{k}", got[k], want[k], GRAD)
         for sym in ("matmul_at_b_f32", "col2im_patches_f32",
-                    "routing_bwd_streamed_f32"):
+                    "routing_bwd_cluster_f32"):
             if bwd_launches[label][sym] < 1:
                 raise AssertionError(f"backward {label}: {sym} was never "
                                      f"launched")
@@ -1692,12 +1932,17 @@ def capsnet_phases(dev) -> list[dict]:
     # CLI's default smoke config (the resident backward, K8).
     train_launches, train_ms = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, tcfg, steps in (("mnist", cfg, TRAIN_STEPS),
-                                   ("smoke", capsnet_loop.SMOKE, 4)):
+        for label, tcfg, steps, pipe in (
+                ("mnist", cfg, TRAIN_STEPS, True),
+                ("mnist per-op", cfg, TRAIN_STEPS, False),
+                ("smoke", capsnet_loop.SMOKE, 4, True)):
             loop = capsnet_loop.CapsTrainLoop(tcfg, capsnet_loop.CapsLoopConfig(
                 total_steps=steps, batch=tb, ckpt_every=10,
                 ckpt_dir=str(Path(tmp) / label), log_every=5, seed=SEED),
                 device=dev)
+            if not pipe:
+                loop.plan = execplan.compile_plan(tcfg, batch=tb, train=True,
+                                                  pipeline=False)
             build.reset_launch_counts()
             hist = loop.run(resume=False)
             torch.cuda.synchronize()
@@ -1710,16 +1955,20 @@ def capsnet_phases(dev) -> list[dict]:
                   f"{train_ms[label]:.2f} ms, launches "
                   f"{train_launches[label]}", flush=True)
             if len(hist) != steps or (
-                    label == "mnist"
+                    label != "smoke"
                     and not capsnet_loop.improved(hist, loop.nan_skips)):
                 raise AssertionError(f"train {label}: the loss did not "
                                      f"fall, or a rollback fired")
     main_counts = train_launches["mnist"]
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
                 "primary_routing_f32", "matmul_at_b_f32",
-                "col2im_patches_f32", "routing_bwd_streamed_f32"):
-        if main_counts[sym] < 1:
-            raise AssertionError(f"train mnist: {sym} was never launched")
+                "col2im_patches_f32", "routing_bwd_cluster_f32"):
+        if main_counts[sym] < TRAIN_STEPS:
+            raise AssertionError(f"train mnist: {sym} ran "
+                                 f"{main_counts[sym]} times")
+    if train_launches["mnist per-op"]["routing_bwd_cluster_f32"] < \
+            TRAIN_STEPS:
+        raise AssertionError("train mnist per-op: K9 did not run each step")
     if train_launches["smoke"]["routing_bwd_resident_f32"] < 1:
         raise AssertionError("train smoke: K8 was never launched")
 
@@ -1759,14 +2008,15 @@ def capsnet_phases(dev) -> list[dict]:
                block_i=sbwd.block_i), None,
            routing_bwd_bytes(su16, swcc),
            routing_bwd_flops(tb, slay.in_caps, slay.in_dim, slay.jd, 3))]),
-        ("routing_bwd_streamed", "votes_routing_bwd.cu",
+        ("routing_bwd_cluster", "votes_routing_bwd.cu",
          "src/repro/kernels/votes_routing.py:367",
-         [("ClassCaps-Routing-bwd",
+         [("ClassCaps-Routing-bwd (MNIST, 16)",
            lambda: k34.votes_routing_bwd(tu, wcc, g, mode=vbwd.mode,
-                                         block_i=vbwd.block_i),
+                                         block_i=vbwd.block_i,
+                                         cluster=vbwd.cluster),
            lambda: k34.votes_routing_bwd_plain(
                tu, wcc, g, iters=3, num_classes=10, mode=vbwd.mode,
-               block_i=vbwd.block_i), None,
+               block_i=vbwd.block_i, cluster=vbwd.cluster), None,
            routing_bwd_bytes(tu, wcc),
            routing_bwd_flops(tb, i_, c_, jd_, 3))]),
     ]
@@ -1813,6 +2063,34 @@ def capsnet_phases(dev) -> list[dict]:
                   if kernel == "routing_bwd_resident"
                   else "train, MNIST full width, pipelined train plan"),
             sites=site_rows))
+    # K9: its cluster, the replay and the emit apart, and every cluster
+    # size at batch 16.
+    k9_row = next(r for r in rows if r["name"] == "routing_bwd_cluster")
+    k9_row.update(cluster=vbwd.cluster, ctas=vbwd.block.ctas,
+                  mode=vbwd.mode)
+
+    k9_row["sites"][0].update(replay_emit_ms(
+        lambda: k34.votes_routing_bwd(tu, wcc, g, mode=vbwd.mode,
+                                      block_i=vbwd.block_i,
+                                      cluster=vbwd.cluster)))
+    print(f"K9 MNIST batch {tb}: replay "
+          f"{k9_row['sites'][0]['replay_device_ms']} ms, emit "
+          f"{k9_row['sites'][0]['emit_device_ms']} ms (device)", flush=True)
+
+    def k9_plan_at(cs, ly=lay, b=tb):
+        return execplan.plan_routing_bwd_cluster(
+            ly.in_caps, ly.in_dim, ly.jd, ly.num_caps, batch=b, cluster=cs)
+
+    def k9_occupancy(sched, cs, ly=lay):
+        return k34.bwd_cluster_occupancy(
+            ly.in_caps, ly.in_dim, ly.num_caps, ly.caps_dim,
+            mode=sched.mode, block_i=sched.block_i, cluster=cs)
+
+    k9_row["cluster_sweep"] = {"MNIST, 16": cluster_sweep(
+        f"K9 MNIST batch {tb}", k9_plan_at,
+        lambda sc, cs: k34.votes_routing_bwd(
+            tu, wcc, g, iters=3, num_classes=10, mode=sc.mode,
+            block_i=sc.block_i, cluster=cs), k9_occupancy)}
     # The dpatches GEMM, a site of K2's row on the training path.
     k2_row = next(r for r in rows if r["name"] == "matmul_bias_act")
     kpc = wpc.shape[0]
@@ -2042,8 +2320,7 @@ def capsnet_phases(dev) -> list[dict]:
 
     # 12. Deep stacks at the full width of capsnet-svhn.
     deep_stacks(dev, rng, rows, dict(u=u, wcc=wcc, tu=tu, g=g,
-                                     block_i=vr.block_i,
-                                     bwd_block_i=vbwd.block_i))
+                                     block_i=vr.block_i, bwd=vbwd))
     return rows
 
 

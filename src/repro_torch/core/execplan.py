@@ -19,7 +19,8 @@ executed kernel call, with the reference's op names:
                        iteration, one CTA per sample.
   PrimaryCaps-Routing  ``primary_routing`` (K5, ``pipeline=True``):
                        PrimaryCaps + the first routing layer in one
-                       kernel, u kept in shared memory.
+                       kernel, each sample on a thread-block cluster, u
+                       kept in the cluster's shared memory.
 
 The budget is the shared memory of one CTA (``planner.SMEM_BYTES``), not
 the TPU's VMEM.  The routing kernels run one CTA per sample, so their
@@ -28,8 +29,8 @@ every batch.  ``resident`` keeps one sample's whole votes tensor in
 shared memory and computes it once; ``streamed`` keeps u and the logits
 and recomputes the votes from W on each of the ``iters + 1`` passes.
 At MNIST width one sample's votes (1152 x 160 fp32 = 737,280 B) do not
-fit, so the plan picks ``streamed``; splitting i over a thread-block
-cluster so that ``resident`` fits is later work.  ``streamed-global`` is
+fit, so the plan picks ``streamed`` for K4 (K5 and K9 split the sample
+over a thread-block cluster instead: see below).  ``streamed-global`` is
 ``streamed`` with the logits ``[I, J]`` moved to a per-sample scratch in
 global memory (B*I*J floats, which stay in the 50 MB L2): the plan picks
 it only when one sample's logits leave no room in a CTA -- the SVHN
@@ -38,6 +39,25 @@ before plans exactly as before.  It does the same arithmetic in the same
 order as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule:
 an s-pass and a b-pass per iteration) is the oracle of the fused pass
 and never a plan mode; ``ExecutionPlan.validate`` rejects it.
+
+Cluster schedules (K5, and K9 below): one sample runs on a cluster of
+``cs`` CTAs (``CLUSTER_SIZES``), each owning a share of its capsule rows
+and keeping their u and logits in its own shared memory; only s (and in
+the backward dv) crosses CTAs, summed in rank order through distributed
+shared memory once a pass (``csrc/routing_cluster.cuh``).  Such an op's
+``block`` is a ``ClusterPlan``, and its ``mode`` says where each CTA keeps
+its rows' votes: ``resident`` (computed once) or ``streamed`` (recomputed
+from W on every pass, ``block_i`` rows at a time).  ``cs`` is chosen by
+``cluster_seconds``: whole waves of co-resident clusters
+(``MAX_ACTIVE_CLUSTERS``, from ``cudaOccupancyMaxActiveClusters`` on the
+H100: a 16-CTA cluster needs 16 free SMs in one GPC; times the CTAs an SM
+holds, ``ctas_per_sm``), each as long as one CTA's share of the sample's
+operations and L2 bytes plus a cluster barrier a pass;
+``chip_smoke.py`` sweeps ``cs`` beside the model.  K5's ``cs`` divides the
+capsule groups, so a CTA owns whole groups at every position; at MNIST
+width the CTAs' rows' votes fit, so the consume is ``resident`` as in the
+reference's plan, and at SVHN's bottleneck the logits of a CTA's rows fit,
+so the pipelined plan exists there too.
 
 The split ClassCaps path -- ``caps_votes`` (K14a) writing u_hat to
 device memory, then ``routing`` (K14b) reading it back -- is the paper's
@@ -49,10 +69,16 @@ its traffic, for the comparison with the fused op.
 named ``<op>-bwd`` and listed in reverse network order (the order the
 backward runs), as the reference's training plans do:
 
-  <routing>-bwd      ``votes_routing_bwd`` (K8 resident / K9 streamed):
-                     a per-sample replay CTA, then a per-capsule emit
-                     CTA; its own schedule, since the replay's shared
-                     memory is larger than the forward's.
+  <routing>-bwd      ``votes_routing_bwd``: a per-sample replay, then a
+                     per-capsule emit CTA.  K8 (``resident``, ``block``
+                     None) replays in one CTA where the sample's votes fit
+                     it; otherwise K9 replays on a cluster (a
+                     ``ClusterPlan`` block; rows in contiguous blocks of
+                     ceil(I / cs), votes ``resident`` or ``streamed`` in
+                     each CTA; s and dv summed over the cluster).  Each
+                     cluster CTA keeps its rows' logits on chip, so the
+                     backward has no ``streamed-global`` schedule of its
+                     own: that name runs K9's ``streamed``.
   PrimaryCaps-bwd,   ``conv_im2col_bwd``: the forward tiles for the
   Conv1-bwd          recompute, K6 for dW, ``dx_block`` tiles for the
                      dpatches GEMM (K2) and K7 for dx.
@@ -65,10 +91,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 from repro_torch.core.capsnet import ROUTING_NAME, CapsNetConfig
-from repro_torch.core.planner import (AT_B_SMEM_BYTES, ELEM_BYTES,
-                                      NUM_SMS, SMEM_BYTES, BlockPlan,
+from repro_torch.core.planner import (AT_B_SMEM_BYTES, CTA_FIXED_S,
+                                      ELEM_BYTES, GEMM_EFFICIENCY, NUM_SMS,
+                                      PEAK_FP32_FLOPS, SMEM_BYTES, BlockPlan,
                                       MatmulWorkload, at_b_plan, plan_matmul)
 
 FUSED_NAME = ROUTING_NAME
@@ -79,12 +107,40 @@ MODES = ("resident", "streamed", STREAMED_GLOBAL)  # plan-chooseable
 ORACLE_MODE = "streamed-2pass"           # unfused oracle (K13), tests only
 ALL_MODES = MODES + (ORACLE_MODE,)
 
-# Limits of primary_routing's produce phase (csrc/primary_routing.cu):
-# each of its 256 threads accumulates up to 16 output rows x 4 columns.
+# Limits of primary_routing's produce phase (csrc/primary_routing.cu): the
+# cluster splits K, and each CTA's threads hold the whole P x N tile of its
+# slab, 4 columns and up to 16 rows each.
 PIPE_MAX_POSITIONS = 64
 PIPE_MAX_CHANNELS = 256
+PIPE_ROWS_BUILT = (1, 2, 3, 4, 6, 8, 9, 12, 16)   # rows a thread, built
+PIPE_BLOCK_K = 16            # K per ring stage
+# The producer's cp.async ring: 3 to 16 stages, as deep as the consumer's
+# region and at least PIPE_RING_FLOATS (64 KB): its L2 stream is bound by
+# latency, so the bytes in flight set its rate.
+PIPE_MIN_STAGES, PIPE_MAX_STAGES = 3, 16
+PIPE_RING_FLOATS = 16_384
+CTA_THREADS = 256            # csrc/common.cuh kThreads
 BLOCK_I_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
-PIPE_BLOCK_K_CANDIDATES = (32, 16, 8)
+# Thread-block cluster sizes of the cluster schedules (16 is non-portable).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# Clusters of each size an H100 SXM runs at once at one CTA an SM: what
+# cudaOccupancyMaxActiveClusters reports there (chip_smoke.py prints it).
+# A cluster takes its SMs from one GPC, so 132 SMs hold 15 of 8, 7 of 16.
+MAX_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# CTAs of a kernel one SM holds at once follow from its shared memory and
+# its registers: an SM's 233,472 B and 65,536 registers; the registers a
+# thread of K5 (161 to 207 by its rows a thread: one CTA an SM) and of K9's
+# replay (held to 128) take, as cudaFuncGetAttributes reports them.
+SM_SMEM_BYTES = 233_472
+SM_REGISTERS = 65_536
+PIPE_REGISTERS = 161
+ROUTING_BWD_REGISTERS = 128
+# One pass's cluster barrier and rank-order sum of s, and the bytes a
+# second one SM draws from L2 on the votes' W stream (fitted to the
+# cluster sweeps of K5 and K9 on the H100; chip_smoke.py prints the model
+# beside each size).
+CLUSTER_SYNC_S = 5e-6
+L2_SM_BYTES_S = 12e9
 # Samples the routing backward's emit CTA (csrc/votes_routing_bwd.cu)
 # holds in shared memory at a time.
 EMIT_CHUNK = 16
@@ -100,13 +156,30 @@ class PlanError(ValueError):
 
 
 @dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """One sample on a thread-block cluster: ``cluster`` CTAs, each owning
+    up to ``rows`` capsule rows; ``ctas`` = batch x cluster, run in
+    ``waves`` of co-resident clusters (``MAX_ACTIVE_CLUSTERS``)."""
+
+    cluster: int
+    rows: int
+    ctas: int
+    waves: int
+
+    @property
+    def tiles(self) -> tuple[int, int, int, int]:
+        return self.cluster, self.rows, self.ctas, self.waves
+
+
+@dataclasses.dataclass(frozen=True)
 class OpPlan:
     """The compiled schedule of one kernel call.
 
-    ``block`` holds the GEMM tiles of the conv ops and of the pipelined
-    op's producer; ``block_i`` / ``mode`` / ``n_passes`` the routing
-    schedule (the votes are computed from W ``n_passes`` times per
-    sample); ``block_k`` the pipelined producer's K tile; ``dx_block`` a
+    ``block`` holds the GEMM tiles of the conv ops, or the
+    ``ClusterPlan`` of a cluster schedule (K5, K9); ``block_i`` /
+    ``mode`` / ``n_passes`` the routing schedule (the votes are computed
+    from W ``n_passes`` times per sample); ``block_k`` the pipelined
+    producer's K stage; ``dx_block`` a
     conv backward's dpatches GEMM tiles; ``block_rows`` the rows of one
     standalone-squash CTA (PrimaryCaps only).  ``smem_bytes`` is the
     modeled shared memory of one CTA, and ``global_bytes`` the bytes the op
@@ -116,7 +189,7 @@ class OpPlan:
 
     name: str
     kernel: str
-    block: BlockPlan | None
+    block: BlockPlan | ClusterPlan | None
     smem_bytes: int
     global_bytes: float
     block_i: int | None = None
@@ -130,6 +203,12 @@ class OpPlan:
     def fuses_squash(self) -> bool:
         """Whether this op's epilogue absorbs the squash activation."""
         return self.kernel.endswith("+squash")
+
+    @property
+    def cluster(self) -> int | None:
+        """CTAs per sample of a cluster schedule, else None."""
+        return (self.block.cluster if isinstance(self.block, ClusterPlan)
+                else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +339,8 @@ class VotesRoutingSchedule:
     block_i: int
     smem_bytes: int
     n_passes: int            # W reads per sample: 1 resident, iters+1 str.
+    cluster: ClusterPlan | None = None    # a cluster schedule (K9)
+    seconds: float = 0.0     # a cluster schedule's cluster_seconds
 
 
 def _mode_order(n_streamed: int) -> tuple[tuple[str, int], ...]:
@@ -315,6 +396,53 @@ def votes_routing_global_bytes(batch: int, num_caps: int, caps_dim: int,
     per_sample = (num_caps * caps_dim + n_passes * num_caps * jd * caps_dim
                   + jd + 2 * n_passes * num_caps * logits_j)
     return float(batch * per_sample * ELEM_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# Cluster schedules: the model that picks the cluster size
+# ---------------------------------------------------------------------------
+
+def ctas_per_sm(smem: int, registers: int) -> int:
+    """CTAs of ``CTA_THREADS`` threads with ``smem`` bytes of shared memory
+    (plus the 1 KB the runtime reserves) and ``registers`` a thread that
+    one SM holds at once."""
+    return max(1, min(2048 // CTA_THREADS, SM_SMEM_BYTES // (smem + 1024),
+                      SM_REGISTERS // (registers * CTA_THREADS)))
+
+
+def cluster_waves(batch: int, cs: int, per_sm: int = 1) -> int:
+    """Waves of a batch's clusters: ``MAX_ACTIVE_CLUSTERS[cs]`` at once,
+    times the CTAs one SM holds."""
+    return math.ceil(batch / (MAX_ACTIVE_CLUSTERS[cs] * per_sm))
+
+
+def cluster_seconds(batch: int, cs: int, flops: float, nbytes: float,
+                    passes: int, per_sm: int = 1) -> float:
+    """Modeled time of a per-sample cluster kernel at ``cs`` CTAs a
+    sample: ``cluster_waves``, each as long as one CTA's work -- its share
+    of the sample's ``flops`` at ``GEMM_EFFICIENCY`` of an SM's fp32
+    share and of its ``nbytes`` at ``L2_SM_BYTES_S``, ``passes`` cluster
+    barriers (none alone) and the launch."""
+    rate = GEMM_EFFICIENCY * PEAK_FP32_FLOPS / NUM_SMS
+    cta = (CTA_FIXED_S + (flops / rate + nbytes / L2_SM_BYTES_S) / cs
+           + (passes * CLUSTER_SYNC_S if cs > 1 else 0.0))
+    return cluster_waves(batch, cs, per_sm) * cta
+
+
+def cluster_plan(batch: int, cs: int, rows: int,
+                 per_sm: int = 1) -> ClusterPlan:
+    return ClusterPlan(cluster=cs, rows=rows, ctas=batch * cs,
+                       waves=cluster_waves(batch, cs, per_sm))
+
+
+def routing_work(num_caps: int, caps_dim: int, jd: int, n_votes: int,
+                 n_route: int) -> tuple[float, float]:
+    """(flops, W bytes) of one sample's routing on a schedule that computes
+    the votes ``n_votes`` times and makes ``n_route`` passes over the rows
+    (couplings and s, or a backward's reverse rows)."""
+    votes = 2.0 * num_caps * jd * caps_dim
+    return (n_votes * votes + 4.0 * n_route * num_caps * jd,
+            float(n_votes * num_caps * jd * caps_dim * ELEM_BYTES))
 
 
 # ---------------------------------------------------------------------------
@@ -402,15 +530,30 @@ def squash_block_rows(d: int) -> int:
 
 def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
                            caps_dim: int, j: int, jd: int) -> int:
-    """Shared memory of one replay CTA of the routing backward (K8/K9):
-    the forward's layout (u, ONE logits slab, the votes rows and their
-    couplings -- reused for ``db``) plus s_{T-1}, ds_T and the dv
-    accumulator.  ``b_{T-1}`` goes to global memory row by row before
-    pass T overwrites it, so no second slab is held; under
-    ``streamed-global`` the slab itself is the ``b_T`` output in global
-    memory, so it takes no shared memory."""
+    """Shared memory of one single-CTA replay of the routing backward (K8
+    resident; K13 by the placement of its logits, ``streamed`` or
+    ``streamed-global``): the forward's layout (u, ONE
+    logits slab, the votes rows and their couplings -- reused for ``db``)
+    plus s_{T-1}, ds_T and the dv accumulator.  ``b_{T-1}`` goes to global
+    memory row by row before pass T overwrites it, so no second slab is
+    held; under ``streamed-global`` the slab itself is the ``b_T`` output
+    in global memory, so it takes no shared memory."""
     return votes_routing_smem(mode, num_caps, block_i, caps_dim, j,
                               jd) + 3 * jd * ELEM_BYTES
+
+
+def routing_bwd_cluster_smem(mode: str, num_caps: int, block_i: int,
+                             caps_dim: int, j: int, jd: int,
+                             cluster: int) -> int:
+    """Shared memory of one CTA of K9's cluster replay
+    (``csrc/votes_routing_bwd.cu``): the votes rows of its ``ceil(I /
+    cluster)`` rows (all when resident, ``block_i`` when streamed) with
+    their couplings, the rows' u and logits, and seven [J*D] vectors (s,
+    v, s_{T-1}, ds_T, dv and the two partials)."""
+    rows = -(-num_caps // cluster)
+    vrows = rows if mode == "resident" else min(block_i, rows)
+    return (vrows * (jd + 1 + j) + rows * (caps_dim + j)
+            + 7 * jd) * ELEM_BYTES
 
 
 def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int) -> int:
@@ -421,37 +564,81 @@ def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int) -> int:
             + EMIT_CHUNK * (caps_dim + 2 * j + jd)) * ELEM_BYTES
 
 
+def plan_routing_bwd_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
+                             *, iters: int = 3, batch: int = 1,
+                             smem_budget: int = SMEM_BYTES,
+                             cluster: int | None = None,
+                             votes: str | None = None
+                             ) -> VotesRoutingSchedule | None:
+    """K9's cluster schedule: for each cluster size (only ``cluster`` when
+    given), resident votes in each CTA where they fit, else streamed at
+    the largest i-tile that fits (next to the emit CTA's footprint; only
+    the placement ``votes`` when given); of those, the least
+    ``cluster_seconds`` at ``batch``, the smaller cluster on a tie.  None
+    where no size fits."""
+    emit = routing_bwd_emit_smem(caps_dim, j, jd)
+    placements = tuple((m, n) for m, n in (("resident", 1),
+                                           ("streamed", iters + 2))
+                       if votes in (None, m))
+    best = None
+    for cs in (CLUSTER_SIZES if cluster is None else (cluster,)):
+        rows = -(-num_caps // cs)
+        for mode, n_passes in placements:
+            def smem_of(bi, mode=mode, cs=cs):
+                need = max(routing_bwd_cluster_smem(
+                    mode, num_caps, bi, caps_dim, j, jd, cs), emit)
+                return need if need <= smem_budget else None
+            fit = _largest_fit(rows, smem_of)
+            if fit is None:
+                continue
+            flops, w_bytes = routing_work(num_caps, caps_dim, jd, n_passes,
+                                          iters + 2)
+            per_sm = ctas_per_sm(fit[1], ROUTING_BWD_REGISTERS)
+            t = cluster_seconds(batch, cs, flops, w_bytes, iters + 2,
+                                per_sm)
+            if best is None or t < best[0]:
+                best = (t, VotesRoutingSchedule(
+                    mode=mode, block_i=fit[0], smem_bytes=fit[1],
+                    n_passes=n_passes,
+                    cluster=cluster_plan(batch, cs, rows, per_sm),
+                    seconds=t))
+            break
+    return best[1] if best else None
+
+
 def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
-                           *, iters: int = 3, smem_budget: int = SMEM_BYTES,
+                           *, iters: int = 3, batch: int = 1,
+                           smem_budget: int = SMEM_BYTES,
                            name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Schedule of the routing BACKWARD, made on its own footprint:
-    resident when one sample's votes, logits and the backward's extra
-    rows fit a CTA, else streamed, else streamed-global (the replay's
-    logits slab in global memory), each at the largest i-tile that fits.
-    ``n_passes`` counts votes computations per sample: 1 resident,
-    ``iters + 2`` streamed (``iters + 1`` replay passes, then one merged
-    seed+reverse pass).  Raises ``PlanError`` naming the ``-bwd`` op when
-    nothing fits."""
+    """Schedule of the routing BACKWARD, made on its own footprint: K8
+    (``resident`` in one CTA, ``cluster`` None) when one sample's votes,
+    logits and the backward's extra rows fit a CTA, else K9 on a cluster
+    (``plan_routing_bwd_cluster``).  ``n_passes`` counts votes
+    computations per sample: 1 with resident votes, ``iters + 2``
+    streamed (``iters + 1`` replay passes, then one merged seed+reverse
+    pass).  Raises ``PlanError`` naming the ``-bwd`` op when nothing
+    fits."""
     emit = routing_bwd_emit_smem(caps_dim, j, jd)
 
-    def fits(mode):
-        def smem_of(bi):
-            need = max(votes_routing_bwd_smem(mode, num_caps, bi, caps_dim,
-                                              j, jd), emit)
-            return need if need <= smem_budget else None
-        return smem_of
+    def smem_of(bi):
+        need = max(votes_routing_bwd_smem("resident", num_caps, bi, caps_dim,
+                                          j, jd), emit)
+        return need if need <= smem_budget else None
 
-    for mode, n_passes in _mode_order(iters + 2):
-        fit = _largest_fit(num_caps, fits(mode))
-        if fit is not None:
-            return VotesRoutingSchedule(mode=mode, block_i=fit[0],
-                                        smem_bytes=fit[1], n_passes=n_passes)
-    need = max(votes_routing_bwd_smem(STREAMED_GLOBAL, num_caps, 1, caps_dim,
-                                      j, jd), emit)
+    fit = _largest_fit(num_caps, smem_of)
+    if fit is not None:
+        return VotesRoutingSchedule(mode="resident", block_i=fit[0],
+                                    smem_bytes=fit[1], n_passes=1)
+    sched = plan_routing_bwd_cluster(num_caps, caps_dim, jd, j, iters=iters,
+                                     batch=batch, smem_budget=smem_budget)
+    if sched is not None:
+        return sched
+    need = max(routing_bwd_cluster_smem(
+        "streamed", num_caps, 1, caps_dim, j, jd, CLUSTER_SIZES[-1]), emit)
     raise PlanError(
-        f"{name}{BWD_SUFFIX}: no feasible backward schedule: even "
-        f"{STREAMED_GLOBAL} "
-        f"block_i=1 needs {need} B of shared memory per CTA, over the "
+        f"{name}{BWD_SUFFIX}: no feasible backward schedule: even a "
+        f"{CLUSTER_SIZES[-1]}-CTA cluster streaming block_i=1 needs {need} "
+        f"B of shared memory per CTA (with the emit's {emit} B), over the "
         f"{smem_budget} B budget ({num_caps} capsules of {caps_dim}D -> "
         f"{jd})")
 
@@ -482,53 +669,101 @@ class PrimaryRoutingSchedule:
     block_k: int
     smem_bytes: int
     n_passes: int
+    cluster: ClusterPlan
+    seconds: float           # cluster_seconds of the schedule
 
 
-def primary_routing_smem(mode: str, p_pos: int, n_ch: int, block_k: int,
-                         num_caps: int, block_i: int, caps_dim: int, j: int,
-                         jd: int) -> int:
-    """Shared memory of one ``primary_routing`` CTA: u (the producer's
-    output, ``P x N`` = ``I x C`` floats) and the logits and s/v stay for
-    the whole kernel; the producer's patch and W_pc K-tiles share one
-    region with the consumer's votes rows and couplings, which only
-    exist after the producer is done."""
-    produce = p_pos * block_k + block_k * n_ch
-    rows = num_caps if mode == "resident" else block_i
-    consume = rows * (jd + 1 + j)
-    floats = (num_caps * caps_dim + num_caps * j + 2 * jd
-              + max(produce, consume))
+def pipe_rows(p_pos: int) -> int:
+    """Rows of the P x N tile each producer thread holds: the smallest
+    built count with 4 x rows >= P."""
+    return next(tr for tr in PIPE_ROWS_BUILT if 4 * tr >= p_pos)
+
+
+def primary_routing_smem(mode: str, p_pos: int, n_ch: int, block_i: int,
+                         caps_dim: int, j: int, jd: int,
+                         cluster: int) -> int:
+    """Shared memory of one ``primary_routing`` cluster CTA
+    (``csrc/primary_routing.cu``'s layout): u of its rows (its ``p_pos x
+    n_ch / cluster`` slice of the output), their logits, and s, v and two
+    partials of s stay for the whole kernel; the producer's ring of patch
+    and W_pc stages (``PIPE_BLOCK_K`` deep, patch rows padded by 4 floats;
+    see ``PIPE_RING_FLOATS``), then its P x N partial tile, share one
+    region with the consumer's votes rows and couplings, which only exist
+    after the partials are summed."""
+    rows = p_pos * (n_ch // cluster) // caps_dim
+    vrows = rows if mode == "resident" else min(block_i, rows)
+    stage = (4 * pipe_rows(p_pos) * (PIPE_BLOCK_K + 4)
+             + PIPE_BLOCK_K * n_ch)
+    consume = vrows * (jd + 1 + j)
+    stages = max(PIPE_MIN_STAGES, min(PIPE_MAX_STAGES,
+                                      max(consume, PIPE_RING_FLOATS) // stage))
+    floats = (max(stages * stage, p_pos * n_ch, consume) + rows * caps_dim
+              + rows * j + 4 * jd)
     return floats * ELEM_BYTES
+
+
+def pipe_cluster_sizes(p_pos: int, n_ch: int, caps_dim: int) -> list[int]:
+    """The cluster sizes K5 can run: each divides the capsule groups, and
+    each CTA's channel slice is a multiple of 4."""
+    groups = n_ch // caps_dim
+    return [cs for cs in CLUSTER_SIZES
+            if groups % cs == 0 and (n_ch // cs) % 4 == 0]
 
 
 def plan_primary_routing(p_pos: int, k_in: int, n_ch: int, num_caps: int,
                          caps_dim: int, jd: int, j: int, *, iters: int = 3,
-                         smem_budget: int = SMEM_BYTES
+                         batch: int = 1, smem_budget: int = SMEM_BYTES,
+                         cluster: int | None = None
                          ) -> PrimaryRoutingSchedule:
-    """Schedule for the pipelined PrimaryCaps -> routing kernel: resident
-    consume if it fits, else streamed; the largest produce K-tile and
-    i-tile that fit.  Raises ``PlanError`` when the producer exceeds the
-    kernel's per-thread accumulators or nothing fits -- ``compile_plan``
-    then keeps the per-op pair."""
-    if p_pos > PIPE_MAX_POSITIONS or n_ch > PIPE_MAX_CHANNELS:
+    """Schedule of the pipelined PrimaryCaps -> routing kernel: for each
+    cluster size (``pipe_cluster_sizes``; only ``cluster`` when given),
+    resident votes in each CTA where they fit, else streamed at the
+    largest i-tile that fits; of those, the least ``cluster_seconds`` at
+    ``batch`` (the producer's K split over the cluster, two barriers of
+    its own), the smaller cluster on a tie.  Raises ``PlanError`` when the
+    producer's slice exceeds the kernel's limits or nothing fits --
+    ``compile_plan`` then keeps the per-op pair."""
+    if p_pos > PIPE_MAX_POSITIONS or n_ch > PIPE_MAX_CHANNELS \
+            or n_ch % caps_dim or p_pos * (n_ch // caps_dim) != num_caps:
         raise PlanError(
             f"{PIPE_NAME}: the producer's {p_pos} positions x {n_ch} "
             f"channels exceed the kernel's {PIPE_MAX_POSITIONS} x "
-            f"{PIPE_MAX_CHANNELS} accumulators")
-    for mode, n_passes in (("resident", 1), ("streamed", iters + 1)):
-        for bk in PIPE_BLOCK_K_CANDIDATES:
-            bk = min(bk, k_in)
-            def smem_of(bi, mode=mode, bk=bk):
-                need = primary_routing_smem(mode, p_pos, n_ch, bk, num_caps,
-                                            bi, caps_dim, j, jd)
+            f"{PIPE_MAX_CHANNELS} tile (or are not {num_caps} whole "
+            f"capsules)")
+    sizes = pipe_cluster_sizes(p_pos, n_ch, caps_dim)
+    if cluster is not None:
+        sizes = [cs for cs in sizes if cs == cluster]
+    best = None
+    for cs in sizes:
+        rows = num_caps // cs
+        for mode, n_passes in (("resident", 1), ("streamed", iters + 1)):
+            def smem_of(bi, mode=mode, cs=cs):
+                need = primary_routing_smem(mode, p_pos, n_ch, bi, caps_dim,
+                                            j, jd, cs)
                 return need if need <= smem_budget else None
-            fit = _largest_fit(num_caps, smem_of)
-            if fit is not None:
-                return PrimaryRoutingSchedule(
-                    mode=mode, block_i=fit[0], block_k=bk,
-                    smem_bytes=fit[1], n_passes=n_passes)
-    raise PlanError(
-        f"{PIPE_NAME}: no feasible pipelined schedule within the "
-        f"{smem_budget} B shared-memory budget")
+            fit = _largest_fit(rows, smem_of)
+            if fit is None:
+                continue
+            flops, w_bytes = routing_work(num_caps, caps_dim, jd, n_passes,
+                                          iters + 1)
+            per_sm = ctas_per_sm(fit[1], PIPE_REGISTERS)
+            t = cluster_seconds(
+                batch, cs, flops + 2.0 * p_pos * k_in * n_ch,
+                w_bytes + (p_pos + n_ch) * k_in * ELEM_BYTES, iters + 3,
+                per_sm)
+            if best is None or t < best[0]:
+                best = (t, PrimaryRoutingSchedule(
+                    mode=mode, block_i=fit[0], block_k=PIPE_BLOCK_K,
+                    smem_bytes=fit[1], n_passes=n_passes,
+                    cluster=cluster_plan(batch, cs, rows, per_sm),
+                    seconds=t))
+            break
+    if best is None:
+        raise PlanError(
+            f"{PIPE_NAME}: no feasible pipelined schedule within the "
+            f"{smem_budget} B shared-memory budget at cluster sizes "
+            f"{sizes}")
+    return best[1]
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +877,7 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
         try:
             sched = plan_primary_routing(
                 pc_hw ** 2, pc_wl.k, pc_wl.n, first.in_caps, first.in_dim,
-                first.jd, first.num_caps, iters=first.iters,
+                first.jd, first.num_caps, iters=first.iters, batch=batch,
                 smem_budget=smem_budget)
         except PlanError:
             sched = None                 # the per-op pair is the fallback
@@ -651,11 +886,12 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
             w_pc = (pc_wl.k + 1) * pc_wl.n                # weights + bias
             w_cc = first.in_caps * first.jd * first.in_dim
             ops = [conv1, OpPlan(
-                name=PIPE_NAME, kernel="primary_routing", block=None,
-                smem_bytes=sched.smem_bytes,
+                name=PIPE_NAME, kernel="primary_routing",
+                block=sched.cluster, smem_bytes=sched.smem_bytes,
                 # The extraction reads the image and writes the patches;
-                # then each CTA reads its sample's patches, all of W_pc
-                # and W_cc once per pass, and writes v.
+                # then each CTA of a sample's cluster reads its slab of the
+                # sample's patches and of W_pc and its rows of W_cc once per
+                # pass, and rank 0 writes v.
                 global_bytes=float(ELEM_BYTES * (
                     pc_in + 2 * patches + batch * (
                         w_pc + sched.n_passes * w_cc + first.jd))),
@@ -666,10 +902,11 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
         for lay in reversed(stack):
             sched = plan_votes_routing_bwd(
                 lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
-                iters=lay.iters, smem_budget=smem_budget, name=lay.name)
+                iters=lay.iters, batch=batch, smem_budget=smem_budget,
+                name=lay.name)
             ops.append(OpPlan(
                 name=lay.name + BWD_SUFFIX, kernel="votes_routing_bwd",
-                block=None, smem_bytes=sched.smem_bytes,
+                block=sched.cluster, smem_bytes=sched.smem_bytes,
                 global_bytes=votes_routing_bwd_global_bytes(
                     batch, lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
                     sched.n_passes, sched.mode == STREAMED_GLOBAL),

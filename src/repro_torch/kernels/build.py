@@ -135,6 +135,23 @@ class Kernel:
 REGISTRY: dict[str, Kernel] = {}
 
 
+def cluster_query(library: str, symbol: str, *sizes: int) -> dict[str, int]:
+    """What the card says of a cluster kernel at these sizes, through the
+    library's ``*_occupancy`` entry: the clusters it can run at once
+    (``cudaOccupancyMaxActiveClusters``) and ``cudaFuncGetAttributes``'s
+    static and maximum dynamic shared memory and registers a thread."""
+    fn = getattr(_library(library), symbol)
+    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(*sizes, out)
+    if err != 0:
+        msg = _library(library).repro_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
+    return dict(zip(("max_active_clusters", "static_smem",
+                     "max_dynamic_smem", "registers"), out))
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel so far, by C entry name."""
     return {name: k.launches for name, k in REGISTRY.items()}

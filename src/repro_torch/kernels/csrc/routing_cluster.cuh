@@ -1,0 +1,346 @@
+// Routing-by-agreement of ONE sample over a thread-block cluster: the
+// consume schedule of K5 (primary_routing.cu) and the replay of K9
+// (votes_routing_bwd.cu).
+//
+// routing.cuh routes a sample inside one CTA, so a batch of 8-16 samples
+// keeps 8-16 of the H100's 132 SMs busy, and one sample's votes (737 KB at
+// MNIST) or logits (524 KB at the SVHN bottleneck) do not fit that CTA.
+// Here a cluster of cs CTAs (1, 2, 4, 8 or 16; 16 is a non-portable size)
+// shares the sample.  CTA rank r owns a fixed set of capsule rows and keeps
+// their u, their logits and -- where they fit -- their votes in its own
+// shared memory; nothing of them reaches device memory.
+//
+// Each pass t = 0 .. iters folds the logits update b_t = b_{t-1} +
+// <u_hat, v_{t-1}> (t > 0) into the accumulation of the CTA's share of
+// s_t over its own rows (the fused s+b pass of routing.cuh), writes that
+// partial into its own shared memory and waits at cluster.sync().  Then
+// every CTA reads all cs partials through distributed shared memory
+// (cluster.map_shared_rank) and sums them in rank order 0 .. cs-1, so every
+// CTA holds the same s_t and squashes it into v_t itself: no float atomics,
+// and a second launch repeats the bits.  The partial buffer is double-
+// buffered by the parity of t: pass t+1 writes the other half, and a peer
+// can still be reading this pass's half only until it reaches pass t+1's
+// cluster.sync(), which the writer of pass t+2 has passed.  So one barrier
+// a pass suffices, and the caller's last cluster.sync() keeps every CTA
+// alive until its peers have read its last partial.
+//
+// Votes: "resident" computes the CTA's rows' votes once into shared memory
+// (one read of their W rows a sample); "streamed" recomputes them block by
+// block from W on every pass, keeping only u and the logits.  A row's
+// logits work (the update, the softmax) takes one warp, its lanes the
+// classes.
+//
+// Only s (J*D floats: 160 at MNIST, 512 at the SVHN bottleneck) crosses
+// CTAs in a pass, from 2 to 16 SMs' shared memory, which is what the
+// cluster's network is for.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "routing.cuh"
+
+namespace repro {
+
+namespace cg = cooperative_groups;
+
+// The capsule rows one CTA of the cluster owns: local row l is the sample's
+// row global(l).  K5 owns `run` consecutive groups at each of the P
+// positions (rows i = p * groups + g, runs `stride` = groups apart); the
+// standalone K9 owns one block of rows (a single run).
+struct OwnedRows {
+  int n;        // rows this CTA owns (0 for a rank past a ragged end)
+  int i0;       // the sample's row of local row 0
+  int run;      // local rows per run of consecutive sample rows (>= 1)
+  int stride;   // sample rows from one run's start to the next
+  __host__ __device__ int global(int l) const {
+    return stride ? i0 + (l / run) * stride + l % run : i0 + l;
+  }
+};
+
+// The shared memory one cluster CTA routes in.
+struct ClusterScratch {
+  float* b;     // [n][J] the CTA's rows' logits
+  float* s;     // [J*D] s_t, reduced over the cluster
+  float* v;     // [J*D] squash(s_t)
+  float* part;  // [2][J*D] this CTA's partial s, by the parity of t
+  float* uh;    // [vrows][J*D + 1] votes rows, routing.cuh's padded layout
+  float* c;     // [vrows][J] couplings
+};
+
+// uh[r][n] = <W[global(l0 + r)][n][:], u[l0 + r][:]> for the owned local
+// rows [l0, l0 + rows) with capsules of C floats known at compile time, each
+// dot summed over c in order, as votes_rows does: a vote's float4 loads
+// go out together, and the loop is simple enough for the compiler to keep
+// several votes' loads in flight.  The W stream comes from L2 and is bound
+// by its latency, drained at every block of rows (see PERF.md).
+template <int C>
+__device__ inline void votes_c(const float* u_s, const float* W,
+                               const OwnedRows& own, int l0, int rows,
+                               int jd, float* uh, int ld) {
+  const int total = rows * jd;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / jd, n = e - r * jd;
+    const float4* wp = reinterpret_cast<const float4*>(
+        W + ((size_t)own.global(l0 + r) * jd + n) * C);
+    const float* uu = u_s + (l0 + r) * C;
+    float a = 0.f;
+#pragma unroll
+    for (int h = 0; h < C / 4; ++h) {
+      const float4 w = __ldg(wp + h);
+      a = fmaf(w.x, uu[4 * h], a);
+      a = fmaf(w.y, uu[4 * h + 1], a);
+      a = fmaf(w.z, uu[4 * h + 2], a);
+      a = fmaf(w.w, uu[4 * h + 3], a);
+    }
+    uh[r * ld + n] = a;
+  }
+}
+
+// Votes of the owned local rows [l0, l0 + rows) into uh: votes_c for
+// capsules of 4 or 8 floats on 16-byte rows, else run by run through
+// votes_rows.
+__device__ inline void votes_owned(const float* u_s, const float* W,
+                                   const OwnedRows& own, int l0, int rows,
+                                   int jd, int C, float* uh, int ld) {
+  if ((uintptr_t)W % 16 == 0 && (C == 4 || C == 8)) {
+    if (C == 8)
+      votes_c<8>(u_s, W, own, l0, rows, jd, uh, ld);
+    else
+      votes_c<4>(u_s, W, own, l0, rows, jd, uh, ld);
+    return;
+  }
+  for (int l = l0; l < l0 + rows;) {
+    const int len = min(l0 + rows - l, own.run - l % own.run);
+    votes_rows(u_s + l * C, W + (size_t)own.global(l) * jd * C, len, jd, C,
+               uh + (l - l0) * ld, ld);
+    l += len;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The couplings of one row from its logits br, by one warp (lane l takes
+// the classes l, l + 32, ...): cr = softmax(br).
+__device__ inline void softmax_warp(const float* br, float* cr, int J,
+                                    int lane) {
+  float m = -INFINITY;
+  for (int j = lane; j < J; j += 32) m = fmaxf(m, br[j]);
+  m = warp_max(m);
+  float sum = 0.f;
+  for (int j = lane; j < J; j += 32) {
+    const float e = expf(br[j] - m);
+    cr[j] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int j = lane; j < J; j += 32) cr[j] = cr[j] / sum;
+}
+
+// routing.cuh's route_rows over the owned local rows [l0, l0 + rows), whose
+// votes are at uh: the logits update (if `update`), the couplings, and the
+// rows' share of s added to s.  One warp takes a row, its lanes the classes:
+// one thread walking a row's J*D products and J exponentials serially set
+// the pace of every block at SVHN's J = 64 (and its stride of J floats hit
+// one bank).  With bp / bl (the replay's pass T) each row's logits go to the
+// sample's rows of those [I][J] slabs just before (bp) and just after (bl)
+// the update.
+__device__ inline void route_owned(const float* uh, int ld, int l0, int rows,
+                                   float* b, float* c, float* s,
+                                   const float* v, bool update, int J, int D,
+                                   const OwnedRows& own, float* bp,
+                                   float* bl) {
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < rows; r += nwarps) {
+    const float* ur = uh + r * ld;
+    float* br = b + (l0 + r) * J;
+    const size_t gi = (size_t)own.global(l0 + r) * J;
+    for (int j = lane; j < J; j += 32) {
+      if (bp) bp[gi + j] = br[j];
+      if (update) {
+        float a = 0.f;
+        for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
+        br[j] += a;
+      }
+      if (bl) bl[gi + j] = br[j];
+    }
+    __syncwarp();
+    softmax_warp(br, c + r * J, J, lane);
+  }
+  __syncthreads();
+  const int jd = J * D;
+  for (int n = threadIdx.x; n < jd; n += blockDim.x) {
+    const int j = n / D;
+    float a = s[n];
+    for (int r = 0; r < rows; ++r) a = fmaf(c[r * J + j], uh[r * ld + n], a);
+    s[n] = a;
+  }
+  __syncthreads();
+}
+
+// The merged seed + reverse step over the owned rows [l0, l0 + rows) whose
+// votes are at vb: db_T of each row (into c; a warp a row), used at once
+// for dv += sum_r u_hat[r] . db_T[r].
+__device__ inline void reverse_owned(const float* vb, int ld, int l0,
+                                     int rows, const float* b, float* c,
+                                     const float* ds, float* dv, int J,
+                                     int D) {
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < rows; r += nwarps) {
+    const float* ur = vb + r * ld;
+    float* cr = c + r * J;
+    softmax_warp(b + (l0 + r) * J, cr, J, lane);
+    __syncwarp();
+    // db_j = c_j (dc_j - sum_k c_k dc_k),  dc_j = <u_hat[r, j], ds_T[j]>.
+    float cdc = 0.f;
+    for (int j = lane; j < J; j += 32) {
+      float dc = 0.f;
+      for (int d = 0; d < D; ++d) dc = fmaf(ur[j * D + d], ds[j * D + d], dc);
+      cdc = fmaf(cr[j], dc, cdc);
+    }
+    cdc = warp_sum(cdc);
+    for (int j = lane; j < J; j += 32) {
+      float dc = 0.f;
+      for (int d = 0; d < D; ++d) dc = fmaf(ur[j * D + d], ds[j * D + d], dc);
+      cr[j] = cr[j] * (dc - cdc);
+    }
+  }
+  __syncthreads();
+  const int jd = J * D;
+  for (int n = threadIdx.x; n < jd; n += blockDim.x) {
+    const int j = n / D;
+    float a = dv[n];
+    for (int r = 0; r < rows; ++r) a = fmaf(vb[r * ld + n], c[r * J + j], a);
+    dv[n] = a;
+  }
+  __syncthreads();
+}
+
+// dst = the cluster's partials (each CTA's at `mine`) summed in rank order.
+__device__ inline void cluster_sum(cg::cluster_group& cl, float* mine,
+                                   float* dst, int jd) {
+  cl.sync();
+  const int cs = (int)cl.num_blocks();
+  for (int n = threadIdx.x; n < jd; n += blockDim.x) {
+    float a = 0.f;
+    for (int r = 0; r < cs; ++r) a += cl.map_shared_rank(mine, r)[n];
+    dst[n] = a;
+  }
+  __syncthreads();
+}
+
+// Every routing pass of the cluster's sample: on return sc.s holds s_T and
+// sc.v holds v_T (T = iters) in every CTA, and s_prev (if given) s_{T-1}.
+// bp / bl: see route_owned (pass T only).  The caller's last cluster.sync()
+// must follow the last read of sc.part by a peer (see the note above).
+__device__ inline void route_cluster(cg::cluster_group& cl,
+                                     const ClusterScratch& sc,
+                                     const float* u_s, const float* W,
+                                     const OwnedRows& own, int C, int J,
+                                     int D, int iters, bool resident,
+                                     int block_i, float* s_prev, float* bp,
+                                     float* bl) {
+  const int jd = J * D, ld = jd + 1;
+  for (int e = threadIdx.x; e < own.n * J; e += blockDim.x) sc.b[e] = 0.f;
+  if (resident) votes_owned(u_s, W, own, 0, own.n, jd, C, sc.uh, ld);
+  __syncthreads();
+  const int step = resident ? max(own.n, 1) : block_i;
+  for (int t = 0; t <= iters; ++t) {
+    float* part = sc.part + (t & 1) * jd;
+    for (int n = threadIdx.x; n < jd; n += blockDim.x) part[n] = 0.f;
+    __syncthreads();
+    const bool last = t == iters;
+    for (int l0 = 0; l0 < own.n; l0 += step) {
+      const int rows = min(step, own.n - l0);
+      if (!resident) {
+        votes_owned(u_s, W, own, l0, rows, jd, C, sc.uh, ld);
+        __syncthreads();
+      }
+      route_owned(resident ? sc.uh + l0 * ld : sc.uh, ld, l0, rows, sc.b,
+                  sc.c, part, sc.v, t > 0, J, D, own, last ? bp : nullptr,
+                  last ? bl : nullptr);
+    }
+    cluster_sum(cl, part, sc.s, jd);
+    if (s_prev && t == iters - 1)
+      for (int n = threadIdx.x; n < jd; n += blockDim.x) s_prev[n] = sc.s[n];
+    for (int j = threadIdx.x; j < J; j += blockDim.x)
+      squash_into(sc.s + j * D, sc.v + j * D, D);
+    __syncthreads();
+  }
+}
+
+// Launch `kernel` on B clusters of cs CTAs (grid B * cs), opting in to
+// smem bytes of dynamic shared memory and, for cs > 8, to the non-portable
+// cluster size.  Returns the runtime's error: a refused launch is reported,
+// never replaced by another schedule.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int B, int cs,
+                            int smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(B * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of cs CTAs with smem bytes each the card can hold at
+// once (cudaOccupancyMaxActiveClusters), and the kernel's attributes as
+// cudaFuncGetAttributes reports them: out = {max active clusters, static
+// shared bytes, max dynamic shared bytes, registers a thread}.
+template <typename... Params>
+cudaError_t cluster_occupancy(void (*kernel)(Params...), int cs, int smem,
+                              int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(&out[0], (void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (err != cudaSuccess) return err;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = fa.maxDynamicSharedSizeBytes;
+  out[3] = fa.numRegs;
+  return cudaSuccess;
+}
+
+}  // namespace repro

@@ -18,7 +18,9 @@
 // sample (as in K3/K4), and dW[i] crosses samples, so the backward is two
 // launches:
 //
-//   replay  one CTA per sample.  It replays the forward's iters + 1 fused
+//   replay  one CTA per sample (K8, K13), or one CLUSTER of cs CTAs per
+//           sample (K9, routing_bwd_cluster_kernel below).  It replays the
+//           forward's iters + 1 fused
 //           s+b passes (routing.cuh's schedule) on ONE logits slab in
 //           shared memory; in pass T each row's b_{T-1} goes to global
 //           memory just before the update overwrites it, and b_T right
@@ -27,14 +29,19 @@
 //           for dv_{T-1}, so no db_T slab is held.  It writes only the
 //           logits b_{T-1}, b_T ([B, I, J] each) and ds_{T-1}, ds_T.
 //           K8 (resident) computes the sample's votes once into shared
-//           memory; K9 (streamed) recomputes each votes block from W on
-//           every pass (iters + 2 passes), keeping u, the logits and s.
-//           K13 (two-pass, the oracle) replays the unfused schedule: a
+//           memory.  K9 runs the same schedule on routing_cluster.cuh's
+//           core: each CTA of the cluster owns a block of I/cs rows and
+//           keeps their u, logits and (resident) votes, or recomputes
+//           their votes block by block from W on every pass (streamed,
+//           iters + 2 passes); s_t and the reverse pass's dv are reduced
+//           through distributed shared memory in rank order.
+//           K13 (two-pass, the oracle) replays the unfused schedule in
+//           one CTA a sample, recomputing the votes block by block: a
 //           b-pass and an s-pass per iteration (2 * iters + 2 passes).
-//           Where one sample's logits do not fit a CTA (the plan's
-//           "streamed-global" mode: 524 KB at the SVHN bottleneck) the
-//           slab is the b_T output itself, in global memory: the replay
-//           updates it in place row by row, so b_T needs no copy.
+//           Where one sample's logits do not fit a CTA (524 KB at the
+//           SVHN bottleneck) the slab is the b_T output itself, in global
+//           memory: the replay updates it in place row by row, so b_T
+//           needs no copy.
 //   emit    one CTA per capsule i, all samples: it rebuilds the couplings
 //           c_T, c_{T-1} from the logits and d u_hat[b, i, :] in shared
 //           memory, chunk by chunk of samples, then writes du[b, i, :] and
@@ -47,10 +54,11 @@
 // and dW written), so its bound is the bytes: ~0.004 ms at 3.35 TB/s.
 // K9's schedule does 5 votes computations per sample (about 0.40 GFLOP,
 // ~0.006 ms of fp32 at 67 TFLOP/s), the price of not holding the votes.
-// One CTA per sample keeps only 16 SMs busy in the replay at batch 16, as
-// in K4; the emit spreads over 1152 CTAs.
+// One CTA per sample kept only 16 SMs busy in the replay at batch 16 (as
+// K4 still does); K9's cluster spreads a sample over up to 16 SMs, and the
+// emit over I CTAs.
 
-#include "routing.cuh"
+#include "routing_cluster.cuh"
 
 namespace repro {
 
@@ -97,8 +105,8 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
   extern __shared__ float smem[];
   const int jd = J * D, ld = jd + 1;
   const int smp = blockIdx.x;
-  const bool resident = schedule == kResident;
-  const bool two_pass = schedule == kTwoPass;
+  const bool resident = schedule == kResident;   // K8; else K13
+  const bool two_pass = !resident;
   const int step = resident ? I : block_i;
   float* bp = b_prev_out + (size_t)smp * I * J;
   float* bl = b_last_out + (size_t)smp * I * J;
@@ -229,6 +237,98 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
     squash_vjp_into(s_prev + j * D, dv + j * D, ds_prev + j * D, D);
 }
 
+// The shared memory of one K9 cluster CTA, in floats
+// (execplan.routing_bwd_cluster_smem models the same sum): the votes rows
+// with their couplings, then u and the logits of the CTA's rows, and s, v,
+// s_{T-1}, ds_T, dv and the two partials.
+struct ClusterBwdLayout {
+  int rows, vrows, total;
+};
+
+__host__ __device__ inline ClusterBwdLayout cluster_bwd_layout(
+    int I, int C, int J, int D, int cs, int resident, int block_i) {
+  ClusterBwdLayout L;
+  L.rows = (I + cs - 1) / cs;
+  L.vrows = resident ? L.rows : min(block_i, L.rows);
+  const int jd = J * D;
+  L.total = L.vrows * (jd + 1 + J) + L.rows * (C + J) + 7 * jd;
+  return L;
+}
+
+// K9's replay on the cluster core: the sample's rows split into cs blocks
+// of ceil(I / cs) (the last ragged), one per CTA.  The forward passes run
+// as in K5 (route_cluster), writing the rows' b_{T-1} and b_T in pass T;
+// then every CTA forms ds_T = squash_vjp(s_T, g) (the same in each), its
+// rows' db_T and its partial of dv, which is reduced in rank order like s;
+// rank 0 writes ds_{T-1} = squash_vjp(s_{T-1}, dv) and ds_T.
+// Held to 128 registers a thread, so that two CTAs of 113 KB (MNIST's
+// resident rows at cs = 8) share an SM.
+__global__ void __launch_bounds__(kThreads, 2)
+routing_bwd_cluster_kernel(const float* __restrict__ u,
+                           const float* __restrict__ W,
+                           const float* __restrict__ g, float* b_prev_out,
+                           float* b_last_out, float* __restrict__ ds_out,
+                           int B, int I, int C, int J, int D, int iters,
+                           int resident, int block_i) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int smp = blockIdx.x / cs;
+  const int jd = J * D, ld = jd + 1;
+  const ClusterBwdLayout L = cluster_bwd_layout(I, C, J, D, cs, resident,
+                                                block_i);
+  const int i0 = min(I, rank * L.rows);
+  const int n = min(I, i0 + L.rows) - i0;
+  const OwnedRows own{n, i0, max(n, 1), 0};
+  ClusterScratch sc;
+  sc.uh = smem;                                 // [vrows][J*D + 1]
+  sc.c = sc.uh + L.vrows * ld;                  // [vrows][J]
+  float* u_s = sc.c + L.vrows * J;              // [rows][C]
+  sc.b = u_s + L.rows * C;                      // [rows][J]
+  sc.s = sc.b + L.rows * J;
+  sc.v = sc.s + jd;
+  float* s_prev = sc.v + jd;
+  float* ds = s_prev + jd;
+  float* dv = ds + jd;
+  sc.part = dv + jd;                            // [2][J*D]
+
+  const float* ub = u + ((size_t)smp * I + i0) * C;
+  for (int e = threadIdx.x; e < n * C; e += blockDim.x) u_s[e] = ub[e];
+  __syncthreads();
+  route_cluster(cl, sc, u_s, W, own, C, J, D, iters, resident != 0, block_i,
+                s_prev, b_prev_out + (size_t)smp * I * J,
+                b_last_out + (size_t)smp * I * J);
+
+  // Seed + reverse: the partial of dv goes to the half of the partials that
+  // pass T did not use (see routing_cluster.cuh).
+  const float* gb = g + (size_t)smp * jd;
+  for (int j = threadIdx.x; j < J; j += blockDim.x)
+    squash_vjp_into(sc.s + j * D, gb + j * D, ds + j * D, D);
+  float* part = sc.part + ((iters + 1) & 1) * jd;
+  for (int e = threadIdx.x; e < jd; e += blockDim.x) part[e] = 0.f;
+  __syncthreads();
+  const int step = resident ? max(n, 1) : block_i;
+  for (int l0 = 0; l0 < n; l0 += step) {
+    const int rows = min(step, n - l0);
+    if (!resident) {
+      votes_owned(u_s, W, own, l0, rows, jd, C, sc.uh, ld);
+      __syncthreads();
+    }
+    reverse_owned(resident ? sc.uh + l0 * ld : sc.uh, ld, l0, rows, sc.b,
+                  sc.c, ds, part, J, D);
+  }
+  cluster_sum(cl, part, dv, jd);
+  if (rank == 0) {
+    float* ds_prev = ds_out + (size_t)smp * jd;
+    float* ds_last = ds_out + ((size_t)B + smp) * jd;
+    for (int j = threadIdx.x; j < J; j += blockDim.x)
+      squash_vjp_into(s_prev + j * D, dv + j * D, ds_prev + j * D, D);
+    for (int e = threadIdx.x; e < jd; e += blockDim.x) ds_last[e] = ds[e];
+  }
+  cl.sync();                      // no CTA leaves while a peer reads it
+}
+
 // One CTA per capsule i: d u_hat[b, i, :] = c_T (x) ds_T + c_{T-1} (x)
 // ds_{T-1} for every sample b (kEmitChunk samples at a time), then
 // du[b, i, :] = d u_hat . W[i] and dW[i] = sum_b d u_hat (x) u[b, i].
@@ -293,6 +393,19 @@ routing_bwd_emit_kernel(const float* __restrict__ u,
   for (int e = threadIdx.x; e < jd * C; e += blockDim.x) dWi[e] = dw_s[e];
 }
 
+cudaError_t launch_emit(const float* u, const float* W, const float* b_prev,
+                        const float* b_last, const float* ds, float* du,
+                        float* dW, int B, int I, int C, int J, int D,
+                        int emit_smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      routing_bwd_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      emit_smem);
+  if (err != cudaSuccess) return err;
+  routing_bwd_emit_kernel<<<I, kThreads, emit_smem, s>>>(
+      u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_routing_bwd(int schedule, bool global_slab, const float* u,
                                const float* W, const float* g, float* b_prev,
                                float* b_last, float* ds, float* du, float* dW,
@@ -310,13 +423,8 @@ cudaError_t launch_routing_bwd(int schedule, bool global_slab, const float* u,
       global_slab ? 1 : 0, block_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(routing_bwd_emit_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             emit_smem);
-  if (err != cudaSuccess) return err;
-  routing_bwd_emit_kernel<<<I, kThreads, emit_smem, s>>>(
-      u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D);
-  return cudaGetLastError();
+  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
+                     emit_smem, s);
 }
 
 }  // namespace repro
@@ -338,9 +446,53 @@ cudaError_t launch_routing_bwd(int schedule, bool global_slab, const float* u,
   }
 
 REPRO_ROUTING_BWD(routing_bwd_resident_f32, repro::kResident, false)  // K8
-REPRO_ROUTING_BWD(routing_bwd_streamed_f32, repro::kStreamed, false)  // K9
-// K9 in the plan's "streamed-global" mode: the replay's slab is b_last.
-REPRO_ROUTING_BWD(routing_bwd_global_f32, repro::kStreamed, true)
+
+// The kernel's own shared-memory layout in bytes (execplan models it).
+REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
+                                                int cs, int resident,
+                                                int block_i) {
+  return repro::cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
+         (int)sizeof(float);
+}
+
+// K9: the replay on B clusters of cs CTAs, then the emit.  Arguments as
+// REPRO_ROUTING_BWD's, with resident (the CTAs' votes in shared memory) and
+// the cluster size; smem_bytes must equal the kernel's layout.
+REPRO_EXPORT int routing_bwd_cluster_f32(const float* u, const float* W,
+                                         const float* g, float* b_prev,
+                                         float* b_last, float* ds, float* du,
+                                         float* dW, int B, int I, int C,
+                                         int J, int D, int iters,
+                                         int resident, int block_i, int cs,
+                                         int smem_bytes, int emit_smem,
+                                         void* stream) {
+  using namespace repro;
+  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
+      cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
+              (int)sizeof(float) != smem_bytes)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_clusters(routing_bwd_cluster_kernel, B, cs,
+                                    smem_bytes, s, u, W, g, b_prev, b_last,
+                                    ds, B, I, C, J, D, iters, resident,
+                                    block_i);
+  if (err != cudaSuccess) return err;
+  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
+                     emit_smem, s);
+}
+
+// out = {max active clusters, static shared bytes, max dynamic shared
+// bytes, registers a thread} of the replay at these sizes.
+REPRO_EXPORT int routing_bwd_cluster_occupancy(int I, int C, int J, int D,
+                                               int cs, int resident,
+                                               int block_i, int* out) {
+  using namespace repro;
+  return cluster_occupancy(
+      routing_bwd_cluster_kernel, cs,
+      cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
+          (int)sizeof(float),
+      out);
+}
 
 // K13, the unfused oracle, with the slab where the streamed schedule it
 // checks keeps it: global_slab != 0 for "streamed-global".

@@ -36,6 +36,8 @@ from repro_torch.kernels.conv_im2col import conv2d_im2col, out_size
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
 from repro_torch.kernels.primary_routing import \
+    planned_primary_routing  # noqa: F401  (the K5 plan decision, memoized)
+from repro_torch.kernels.primary_routing import \
     primary_routing as _primary_routing
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.routing import routing as _routing
@@ -94,11 +96,13 @@ def planned_votes_routing(num_caps: int, caps_dim: int, jd: int,
     return sched.mode, sched.block_i
 
 
-def _bwd_schedule(plan, op_name: str) -> tuple[str | None, int | None]:
-    """The plan's ``<op_name>-bwd`` routing schedule, or (None, None) for
-    the backward to plan."""
+def _bwd_schedule(plan, op_name: str
+                  ) -> tuple[str | None, int | None, int | None]:
+    """The plan's ``<op_name>-bwd`` routing schedule ``(mode, block_i,
+    cluster)``, or all None for the backward to plan."""
     bwd = plan.bwd_op(op_name) if plan is not None else None
-    return (bwd.mode, bwd.block_i) if bwd is not None else (None, None)
+    return ((bwd.mode, bwd.block_i, bwd.cluster) if bwd is not None
+            else (None, None, None))
 
 
 def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
@@ -119,10 +123,11 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
     else:
         mode, block_i = planned_votes_routing(u.shape[1], u.shape[2],
                                               w.shape[1], num_classes, iters)
-    bwd_mode, bwd_block_i = _bwd_schedule(plan, op_name)
+    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, op_name)
     out = _votes_routing(u, w, iters=iters, num_classes=num_classes,
                          mode=mode, block_i=block_i, bwd_mode=bwd_mode,
-                         bwd_block_i=bwd_block_i, op_name=op_name)
+                         bwd_block_i=bwd_block_i, op_name=op_name,
+                         bwd_cluster=bwd_cluster)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_VOTES_ROUTING, out)
     return out
@@ -140,10 +145,11 @@ def _layer_schedule(lay, plan) -> RoutingStatics:
         mode, block_i = planned_votes_routing(lay.in_caps, lay.in_dim,
                                               lay.jd, lay.num_caps,
                                               lay.iters)
-    bwd_mode, bwd_block_i = _bwd_schedule(plan, lay.name)
+    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, lay.name)
     return RoutingStatics(iters=lay.iters, num_classes=lay.num_caps,
                           mode=mode, block_i=block_i, bwd_mode=bwd_mode,
-                          bwd_block_i=bwd_block_i, op_name=lay.name)
+                          bwd_block_i=bwd_block_i, op_name=lay.name,
+                          bwd_cluster=bwd_cluster)
 
 
 def res_caps_segment(x: torch.Tensor, ws, pairs, *,
@@ -170,17 +176,6 @@ def res_caps_segment(x: torch.Tensor, ws, pairs, *,
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def planned_primary_routing(p_pos: int, k_in: int, n_ch: int, num_caps: int,
-                            caps_dim: int, jd: int, num_classes: int,
-                            iters: int) -> tuple[str, int, int]:
-    """Memoized (mode, block_i, block_k) decision for ``primary_routing``."""
-    sched = execplan.plan_primary_routing(p_pos, k_in, n_ch, num_caps,
-                                          caps_dim, jd, num_classes,
-                                          iters=iters)
-    return sched.mode, sched.block_i, sched.block_k
-
-
 def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
                     w_cc: torch.Tensor, *, plan=None,
                     stride: int | None = None, iters: int | None = None,
@@ -189,8 +184,9 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     """Pipelined PrimaryCaps conv + votes/routing as ONE kernel: x is the
     Conv1 output [B, H, W, Cin], w_pc/b_pc the PrimaryCaps conv params,
     w_cc [I, J*D, C] the routing weights -> v [B, J*D].  The schedule
-    comes from ``plan.op("PrimaryCaps-Routing")`` or the memoized plan
-    decision; the backward's routing schedule from the plan's
+    (votes placement, i-tile, cluster size) comes from
+    ``plan.op("PrimaryCaps-Routing")`` or the memoized plan decision at
+    this batch; the backward's routing schedule from the plan's
     ``<routing_op_name>-bwd`` (default ``"ClassCaps-Routing"``), its conv
     tiles from ``PrimaryCaps-bwd`` (or the memoized picks)."""
     if stride is None:
@@ -206,12 +202,13 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     m, k = x.shape[0] * oh * ow, kh * kw * cin
     if plan is not None:
         op = plan.op(execplan.PIPE_NAME)
-        mode, block_i, block_k = op.mode, op.block_i, op.block_k
+        mode, block_i, cluster = op.mode, op.block_i, op.cluster
     else:
-        mode, block_i, block_k = planned_primary_routing(
-            oh * ow, k, n_ch, num_caps, caps_dim, jd, num_classes, iters)
+        mode, block_i, cluster = planned_primary_routing(
+            oh * ow, k, n_ch, num_caps, caps_dim, jd, num_classes, iters,
+            x.shape[0])
     routing_op_name = routing_op_name or execplan.FUSED_NAME
-    bwd_mode, bwd_block_i = _bwd_schedule(plan, routing_op_name)
+    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, routing_op_name)
     pc_bwd = plan.bwd_op("PrimaryCaps") if plan is not None else None
     if pc_bwd is not None:
         conv_block, dx_block = pc_bwd.block.tiles, pc_bwd.dx_block.tiles
@@ -220,8 +217,9 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
         dx_block = planned_conv_blocks(m, n_ch, k)
     out = _primary_routing(x, w_pc, b_pc, w_cc, stride=stride, iters=iters,
                            num_classes=num_classes, mode=mode,
-                           block_i=block_i, block_k=block_k,
+                           block_i=block_i, cluster=cluster,
                            bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
+                           bwd_cluster=bwd_cluster,
                            routing_op_name=routing_op_name,
                            conv_block=conv_block, dx_block=dx_block)
     if faults.enabled():                 # chaos-test site; zero cost when off

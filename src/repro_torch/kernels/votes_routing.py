@@ -6,7 +6,8 @@ The counterpart of ``repro/kernels/votes_routing.py``: the forward
 (``_resident_kernel`` / ``_streamed_kernel`` / ``_streamed_2pass_kernel``
 through ``_vr_apply``, with the optional residual-add epilogue), the
 custom VJP's backward (``_resident_bwd_kernel`` / ``_streamed_bwd_kernel``
-/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``), and
+/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``; K9, the streamed
+backward, replays each sample on a thread-block cluster), and
 ``res_caps_segment`` (``_res_segment``).  ``votes_routing`` is a
 ``torch.autograd.Function``: forward ``votes_routing_plain`` for CPU
 tensors and the CUDA kernel (``csrc/votes_routing.cu``, one CTA per
@@ -21,8 +22,12 @@ kernel recomputes each votes block on every pass; its twin computes them
 once, which gives the same values, and runs ``routing.routing_plain``);
 ``streamed-global`` is ``streamed`` with the logits in device memory (the
 same twin); ``streamed-2pass`` runs a b-pass and then an s-pass per
-iteration.  ``streamed-2pass`` keeps its logits where ``streamed`` would,
-and in device memory where that does not fit a CTA.
+iteration.  ``streamed-2pass`` keeps its logits where ``streamed``
+would, and in device memory where that does not fit a CTA.  The cluster
+schedules (K9 here, K5's consume) sum s rank by rank over each CTA's rows
+and add the partials in rank order (``cluster_routing_plain``,
+``votes_routing_bwd_plain``); the backward's streamed modes run only on
+the cluster.
 """
 
 from __future__ import annotations
@@ -35,14 +40,16 @@ import torch
 
 from repro_torch.core import execplan
 from repro_torch.core.execplan import MODES  # noqa: F401  (re-exported)
-from repro_torch.core.execplan import (ALL_MODES, FUSED_NAME, ORACLE_MODE,
-                                       STREAMED_GLOBAL,
+from repro_torch.core.execplan import (ALL_MODES, CLUSTER_SIZES, FUSED_NAME,
+                                       ORACLE_MODE, STREAMED_GLOBAL,
+                                       routing_bwd_cluster_smem,
                                        routing_bwd_emit_smem,
                                        votes_routing_bwd_smem,
                                        votes_routing_smem)
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
+from repro_torch.kernels.build import (Kernel, cluster_query, on_cpu, ptr,
+                                       stream_of)
 from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -57,13 +64,12 @@ _BWD_ARGS = [_P] * 8 + [_I] * 9 + [_P]
 ROUTING_BWD = {
     "resident": Kernel("votes_routing_bwd", "routing_bwd_resident_f32",
                        _BWD_ARGS),                                    # K8
-    "streamed": Kernel("votes_routing_bwd", "routing_bwd_streamed_f32",
-                       _BWD_ARGS),                                    # K9
-    STREAMED_GLOBAL: Kernel("votes_routing_bwd", "routing_bwd_global_f32",
-                            _BWD_ARGS),                   # K9, global slab
     ORACLE_MODE: Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
                         [_P] * 8 + [_I] * 10 + [_P]),                 # K13
 }
+# K9: the replay on a thread-block cluster per sample, then the emit.
+ROUTING_BWD_CLUSTER = Kernel("votes_routing_bwd", "routing_bwd_cluster_f32",
+                             [_P] * 8 + [_I] * 11 + [_P])
 
 
 def _votes_block(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -215,12 +221,122 @@ def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
     return out
 
 
+def cluster_spans(i_dim: int, cluster: int) -> list[tuple[int, int]]:
+    """The rows ``[lo, hi)`` each CTA of a ``cluster``-CTA routing cluster
+    owns: blocks of ``ceil(I / cluster)``, the last ragged (or empty)."""
+    rows = -(-i_dim // cluster)
+    return [(min(i_dim, r * rows), min(i_dim, (r + 1) * rows))
+            for r in range(cluster)]
+
+
+def _rank_blocks(i_dim: int, block_i: int, cluster: int | None,
+                 resident: bool) -> list[list[slice]]:
+    """The row blocks each CTA sums its share of s over, rank by rank: one
+    CTA's ``block_i`` blocks over the padded i axis (``cluster`` None), or
+    each cluster CTA's rows (``cluster_spans``) in ``block_i`` blocks, one
+    block when its votes are resident."""
+    if cluster is None:
+        n_blocks = -(-i_dim // block_i)
+        return [[slice(ib * block_i, (ib + 1) * block_i)
+                 for ib in range(n_blocks)]]
+    ranks = []
+    for lo, hi in cluster_spans(i_dim, cluster):
+        step = max(hi - lo, 1) if resident else block_i
+        ranks.append([slice(i, min(hi, i + step)) for i in range(lo, hi,
+                                                                 step)])
+    return ranks
+
+
+def _replay(uh_of, ranks, b: torch.Tensor, v_shape, *, iters: int,
+            two_pass: bool):
+    """The forward's ``iters + 1`` passes over the logits ``b`` (updated
+    in place; under ``streamed-2pass`` a b-pass before each s-pass after
+    the first): each rank sums its blocks' share of s, and the ranks'
+    partials are added in rank order.  Returns ``(b_prev, s_prev, s)``:
+    the logits before pass T's update, s_{T-1} and s_T."""
+    blocks = [rows for rk in ranks for rows in rk]
+    b_prev = s_prev = v = None
+    for t in range(iters + 1):
+        if t == iters:
+            b_prev = b.clone()
+        if two_pass and t > 0:                  # K13's separate b-pass
+            for rows in blocks:
+                b[:, rows] += torch.einsum("bijd,bjd->bij", uh_of(rows), v)
+        s = b.new_zeros(v_shape)
+        for rk in ranks:
+            part = b.new_zeros(v_shape)
+            for rows in rk:
+                uh4 = uh_of(rows)
+                if t > 0 and not two_pass:
+                    b[:, rows] += torch.einsum("bijd,bjd->bij", uh4, v)
+                c = torch.softmax(b[:, rows], dim=2)
+                part = part + torch.einsum("bij,bijd->bjd", c, uh4)
+            s = s + part
+        if t == iters - 1:
+            s_prev = s
+        v = ref.squash(s)
+    return b_prev, s_prev, s
+
+
+def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
+                          num_classes: int, mode: str, block_i: int,
+                          cluster: int) -> torch.Tensor:
+    """The cluster schedule's forward (``csrc/routing_cluster.cuh``) in
+    plain PyTorch: u [B, I, C], w [I, J*D, C] -> v [B, J*D], each of the
+    ``cluster`` ranks summing s over its block of rows (``cluster_spans``;
+    ``block_i`` rows at a time unless ``mode`` is resident), the partials
+    added in rank order."""
+    bsz, i_dim, _ = u.shape
+    jd = w.shape[1]
+    j, d = num_classes, jd // num_classes
+    votes = _votes_block(u, w).reshape(bsz, i_dim, j, d)
+    b = u.new_zeros((bsz, i_dim, j))
+    _, _, s = _replay(lambda rows: votes[:, rows],
+                      _rank_blocks(i_dim, block_i, cluster,
+                                   mode == "resident"),
+                      b, (bsz, j, d), iters=iters, two_pass=False)
+    return ref.squash(s).reshape(bsz, jd)
+
+
+@functools.lru_cache(maxsize=64)            # the batch is a key: bounded
+def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
+                        num_classes: int, iters: int, batch: int) -> int:
+    """The planner's K9 cluster size at ``batch`` for streamed votes."""
+    sched = execplan.plan_routing_bwd_cluster(num_caps, caps_dim, jd,
+                                              num_classes, iters=iters,
+                                              batch=batch, votes="streamed")
+    if sched is None:
+        raise ValueError(f"votes_routing_bwd: no cluster of "
+                         f"{CLUSTER_SIZES} CTAs fits {num_caps} capsules of "
+                         f"{caps_dim}D -> {jd} with streamed votes")
+    return sched.cluster.cluster
+
+
+def bwd_schedule(u: torch.Tensor, w: torch.Tensor, *, iters: int,
+                 num_classes: int, mode: str,
+                 cluster: int | None) -> tuple[str, int | None]:
+    """The backward's ``(mode, cluster)``: streamed votes run on K9's
+    cluster, whose CTAs keep their rows' logits on chip, so
+    ``streamed-global`` is ``streamed`` there, and without ``cluster``
+    they take the planner's size at this batch.  ``cluster`` None stays
+    one CTA a sample for resident votes (K8) and the oracle (K13)."""
+    if mode == STREAMED_GLOBAL:
+        mode = "streamed"
+    if mode == "streamed" and cluster is None:
+        cluster = planned_bwd_cluster(u.shape[1], u.shape[2], w.shape[1],
+                                      num_classes, iters, u.shape[0])
+    return mode, cluster
+
+
 def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
                             g: torch.Tensor, *, iters: int, num_classes: int,
-                            mode: str, block_i: int
+                            mode: str, block_i: int,
+                            cluster: int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du, dW) of ``votes_routing`` at output cotangent ``g [B, J*D]``,
-    in the reference's stop-gradient convention, by the kernels' schedule.
+    in the reference's stop-gradient convention, by the kernels' schedule
+    (``bwd_schedule``): one CTA a sample (K8, K13) or a cluster of
+    ``cluster`` CTAs (K9, whose ``mode`` places each CTA's votes).
 
     Replay the forward (``iters + 1`` passes; under ``streamed-2pass`` a
     b-pass before each s-pass after the first), keeping ``b_{T-1}``,
@@ -234,18 +350,20 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     and emit ``d u_hat = c_T (x) ds_T + c_{T-1} (x) ds_{T-1}`` contracted
     into ``du = d u_hat . W`` and ``dW = sum_b d u_hat (x) u``.  The
     logits updates are u_hat-constant, so nothing reaches further back
-    than iteration T-1 (the reference's ``_streamed_bwd_tail``)."""
+    than iteration T-1 (the reference's ``_streamed_bwd_tail``).  Sums
+    over rows (s, and the reverse pass's dv) are taken rank by rank and
+    the partials added in rank order, as the cluster reduces them."""
     check_schedule(u.shape[1], w.shape[1], iters=iters,
                    num_classes=num_classes, mode=mode, block_i=block_i)
+    mode, cluster = bwd_schedule(u, w, iters=iters, num_classes=num_classes,
+                                 mode=mode, cluster=cluster)
     bsz, i_dim, _ = u.shape
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
-    u_p, w_p, n_blocks = _padded(u, w, block_i)
-    blocks = [slice(ib * block_i, (ib + 1) * block_i)
-              for ib in range(n_blocks)]
+    u_p, w_p = (_padded(u, w, block_i)[:2] if cluster is None else (u, w))
+    ranks = _rank_blocks(i_dim, block_i, cluster, mode == "resident")
     if mode == "resident":
-        votes = torch.cat([_votes_block(u_p[:, r], w_p[r]) for r in blocks],
-                          1).reshape(bsz, -1, j, d)
+        votes = _votes_block(u_p, w_p).reshape(bsz, -1, j, d)
 
         def uh_of(rows):
             return votes[:, rows]
@@ -253,32 +371,20 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
         def uh_of(rows):
             return _votes_block(u_p[:, rows], w_p[rows]).reshape(bsz, -1,
                                                                  j, d)
-    two_pass = mode == ORACLE_MODE
     b = torch.zeros((bsz, u_p.shape[1], j), dtype=u.dtype, device=u.device)
-    b_prev = s_prev = v = None
-    for t in range(iters + 1):
-        if t == iters:
-            b_prev = b.clone()
-        if two_pass and t > 0:                  # K13's separate b-pass
-            for rows in blocks:
-                b[:, rows] += torch.einsum("bijd,bjd->bij", uh_of(rows), v)
-        s = torch.zeros((bsz, j, d), dtype=u.dtype, device=u.device)
-        for rows in blocks:
-            uh4 = uh_of(rows)
-            if t > 0 and not two_pass:
-                b[:, rows] += torch.einsum("bijd,bjd->bij", uh4, v)
-            c = torch.softmax(b[:, rows], dim=2)
-            s = s + torch.einsum("bij,bijd->bjd", c, uh4)
-        if t == iters - 1:
-            s_prev = s
-        v = ref.squash(s)
+    b_prev, s_prev, s = _replay(uh_of, ranks, b, (bsz, j, d), iters=iters,
+                                two_pass=mode == ORACLE_MODE)
     ds_last = ref.squash_vjp(s, g.reshape(bsz, j, d))
     dv = torch.zeros((bsz, j, d), dtype=u.dtype, device=u.device)
-    for rows in blocks:                     # seed + reverse in one pass
-        uh4 = uh_of(rows)
-        c = torch.softmax(b[:, rows], dim=2)
-        db = ref.softmax_vjp(c, torch.einsum("bijd,bjd->bij", uh4, ds_last))
-        dv = dv + torch.einsum("bijd,bij->bjd", uh4, db)
+    for rk in ranks:                        # seed + reverse in one pass
+        part = torch.zeros_like(dv)
+        for rows in rk:
+            uh4 = uh_of(rows)
+            c = torch.softmax(b[:, rows], dim=2)
+            db = ref.softmax_vjp(c, torch.einsum("bijd,bjd->bij", uh4,
+                                                 ds_last))
+            part = part + torch.einsum("bijd,bij->bjd", uh4, db)
+        dv = dv + part
     ds_prev = ref.squash_vjp(s_prev, dv)
     duh = (torch.softmax(b, dim=2)[..., None] * ds_last[:, None]
            + torch.softmax(b_prev, dim=2)[..., None] * ds_prev[:, None]
@@ -290,32 +396,47 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
 
 def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                       iters: int = 3, num_classes: int = 10,
-                      mode: str = "streamed", block_i: int = 128
+                      mode: str = "streamed", block_i: int = 128,
+                      cluster: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K8 (``resident``) / K9 (``streamed``, ``streamed-global``) / K13
-    (``streamed-2pass``): (du [B, I, C], dW [I, J*D, C]) of
-    ``votes_routing`` at cotangent ``g [B, J*D]``.  On CUDA neither u_hat
-    nor d u_hat reaches device memory: a per-sample replay writes only the
-    logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``, ``ds_T`` (under
-    ``streamed-global`` its logits slab is ``b_T`` itself); a per-capsule
-    emit rebuilds d u_hat on chip and sums dW over the batch inside the
-    CTA."""
+    """(du [B, I, C], dW [I, J*D, C]) of ``votes_routing`` at cotangent
+    ``g [B, J*D]``.  K9 replays each sample on a cluster of ``cluster``
+    CTAs, their votes ``resident`` or ``streamed`` as ``mode`` says
+    (``streamed`` and ``streamed-global`` without ``cluster``: the
+    planner's size at this batch, ``bwd_schedule``).  ``cluster`` None
+    with ``resident`` votes is K8, and ``streamed-2pass`` is K13: one
+    replay CTA a sample.  On CUDA neither u_hat nor d u_hat reaches
+    device memory: the replay writes only the logits ``b_{T-1}``,
+    ``b_T`` and ``ds_{T-1}``, ``ds_T`` (K13 where its logits do not fit a
+    CTA: its slab is ``b_T`` itself); a per-capsule emit rebuilds d u_hat
+    on chip and sums dW over the batch inside the CTA.  A refused cluster
+    launch raises; nothing falls back."""
     _check_shapes(u, w)
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
     block_i = min(block_i, i_dim)
     check_schedule(i_dim, jd, iters=iters, num_classes=num_classes,
                    mode=mode, block_i=block_i)
+    if cluster is not None and (cluster not in CLUSTER_SIZES
+                                or mode == ORACLE_MODE):
+        raise ValueError(f"votes_routing_bwd: a cluster of {cluster} CTAs "
+                         f"with {mode!r} votes; clusters are "
+                         f"{CLUSTER_SIZES} CTAs, votes resident or streamed")
+    mode, cluster = bwd_schedule(u, w, iters=iters, num_classes=num_classes,
+                                 mode=mode, cluster=cluster)
     if g.shape != (bsz, jd):
         raise ValueError(f"votes_routing_bwd: cotangent {tuple(g.shape)}, "
                          f"expected {(bsz, jd)}")
     if on_cpu("votes_routing_bwd", u, w, g):
         return votes_routing_bwd_plain(u, w, g, iters=iters,
                                        num_classes=num_classes, mode=mode,
-                                       block_i=block_i)
+                                       block_i=block_i, cluster=cluster)
     j = num_classes
 
     def smem_of(m):
+        if cluster is not None:
+            return routing_bwd_cluster_smem(m, i_dim, block_i, c, j, jd,
+                                            cluster)
         return votes_routing_bwd_smem(m, i_dim, block_i, c, j, jd)
 
     place = oracle_placement(smem_of) if mode == ORACLE_MODE else mode
@@ -328,23 +449,48 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     du = torch.empty((bsz, i_dim, c), **f32)
     dw = torch.empty((i_dim, jd, c), **f32)
     args = [ptr(u), ptr(w), ptr(g), ptr(logits[0]), ptr(logits[1]), ptr(ds),
-            ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters, block_i]
+            ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters]
+    if cluster is not None:
+        try:
+            ROUTING_BWD_CLUSTER(*args, int(mode == "resident"), block_i,
+                                cluster, smem, emit, stream_of(u))
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"votes_routing_bwd: the launch of {bsz} clusters of "
+                f"{cluster} CTAs ({smem} B of shared memory each) was "
+                f"refused: {err}") from err
+        return du, dw
+    args.append(block_i)
     if mode == ORACLE_MODE:
         args.append(int(place == STREAMED_GLOBAL))
     ROUTING_BWD[mode](*args, smem, emit, stream_of(u))
     return du, dw
 
 
+def bwd_cluster_occupancy(i_dim: int, caps_dim: int, num_classes: int,
+                          out_dim: int, *, mode: str, block_i: int,
+                          cluster: int) -> dict[str, int]:
+    """On the card: how many K9 replay clusters of this schedule run at
+    once, and the kernel's attributes (``build.cluster_query``)."""
+    return cluster_query("votes_routing_bwd",
+                         "routing_bwd_cluster_occupancy", i_dim, caps_dim,
+                         num_classes, out_dim, cluster,
+                         int(mode == "resident"), block_i)
+
+
 @functools.lru_cache(maxsize=64)            # bounded like the plan caches
 def planned_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int,
                               num_classes: int, iters: int,
-                              name: str = FUSED_NAME) -> tuple[str, int]:
-    """Memoized (mode, block_i) decision for the routing backward; the
-    planner's ``PlanError`` names the ``<name>-bwd`` op."""
+                              name: str = FUSED_NAME, batch: int = 1
+                              ) -> tuple[str, int, int | None]:
+    """Memoized (mode, block_i, cluster) decision for the routing
+    backward at ``batch``; the planner's ``PlanError`` names the
+    ``<name>-bwd`` op."""
     sched = execplan.plan_votes_routing_bwd(num_caps, caps_dim, jd,
                                             num_classes, iters=iters,
-                                            name=name)
-    return sched.mode, sched.block_i
+                                            batch=batch, name=name)
+    return (sched.mode, sched.block_i,
+            sched.cluster.cluster if sched.cluster else None)
 
 
 class RoutingStatics(NamedTuple):
@@ -358,17 +504,19 @@ class RoutingStatics(NamedTuple):
     bwd_mode: str | None
     bwd_block_i: int | None
     op_name: str = FUSED_NAME
+    bwd_cluster: int | None = None
 
 
 def routing_statics(i_dim: int, jd: int, *, iters: int, num_classes: int,
                     mode: str, block_i: int, bwd_mode: str | None,
-                    bwd_block_i: int | None,
-                    op_name: str = FUSED_NAME) -> RoutingStatics:
+                    bwd_block_i: int | None, op_name: str = FUSED_NAME,
+                    bwd_cluster: int | None = None) -> RoutingStatics:
     """Clamp and check the forward schedule; the backward's is checked
     where it runs."""
     st = RoutingStatics(iters=iters, num_classes=num_classes, mode=mode,
                         block_i=min(block_i, i_dim), bwd_mode=bwd_mode,
-                        bwd_block_i=bwd_block_i, op_name=op_name)
+                        bwd_block_i=bwd_block_i, op_name=op_name,
+                        bwd_cluster=bwd_cluster)
     check_schedule(i_dim, jd, iters=iters, num_classes=num_classes,
                    mode=st.mode, block_i=st.block_i)
     return st
@@ -377,17 +525,18 @@ def routing_statics(i_dim: int, jd: int, *, iters: int, num_classes: int,
 def routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                 st: RoutingStatics) -> tuple[torch.Tensor, torch.Tensor]:
     """``votes_routing_bwd`` on the caller's backward schedule, else on
-    the planner's, chosen here so a forward without a backward (serving
-    under ``no_grad``) never plans one."""
+    the planner's at this batch, chosen here so a forward without a
+    backward (serving under ``no_grad``) never plans one."""
     if st.bwd_mode is not None:
-        mode, block_i = st.bwd_mode, st.bwd_block_i or st.block_i
+        mode, block_i, cluster = (st.bwd_mode, st.bwd_block_i or st.block_i,
+                                  st.bwd_cluster)
     else:
-        mode, block_i = planned_votes_routing_bwd(
+        mode, block_i, cluster = planned_votes_routing_bwd(
             u.shape[1], u.shape[2], w.shape[1], st.num_classes, st.iters,
-            st.op_name)
+            st.op_name, u.shape[0])
     return votes_routing_bwd(u, w, g.contiguous(), iters=st.iters,
                              num_classes=st.num_classes, mode=mode,
-                             block_i=block_i)
+                             block_i=block_i, cluster=cluster)
 
 
 def _forward_st(u: torch.Tensor, w: torch.Tensor, st: RoutingStatics,
@@ -422,19 +571,20 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
                   num_classes: int = 10, mode: str = "streamed",
                   block_i: int = 128, bwd_mode: str | None = None,
                   bwd_block_i: int | None = None,
-                  op_name: str = FUSED_NAME) -> torch.Tensor:
+                  op_name: str = FUSED_NAME,
+                  bwd_cluster: int | None = None) -> torch.Tensor:
     """K3/K4 (K13 under ``mode="streamed-2pass"``): u [B, I, C],
     w [I, J*D, C] -> v [B, J*D] (votes + routing, u_hat never leaves the
     chip on CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
     epilogue.  Differentiable: the backward runs ``votes_routing_bwd`` on
     ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
-    forward's) when ``bwd_mode`` is given, else on the planner's backward
-    schedule for ``op_name``."""
+    forward's) and ``bwd_cluster`` when ``bwd_mode`` is given, else on
+    the planner's backward schedule for ``op_name``."""
     _check_shapes(u, w)
     st = routing_statics(u.shape[1], w.shape[1], iters=iters,
                          num_classes=num_classes, mode=mode, block_i=block_i,
                          bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                         op_name=op_name)
+                         op_name=op_name, bwd_cluster=bwd_cluster)
     return _VotesRouting.apply(u, w, r, st)
 
 
@@ -520,7 +670,8 @@ def _seg_statics(stat, i_dim: int, jd: int) -> RoutingStatics:
     return routing_statics(i_dim, jd, iters=st.iters,
                            num_classes=st.num_classes, mode=st.mode,
                            block_i=max(1, st.block_i), bwd_mode=st.bwd_mode,
-                           bwd_block_i=bwd_bi, op_name=st.op_name)
+                           bwd_block_i=bwd_bi, op_name=st.op_name,
+                           bwd_cluster=st.bwd_cluster)
 
 
 def res_caps_segment(x: torch.Tensor, ws, *, blocks) -> torch.Tensor:

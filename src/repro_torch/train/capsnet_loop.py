@@ -4,10 +4,11 @@ The counterpart of ``repro/train/capsnet_loop.py``.  The kernels'
 ``torch.autograd.Function``s make ``backend="kernels"`` differentiable end
 to end, so the margin + masked-reconstruction loss trains through the
 same plan-driven kernels that serve inference, with the backward
-schedules pinned by ONE ``compile_plan(train=True, pipeline=True)``: the
-forward runs Conv1 and the pipelined PrimaryCaps->routing kernel (K5);
-the backward runs the routing backward (K8 resident / K9 streamed), the
-conv backward (K6 dW, K2 dpatches, K7 dx) and the recomputes (K1, K2).
+schedules pinned by ONE ``compile_plan(train=True, pipeline=True)``
+(``self.plan``, read at every step): the forward runs Conv1 and the
+pipelined PrimaryCaps->routing kernel (K5); the backward runs the routing
+backward (K8 in one CTA a sample, or K9 on a cluster), the conv backward
+(K6 dW, K2 dpatches, K7 dx) and the recomputes (K1, K2).
 
 Two optimizers: ``sgd`` (default; fixed ``lr``, params-only checkpoints)
 and ``adam`` (AdamW + warmup/cosine from ``train.optimizer``, the horizon
@@ -16,8 +17,9 @@ checkpoint / NaN-guard / heartbeat skeleton is ``train.harness``.
 
 A deep-stack arch (``--arch capsnet-svhn``, ``capsnet-cifar10``) trains
 through the per-layer plan and the reversible ResCaps backward (K12);
-the SVHN bottleneck's routing runs with its logits in device memory
-(the plan's ``streamed-global`` mode).
+the SVHN bottleneck's forward runs in K5 on the pipelined plan (K4 with
+its logits in device memory, ``streamed-global``, on the per-op plan),
+its backward in K9 on a cluster.
 
 CLI (``--device cpu`` runs every kernel's plain twin):
 
@@ -95,20 +97,19 @@ class CapsTrainLoop(FaultTolerantLoop):
                                   decay_steps=loop_cfg.total_steps,
                                   weight_decay=loop_cfg.weight_decay)
                         if loop_cfg.optimizer == "adam" else None)
-        kw = dict(backend=loop_cfg.backend, plan=self.plan,
-                  device=self.device)
+        kw = dict(backend=loop_cfg.backend, device=self.device)
 
         if self.opt_cfg is not None:
             def step_fn(params, opt, images, labels):
                 grads, metrics = capsnet.loss_and_grads(
-                    params, images, labels, cfg, **kw)
+                    params, images, labels, cfg, plan=self.plan, **kw)
                 params, opt, opt_m = adamw_update(params, grads, opt,
                                                   self.opt_cfg)
                 return params, opt, {**metrics, **opt_m}
         else:
             def step_fn(params, images, labels):
                 return capsnet.train_step(params, images, labels, cfg,
-                                          loop_cfg.lr, **kw)
+                                          loop_cfg.lr, plan=self.plan, **kw)
         self._step_fn = step_fn
 
     # -- harness hooks ---------------------------------------------------------

@@ -28,8 +28,13 @@ def test_full_width_mnist_streams_and_pipelines():
     plan = compile_plan(cfg, batch=8, pipeline=True)
     assert plan.pipelined
     pr = plan.op(PIPE_NAME)
-    assert (pr.kernel, pr.mode, pr.n_passes) == ("primary_routing",
-                                                 "streamed", 4)
+    # K5 routes each sample over a cluster: 8 CTAs of 144 capsule rows each,
+    # whose votes fit their CTAs, so the consume is resident, as in the
+    # reference's plan.
+    assert (pr.kernel, pr.mode, pr.n_passes, pr.cluster) == (
+        "primary_routing", "resident", 1, 8)
+    assert pr.mode == ref_execplan.compile_plan(
+        ref_mnist.config(), batch=8, pipeline=True).op(PIPE_NAME).mode
     perop = compile_plan(cfg, batch=8, pipeline=False)
     vr = perop.op(FUSED_NAME)
     assert (vr.kernel, vr.mode, vr.n_passes) == ("votes_routing",

@@ -65,13 +65,98 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
                                    k34.votes_routing_plain(u, w_cc, **kw),
                                    rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(
-            k5.primary_routing_patches(p, w2, b_pc, w_cc, block_k=32, **kw),
+            k5.primary_routing_patches(p, w2, b_pc, w_cc, **kw),
             k5.primary_routing_patches_plain(p, w2, b_pc, w_cc, **kw),
             rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
                 "votes_routing_f32", "primary_routing_f32"):
         assert counts[sym] > 0, sym
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
+    """K5 and K9 on clusters of cs CTAs against their twins (the twins sum
+    s and dv rank by rank, in rank order), and a second launch of each
+    repeats the bits (no float atomics)."""
+    build.reset_launch_counts()
+    x = _rand(30, 3, 10, 10, 8, uniform=True, device=cuda)
+    w_pc = _rand(31, 3, 3, 8, 16, scale=0.2, device=cuda)
+    b_pc = _rand(32, 16, scale=0.1, device=cuda)
+    w_cc = _rand(33, 64, 32, 4, scale=0.3, device=cuda)
+    p = k12.im2col_patches(x, kh=3, kw=3, stride=2)
+    w2 = w_pc.reshape(-1, 16)
+    u = _rand(34, 3, 100, 4, scale=0.5, device=cuda)
+    w = _rand(35, 100, 40, 4, scale=0.3, device=cuda)
+    g = _rand(36, 3, 40, device=cuda)
+    for mode in ("resident", "streamed"):
+        kw = dict(iters=3, num_classes=4, mode=mode, block_i=8, cluster=cs)
+        got = k5.primary_routing_patches(p, w2, b_pc, w_cc, **kw)
+        assert torch.equal(got, k5.primary_routing_patches(p, w2, b_pc,
+                                                           w_cc, **kw))
+        torch.testing.assert_close(
+            got, k5.primary_routing_patches_plain(p, w2, b_pc, w_cc, **kw),
+            rtol=1e-5, atol=1e-6)
+        kw["num_classes"] = 5
+        got = k34.votes_routing_bwd(u, w, g, **kw)
+        again = k34.votes_routing_bwd(u, w, g, **kw)
+        want = k34.votes_routing_bwd_plain(u, w, g, **kw)
+        for x_, y_, z_ in zip(got, again, want):
+            assert torch.equal(x_, y_)
+            torch.testing.assert_close(x_, z_, rtol=1e-4, atol=1e-6)
+    counts = build.launch_counts()
+    assert counts["primary_routing_f32"] == 4
+    assert counts["routing_bwd_cluster_f32"] == 4
+
+
+def test_cluster_footprint_model_matches_the_kernels(cuda):
+    """The plans' modeled shared memory of K5 and of K9's replay is the
+    kernels' own layout, which is what cudaFuncGetAttributes reports once
+    the launch opts in; and the card holds at least one cluster of the
+    plan's size at that footprint (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+    k5_bytes = build._library("primary_routing").primary_routing_smem_bytes
+    k5_bytes.argtypes, k5_bytes.restype = [ctypes.c_int] * 8, ctypes.c_int
+    k9_bytes = build._library(
+        "votes_routing_bwd").routing_bwd_cluster_smem_bytes
+    k9_bytes.argtypes, k9_bytes.restype = [ctypes.c_int] * 7, ctypes.c_int
+    for cfg, batch in ((capsnet_mnist.config(), 8),
+                       (capsnet_mnist.config(), 16),
+                       (capsnet_svhn.config(), 8),
+                       (capsnet_svhn.config(), 16),
+                       (capsnet_mnist.smoke_config(), 4)):
+        plan = execplan.compile_plan(cfg, batch=batch, pipeline=True,
+                                     train=True)
+        lay = cfg.routing_stack()[0]
+        d = lay.caps_dim
+        pr = plan.op(execplan.PIPE_NAME)
+        resident = int(pr.mode == "resident")
+        assert k5_bytes(cfg.pc_out ** 2, cfg.pc_channels, cfg.primary_dim,
+                        lay.num_caps, d, pr.cluster, resident,
+                        pr.block_i) == pr.smem_bytes
+        occ = k5.occupancy(cfg.pc_out ** 2, cfg.pc_channels,
+                           cfg.primary_dim, lay.num_caps, d, mode=pr.mode,
+                           block_i=pr.block_i, cluster=pr.cluster)
+        assert (occ["static_smem"], occ["max_dynamic_smem"]) == (
+            0, pr.smem_bytes)
+        assert occ["max_active_clusters"] >= 1
+        bwd = plan.op(lay.name + execplan.BWD_SUFFIX)
+        if bwd.cluster is None:
+            continue
+        replay = execplan.routing_bwd_cluster_smem(
+            bwd.mode, lay.in_caps, bwd.block_i, lay.in_dim, lay.num_caps,
+            lay.jd, bwd.cluster)
+        assert bwd.smem_bytes == max(replay, execplan.routing_bwd_emit_smem(
+            lay.in_dim, lay.num_caps, lay.jd))
+        assert k9_bytes(lay.in_caps, lay.in_dim, lay.num_caps, d,
+                        bwd.cluster, int(bwd.mode == "resident"),
+                        bwd.block_i) == replay
+        occ = k34.bwd_cluster_occupancy(lay.in_caps, lay.in_dim,
+                                        lay.num_caps, d, mode=bwd.mode,
+                                        block_i=bwd.block_i,
+                                        cluster=bwd.cluster)
+        assert (occ["static_smem"], occ["max_dynamic_smem"]) == (0, replay)
+        assert occ["max_active_clusters"] >= 1
 
 
 @pytest.mark.parametrize("epi,sd", [("none", 0), ("relu", 0), ("squash", 4)])
@@ -206,7 +291,7 @@ def test_backward_kernels_launch_and_match_twins_on_the_card(cuda):
             torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("matmul_at_b_f32", "col2im_patches_f32",
-                "routing_bwd_resident_f32", "routing_bwd_streamed_f32"):
+                "routing_bwd_resident_f32", "routing_bwd_cluster_f32"):
         assert counts[sym] > 0, sym
 
 
@@ -304,8 +389,9 @@ def test_unfusable_capsule_forward_and_backward_on_the_card(cuda):
 
 def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
     """The residual epilogue on every schedule, the streamed-global mode
-    (logits in device memory) and K13 (both logits placements), forward
-    and backward, each against its plain twin."""
+    (logits in device memory; its backward is K9's streamed cluster) and
+    K13 (both logits placements), forward and backward, each against its
+    plain twin."""
     build.reset_launch_counts()
     u = _rand(16, 3, 70, 4, scale=0.5, device=cuda)
     w = _rand(17, 70, 32, 4, scale=0.3, device=cuda)
@@ -332,7 +418,7 @@ def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
         rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("votes_routing_f32", "votes_routing_global_f32",
-                "votes_routing_2pass_f32", "routing_bwd_global_f32",
+                "votes_routing_2pass_f32", "routing_bwd_cluster_f32",
                 "routing_bwd_2pass_f32"):
         assert counts[sym] > 0, sym
 

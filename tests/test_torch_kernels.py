@@ -128,7 +128,7 @@ def test_primary_routing_matches_reference(mode):
     got = k5.primary_routing(
         torch.from_numpy(x), torch.from_numpy(w_pc), torch.from_numpy(b_pc),
         torch.from_numpy(w_cc), stride=2, iters=3, num_classes=j, mode=mode,
-        block_i=24, block_k=32)
+        block_i=24)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
 
@@ -155,9 +155,8 @@ def test_every_kernel_has_a_launch_counter():
                                    "votes_routing_2pass_f32",
                                    "matmul_at_b_f32", "col2im_patches_f32",
                                    "routing_bwd_resident_f32",
-                                   "routing_bwd_streamed_f32",
-                                   "routing_bwd_global_f32",
                                    "routing_bwd_2pass_f32",
+                                   "routing_bwd_cluster_f32",
                                    "caps_votes_f32", "routing_f32",
                                    "squash_f32", "squash_bwd_f32",
                                    "rmsnorm", "flash_attention"}
@@ -342,8 +341,8 @@ def test_primary_routing_grads_match_reference(mode):
     want = _grads_jax(loss, args, (0, 1, 2, 3))
     ts = [torch.from_numpy(a).requires_grad_() for a in args]
     out = k5.primary_routing(*ts, stride=2, iters=3, num_classes=j,
-                             mode=mode, block_i=24, block_k=32,
-                             bwd_mode=mode, bwd_block_i=24)
+                             mode=mode, block_i=24, bwd_mode=mode,
+                             bwd_block_i=24)
     torch.sum(out * torch.from_numpy(g)).backward()
     for t, y in zip(ts, want):
         np.testing.assert_allclose(t.grad.numpy(), y, rtol=1e-5, atol=1e-6)

@@ -32,6 +32,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import capsnet as T
 from repro_torch.core import execplan, faults, planner
 from repro_torch.core.execplan import (ALL_MODES, MODES, ORACLE_MODE,
+                                       PIPE_NAME,
                                        STREAMED_GLOBAL, PlanError,
                                        compile_plan)
 from repro_torch.kernels import ops
@@ -313,21 +314,31 @@ def test_k13_keeps_its_logits_where_streamed_would():
 def test_full_width_svhn_plans_within_one_cta(train, batch, pipeline):
     cfg = capsnet_svhn.config()
     plan = compile_plan(cfg, batch=batch, pipeline=pipeline, train=train)
-    assert not plan.pipelined        # K5 keeps the 524 KB logits on chip
+    # K5 splits the bottleneck's 524 KB of logits over a cluster, so the
+    # pipelined plan exists, as the reference's does.
+    assert plan.pipelined == pipeline
     assert all(0 < op.smem_bytes <= planner.SMEM_BYTES == 232_448
                for op in plan.ops)
-    neck = plan.op("ClassCaps-Routing[0]")
-    assert (neck.mode, neck.block_i, neck.n_passes, neck.smem_bytes) == (
-        STREAMED_GLOBAL, 64, 4, 217_344)
+    if pipeline:
+        pr = plan.op(PIPE_NAME)
+        assert (pr.mode, pr.n_passes) == ("streamed", 4)
+        assert pr.cluster in (8, 16) and pr.block.rows * pr.cluster == 2048
+    else:
+        neck = plan.op("ClassCaps-Routing[0]")
+        assert (neck.mode, neck.block_i, neck.n_passes,
+                neck.smem_bytes) == (STREAMED_GLOBAL, 64, 4, 217_344)
     for k in range(1, 5):                   # the ResCaps halves, 32 -> 32x8
         half = plan.op(f"ClassCaps-Routing[{k}]")
         assert (half.mode, half.smem_bytes) == ("resident", 44_160)
     assert (plan.op("ClassCaps-Routing").mode,
             plan.op("ClassCaps-Routing").smem_bytes) == ("resident", 49_664)
     if train:
+        # K9 replays the bottleneck on a cluster with the logits on chip.
         nbwd = plan.op("ClassCaps-Routing[0]-bwd")
-        assert (nbwd.mode, nbwd.block_i, nbwd.n_passes,
-                nbwd.smem_bytes) == (STREAMED_GLOBAL, 64, 5, 223_488)
+        assert (nbwd.mode, nbwd.n_passes, nbwd.cluster) == ("streamed", 5,
+                                                            16)
+        assert nbwd.smem_bytes == execplan.routing_bwd_cluster_smem(
+            "streamed", 2048, nbwd.block_i, 8, 64, 512, 16)
 
 
 def test_streamed_global_drops_only_the_logits_and_adds_their_traffic():

@@ -9,6 +9,7 @@ carried across by ``repro_torch.convert``.  Gradient tolerance: rtol
 1e-5, atol 1e-6, the reference's own.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -145,35 +146,38 @@ def test_train_plan_appends_bwd_ops_in_reverse_order(name, pipeline):
 
 def test_full_width_backward_streams_because_resident_cannot_fit():
     """One MNIST sample's votes (737,280 B) exceed a CTA, so the routing
-    backward streams; its footprint is the kernel's layout."""
+    backward (K9) replays each sample on a cluster, where each CTA's rows'
+    votes fit; its footprint is the kernel's layout."""
     plan = execplan.compile_plan(capsnet_mnist.config(), batch=16,
                                  pipeline=True, train=True)
     bwd = plan.op(FUSED_NAME + BWD_SUFFIX)
-    assert (bwd.kernel, bwd.mode, bwd.block_i, bwd.n_passes) == (
-        "votes_routing_bwd", "streamed", 128, 5)
+    assert (bwd.kernel, bwd.mode, bwd.block_i, bwd.n_passes,
+            bwd.cluster) == ("votes_routing_bwd", "resident", 144, 1, 8)
     assert execplan.votes_routing_bwd_smem(
         "resident", 1152, 128, 8, 10, 160) > planner.SMEM_BYTES
-    # u + one logits slab + 5 [J*D] vectors + 128 votes rows (161 floats
-    # each) with their couplings.
-    assert bwd.smem_bytes == 4 * (1152 * 8 + 1152 * 10 + 5 * 160
-                                  + 128 * (161 + 10)) == 173_696
+    # 144 votes rows (161 floats each) with their couplings, the rows' u
+    # and logits, and 7 [J*D] vectors.
+    assert bwd.smem_bytes == 4 * (144 * (161 + 10) + 144 * (8 + 10)
+                                  + 7 * 160) == 113_344
     smoke = execplan.compile_plan(SMOKE, batch=16, train=True)
     assert smoke.op(FUSED_NAME + BWD_SUFFIX).mode == "resident"
 
 
 def test_bwd_plan_error_names_the_bwd_op():
-    # Under 30,000 B not even streamed-global (the logits in device memory)
-    # fits the backward at block_i=1: 40,748 B.
+    # Under 20,000 B no backward fits: the emit CTA alone (W[i], dW[i] and
+    # a chunk of 16 samples' rows) needs 22,272 B.
+    assert execplan.routing_bwd_emit_smem(8, 10, 160) == 22_272
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
         execplan.plan_votes_routing_bwd(1152, 8, 160, 10,
-                                        smem_budget=30_000)
-    # A budget where the forward fits (streamed-global, block_i=1) but the
-    # backward, 3 * J*D floats larger, does not.
-    fwd = execplan.votes_routing_smem(execplan.STREAMED_GLOBAL, 1152, 1, 8,
-                                      10, 160)
+                                        smem_budget=20_000)
+    # A budget where the forward fits but the backward does not: 64-D class
+    # capsules make the emit CTA (83,712 B) larger than every forward op.
+    wide = dataclasses.replace(capsnet_mnist.config(), class_dim=64)
+    assert execplan.routing_bwd_emit_smem(8, 10, 640) == 83_712
+    assert execplan.compile_plan(wide, batch=2, smem_budget=80_000)
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
-        execplan.compile_plan(capsnet_mnist.config(), batch=2,
-                              smem_budget=fwd + 4, train=True)
+        execplan.compile_plan(wide, batch=2, smem_budget=80_000,
+                              train=True)
 
 
 def test_routing_bwd_global_bytes_count_the_logits_not_the_votes():
@@ -203,14 +207,15 @@ def test_forward_alone_plans_no_routing_backward():
 
 
 def test_infeasible_routing_backward_raises_naming_the_bwd_op():
-    """No backward schedule fits 16000 capsules in a CTA (their u alone,
-    256,000 B, is over the budget in every mode): the forward runs (on
-    its explicit schedule) and the backward raises the planner's
-    PlanError for the ``-bwd`` op, with no fallback."""
+    """No backward schedule fits 16000 capsules routed to 100 classes: in
+    one CTA their u alone, 256,000 B, is over the budget, and even split
+    over a 16-CTA cluster each CTA's 1000 rows of logits take 400,000 B.  The forward runs (on its explicit schedule) and the
+    backward raises the planner's PlanError for the ``-bwd`` op, with no
+    fallback."""
     u = torch.zeros(1, 16000, 4)
-    w = torch.zeros(16000, 20, 4, requires_grad=True)
-    v = k34.votes_routing(u, w, num_classes=5, mode="streamed", block_i=128,
-                          op_name="Hidden-Routing")
+    w = torch.zeros(16000, 200, 4, requires_grad=True)
+    v = k34.votes_routing(u, w, num_classes=100, mode="streamed",
+                          block_i=128, op_name="Hidden-Routing")
     with pytest.raises(PlanError, match="Hidden-Routing" + BWD_SUFFIX):
         v.sum().backward()
 
