@@ -42,12 +42,16 @@ steps on each plan, and the new kernels' times.  Phase 13, LM serving, frees the
 ``gemma2-9b`` at its published width (42 layers, 9.24 B parameters in
 fp32, drawn on the card): K16 (RMSNorm) and K15 (flash attention) against
 their twins at its shapes (prefill, a 4608-token window layer, decode at
-mixed lengths, the Tq > Tk rows, and head dims 64 and 128), one
+mixed lengths, the Tq > Tk rows, and head dims 64 and 128; K15's split-KV
+decode schedule at a 4608-key cache against its split twin at the planned
+splits, and both schedules twice for identical bits), one
 4608-token forward on the kernels backend against the plain one (logits
 and argmax), 8 requests through ``ServeEngine`` on both backends (tokens,
-finish order, and K15/K16 launches equal to 42 and 169 per forward
-call), the engine's times, and both kernels' times beside their bounds,
-twins and library calls.  The weights are random, made from a seed.
+finish order, K15/K16 launches equal to 42 and 169 per forward call,
+every prefill on K15's prefill schedule and every decode tick on its
+decode schedule), the engine's times, and both kernels' times beside
+their bounds, twins and library calls, with K15's decode sites swept
+over split counts and its prefill tile over head dims.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -115,6 +119,10 @@ LM_MAX_LEN = 512
 LM_REQUESTS = 8
 LM_NEW_TOKENS = 16
 LM_PROMPT_LENGTHS = (17, 300)   # the engine's shortest and longest prompt
+# K15's long-context decode site: 4 slots over a 4608-key cache, two rows
+# past the 4096 window, one short, one nearly empty.
+LM_LONG_DECODE = (LM_PROMPT, LM_PROMPT - 508, 300, 17)
+SPLIT_SWEEP = (1, 2, 4, 8, 16, 32, 64)
 FLASH = (2e-5, 2e-5, "the reference's own (tests/test_kernels.py:173-174): "
          "fp32 logits over D <= 256 and sums over up to 4608 keys in "
          "another order")
@@ -123,7 +131,8 @@ RMS = (2e-5, 2e-5, "the reference's own fp32 tolerance: a sum of 3584 "
 RMS_BF16 = (2e-2, 2e-2, "the reference's bf16 tolerance: the output is "
             "rounded to bf16 once")
 LOGITS = (1e-4, "fp32 through 42 layers, attention summed in another "
-          "order (online softmax over 64-key tiles)")
+          "order (online softmax over 32-key tiles, decode over key "
+          "splits)")
 
 
 def check(name: str, got, want, tol) -> dict:
@@ -193,14 +202,34 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(samples)
 
 
+def kernel_ms(prof, reps: int) -> dict[str, float]:
+    """Device ms per call by kernel name from a ``torch.profiler`` trace
+    of ``reps`` calls: the mean of each kernel's records times its
+    launches a call (its records over ``reps``, rounded).  Where the
+    trace keeps fewer records than there were launches, a plain sum over
+    the records kept would read low; each such kernel is printed."""
+    from torch.autograd import DeviceType
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        per_call = max(1, round(e.count / reps))
+        if e.count != per_call * reps:
+            print(f"trace: {e.count} records of {per_call * reps} launches "
+                  f"of {e.key[:60]}", flush=True)
+        out[e.key] = (out.get(e.key, 0.0)
+                      + e.device_time_total / e.count * per_call / 1e3)
+    return out
+
+
 def device_ms(fn, reps: int = 20) -> float | None:
     """Device time per call of ``fn``: the CUDA kernel time that
-    ``torch.profiler`` (CUPTI) records over ``reps`` calls, divided by
-    ``reps``.  Unlike ``time_ms`` it leaves out the host's dispatch, which
-    sets the pace of back-to-back calls of a kernel shorter than it.
-    None (printed as not measured) where the trace holds no device time."""
+    ``torch.profiler`` (CUPTI) records over ``reps`` calls, per call
+    (``kernel_ms``).  Unlike ``time_ms`` it leaves out the host's
+    dispatch, which sets the pace of back-to-back calls of a kernel
+    shorter than it.  None (printed as not measured) where the trace
+    holds no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -210,13 +239,12 @@ def device_ms(fn, reps: int = 20) -> float | None:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
+        total = sum(kernel_ms(prof, reps).values())
     except (RuntimeError, AssertionError) as err:  # no CUPTI trace here
         print(f"device_ms: not measured ({type(err).__name__}: {err})",
               flush=True)
         return None
-    return total_us / reps / 1e3 if total_us > 0 else None
+    return total if total > 0 else None
 
 
 def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
@@ -224,7 +252,6 @@ def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
     from a ``torch.profiler`` trace of ``reps`` calls; None where the
     trace holds no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -234,10 +261,9 @@ def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = {e.key[:72]: e.device_time_total / reps / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.device_time_total > 0}
+        times: dict[str, float] = {}
+        for key, ms in kernel_ms(prof, reps).items():
+            times[key[:72]] = times.get(key[:72], 0.0) + ms
     except (RuntimeError, AssertionError) as err:
         print(f"device_breakdown: not measured ({type(err).__name__}: "
               f"{err})", flush=True)
@@ -1025,6 +1051,98 @@ def attention_work(lens, tq: int, h: int, kvh: int, d: int, causal: bool,
     return nbytes, flops
 
 
+def clocks_during(fn, seconds: float = 1.5) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 100 ms while ``fn`` runs back to back for ``seconds``: the
+    median of each, and the samples' count.  The sampler is stopped
+    before this returns."""
+    import torch
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=10)
+    samples = []
+    for line in out.strip().splitlines()[1:]:      # the first: before fn
+        try:
+            c, w = (float(x) for x in line.split(","))
+        except ValueError:                          # "[N/A]" and the like
+            continue
+        samples.append((c, w))
+    clocks = [c for c, _ in samples]
+    power = [w for _, w in samples]
+    return dict(sm_mhz=statistics.median(clocks) if clocks else None,
+                power_w=statistics.median(power) if power else None,
+                samples=len(clocks))
+
+
+def long_decode_sites(dev, cfg) -> tuple[list, tuple]:
+    """K15's long-context decode sites: ``LM_SLOTS`` slots x Tq = 1 over
+    an ``LM_PROMPT``-key cache holding ``LM_LONG_DECODE`` keys, global and
+    window 4096, each with its bytes and flops (``attention_work``) and,
+    as the library call, SDPA with the key mask (no softcap).  Returns
+    the sites for ``timed_sites`` and the inputs.  It calls only K15's
+    public wrapper and its twin, so it also times an earlier tree of the
+    port."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k15
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale, cap = cfg.query_scale, cfg.attn_logit_softcap
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    q = torch.randn((LM_SLOTS, 1, h, d), generator=gen, device=dev)
+    k = torch.randn((LM_SLOTS, LM_PROMPT, kvh, d), generator=gen, device=dev)
+    v = torch.randn((LM_SLOTS, LM_PROMPT, kvh, d), generator=gen, device=dev)
+    lens = list(LM_LONG_DECODE)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    key = torch.arange(LM_PROMPT, device=dev)[None]
+    sites = []
+    for label, window in (("global", None),
+                          (f"window {cfg.sliding_window}",
+                           cfg.sliding_window)):
+        kw = dict(kv_len=kv_len, causal=True, window=window, softcap=cap,
+                  scale=scale)
+        mask = key < kv_len[:, None]
+        if window is not None:
+            mask &= key > kv_len[:, None] - 1 - window
+        nbytes, flops = attention_work(lens, 1, h, kvh, d, True, window)
+        sites.append((
+            f"decode {LM_SLOTS} slots x Tq=1, kv_len {lens} of a "
+            f"{LM_PROMPT} cache, {label}, softcap 50",
+            lambda kw=kw: k15.flash_attention(q, k, v, **kw),
+            lambda kw=kw: k15.flash_attention_plain(q, k, v, **kw),
+            lambda m=mask[:, None, None]: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, scale=scale, enable_gqa=True),
+            nbytes, flops))
+    return sites, (q, k, v, kv_len)
+
+
+def split_sweep(label: str, call, planned: int, splits_of) -> dict:
+    """Device ms of a K15 decode site at each split count of
+    ``SPLIT_SWEEP`` (``call(splits=n)``; counts that ``split_keys`` cuts
+    to an earlier one are left out), at the planned count, and on the
+    prefill schedule (``call(block_k=32)``); one printed line."""
+    out = {}
+    for n in sorted(set(SPLIT_SWEEP) | {planned}):
+        real = splits_of(n)
+        if str(real) in out:
+            continue
+        out[str(real)] = device_ms(lambda n=n: call(splits=n), reps=5)
+    out["planned"] = planned
+    out["prefill schedule"] = device_ms(lambda: call(block_k=32), reps=5)
+    print(f"flash_attention split sweep, {label} (device ms by splits): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def lm_serving(dev, rows: list[dict]) -> None:
     """Phase 13, LM serving at the full width of ``gemma2-9b`` (42 layers,
     d_model 3584, 16 heads over 8 KV heads of 256, d_ff 14336, vocab
@@ -1039,6 +1157,7 @@ def lm_serving(dev, rows: list[dict]) -> None:
     import torch.nn.functional as F
 
     from repro_torch.configs import registry
+    from repro_torch.core.planner import SMEM_BYTES
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as k15
     from repro_torch.kernels import rmsnorm as k16
@@ -1078,7 +1197,7 @@ def lm_serving(dev, rows: list[dict]) -> None:
         return (randn(b, tq, hh, dd), randn(b, tk, kk, dd),
                 randn(b, tk, kk, dd))
 
-    mixed = [LM_PROMPT, LM_PROMPT - 508, 300, 17]   # two past the window
+    mixed = list(LM_LONG_DECODE)                    # two past the window
     flash_cases = [
         ("prefill T=128 global", qkv(1, 128, 128), None, {}),
         ("prefill T=300 global (ragged tail)", qkv(1, 300, 300), None, {}),
@@ -1107,10 +1226,37 @@ def lm_serving(dev, rows: list[dict]) -> None:
                       if lens else None)
             got = k15.flash_attention(q, k, v, kv_len=kv_len, **kw)
             want = k15.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)
-            r = check(f"flash_attention {label}", got, want, FLASH)
+            r = check(f"flash_attention {label} ({k15.schedule(q, k)})",
+                      got, want, FLASH)
             errs["flash_attention"] = max(errs["flash_attention"],
                                           r["max_abs"])
             del q, k, v, got, want
+        # The long-context decode site at the planned splits: against the
+        # split twin (same partials, same combine order; the cases above
+        # hold both schedules to the direct twin) and twice for identical
+        # bits; the prefill schedule at T = 4608 twice likewise.
+        sites_long, (ql, kl, vl, lenl) = long_decode_sites(dev, cfg)
+        planned_long = k15.plan_decode(LM_SLOTS, kvh, h // kvh, LM_PROMPT, d)
+        for label, window in (("global", None), (f"window {win}", win)):
+            kw = dict(kv_len=lenl, causal=True, window=window, softcap=cap,
+                      scale=scale)
+            name = (f"flash_attention decode kv_len {mixed} {label} "
+                    f"({k15.schedule(ql, kl)})")
+            got = same_bits(name, lambda kw=kw: k15.flash_attention(
+                ql, kl, vl, **kw))
+            want = k15.flash_decode_plain(ql, kl, vl, splits=planned_long,
+                                          **kw)
+            r = check(f"{name} against the split twin at {planned_long} "
+                      f"splits", got, want, FLASH)
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          r["max_abs"])
+        del sites_long, ql, kl, vl, lenl
+        qp, kp, vp = qkv(1, LM_PROMPT, LM_PROMPT)
+        same_bits(f"flash_attention prefill T={LM_PROMPT} global "
+                  f"({k15.schedule(qp, kp)})",
+                  lambda: k15.flash_attention(qp, kp, vp, softcap=cap,
+                                              scale=scale))
+        del qp, kp, vp
     torch.cuda.empty_cache()
 
     # 13c. The full-width model: one 4608-token forward, kernels vs plain.
@@ -1196,12 +1342,14 @@ def lm_serving(dev, rows: list[dict]) -> None:
     for backend in ("kernels", "torch"):
         eng = serve(backend)
         build.reset_launch_counts()
+        k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
         t0 = time.perf_counter()
         done = eng.run()
         run_s = time.perf_counter() - t0
         counts = build.launch_counts()
         served[backend] = dict(engine=eng, done=done, run_s=run_s,
-                               counts=counts)
+                               counts=counts,
+                               schedules=dict(k15.SCHEDULE_LAUNCHES))
     eng_r = serve("torch", recording_sampler)
     recorded = {r.rid: r.output for r in eng_r.run()}
     if recorded != {r.rid: r.output for r in served["torch"]["done"]}:
@@ -1218,6 +1366,16 @@ def lm_serving(dev, rows: list[dict]) -> None:
     if engine_counts != want_counts:
         raise AssertionError("the engine did not run every attention on "
                              "K15 and every norm on K16")
+    # Every prefill (B = 1, Tq = 17..300: 34+ query rows a KV head) on the
+    # prefill schedule, every decode tick (4 slots x Tq = 1) on decode.
+    schedules = served["kernels"]["schedules"]
+    want_sched = {"prefill": cfg.num_layers * len(eng_k.timings["prefill_s"]),
+                  "decode": cfg.num_layers * len(eng_k.timings["decode_s"])}
+    print(f"engine K15 launches by schedule: {schedules}, expected "
+          f"{want_sched}", flush=True)
+    if schedules != want_sched:
+        raise AssertionError("the engine's K15 calls did not take the "
+                             "planned schedules")
     order = {b: [r.rid for r in served[b]["done"]] for b in served}
     if order["kernels"] != order["torch"]:
         raise AssertionError(f"finish order differs: {order}")
@@ -1272,6 +1430,25 @@ def lm_serving(dev, rows: list[dict]) -> None:
     w1 = 1.0 + w
     keymask = (torch.arange(LM_MAX_LEN, device=dev)[None]
                < kv_dec[:, None].long())[:, None, None, :]
+    planned_dec = k15.plan_decode(LM_SLOTS, kvh, h // kvh, LM_MAX_LEN, d)
+    # The decode site at the engine's shape (most of its splits past the
+    # rows' keys) against both twins, and twice for identical bits.
+    with torch.no_grad():
+        kw_dec = dict(kv_len=kv_dec, softcap=cap, scale=scale)
+        name = (f"flash_attention decode kv_len {lens_dec} of a "
+                f"{LM_MAX_LEN} cache ({k15.schedule(qd, kd)})")
+        got = same_bits(name, lambda: k15.flash_attention(qd, kd, vd,
+                                                          **kw_dec))
+        for twin, want in (
+                ("the direct twin",
+                 k15.flash_attention_plain(qd, kd, vd, **kw_dec)),
+                (f"the split twin at {planned_dec} splits",
+                 k15.flash_decode_plain(qd, kd, vd, splits=planned_dec,
+                                        **kw_dec))):
+            r = check(f"{name} against {twin}", got, want, FLASH)
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          r["max_abs"])
+        del got, want
 
     def sdpa(q_, k_, v_, **kw):
         return F.scaled_dot_product_attention(
@@ -1288,6 +1465,7 @@ def lm_serving(dev, rows: list[dict]) -> None:
                 nbytes, flops)
 
     full = [LM_PROMPT]
+    sites_long, (ql, kl, vl, lenl) = long_decode_sites(dev, cfg)
     with torch.no_grad():
         fa_sites = timed_sites([
             fa_site("prefill T=4608 global, softcap 50 (main path)", qp, kp,
@@ -1297,10 +1475,50 @@ def lm_serving(dev, rows: list[dict]) -> None:
             fa_site(f"decode 4 slots x Tq=1, kv_len {lens_dec} of a 512 "
                     f"cache, softcap 50", qd, kd, vd, kv_dec, lens_dec, None,
                     cap, lambda: sdpa(qd, kd, vd, attn_mask=keymask)),
+            *sites_long,
             fa_site("prefill T=4608 global, no softcap (vs SDPA)", qp, kp,
                     vp, None, full, None, None,
                     lambda: sdpa(qp, kp, vp, is_causal=True)),
         ])
+        # The decode sites by split count, the planned one marked.
+        planned_long = k15.plan_decode(LM_SLOTS, kvh, h // kvh, LM_PROMPT, d)
+        sweeps = {
+            "engine decode (512 cache)": split_sweep(
+                f"decode kv_len {lens_dec} of a 512 cache",
+                lambda **sk: k15.flash_attention(
+                    qd, kd, vd, kv_len=kv_dec, softcap=cap, scale=scale,
+                    **sk), planned_dec,
+                lambda n: k15.split_keys(LM_MAX_LEN, n)[0])}
+        for label, window in (("global", None), (f"window {win}", win)):
+            sweeps[f"long decode (4608 cache), {label}"] = split_sweep(
+                f"decode kv_len {list(LM_LONG_DECODE)} of a 4608 cache, "
+                f"{label}",
+                lambda window=window, **sk: k15.flash_attention(
+                    ql, kl, vl, kv_len=lenl, window=window, softcap=cap,
+                    scale=scale, **sk), planned_long,
+                lambda n: k15.split_keys(LM_PROMPT, n)[0])
+        del sites_long, ql, kl, vl, lenl
+        # The engine's shortest and longest prompt, one row over its
+        # 512-key cache: 34 and 600 query rows a KV head, past the decode
+        # schedule's 8, so the prefill schedule on 1 and 5 q blocks a head.
+        prompt_ms = {}
+        for n in LM_PROMPT_LENGTHS:
+            qn, kn, vn = qkv(1, n, LM_MAX_LEN)
+            ln = torch.tensor([n], dtype=torch.int32, device=dev)
+            prompt_ms[str(n)] = dict(
+                schedule=str(k15.schedule(qn, kn)),
+                ctas=-(-n // k15.BLOCK_Q) * h,
+                device_ms=device_ms(lambda: k15.flash_attention(
+                    qn, kn, vn, kv_len=ln, softcap=cap, scale=scale),
+                    reps=10))
+            del qn, kn, vn
+        print(f"flash_attention at the engine's prompts (512 cache): "
+              f"{json.dumps(prompt_ms)}", flush=True)
+        # The card's clock and power under the main prefill site.
+        prefill_clocks = clocks_during(lambda: k15.flash_attention(
+            qp, kp, vp, softcap=cap, scale=scale))
+        print(f"flash_attention prefill T={LM_PROMPT} global, run back to "
+              f"back: {json.dumps(prefill_clocks)}", flush=True)
         xd = x4
 
         def rms_site(label, xx):
@@ -1314,8 +1532,9 @@ def lm_serving(dev, rows: list[dict]) -> None:
             rms_site("prefill [4608, 3584] fp32 (main path)", x),
             rms_site("decode [4, 3584] fp32", xd),
             rms_site("prefill [4608, 3584] bf16", xb)])
-        # K15's KV tile at the three head dims (plan_tiles picks 64, 32, 64
-        # keys for D = 64, 128, 256), each timed with both tiles.
+        # K15's prefill KV tile at the three head dims (plan_tiles picks
+        # 32, 64, 32 keys for D = 64, 128, 256), each timed with every tile
+        # that fits a CTA (only 32 keys at D = 256).
         tile_sweep = {}
         for label, (hh, kk, dd, tt) in (("granite D=64 T=4096", (32, 8, 64,
                                                                  4096)),
@@ -1325,6 +1544,8 @@ def lm_serving(dev, rows: list[dict]) -> None:
                                          (h, kvh, d, LM_PROMPT))):
             qs, ks, vs = qkv(1, tt, tt, hh, kk, dd)
             for bk in k15.BLOCK_K_CHOICES:
+                if k15.smem_bytes(dd, bk) > SMEM_BYTES:
+                    continue
                 tile_sweep[f"{label} block_k {bk}"] = device_ms(
                     lambda bk=bk: k15.flash_attention(qs, ks, vs,
                                                       softcap=cap,
@@ -1357,7 +1578,23 @@ def lm_serving(dev, rows: list[dict]) -> None:
         main_site = site_rows[0]
         library_ms = (site_rows[-1]["library_ms"] if name == "flash_attention"
                       else main_site["library_ms"])
-        rows.append(dict(
+        if name == "flash_attention":
+            def sched(site, lib_site, **extra):
+                return dict(site=site["op"], device_ms=site["device_ms"],
+                            ms=site["ms"], bound_ms=site["bound_ms"],
+                            bound_by=site["bound_by"],
+                            library_ms=lib_site["library_ms"], **extra)
+            schedules = dict(
+                prefill=sched(site_rows[0], site_rows[-1],
+                              block_k=k15.schedule(qp, kp).block_k,
+                              launches=served["kernels"]["schedules"][
+                                  "prefill"]),
+                decode=sched(site_rows[2], site_rows[2], splits=planned_dec,
+                             launches=served["kernels"]["schedules"][
+                                 "decode"]),
+                decode_long=sched(site_rows[3], site_rows[3],
+                                  splits=planned_long))
+        row = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=replaces, launches=engine_counts[name],
@@ -1369,7 +1606,11 @@ def lm_serving(dev, rows: list[dict]) -> None:
             tile_sweep=tile_sweep if name == "flash_attention" else None,
             path=f"{LM_ARCH} served by ServeEngine(backend='kernels'): "
                  f"{LM_REQUESTS} requests, {LM_SLOTS} slots",
-            sites=site_rows))
+            sites=site_rows)
+        if name == "flash_attention":
+            row.update(schedules=schedules, split_sweep=sweeps,
+                       engine_prompts=prompt_ms)
+        rows.append(row)
     del params, eng_k, served
     gc.collect()
     torch.cuda.empty_cache()

@@ -311,7 +311,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B, H, Tq, D], k/v: [B, KvH, Tk, D] -> [B, H, Tq, D] (K15).
 
     The reference's signature and layout; its TPU tiles (``block_q``,
-    ``block_k``) give way to the shared-memory planner's
+    ``block_k``) give way to the kernel's two schedules: split-KV decode
+    where a KV head's query rows are few (``flash_attention.plan_decode``),
+    else prefill on the shared-memory planner's tile
     (``flash_attention.plan_tiles``).  K/V may hold fewer heads than q
     (GQA by index), and ``kv_len`` gives each batch row its own key count
     (``q_offset = kv_len - Tq``), clamped to ``0 .. Tk``; a row of no

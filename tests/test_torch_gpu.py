@@ -483,8 +483,13 @@ def test_rmsnorm_kernel_matches_twin_on_the_card(cuda, rows, d, dtype):
 @pytest.mark.parametrize("case", ["prefill", "ragged", "window", "decode",
                                   "no_key_rows", "bidir", "bf16_cache",
                                   "bf16_model", "kv_len_past_tk",
-                                  "kv_len_zero"])
+                                  "kv_len_zero", "decode_tq1_g4",
+                                  "decode_tq3_g2", "decode_tq3_g4",
+                                  "decode_long_cache"])
 def test_flash_kernel_matches_twin_on_the_card(cuda, d, case, block_k):
+    """Each case on the planned schedule (block_k None: decode where the
+    rows a KV head are few, else prefill) and on both prefill tiles; a
+    tile that does not fit a CTA at this head dim is refused by name."""
     from repro_torch.kernels import flash_attention as k15
     b, h, kvh = 2, 4, 2
     tq, tk, kw, lens = {
@@ -499,7 +504,16 @@ def test_flash_kernel_matches_twin_on_the_card(cuda, d, case, block_k):
         # kv_len is clamped to 0..Tk: no read past K/V, an empty row is 0.
         "kv_len_past_tk": (4, 60, dict(window=20), [500, 33]),
         "kv_len_zero": (5, 60, dict(), [0, 60]),
+        "decode_tq1_g4": (1, 200, dict(softcap=50.0), [200, 3]),
+        "decode_tq3_g2": (3, 130, dict(window=16, softcap=50.0), [2, 129]),
+        "decode_tq3_g4": (3, 97, dict(), [97, 40]),
+        # 4608 keys in planned splits, most of them past both rows'
+        # kv_len (empty partials) or, under the window, before it.
+        "decode_long_cache": (1, 4608, dict(window=1024, softcap=50.0),
+                              [3000, 40]),
     }[case]
+    if case.endswith("_g4"):
+        h = 8
     q = _rand(3, b, tq, h, d, device=cuda)
     k = _rand(4, b, tk, kvh, d, device=cuda)
     v = _rand(5, b, tk, kvh, d, device=cuda)
@@ -510,6 +524,16 @@ def test_flash_kernel_matches_twin_on_the_card(cuda, d, case, block_k):
         q, k, v, tol = q.bfloat16(), k.bfloat16(), v.bfloat16(), 2e-2
     kv_len = (torch.tensor(lens, dtype=torch.int32, device=cuda)
               if lens else None)
+    if block_k is not None and k15.smem_bytes(
+            d, block_k, k.element_size()) > planner.SMEM_BYTES:
+        with pytest.raises(ValueError, match=f"block_k {block_k}"):
+            k15.flash_attention(q, k, v, kv_len=kv_len, block_k=block_k,
+                                **kw)
+        return
+    rows = tq * h // kvh
+    if case.startswith("decode") and block_k is None:
+        assert (k15.plan_decode(b, kvh, rows, tk, d) is not None) == (
+            rows <= k15.decode_rows(d))
     k15.FLASH.launches = 0
     got = k15.flash_attention(q, k, v, kv_len=kv_len, block_k=block_k, **kw)
     assert k15.FLASH.launches == 1
@@ -518,17 +542,73 @@ def test_flash_kernel_matches_twin_on_the_card(cuda, d, case, block_k):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_schedules_repeat_their_bits_and_decode_matches_its_twin(
+        cuda, d):
+    """A second launch gives the same bits in both schedules (the decode
+    splits merge in split order, no atomics), and the decode kernel
+    agrees with ``flash_decode_plain`` at the planned split count and at
+    others, with empty splits, window-only splits and mean-of-V rows;
+    both schedules also read K/V whose rows are not 16-byte aligned."""
+    from repro_torch.kernels import flash_attention as k15
+    b, h, kvh, tk = 4, 4, 2, 700
+    kw = dict(window=200, softcap=50.0)
+    lens = torch.tensor([700, 450, 17, 0], dtype=torch.int32, device=cuda)
+    qd = _rand(6, b, 1, h, d, device=cuda)
+    qp = _rand(7, 1, 150, h, d, device=cuda)
+    k = _rand(8, b, tk, kvh, d, device=cuda)
+    v = _rand(9, b, tk, kvh, d, device=cuda)
+    planned = k15.plan_decode(b, kvh, h // kvh, tk, d)
+    assert planned is not None
+    for fn in (lambda: k15.flash_attention(qd, k, v, kv_len=lens, **kw),
+               lambda: k15.flash_attention(qp, k[:1, :150], v[:1, :150],
+                                           **kw)):
+        first, second = fn(), fn()
+        assert torch.equal(first, second)
+    for splits in (planned, 1, 3, 64):
+        got = k15.flash_attention(qd, k, v, kv_len=lens, splits=splits, **kw)
+        want = k15.flash_decode_plain(qd, k, v, kv_len=lens, splits=splits,
+                                      **kw)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+    # K/V rows that start off 16-byte boundaries (a view one element into
+    # its storage) take both kernels' element-copy path.
+    kbuf = _rand(11, b * tk * kvh * d + 1, device=cuda)
+    ku = kbuf[1:].view(b, tk, kvh, d)
+    for kw2 in (dict(kv_len=lens), dict(block_k=32)):
+        got = k15.flash_attention(qd, ku, ku, **kw, **kw2)
+        want = k15.flash_attention_plain(qd, ku, ku, kv_len=kw2.get(
+            "kv_len"), **kw)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    # Tq = 3 > kv_len = 2 under causal: row 0 is the mean of V.
+    q3 = _rand(10, 1, 3, h, d, device=cuda)
+    two = torch.tensor([2], dtype=torch.int32, device=cuda)
+    got = k15.flash_attention(q3, k[:1], v[:1], kv_len=two, splits=5)
+    want = k15.flash_decode_plain(q3, k[:1], v[:1], kv_len=two, splits=5)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[0, 0], v[0, :2].mean(0).repeat_interleave(
+        h // kvh, 0), rtol=2e-5, atol=2e-5)
+
+
 def test_flash_footprint_model_matches_the_kernel(cuda):
-    """The planner's shared-memory model is the bytes the kernel asks
-    for at launch, for every tile the library is built for."""
+    """The planner's shared-memory models are the bytes the kernels ask
+    for at launch: every prefill tile and every decode row count the
+    library is built for, with fp32 and bf16 K/V."""
     import ctypes
 
     from repro_torch.kernels import flash_attention as k15
-    fn = build._library("flash_attention").flash_attention_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    lib = build._library("flash_attention")
+    pre, dec = lib.flash_attention_smem_bytes, lib.flash_decode_smem_bytes
+    for fn in (pre, dec):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     for d in k15.HEAD_DIMS:
-        for bk in k15.BLOCK_K_CHOICES:
-            assert fn(d, bk) == k15.smem_bytes(d, bk)
+        for kvb in (4, 2):
+            for bk in k15.BLOCK_K_CHOICES:
+                assert pre(d, bk, kvb) == k15.smem_bytes(d, bk, kvb)
+            for rb in k15.DECODE_ROW_BUCKETS:
+                if rb <= k15.decode_rows(d):
+                    assert dec(d, rb, kvb) == k15.decode_smem_bytes(d, rb,
+                                                                    kvb)
 
 
 def test_lm_kernels_refuse_grad_on_the_card(cuda):

@@ -20,7 +20,7 @@ from repro.models.attention import _cache_positions, grouped_attention
 from repro.models.attention import query_positions
 from repro_torch.core import faults
 from repro_torch.core.execplan import PlanError
-from repro_torch.core.planner import SMEM_BYTES
+from repro_torch.core.planner import NUM_SMS, SMEM_BYTES
 from repro_torch.kernels import flash_attention as k15
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as k16
@@ -242,23 +242,179 @@ def test_flash_refuses_bad_arguments(bad):
 # ---------------------------------------------------------------------------
 
 def test_plan_tiles_follow_the_shared_memory_budget():
-    """The tile an SM holds most CTAs of, then the widest: 32 keys at
-    D = 128 (two CTAs of 75,008 B where one of 115,968 B fits), 64 keys
-    elsewhere; a smaller budget halves the tile, a too small one is
-    refused by name."""
-    want = {16: 64, 32: 64, 64: 64, 128: 32, 256: 64}
+    """The tile an SM holds most CTAs of, then the widest: at D = 256 only
+    the 32-key tile fits (208,896 B); at D = 128 the 32-key tile lets two
+    CTAs share an SM (110,592 B) where the 64-key one (185,856 B) allows
+    one; 64 keys below.  A smaller budget halves the tile, a too small one
+    is refused by name."""
+    want = {16: 64, 32: 64, 64: 64, 128: 32, 256: 32}
     for d in k15.HEAD_DIMS:
         bq, bk = k15.plan_tiles(d)
         assert (bq, bk) == (64, want[d])
         assert k15.smem_bytes(d, bk) <= SMEM_BYTES
-    assert k15.smem_bytes(256, 64) == 215_296
+    assert k15.smem_bytes(256, 32) == 208_896
+    assert k15.smem_bytes(256, 64) > SMEM_BYTES
+    assert k15.smem_bytes(256, 64, kv_bytes=2) <= SMEM_BYTES  # a bf16 cache
+    assert k15.resident_ctas(256, 32) == 1
     assert k15.resident_ctas(128, 64) == 1 and k15.resident_ctas(128, 32) == 2
     assert k15.resident_ctas(64, 64) == k15.resident_ctas(64, 32) == 2
-    assert k15.plan_tiles(256, 200_000) == (64, 32)
+    assert k15.plan_tiles(64, 100_000) == (64, 32)
     with pytest.raises(PlanError, match="head_dim 256"):
-        k15.plan_tiles(256, 100_000)
+        k15.plan_tiles(256, 200_000)
     with pytest.raises(PlanError, match="head_dim 48"):
         k15.plan_tiles(48)
+
+
+# ---------------------------------------------------------------------------
+# K15's decode schedule: split-KV partials merged in split order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tq,group,splits,win,cap", [
+    (1, 1, 1, None, None),
+    (1, 2, 3, None, 30.0),
+    (1, 4, 8, 5, None),                  # splits before the window: empty
+    (3, 2, 8, 6, 50.0),                  # splits of row 2's masked keys
+    (3, 4, 3, None, None),
+    (3, 1, 8, None, 50.0),
+])
+def test_flash_decode_plain_matches_reference_kernel(tq, group, splits, win,
+                                                     cap):
+    """The decode twin against the reference's kernel (interpret mode,
+    KV heads expanded as it expects) and the direct twin."""
+    b, kvh, tk, d = 2, 2, 40, 16
+    h = kvh * group
+    q = _rand(tq + splits, b, h, tq, d)
+    k, v = _rand(7, b, kvh, tk, d), _rand(8, b, kvh, tk, d)
+    kw = dict(causal=True, window=win, softcap=cap)
+    want = np.asarray(rops.flash_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, group, axis=1)),
+        jnp.asarray(np.repeat(v, group, axis=1)), **kw))
+    qt, kt, vt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = k15.flash_decode_plain(qt, kt, vt, splits=splits, **kw)
+    direct = k15.flash_attention_plain(qt, kt, vt, **kw)
+    for out in (got, direct):
+        np.testing.assert_allclose(out.transpose(1, 2).numpy(), want,
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_plain_gives_the_mean_of_v_without_a_key():
+    """Tq = 3 over 2 keys under causal: row 0 sees no key and every split
+    holds only masked keys or none; the reference kernel returns mean(V)."""
+    q, k, v = _qkv(41, 1, 2, 3, 2, 16)
+    want = np.asarray(rops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                           causal=True))
+    qt, kt, vt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    for splits in (1, 2, 8):
+        got = k15.flash_decode_plain(qt, kt, vt, splits=splits)
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(), want,
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(want[:, :, 0], v.mean(axis=2), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("group,splits", [(1, 8), (2, 3), (4, 1)])
+@pytest.mark.parametrize("win", [None, 4])
+def test_flash_decode_plain_matches_grouped_attention_under_kv_len(
+        t, group, splits, win):
+    """Ragged rows, a row past Tk and a row of no keys: the decode twin
+    against the reference model's ``grouped_attention`` over the cache
+    (rows with keys), 0 for the empty row, and the direct twin."""
+    b, s, kvh, d = 4, 24, 2, 16
+    h = kvh * group
+    lens = np.array([t + 7, s + 30, 0, s], np.int32)
+    q = _rand(51, b, t, h, d)
+    k, v = _rand(52, b, s, kvh, d), _rand(53, b, s, kvh, d)
+    kw = dict(causal=True, window=win, softcap=50.0, scale=0.25)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    got = k15.flash_decode_plain(qt, kt, vt, splits=splits,
+                                 kv_len=torch.from_numpy(lens), **kw)
+    direct = k15.flash_attention_plain(qt, kt, vt,
+                                       kv_len=torch.from_numpy(lens), **kw)
+    np.testing.assert_allclose(got.numpy(), direct.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    keep = np.array([0, 1, 3])
+    ci = np.minimum(lens[keep], s) - t
+    want = grouped_attention(
+        *map(jnp.asarray, (q[keep], k[keep], v[keep])),
+        query_positions(jnp.asarray(ci), 3, t),
+        _cache_positions(jnp.asarray(ci), 3, s, t), **kw)
+    np.testing.assert_allclose(got.numpy()[keep], np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,kvh,tk", [(4, 8, 512), (4, 8, 4608),
+                                      (1, 8, 4608), (1, 1, 300),
+                                      (8, 8, 2048), (2, 2, 64)])
+def test_plan_decode_fills_the_card_and_leaves_no_split_empty(b, kvh, tk):
+    """At least one wave of CTAs where Tk allows, no split shorter than
+    ``DECODE_MIN_KEYS`` (unless there is one), none empty when every row
+    holds Tk keys; None above the decode row cap."""
+    splits = k15.plan_decode(b, kvh, 2, tk, 256)
+    n, chunk = k15.split_keys(tk, splits)
+    assert n == splits and (splits - 1) * chunk < tk <= splits * chunk
+    assert splits == 1 or chunk >= k15.DECODE_MIN_KEYS
+    allows = tk >= k15.DECODE_MIN_KEYS * -(-NUM_SMS // (b * kvh))
+    if allows:
+        assert b * kvh * splits >= NUM_SMS
+    assert k15.plan_decode(b, kvh, 9, tk, 256) is None
+    assert k15.plan_decode(b, kvh, 16, tk, 128) is not None
+    assert k15.plan_decode(b, kvh, 17, tk, 128) is None
+
+
+def test_the_schedule_is_planned_from_shapes_not_kv_len(monkeypatch):
+    """On the card the wrapper picks the schedule, the splits and the
+    workspace from the shapes alone: two calls whose ``kv_len`` values
+    differ launch the same decode arguments, and prefill-sized calls
+    launch the prefill tile.  (The launch is recorded, not run.)"""
+    calls = []
+    monkeypatch.setattr(k15, "on_cpu", lambda *a, **kw: False)
+    monkeypatch.setattr(k15, "stream_of", lambda t: None)
+    monkeypatch.setattr(k15, "FLASH", lambda *a: calls.append(a))
+    k = torch.zeros(4, 512, 8, 256)
+    q = torch.zeros(4, 1, 16, 256)
+    for lens in ([25, 308, 0, 512], [512, 1, 2, 3]):
+        k15.flash_attention(q, k, k, kv_len=torch.tensor(lens,
+                                                         dtype=torch.int32))
+    assert calls[0][-5:-2] == calls[1][-5:-2] == (0, 8, 64)
+    k15.flash_attention(torch.zeros(1, 300, 16, 256), k[:1], k[:1])
+    assert calls[2][-5:-2] == (32, 0, 0) and calls[2][-2] is None
+    with pytest.raises(ValueError, match="block_k 64"):
+        k15.flash_attention(torch.zeros(1, 300, 16, 256), k[:1], k[:1],
+                            block_k=64)
+    with pytest.raises(ValueError, match="two schedules"):
+        k15.flash_attention(q, k, k, block_k=32, splits=2)
+    with pytest.raises(ValueError, match="decode schedule"):
+        k15.flash_attention(torch.zeros(1, 9, 2, 256), k[:1, :, :2],
+                            k[:1, :, :2], splits=2)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,over,want", [
+    ((4, 1, 16, 256), (4, 512, 8, 256), {}, ("decode", 8, 64, 0)),
+    ((4, 1, 16, 256), (4, 4608, 8, 256), {}, ("decode", 9, 512, 0)),
+    ((1, 300, 16, 256), (1, 512, 8, 256), {}, ("prefill", 0, 0, 32)),
+    ((1, 300, 32, 64), (1, 300, 8, 64), {}, ("prefill", 0, 0, 64)),
+    ((4, 1, 16, 256), (4, 512, 8, 256), dict(splits=3), ("decode", 3, 171,
+                                                          0)),
+    ((4, 1, 16, 256), (4, 512, 8, 256), dict(block_k=32), ("prefill", 0, 0,
+                                                           32)),
+])
+def test_schedule_is_what_the_wrapper_launches(q_shape, kv_shape, over,
+                                               want, monkeypatch):
+    """``schedule`` names the schedule, splits and tile that the wrapper
+    hands the kernel (the launch is recorded, not run), with and without
+    the sweeps' overrides."""
+    calls = []
+    monkeypatch.setattr(k15, "on_cpu", lambda *a, **kw: False)
+    monkeypatch.setattr(k15, "stream_of", lambda t: None)
+    monkeypatch.setattr(k15, "FLASH", lambda *a: calls.append(a))
+    q, k = torch.zeros(q_shape), torch.zeros(kv_shape)
+    sched = k15.schedule(q, k, **over)
+    assert tuple(sched) == want
+    k15.flash_attention(q, k, k, **over)
+    assert calls[0][-5:-2] == (sched.block_k, sched.splits, sched.chunk)
+    assert str(sched).startswith(sched.kind)
 
 
 @pytest.mark.parametrize("which", ["rmsnorm", "flash_attention"])
