@@ -10,14 +10,17 @@ holds every kernel against its plain PyTorch twin on the card at the
 MNIST CapsuleNet's shapes (both routing schedules; the K2 GEMM also at
 capsnet-svhn's PrimaryCaps shape, twice each for identical bits, then
 timed beside ``F.conv2d`` and ``torch.addmm`` with a sweep of its split
-of K; K5 and K9, which route each sample over a thread-block cluster, at
-MNIST batch 8 and 16 and the SVHN bottleneck, twice each for identical
-bits, then swept over every cluster size beside the plan's model and the
-card's co-resident clusters, K9's replay and emit timed apart), runs the
+of K; K3, K5 and K8/K9, which route each sample over a thread-block
+cluster, at MNIST batch 8 and 16, the smoke config, the SVHN bottleneck
+and (K3, K8) the SVHN ResCaps half and ClassCaps, twice each for
+identical bits, then swept over every cluster size beside the plan's
+model and the card's co-resident clusters, the planned size against the
+best, K8's and K9's replay and emit timed apart, and K3 and K8 beside an
+empty launch of their grids), runs the
 full-width forward on the pipelined and the per-op plan against the plain
 forward, serves 32 seeded requests through ``CapsuleEngine`` on both
 plans, and times each kernel at the engine's batch.  Then it trains: the backward kernels (K6
-dW, K7 col2im, K8/K9 routing backward) against their twins at the
+dW, K7 col2im, K8/K9 routing backward on clusters) against their twins at the
 training shapes (batch 16; K6 and the dpatches GEMM twice each for
 identical bits, then timed, K6 also on 128 x 128 tiles only against its
 plan), one full-width ``total_loss`` backward on both training plans
@@ -34,7 +37,7 @@ CapsuleNet (a plain bottleneck -- K5 on the pipelined plan, K4 with its
 logits in device memory on the per-op plan -- two reversible ResCaps
 blocks, ClassCaps): its forward on both plans against the plain forward,
 16 requests through the engine on both plans, the residual epilogue,
-K5 and K9 on their clusters, the streamed-global K4 and K13 (the
+K3, K5, K8 and K9 on their clusters, the streamed-global K4 and K13 (the
 unfused oracle) against their twins and the fused kernels, one training
 gradient through the reversible segment K12 (and on the CIFAR-10 smoke
 config), the SVHN smoke config's pipelined plan, 20 full-width training
@@ -275,14 +278,16 @@ def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
 
 
 def replay_emit_ms(fn) -> dict:
-    """Device ms per call of K9's two kernels, the cluster replay and the
-    per-capsule emit, from one profile of ``fn``."""
-    split_ = device_breakdown(fn, reps=5) or {}
-    return dict(
-        replay_device_ms=sum(v for k, v in split_.items()
-                             if "routing_bwd_cluster_kernel" in k),
-        emit_device_ms=sum(v for k, v in split_.items()
-                           if "routing_bwd_emit_kernel" in k))
+    """Device ms per call of the cluster backward's two kernels (K8/K9),
+    the replay and the per-capsule emit, from one profile of ``fn``; None
+    (not measured) for a kernel of which the trace kept no record."""
+    split_ = device_breakdown(fn, reps=20) or {}
+
+    def of(name):
+        times = [v for k, v in split_.items() if name in k]
+        return sum(times) if times else None
+    return dict(replay_device_ms=of("routing_bwd_cluster_kernel"),
+                emit_device_ms=of("routing_bwd_emit_kernel"))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -397,6 +402,49 @@ def cluster_sweep(label: str, plan_at, run, occupancy) -> dict:
     return out
 
 
+def k3_twin(u, w, r, cluster: int, *, iters: int, num_classes: int):
+    """K3's plain twin: the cluster's rank-order routing of resident votes
+    (``cluster_routing_plain``), plus the residual ``r`` when given."""
+    from repro_torch.kernels import votes_routing as k34
+    v = k34.cluster_routing_plain(u, w, iters=iters, num_classes=num_classes,
+                                  mode="resident", block_i=u.shape[1],
+                                  cluster=cluster)
+    return v if r is None else v + r
+
+
+def empty_floor(bsz: int, cluster: int, smem: int) -> dict:
+    """Time of an empty launch of ``bsz`` clusters of ``cluster`` CTAs with
+    ``smem`` bytes of shared memory each: CUDA events over back-to-back
+    launches (the host's dispatch rate) and the profiler's device time
+    (the floor under a kernel of that grid, beside its byte bound)."""
+    import torch
+    from repro_torch.kernels import votes_routing as k34
+    dev = torch.device("cuda")
+
+    def go():
+        k34.empty_launch(bsz, cluster, smem, dev)
+    return dict(grid=[bsz, cluster, smem], ms=time_ms(go),
+                device_ms=device_ms(go))
+
+
+def sweep_miss(label: str, sweep: dict, planned: int) -> dict:
+    """The plan's cluster size against the best of a ``cluster_sweep``:
+    printed, and returned as ``{planned, best, miss}`` (the planned size's
+    device time over the best's, less one)."""
+    times = {int(cs): r["device_ms"] for cs, r in sweep.items()
+             if r["device_ms"] is not None}
+    if planned not in times:
+        print(f"{label}: the planned cluster {planned} was not measured",
+              flush=True)
+        return {}
+    best = min(times, key=times.get)
+    miss = times[planned] / times[best] - 1.0
+    print(f"{label}: planned cluster {planned} ({times[planned]} ms), best "
+          f"{best} ({times[best]} ms): {100 * miss:.1f}% over the best",
+          flush=True)
+    return dict(planned=planned, best=best, miss=miss)
+
+
 def svhn_pc_inputs(dev):
     """Seeded inputs of the PrimaryCaps conv at capsnet-svhn's serving
     shape: a non-negative Conv1 output (a ReLU's) [SLOTS, 24, 24, 256],
@@ -453,9 +501,10 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     -> Conv1 -> PrimaryCaps (2048 capsules of 8D) -> the plain bottleneck
     routed to 64 x 8D with its logits in device memory (K4 in the plan's
     streamed-global mode) -> two reversible ResCaps blocks (K3 with the
-    residual epilogue, inside the K12 segment) -> ClassCaps (K3).  The
-    forward at the engine's batch against the plain forward, 16 requests
-    through the engine, each new kernel (and K13, the unfused oracle, at
+    residual epilogue on clusters, inside the K12 segment; K8 in its
+    backward) -> ClassCaps (K3).  The forward at the engine's batch
+    against the plain forward, 16 requests through the engine, each new
+    kernel (and K13, the unfused oracle, at
     the MNIST and the bottleneck shapes) against its twin and the fused
     kernel, one training gradient through K12 (and on the CIFAR-10 smoke
     config's all-residual segment), the SVHN smoke config's pipelined plan
@@ -501,10 +550,17 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     lay0, half, final = stack[0], stack[1], stack[-1]
     neck, nbwd = pplan.op(lay0.name), tplan.bwd_op(lay0.name)
     spr = plan.op(execplan.PIPE_NAME)
+    hop, fop = plan.op(half.name), plan.op(final.name)
+    hbwd = tplan.bwd_op(half.name)
     if not plan.pipelined or neck.mode != GLOBAL or not nbwd.cluster:
         raise AssertionError("SVHN plans: expected K5 on the pipelined "
                              "plan, K4 streamed-global on the per-op plan "
                              "and K9 on a cluster")
+    if any(op.mode != "resident" or op.cluster is None
+           for p in (plan, pplan, tplan) for lay in stack[1:]
+           for op in (p.op(lay.name), p.bwd_op(lay.name)) if op):
+        raise AssertionError("SVHN plans: expected K3 and K8 (the ResCaps "
+                             "halves and ClassCaps) on clusters")
 
     def w_of(lay_):
         return params[lay_.param].reshape(lay_.in_caps, lay_.jd, lay_.in_dim)
@@ -521,13 +577,15 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                      ("matmul_bias_act_f32", 1),
                                      ("primary_routing_f32", 1),
                                      ("votes_routing_global_f32", 0),
-                                     ("votes_routing_f32", 5),
+                                     ("votes_routing_cluster_f32", 5),
+                                     ("votes_routing_f32", 0),
                                      ("votes_routing_2pass_f32", 0))),
                 ("per-op", pplan, (("im2col_patches_f32", 2),
                                    ("matmul_bias_act_f32", 2),
                                    ("primary_routing_f32", 0),
                                    ("votes_routing_global_f32", 1),
-                                   ("votes_routing_f32", 5),
+                                   ("votes_routing_cluster_f32", 5),
+                                   ("votes_routing_f32", 0),
                                    ("votes_routing_2pass_f32", 0)))):
             build.reset_launch_counts()
             out = capsnet.forward(params, images, cfg, backend="kernels",
@@ -613,15 +671,31 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             check_scaled(f"{name} {part}", x, y, GRAD)
             for part, x, y in zip(("du", "dW"), got, want)))
 
+    kwf = dict(iters=final.iters, num_classes=final.num_caps)
     with torch.no_grad():
-        for mode, bi in (("resident", plan.op(half.name).block_i),
-                         ("streamed", 12), (GLOBAL, 12)):
-            held("votes_routing", f"K3/K4 residual epilogue, {mode}, SVHN "
+        for mode in ("streamed", GLOBAL):
+            held("votes_routing", f"K4 residual epilogue, {mode}, SVHN "
                  f"half {half.in_caps}->{half.num_caps}x{half.caps_dim}",
-                 k34.votes_routing(x2, wf, r=r1, mode=mode, block_i=bi,
+                 k34.votes_routing(x2, wf, r=r1, mode=mode, block_i=12,
                                    **kwh),
                  k34.votes_routing_plain(x2, wf, r=r1, mode=mode,
-                                         block_i=bi, **kwh), ROUTING)
+                                         block_i=12, **kwh), ROUTING)
+        # K3 on the plan's clusters: a half with the residual epilogue and
+        # ClassCaps, each twice for identical bits.
+        for label, uu, ww, rr, op, kw in (
+                (f"SVHN half {half.in_caps}->{half.num_caps}x"
+                 f"{half.caps_dim} + residual", x2, wf, r1, hop, kwh),
+                (f"SVHN ClassCaps {final.in_caps}->{final.num_caps}x"
+                 f"{final.caps_dim}", h0, wfin, None, fop, kwf)):
+            print(f"K3 {label}, batch {SLOTS}: clusters of {op.cluster} "
+                  f"({op.block.ctas} CTAs), {op.smem_bytes} B a CTA",
+                  flush=True)
+            held("votes_routing_cluster", f"K3 {label}, {op.cluster}-CTA "
+                 f"clusters", same_bits(f"K3 {label}", lambda: (
+                     k34.votes_routing(uu, ww, r=rr, mode=op.mode,
+                                       block_i=op.block_i,
+                                       cluster=op.cluster, **kw))),
+                 k3_twin(uu, ww, rr, op.cluster, **kw), ROUTING)
         v_neck = k34.votes_routing(u0, w0, mode=GLOBAL,
                                    block_i=neck.block_i, **kw0)
         held("votes_routing_global", "K4 streamed-global, SVHN bottleneck",
@@ -650,6 +724,17 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
              f"batch {tb}", same_bits("K9 SVHN", lambda: k34.votes_routing_bwd(
                  tu0, w0, g0, **kw9, **kw0)),
              k34.votes_routing_bwd_plain(tu0, w0, g0, **kw9, **kw0))
+    # K8 (resident votes on the same cluster kernel) at a half's training
+    # shape, twice for identical bits.
+    gh = randn(tb, half.jd, scale=1e-2)
+    tx2 = randn(tb, half.in_caps, half.in_dim, scale=0.1)
+    kw8 = dict(mode=hbwd.mode, block_i=hbwd.block_i, cluster=hbwd.cluster)
+    print(f"K8 SVHN half batch {tb}: clusters of {hbwd.cluster} "
+          f"({hbwd.block.ctas} CTAs), {hbwd.smem_bytes} B a CTA", flush=True)
+    held_bwd("routing_bwd_cluster", f"K8 on the cluster, SVHN half batch "
+             f"{tb}", same_bits("K8 SVHN half", lambda: k34.votes_routing_bwd(
+                 tx2, wf, gh, **kw8, **kwh)),
+             k34.votes_routing_bwd_plain(tx2, wf, gh, **kw8, **kwh))
     build.reset_launch_counts()
     with torch.no_grad():
         for label, uu, ww, bi, kw, fused in (
@@ -703,15 +788,18 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         print(f"backward {label}: launches {grad_counts[label]}", flush=True)
         for k in params_:
             check_scaled(f"backward {label} d{k}", got[k], want[k], GRAD)
-        # Each half runs its forward kernel twice (forward, and the K12
-        # backward's recompute) and its backward kernel once.
-        if grad_counts[label]["routing_bwd_resident_f32"] < k12_halves + 1:
-            raise AssertionError(f"backward {label}: the K12 halves' "
-                                 f"backward kernels did not all run")
-    if grad_counts["svhn"]["routing_bwd_cluster_f32"] != 1 or \
-            grad_counts["svhn"]["primary_routing_f32"] != 1:
-        raise AssertionError("backward svhn: K5 and K9 (on clusters) did "
-                             "not run once each")
+        # Each half runs K3 twice (forward, and the K12 backward's
+        # recompute) and the cluster backward (K8) once, ClassCaps K3 and
+        # K8 once each; SVHN's bottleneck adds K9 (the same kernel).
+        want_bwd = k12_halves + 1 + (label == "svhn")
+        if grad_counts[label]["votes_routing_cluster_f32"] != \
+                2 * k12_halves + 1 or \
+                grad_counts[label]["routing_bwd_cluster_f32"] != want_bwd:
+            raise AssertionError(f"backward {label}: K3 and K8/K9 did not "
+                                 f"run {2 * k12_halves + 1} and {want_bwd} "
+                                 f"times")
+    if grad_counts["svhn"]["primary_routing_f32"] != 1:
+        raise AssertionError("backward svhn: K5 did not run once")
 
     # The SVHN smoke config's pipelined plan: K5 (J = 16) leads the stack.
     scfg = capsnet_svhn.smoke_config()
@@ -732,7 +820,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     for key in ("class_caps", "lengths", "reconstruction"):
         check(f"svhn smoke pipelined {key}", sout[key], sref[key], ROUTING)
     if pipe_counts["primary_routing_f32"] != 1 or \
-            pipe_counts["votes_routing_f32"] < 5:
+            pipe_counts["votes_routing_cluster_f32"] < 5:
         raise AssertionError(f"svhn smoke pipelined: launches {pipe_counts}")
 
     # Train the full-width network: SGD (the loop's default), reported,
@@ -774,16 +862,29 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     train_counts = counts_by["sgd pipelined"]
     for key, syms in (("sgd pipelined", ("primary_routing_f32",
                                          "routing_bwd_cluster_f32",
-                                         "votes_routing_f32",
-                                         "routing_bwd_resident_f32")),
+                                         "votes_routing_cluster_f32")),
                       ("adam per-op", ("votes_routing_global_f32",
                                        "routing_bwd_cluster_f32",
-                                       "votes_routing_f32",
-                                       "routing_bwd_resident_f32"))):
+                                       "votes_routing_cluster_f32"))):
         for sym in syms:
             if counts_by[key][sym] < TRAIN_STEPS:
                 raise AssertionError(f"train svhn {key}: {sym} ran "
                                      f"{counts_by[key][sym]} times")
+    # A step: K3 9 times (4 halves forward and recomputed, ClassCaps), the
+    # cluster backward 6 (K8 at the 4 halves and ClassCaps, K9 at the
+    # bottleneck); serving 16 requests at 8 slots: 2 forwards of 5 K3.
+    for what, got, want in (
+            ("K3 in the 20-step run",
+             train_counts["votes_routing_cluster_f32"], 9 * TRAIN_STEPS),
+            ("K8 + K9 in the 20-step run",
+             train_counts["routing_bwd_cluster_f32"], 6 * TRAIN_STEPS),
+            ("K3 in the 16-request run",
+             serve_counts["votes_routing_cluster_f32"],
+             5 * -(-SVHN_REQUESTS // SLOTS))):
+        print(f"svhn launches: {what}: {got} (at least {want})", flush=True)
+        if got < want:
+            raise AssertionError(f"svhn: {what}: {got} launches, fewer "
+                                 f"than {want}")
 
     # Times: the forward and the K12 segment, then each new kernel against
     # its twin and its bound (K13 also against the fused kernel).
@@ -807,6 +908,25 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         ops.res_caps_segment(x, ws_, pairs, plan=tplan).sum().backward()
         return x.grad
 
+    def seg_plain(h, pw):
+        """K12's function in plain PyTorch (``routing_stack_ref``'s
+        coupling), autograd for its backward."""
+        for lf, lg in pairs:
+            x1, x2 = h[:, :lf.num_caps], h[:, lf.num_caps:]
+            y1 = x1 + capsnet.routing_by_agreement(
+                capsnet.compute_votes(x2, pw[lf.param]), lf.iters)
+            y2 = x2 + capsnet.routing_by_agreement(
+                capsnet.compute_votes(y1, pw[lg.param]), lg.iters)
+            h = torch.cat([y1, y2], dim=1)
+        return h
+
+    def seg_plain_fwd_bwd():
+        x = th_seg.detach().requires_grad_()
+        pw = {lyr.param: params[lyr.param].detach().requires_grad_()
+              for pair in pairs for lyr in pair}
+        seg_plain(x, pw).sum().backward()
+        return x.grad
+
     def seg_bound(b: int, backward: bool) -> float:
         """K12's bound: the sum of its kernels' bounds at the segment's
         shapes (each half's forward, and with ``backward`` its backward;
@@ -825,9 +945,11 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         return total
 
     with torch.no_grad():
-        seg = dict(fwd_ms=time_ms(seg_fwd), fwd_device_ms=device_ms(seg_fwd))
+        seg = dict(fwd_ms=time_ms(seg_fwd), fwd_device_ms=device_ms(seg_fwd),
+                   plain_fwd_ms=time_ms(lambda: seg_plain(h_seg, params)))
     seg.update(fwd_bwd_ms=time_ms(seg_fwd_bwd),
                fwd_bwd_device_ms=device_ms(seg_fwd_bwd),
+               plain_fwd_bwd_ms=time_ms(seg_plain_fwd_bwd),
                fwd_bound_ms=seg_bound(SLOTS, False),
                fwd_bwd_bound_ms=seg_bound(tb, True))
     print(f"svhn forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}; "
@@ -922,40 +1044,71 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                 device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=None, path=path, sites=site_rows))
-        # The residual epilogue (K3) and K8 at the SVHN halves' shape, as
-        # sites of the existing rows.
+        # K3 on its clusters: a half with the residual epilogue (the row's
+        # main site), ClassCaps and the MNIST smoke config, each beside an
+        # empty launch of its grid; every cluster size at the SVHN shapes.
         by_name = {r["name"]: r for r in rows}
-        half_bi = plan.op(half.name).block_i
-        fin_bi = plan.op(final.name).block_i
-        kwf = dict(iters=final.iters, num_classes=final.num_caps)
-        by_name["votes_routing"]["sites"] += timed_sites([
-            (half.name + " (SVHN half, resident + residual, 8)",
-             lambda: k34.votes_routing(x2, wf, r=r1, mode="resident",
-                                       block_i=half_bi, **kwh),
-             lambda: k34.votes_routing_plain(x2, wf, r=r1, mode="resident",
-                                             block_i=half_bi, **kwh), None,
-             4.0 * (x2.numel() + wf.numel() + 2 * r1.numel()),
-             routing_flops(SLOTS, half.in_caps, half.in_dim, half.jd, 3)),
-            (final.name + " (SVHN, resident, 8)",
-             lambda: k34.votes_routing(h0, wfin, mode="resident",
-                                       block_i=fin_bi, **kwf),
-             lambda: k34.votes_routing_plain(h0, wfin, mode="resident",
-                                             block_i=fin_bi, **kwf), None,
-             4.0 * (h0.numel() + wfin.numel() + SLOTS * final.jd),
-             routing_flops(SLOTS, final.in_caps, final.in_dim, final.jd, 3))])
+        su, swcc, svr = mnist["su"], mnist["swcc"], mnist["svr"]
+        k3_sites = []
+        for op_name, uu, ww, rr, op, kw in (
+                (half.name + " (SVHN half + residual, 8)", x2, wf, r1, hop,
+                 kwh),
+                (final.name + " (SVHN ClassCaps, 8)", h0, wfin, None, fop,
+                 kwf),
+                (execplan.FUSED_NAME + " (MNIST smoke, 8)", su, swcc, None,
+                 svr, dict(iters=3, num_classes=10))):
+            site = timed_sites([(
+                op_name,
+                lambda uu=uu, ww=ww, rr=rr, op=op, kw=kw: k34.votes_routing(
+                    uu, ww, r=rr, mode=op.mode, block_i=op.block_i,
+                    cluster=op.cluster, **kw),
+                lambda uu=uu, ww=ww, rr=rr, op=op, kw=kw: k3_twin(
+                    uu, ww, rr, op.cluster, **kw), None,
+                4.0 * (uu.numel() + ww.numel()
+                       + (1 if rr is None else 2) * SLOTS * ww.shape[1]),
+                routing_flops(SLOTS, uu.shape[1], uu.shape[2], ww.shape[1],
+                              kw["iters"]))])[0]
+            site.update(cluster=op.cluster, ctas=op.block.ctas,
+                        empty_launch=empty_floor(SLOTS, op.cluster,
+                                                 op.smem_bytes))
+            print(f"K3 {op_name}: clusters of {op.cluster}, device "
+                  f"{site['device_ms']} ms, bound {site['bound_ms']:.6f} ms "
+                  f"({site['bound_by']}), empty launch "
+                  f"{json.dumps(site['empty_launch'])}", flush=True)
+            k3_sites.append(site)
+        main = k3_sites[0]
+        k3_row = dict(
+            name="votes_routing_cluster", route="cuda",
+            source="src/repro_torch/kernels/csrc/votes_routing.cu",
+            replaces="src/repro/kernels/votes_routing.py:119",
+            launches=serve_counts["votes_routing_cluster_f32"],
+            max_abs_err=max(errs["votes_routing_cluster"], mnist["k3_err"]),
+            ms=main["ms"], device_ms=main["device_ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=None,
+            path="serve, SVHN full width, pipelined plan (the ResCaps "
+                 "halves with the residual epilogue, and ClassCaps)",
+            sites=k3_sites, cluster_sweep={})
+        rows.append(k3_row)
+        by_name[k3_row["name"]] = k3_row
+        for label, uu, ww, rr, lay, kw in (
+                ("SVHN half + residual, 8", x2, wf, r1, half, kwh),
+                ("SVHN ClassCaps, 8", h0, wfin, None, final, kwf)):
+            k3_row["cluster_sweep"][label] = cluster_sweep(
+                f"K3 {label}",
+                lambda cs, lay=lay: execplan.plan_votes_routing_cluster(
+                    lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
+                    iters=lay.iters, batch=SLOTS, cluster=cs),
+                lambda sc, cs, uu=uu, ww=ww, rr=rr, kw=kw: k34.votes_routing(
+                    uu, ww, r=rr, mode=sc.mode, block_i=sc.block_i,
+                    cluster=cs, **kw),
+                lambda sc, cs, lay=lay: k34.cluster_occupancy(
+                    lay.in_caps, lay.in_dim, lay.num_caps, lay.caps_dim,
+                    cluster=cs))
+            sweep_miss(f"K3 {label}", k3_row["cluster_sweep"][label],
+                       (hop if lay is half else fop).cluster)
         by_name["votes_routing"]["max_abs_err"] = max(
             by_name["votes_routing"]["max_abs_err"], errs["votes_routing"])
-        gh = randn(tb, half.jd, scale=1e-2)
-        tx2 = randn(tb, half.in_caps, half.in_dim, scale=0.1)
-        hbwd = tplan.bwd_op(half.name)
-        by_name["routing_bwd_resident"]["sites"] += timed_sites([
-            (half.name + "-bwd (SVHN half, 16)",
-             lambda: k34.votes_routing_bwd(tx2, wf, gh, mode=hbwd.mode,
-                                           block_i=hbwd.block_i, **kwh),
-             lambda: k34.votes_routing_bwd_plain(
-                 tx2, wf, gh, mode=hbwd.mode, block_i=hbwd.block_i, **kwh),
-             None, routing_bwd_bytes(tx2, wf),
-             routing_bwd_flops(tb, half.in_caps, half.in_dim, half.jd, 3))])
         # K5 and K9 at the SVHN bottleneck, as sites of their rows, with
         # every cluster size.
         k5_row = by_name["primary_routing"]
@@ -991,6 +1144,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                 svp.shape[1], svn, cfg.primary_dim, lay0.num_caps,
                 lay0.caps_dim, mode=sc.mode, block_i=sc.block_i,
                 cluster=cs))
+        sweep_miss(f"K5 SVHN batch {SLOTS}",
+                   k5_row["cluster_sweep"]["SVHN, 8"], spr.cluster)
     k9_row = by_name["routing_bwd_cluster"]
     k9_row["sites"] += timed_sites([
         (lay0.name + "-bwd (SVHN, 16)",
@@ -1005,6 +1160,48 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     print(f"K9 SVHN batch {tb}: replay "
           f"{k9_row['sites'][-1]['replay_device_ms']} ms, emit "
           f"{k9_row['sites'][-1]['emit_device_ms']} ms (device)", flush=True)
+    # K8 (resident votes, the same cluster kernel) at a half's training
+    # shape: a site of the row with its replay and emit apart, the floors
+    # of empty launches of both grids, and every cluster size.
+    k9_row["sites"] += timed_sites([
+        (half.name + f"-bwd (K8, SVHN half, {tb})",
+         lambda: k34.votes_routing_bwd(tx2, wf, gh, **kw8, **kwh),
+         lambda: k34.votes_routing_bwd_plain(tx2, wf, gh, **kw8, **kwh),
+         None, routing_bwd_bytes(tx2, wf),
+         routing_bwd_flops(tb, half.in_caps, half.in_dim, half.jd, 3))])
+    k8_site = k9_row["sites"][-1]
+    k8_site.update(
+        cluster=hbwd.cluster, ctas=hbwd.block.ctas, mode=hbwd.mode,
+        **replay_emit_ms(lambda: k34.votes_routing_bwd(tx2, wf, gh, **kw8,
+                                                       **kwh)),
+        empty_launch=empty_floor(tb, hbwd.cluster,
+                                 execplan.routing_bwd_cluster_smem(
+                                     hbwd.mode, half.in_caps, hbwd.block_i,
+                                     half.in_dim, half.num_caps, half.jd,
+                                     hbwd.cluster)),
+        empty_emit_launch=empty_floor(half.in_caps, 1,
+                                      execplan.routing_bwd_emit_smem(
+                                          half.in_dim, half.num_caps,
+                                          half.jd)))
+    print(f"K8 SVHN half batch {tb}: clusters of {hbwd.cluster}, device "
+          f"{k8_site['device_ms']} ms: replay {k8_site['replay_device_ms']} "
+          f"ms, emit {k8_site['emit_device_ms']} ms (device), bound "
+          f"{k8_site['bound_ms']:.6f} ms; empty launches: replay grid "
+          f"{json.dumps(k8_site['empty_launch'])}, emit grid "
+          f"{json.dumps(k8_site['empty_emit_launch'])}", flush=True)
+    k9_row["cluster_sweep"][f"K8 SVHN half, {tb}"] = cluster_sweep(
+        f"K8 SVHN half batch {tb}",
+        lambda cs: execplan.plan_routing_bwd_cluster(
+            half.in_caps, half.in_dim, half.jd, half.num_caps, batch=tb,
+            cluster=cs, votes="resident"),
+        lambda sc, cs: k34.votes_routing_bwd(
+            tx2, wf, gh, mode=sc.mode, block_i=sc.block_i, cluster=cs,
+            **kwh),
+        lambda sc, cs: k34.bwd_cluster_occupancy(
+            half.in_caps, half.in_dim, half.num_caps, half.caps_dim,
+            mode=sc.mode, block_i=sc.block_i, cluster=cs))
+    sweep_miss(f"K8 SVHN half batch {tb}",
+               k9_row["cluster_sweep"][f"K8 SVHN half, {tb}"], hbwd.cluster)
     k9_row["max_abs_err"] = max(k9_row["max_abs_err"],
                                 errs["routing_bwd_cluster"])
     by_name["primary_routing"]["max_abs_err"] = max(
@@ -1020,6 +1217,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         lambda sc, cs: k34.bwd_cluster_occupancy(
             lay0.in_caps, lay0.in_dim, lay0.num_caps, lay0.caps_dim,
             mode=sc.mode, block_i=sc.block_i, cluster=cs))
+    sweep_miss(f"K9 SVHN bottleneck batch {tb}",
+               k9_row["cluster_sweep"]["SVHN, 16"], nbwd.cluster)
     for row in rows:
         sym = row["name"] + "_f32"
         row["launches_svhn"] = dict(
@@ -1765,14 +1964,21 @@ def capsnet_phases(dev) -> list[dict]:
                  blk.tiles, pp, ww, bb, **kw)),
              k12.matmul_bias_act_plain(pp, ww, bb, split_k=blk.split_k,
                                        block_k=blk.block_k, **kw), tol)
-    for (label, uu, ww, op) in (
-            ("K4 votes_routing streamed, MNIST", u, wcc, vr),
-            ("K3 votes_routing resident, smoke", su, swcc, svr)):
-        held("votes_routing", label,
-             k34.votes_routing(uu, ww, mode=op.mode, block_i=op.block_i),
-             k34.votes_routing_plain(uu, ww, iters=3, num_classes=10,
-                                     mode=op.mode, block_i=op.block_i),
-             ROUTING)
+    held("votes_routing", "K4 votes_routing streamed, MNIST",
+         k34.votes_routing(u, wcc, mode=vr.mode, block_i=vr.block_i),
+         k34.votes_routing_plain(u, wcc, iters=3, num_classes=10,
+                                 mode=vr.mode, block_i=vr.block_i), ROUTING)
+    # K3 on the plan's cluster, twice for identical bits (its times are
+    # sites of K3's row, phase 12).
+    print(f"K3 smoke batch {SLOTS}: clusters of {svr.cluster} "
+          f"({svr.block.ctas} CTAs), {svr.smem_bytes} B a CTA", flush=True)
+    held("votes_routing_cluster", f"K3 votes_routing resident, smoke, "
+         f"{svr.cluster}-CTA clusters", same_bits(
+             "K3 smoke", lambda: k34.votes_routing(
+                 su, swcc, mode=svr.mode, block_i=svr.block_i,
+                 cluster=svr.cluster)),
+         k3_twin(su, swcc, None, svr.cluster, iters=3, num_classes=10),
+         ROUTING)
     held("votes_routing", "K4 votes_routing streamed, smoke, ragged i",
          k34.votes_routing(su, swcc, mode="streamed", block_i=24),
          k34.votes_routing_plain(su, swcc, iters=3, num_classes=10,
@@ -1796,6 +2002,7 @@ def capsnet_phases(dev) -> list[dict]:
     assert (pr.mode, perop.op(execplan.FUSED_NAME).mode) == ("resident",
                                                              "streamed")
     assert pr.cluster > 1 and splan.op(execplan.PIPE_NAME).mode == "resident"
+    assert svr.mode == "resident" and svr.cluster in execplan.CLUSTER_SIZES
 
     # 4. Full-width forward on both plans against the plain forward.
     with torch.no_grad():
@@ -1935,18 +2142,7 @@ def capsnet_phases(dev) -> list[dict]:
                                              mode=vr.mode,
                                              block_i=vr.block_i), None,
              4.0 * (u.numel() + wcc.numel() + b_ * jd),
-             routing_flops(b_, i_, c_, jd, it)),
-            # K3 (resident) runs at smoke widths only; its time is a site
-            # of this row, outside the per-op path's totals.
-            (execplan.FUSED_NAME + " (smoke, resident)", "smoke",
-             lambda: k34.votes_routing(su, swcc, mode=svr.mode,
-                                       block_i=svr.block_i),
-             lambda: k34.votes_routing_plain(su, swcc, iters=it,
-                                             num_classes=slay.num_caps,
-                                             mode=svr.mode,
-                                             block_i=svr.block_i), None,
-             4.0 * (su.numel() + swcc.numel() + b_ * slay.jd),
-             routing_flops(b_, slay.in_caps, slay.in_dim, slay.jd, it))],
+             routing_flops(b_, i_, c_, jd, it))],
         "primary_routing": [
             (execplan.PIPE_NAME + " (MNIST, 8)", "main",
              lambda: k5.primary_routing_patches(
@@ -2048,6 +2244,21 @@ def capsnet_phases(dev) -> list[dict]:
         lambda sc, cs: k5.primary_routing_patches(
             ppc, wpc, params["pc_b"], wcc, mode=sc.mode,
             block_i=sc.block_i, cluster=cs), k5_occupancy)}
+    sweep_miss("K5 MNIST batch 8", k5_row["cluster_sweep"]["MNIST, 8"],
+               pr.cluster)
+    # And at the smoke config (the plan's size there follows the cluster
+    # model fitted to K3's and K8's sweeps as well).
+    print(f"K5 smoke batch {SLOTS}: the plan's clusters of {spr.cluster}",
+          flush=True)
+    k5_row["cluster_sweep"]["smoke, 8"] = cluster_sweep(
+        f"K5 smoke batch {SLOTS}",
+        lambda cs: k5_plan_at(cs, pp=sppc, c=smoke, ly=slay),
+        lambda sc, cs: k5.primary_routing_patches(
+            sppc, swpc, sparams["pc_b"], swcc, mode=sc.mode,
+            block_i=sc.block_i, cluster=cs),
+        lambda sc, cs: k5_occupancy(sc, cs, c=smoke, ly=slay, pp=sppc))
+    sweep_miss(f"K5 smoke batch {SLOTS}", k5_row["cluster_sweep"]["smoke, 8"],
+               spr.cluster)
 
     # 7. The backward kernels against their twins at the training shapes.
     tb = TRAIN_BATCH
@@ -2078,8 +2289,8 @@ def capsnet_phases(dev) -> list[dict]:
     vbwd = tplan.op(execplan.FUSED_NAME + execplan.BWD_SUFFIX)
     sbwd = execplan.compile_plan(smoke, batch=tb, train=True).op(
         execplan.FUSED_NAME + execplan.BWD_SUFFIX)
-    assert vbwd.cluster > 1 and (sbwd.mode, sbwd.cluster) == ("resident",
-                                                              None)
+    assert vbwd.cluster > 1 and sbwd.mode == "resident"
+    assert sbwd.cluster in execplan.CLUSTER_SIZES
     for name, p in (("MNIST pipelined train", tplan),
                     ("MNIST per-op train", tperop)):
         print(f"plan {name}: {json.dumps(p.summary())}", flush=True)
@@ -2125,8 +2336,9 @@ def capsnet_phases(dev) -> list[dict]:
              "routing_bwd_cluster", su16, swcc, sg, "streamed", 3, 16),
             ("K9 routing bwd, smoke, 1-CTA clusters, ragged blocks",
              "routing_bwd_cluster", su16, swcc, sg, "streamed", 24, 1),
-            ("K8 routing bwd resident, smoke", "routing_bwd_resident", su16,
-             swcc, sg, sbwd.mode, sbwd.block_i, None)):
+            (f"K8 routing bwd resident, smoke, {sbwd.cluster}-CTA clusters",
+             "routing_bwd_cluster", su16, swcc, sg, sbwd.mode, sbwd.block_i,
+             sbwd.cluster)):
         kw = dict(iters=3, num_classes=10, mode=mode, block_i=bi, cluster=cs)
         held_scaled(kern, label, same_bits(label, lambda: (
             k34.votes_routing_bwd(uu, ww, gg, **kw))),
@@ -2170,7 +2382,7 @@ def capsnet_phases(dev) -> list[dict]:
                                      f"launched")
 
     # 9. Train: the full-width network (this slice's main path), then the
-    # CLI's default smoke config (the resident backward, K8).
+    # CLI's default smoke config (the resident backward, K8, on a cluster).
     train_launches, train_ms = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, tcfg, steps, pipe in (
@@ -2210,8 +2422,8 @@ def capsnet_phases(dev) -> list[dict]:
     if train_launches["mnist per-op"]["routing_bwd_cluster_f32"] < \
             TRAIN_STEPS:
         raise AssertionError("train mnist per-op: K9 did not run each step")
-    if train_launches["smoke"]["routing_bwd_resident_f32"] < 1:
-        raise AssertionError("train smoke: K8 was never launched")
+    if train_launches["smoke"]["routing_bwd_cluster_f32"] < 4:
+        raise AssertionError("train smoke: K8 did not run each step")
 
     # 10. The backward kernels' times at the training shapes.
     jd_, c_, i_ = lay.jd, lay.in_dim, lay.in_caps
@@ -2239,18 +2451,9 @@ def capsnet_phases(dev) -> list[dict]:
            lambda: F.fold(fold_in, output_size=(h, w_), kernel_size=kp,
                           stride=cfg.pc_stride),
            4.0 * (dpatch.numel() + tx1.numel()), float(dpatch.numel()))]),
-        ("routing_bwd_resident", "votes_routing_bwd.cu",
-         "src/repro/kernels/votes_routing.py:273",
-         [("ClassCaps-Routing-bwd (smoke)",
-           lambda: k34.votes_routing_bwd(su16, swcc, sg, mode="resident",
-                                         block_i=sbwd.block_i),
-           lambda: k34.votes_routing_bwd_plain(
-               su16, swcc, sg, iters=3, num_classes=10, mode="resident",
-               block_i=sbwd.block_i), None,
-           routing_bwd_bytes(su16, swcc),
-           routing_bwd_flops(tb, slay.in_caps, slay.in_dim, slay.jd, 3))]),
         ("routing_bwd_cluster", "votes_routing_bwd.cu",
-         "src/repro/kernels/votes_routing.py:367",
+         "src/repro/kernels/votes_routing.py:367 (K9); "
+         "src/repro/kernels/votes_routing.py:273 (K8)",
          [("ClassCaps-Routing-bwd (MNIST, 16)",
            lambda: k34.votes_routing_bwd(tu, wcc, g, mode=vbwd.mode,
                                          block_i=vbwd.block_i,
@@ -2262,9 +2465,6 @@ def capsnet_phases(dev) -> list[dict]:
            routing_bwd_flops(tb, i_, c_, jd_, 3))]),
     ]
     for kernel, source, replaces, kernel_sites in bwd_sites:
-        counts = (train_launches["smoke"] if kernel == "routing_bwd_resident"
-                  else main_counts)
-        steps = 4 if kernel == "routing_bwd_resident" else TRAIN_STEPS
         site_rows = []
         for (op, fn, plain, lib, nbytes, flops, *shape) in kernel_sites:
             bms, by = bound(nbytes, flops)
@@ -2286,12 +2486,12 @@ def capsnet_phases(dev) -> list[dict]:
         libs = [s_["library_ms"] for s_ in site_rows]
         t_bytes = sum(s_["bytes"] for s_ in site_rows) / PEAK_HBM_BYTES * 1e3
         t_ops = sum(s_["flops"] for s_ in site_rows) / PEAK_FP32_FLOPS * 1e3
-        launches_ = counts[f"{kernel}_f32"]
+        launches_ = main_counts[f"{kernel}_f32"]
         rows.append(dict(
             name=kernel, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=replaces, launches=launches_,
-            launches_per_step=launches_ / steps,
+            launches_per_step=launches_ / TRAIN_STEPS,
             max_abs_err=berrs[kernel],
             ms=sum(s_["ms"] for s_ in site_rows),
             device_ms=summed(s_["device_ms"] for s_ in site_rows),
@@ -2300,9 +2500,7 @@ def capsnet_phases(dev) -> list[dict]:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=(sum(libs) if all(x is not None for x in libs)
                         else None),
-            path=("train, smoke config (the CLI default)"
-                  if kernel == "routing_bwd_resident"
-                  else "train, MNIST full width, pipelined train plan"),
+            path="train, MNIST full width, pipelined train plan",
             sites=site_rows))
     # K9: its cluster, the replay and the emit apart, and every cluster
     # size at batch 16.
@@ -2317,6 +2515,21 @@ def capsnet_phases(dev) -> list[dict]:
     print(f"K9 MNIST batch {tb}: replay "
           f"{k9_row['sites'][0]['replay_device_ms']} ms, emit "
           f"{k9_row['sites'][0]['emit_device_ms']} ms (device)", flush=True)
+    # K8 (resident votes, the same kernel) at the CLI smoke config: a site
+    # of the row, outside the MNIST path's totals (SVHN's in phase 12).
+    k9_row["sites"] += timed_sites([(
+        f"ClassCaps-Routing-bwd (K8, smoke, {tb})",
+        lambda: k34.votes_routing_bwd(su16, swcc, sg, mode=sbwd.mode,
+                                      block_i=sbwd.block_i,
+                                      cluster=sbwd.cluster),
+        lambda: k34.votes_routing_bwd_plain(
+            su16, swcc, sg, iters=3, num_classes=10, mode=sbwd.mode,
+            block_i=sbwd.block_i, cluster=sbwd.cluster), None,
+        routing_bwd_bytes(su16, swcc),
+        routing_bwd_flops(tb, slay.in_caps, slay.in_dim, slay.jd, 3))])
+    k9_row["sites"][-1].update(
+        cluster=sbwd.cluster, launches_smoke_train=train_launches["smoke"][
+            "routing_bwd_cluster_f32"])
 
     def k9_plan_at(cs, ly=lay, b=tb):
         return execplan.plan_routing_bwd_cluster(
@@ -2332,6 +2545,8 @@ def capsnet_phases(dev) -> list[dict]:
         lambda sc, cs: k34.votes_routing_bwd(
             tu, wcc, g, iters=3, num_classes=10, mode=sc.mode,
             block_i=sc.block_i, cluster=cs), k9_occupancy)}
+    sweep_miss(f"K9 MNIST batch {tb}", k9_row["cluster_sweep"]["MNIST, 16"],
+               vbwd.cluster)
     # The dpatches GEMM, a site of K2's row on the training path.
     k2_row = next(r for r in rows if r["name"] == "matmul_bias_act")
     kpc = wpc.shape[0]
@@ -2560,8 +2775,9 @@ def capsnet_phases(dev) -> list[dict]:
           f"{vr.global_bytes:.0f} B", flush=True)
 
     # 12. Deep stacks at the full width of capsnet-svhn.
-    deep_stacks(dev, rng, rows, dict(u=u, wcc=wcc, tu=tu, g=g,
-                                     block_i=vr.block_i, bwd=vbwd))
+    deep_stacks(dev, rng, rows, dict(
+        u=u, wcc=wcc, tu=tu, g=g, block_i=vr.block_i, bwd=vbwd, su=su,
+        swcc=swcc, svr=svr, k3_err=errs["votes_routing_cluster"]))
     return rows
 
 

@@ -15,32 +15,38 @@ executed kernel call, with the reference's op names:
                        floats); a wider capsule plans the plain GEMM and
                        the standalone squash (K10) over ``block_rows``
                        rows per CTA.
-  ClassCaps-Routing    ``votes_routing`` (K3/K4): votes + every routing
-                       iteration, one CTA per sample.
+  ClassCaps-Routing    ``votes_routing``: votes + every routing iteration.
+                       K3 (``resident``, a ``ClusterPlan`` block) routes
+                       each sample on a thread-block cluster with the
+                       votes of each CTA's rows on chip; K4 (``streamed``
+                       or ``streamed-global``, ``block`` None) one CTA per
+                       sample.
   PrimaryCaps-Routing  ``primary_routing`` (K5, ``pipeline=True``):
                        PrimaryCaps + the first routing layer in one
                        kernel, each sample on a thread-block cluster, u
                        kept in the cluster's shared memory.
 
 The budget is the shared memory of one CTA (``planner.SMEM_BYTES``), not
-the TPU's VMEM.  The routing kernels run one CTA per sample, so their
-footprints do not grow with the batch; a schedule that fits, fits at
-every batch.  ``resident`` keeps one sample's whole votes tensor in
-shared memory and computes it once; ``streamed`` keeps u and the logits
-and recomputes the votes from W on each of the ``iters + 1`` passes.
-At MNIST width one sample's votes (1152 x 160 fp32 = 737,280 B) do not
-fit, so the plan picks ``streamed`` for K4 (K5 and K9 split the sample
-over a thread-block cluster instead: see below).  ``streamed-global`` is
-``streamed`` with the logits ``[I, J]`` moved to a per-sample scratch in
-global memory (B*I*J floats, which stay in the 50 MB L2): the plan picks
-it only when one sample's logits leave no room in a CTA -- the SVHN
-bottleneck's 2048 x 64 logits are 524 KB -- so every plan that fitted
-before plans exactly as before.  It does the same arithmetic in the same
+the TPU's VMEM.  The routing kernels run one CTA or one cluster per
+sample, so their footprints do not grow with the batch; a schedule that
+fits, fits at every batch.  ``resident`` computes the votes once and
+keeps them in shared memory -- a cluster's CTAs each their rows' --
+while ``streamed`` keeps u and the logits and recomputes the votes from
+W on each of the ``iters + 1`` passes.  The forward is ``resident`` (K3
+on a cluster) where one CTA could hold a whole sample's votes, as before
+the cluster; at MNIST width one sample's votes (1152 x 160 fp32 = 737,280
+B) do not fit, so the plan picks ``streamed`` for K4 (K5 and K9 split
+the sample over a thread-block cluster instead: see below).
+``streamed-global`` is ``streamed`` with the logits ``[I, J]`` moved to
+a per-sample scratch in global memory (B*I*J floats, which stay in the
+50 MB L2): the plan picks it only when one sample's logits leave no room
+in a CTA -- the SVHN bottleneck's 2048 x 64 logits are 524 KB -- so
+every plan that fitted before plans exactly as before.  It does the same arithmetic in the same
 order as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule:
 an s-pass and a b-pass per iteration) is the oracle of the fused pass
 and never a plan mode; ``ExecutionPlan.validate`` rejects it.
 
-Cluster schedules (K5, and K9 below): one sample runs on a cluster of
+Cluster schedules (K3, K5, and K8/K9 below): one sample runs on a cluster of
 ``cs`` CTAs (``CLUSTER_SIZES``), each owning a share of its capsule rows
 and keeping their u and logits in its own shared memory; only s (and in
 the backward dv) crosses CTAs, summed in rank order through distributed
@@ -69,13 +75,11 @@ its traffic, for the comparison with the fused op.
 named ``<op>-bwd`` and listed in reverse network order (the order the
 backward runs), as the reference's training plans do:
 
-  <routing>-bwd      ``votes_routing_bwd``: a per-sample replay, then a
-                     per-capsule emit CTA.  K8 (``resident``, ``block``
-                     None) replays in one CTA where the sample's votes fit
-                     it; otherwise K9 replays on a cluster (a
-                     ``ClusterPlan`` block; rows in contiguous blocks of
-                     ceil(I / cs), votes ``resident`` or ``streamed`` in
-                     each CTA; s and dv summed over the cluster).  Each
+  <routing>-bwd      ``votes_routing_bwd``: a per-sample replay on a
+                     cluster (a ``ClusterPlan`` block; rows in contiguous
+                     blocks of ceil(I / cs), votes ``resident`` -- K8 --
+                     or ``streamed`` -- K9 -- in each CTA; s and dv summed
+                     over the cluster), then a per-capsule emit CTA.  Each
                      cluster CTA keeps its rows' logits on chip, so the
                      backward has no ``streamed-global`` schedule of its
                      own: that name runs K9's ``streamed``.
@@ -129,17 +133,23 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 # CTAs of a kernel one SM holds at once follow from its shared memory and
 # its registers: an SM's 233,472 B and 65,536 registers; the registers a
-# thread of K5 (161 to 207 by its rows a thread: one CTA an SM) and of K9's
-# replay (held to 128) take, as cudaFuncGetAttributes reports them.
+# thread of K5 (161 to 207 by its rows a thread: one CTA an SM) and of the
+# K3 and K8/K9 cluster kernels (each held to 128) take, as
+# cudaFuncGetAttributes reports them.
 SM_SMEM_BYTES = 233_472
 SM_REGISTERS = 65_536
 PIPE_REGISTERS = 161
-ROUTING_BWD_REGISTERS = 128
-# One pass's cluster barrier and rank-order sum of s, and the bytes a
-# second one SM draws from L2 on the votes' W stream (fitted to the
-# cluster sweeps of K5 and K9 on the H100; chip_smoke.py prints the model
-# beside each size).
-CLUSTER_SYNC_S = 5e-6
+ROUTING_CLUSTER_REGISTERS = 128
+# One pass's cluster barrier, its rank-order sum of s (a DSMEM read of each
+# CTA's partial, so its time grows with the cluster), the serial latency a
+# pass spends on each of a CTA's capsule rows (the warp-a-row logits
+# update and softmax, the s sum's dependent FMAs), and the bytes a second
+# one SM draws from L2 on the votes' W stream.  Fitted to the cluster
+# sweeps of K3, K5, K8 and K9 on the H100 (chip_smoke.py prints the model
+# beside each size; PERF.md has the fit).
+CLUSTER_SYNC_S = 1e-6
+CLUSTER_RANK_S = 2e-7
+ROUTING_ROW_S = 1e-7
 L2_SM_BYTES_S = 12e9
 # Samples the routing backward's emit CTA (csrc/votes_routing_bwd.cu)
 # holds in shared memory at a time.
@@ -176,7 +186,7 @@ class OpPlan:
     """The compiled schedule of one kernel call.
 
     ``block`` holds the GEMM tiles of the conv ops, or the
-    ``ClusterPlan`` of a cluster schedule (K5, K9); ``block_i`` /
+    ``ClusterPlan`` of a cluster schedule (K3, K5, K8/K9); ``block_i`` /
     ``mode`` / ``n_passes`` the routing schedule (the votes are computed
     from W ``n_passes`` times per sample); ``block_k`` the pipelined
     producer's K stage; ``dx_block`` a
@@ -313,16 +323,15 @@ def activation_residency_bytes(cfg: CapsNetConfig, *, batch: int = 1,
 
 def routing_smem_floats(mode: str, num_caps: int, block_i: int, j: int,
                         jd: int) -> int:
-    """Votes + routing scratch of one CTA beyond u, in floats: the logits
-    ``[I, J]`` (in global memory, so no term, under ``streamed-global``),
-    s and v ``[J*D]``, and the votes rows with their couplings -- all I
-    rows when resident, ``block_i`` rows otherwise (the oracle counts as
-    ``streamed``).  Votes rows are padded to ``J*D + 1`` floats so that
-    the per-row logits update reads shared memory without bank
-    conflicts."""
-    rows = num_caps if mode == "resident" else block_i
+    """Streamed votes + routing scratch of one CTA beyond u, in floats
+    (K4, K13, K14b; resident votes run on K3's cluster,
+    ``votes_routing_cluster_smem``): the logits ``[I, J]`` (in global
+    memory, so no term, under ``streamed-global``), s and v ``[J*D]``,
+    and ``block_i`` votes rows with their couplings.  Votes rows are
+    padded to ``J*D + 1`` floats so that the per-row logits update reads
+    shared memory without bank conflicts."""
     logits = 0 if mode == STREAMED_GLOBAL else num_caps * j
-    return logits + 2 * jd + rows * (jd + 1 + j)
+    return logits + 2 * jd + block_i * (jd + 1 + j)
 
 
 def votes_routing_smem(mode: str, num_caps: int, block_i: int, caps_dim: int,
@@ -339,15 +348,8 @@ class VotesRoutingSchedule:
     block_i: int
     smem_bytes: int
     n_passes: int            # W reads per sample: 1 resident, iters+1 str.
-    cluster: ClusterPlan | None = None    # a cluster schedule (K9)
+    cluster: ClusterPlan | None = None    # a cluster schedule (K3, K8/K9)
     seconds: float = 0.0     # a cluster schedule's cluster_seconds
-
-
-def _mode_order(n_streamed: int) -> tuple[tuple[str, int], ...]:
-    """The plan's routing modes in the order it tries them, with their
-    votes passes: resident, then streamed, then streamed-global."""
-    return (("resident", 1), ("streamed", n_streamed),
-            (STREAMED_GLOBAL, n_streamed))
 
 
 def _largest_fit(num_caps: int, smem_of) -> tuple[int, int] | None:
@@ -362,24 +364,32 @@ def _largest_fit(num_caps: int, smem_of) -> tuple[int, int] | None:
 
 
 def plan_votes_routing(num_caps: int, caps_dim: int, jd: int, j: int, *,
-                       iters: int = 3, smem_budget: int = SMEM_BYTES,
+                       iters: int = 3, batch: int = 1,
+                       smem_budget: int = SMEM_BYTES,
                        name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Schedule of ``votes_routing``: resident when one sample's votes
-    fit a CTA, else streamed at the largest i-tile that fits, else
+    """Schedule of ``votes_routing``: resident (K3 on a cluster,
+    ``plan_votes_routing_cluster`` at ``batch``) when one CTA holds one
+    sample's votes, else streamed at the largest i-tile that fits, else
     streamed-global (the logits in global memory) at the largest i-tile
     that fits.  Raises ``PlanError`` naming the op when even
     streamed-global ``block_i=1`` does not fit."""
+    if votes_routing_cluster_smem(num_caps, caps_dim, j, jd,
+                                  1) <= smem_budget:
+        return plan_votes_routing_cluster(num_caps, caps_dim, jd, j,
+                                          iters=iters, batch=batch,
+                                          smem_budget=smem_budget)
+
     def fits(mode):
         def smem_of(bi):
             need = votes_routing_smem(mode, num_caps, bi, caps_dim, j, jd)
             return need if need <= smem_budget else None
         return smem_of
 
-    for mode, n_passes in _mode_order(iters + 1):
+    for mode in ("streamed", STREAMED_GLOBAL):
         fit = _largest_fit(num_caps, fits(mode))
         if fit is not None:
             return VotesRoutingSchedule(mode=mode, block_i=fit[0],
-                                        smem_bytes=fit[1], n_passes=n_passes)
+                                        smem_bytes=fit[1], n_passes=iters + 1)
     need = votes_routing_smem(STREAMED_GLOBAL, num_caps, 1, caps_dim, j, jd)
     raise PlanError(
         f"{name}: no feasible schedule: even {STREAMED_GLOBAL} block_i=1 needs "
@@ -417,15 +427,18 @@ def cluster_waves(batch: int, cs: int, per_sm: int = 1) -> int:
 
 
 def cluster_seconds(batch: int, cs: int, flops: float, nbytes: float,
-                    passes: int, per_sm: int = 1) -> float:
+                    passes: int, rows: int, per_sm: int = 1) -> float:
     """Modeled time of a per-sample cluster kernel at ``cs`` CTAs a
     sample: ``cluster_waves``, each as long as one CTA's work -- its share
     of the sample's ``flops`` at ``GEMM_EFFICIENCY`` of an SM's fp32
-    share and of its ``nbytes`` at ``L2_SM_BYTES_S``, ``passes`` cluster
-    barriers (none alone) and the launch."""
+    share and of its ``nbytes`` at ``L2_SM_BYTES_S``, ``passes`` over its
+    ``rows`` capsule rows, as many cluster barriers and rank-order sums of
+    ``cs`` partials (none alone) -- and the launch."""
     rate = GEMM_EFFICIENCY * PEAK_FP32_FLOPS / NUM_SMS
     cta = (CTA_FIXED_S + (flops / rate + nbytes / L2_SM_BYTES_S) / cs
-           + (passes * CLUSTER_SYNC_S if cs > 1 else 0.0))
+           + passes * rows * ROUTING_ROW_S
+           + (passes * (CLUSTER_SYNC_S + cs * CLUSTER_RANK_S)
+              if cs > 1 else 0.0))
     return cluster_waves(batch, cs, per_sm) * cta
 
 
@@ -443,6 +456,43 @@ def routing_work(num_caps: int, caps_dim: int, jd: int, n_votes: int,
     votes = 2.0 * num_caps * jd * caps_dim
     return (n_votes * votes + 4.0 * n_route * num_caps * jd,
             float(n_votes * num_caps * jd * caps_dim * ELEM_BYTES))
+
+
+def votes_routing_cluster_smem(num_caps: int, caps_dim: int, j: int, jd: int,
+                               cluster: int) -> int:
+    """Shared memory of one CTA of K3's cluster (``csrc/votes_routing.cu``,
+    ``cluster_fwd_layout``): the votes rows of its ``ceil(I / cluster)``
+    rows with their couplings, the rows' u and logits, and four [J*D]
+    vectors (s, v and the two partials of s)."""
+    rows = -(-num_caps // cluster)
+    return (rows * (jd + 1 + j) + rows * (caps_dim + j)
+            + 4 * jd) * ELEM_BYTES
+
+
+def plan_votes_routing_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
+                               *, iters: int = 3, batch: int = 1,
+                               smem_budget: int = SMEM_BYTES,
+                               cluster: int | None = None
+                               ) -> VotesRoutingSchedule | None:
+    """K3's cluster schedule, resident votes in each CTA: of the cluster
+    sizes whose footprint fits (only ``cluster`` when given), the least
+    ``cluster_seconds`` at ``batch`` (``iters + 1`` passes, the votes
+    once), the smaller cluster on a tie.  None where no size fits."""
+    flops, w_bytes = routing_work(num_caps, caps_dim, jd, 1, iters + 1)
+    best = None
+    for cs in (CLUSTER_SIZES if cluster is None else (cluster,)):
+        need = votes_routing_cluster_smem(num_caps, caps_dim, j, jd, cs)
+        if need > smem_budget:
+            continue
+        rows = -(-num_caps // cs)
+        per_sm = ctas_per_sm(need, ROUTING_CLUSTER_REGISTERS)
+        t = cluster_seconds(batch, cs, flops, w_bytes, iters + 1, rows,
+                            per_sm)
+        if best is None or t < best.seconds:
+            best = VotesRoutingSchedule(
+                mode="resident", block_i=rows, smem_bytes=need, n_passes=1,
+                cluster=cluster_plan(batch, cs, rows, per_sm), seconds=t)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -530,9 +580,9 @@ def squash_block_rows(d: int) -> int:
 
 def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
                            caps_dim: int, j: int, jd: int) -> int:
-    """Shared memory of one single-CTA replay of the routing backward (K8
-    resident; K13 by the placement of its logits, ``streamed`` or
-    ``streamed-global``): the forward's layout (u, ONE
+    """Shared memory of one single-CTA replay of the routing backward (K13,
+    by the placement of its logits, ``streamed`` or ``streamed-global``):
+    the forward's layout (u, ONE
     logits slab, the votes rows and their couplings -- reused for ``db``)
     plus s_{T-1}, ds_T and the dv accumulator.  ``b_{T-1}`` goes to global
     memory row by row before pass T overwrites it, so no second slab is
@@ -593,8 +643,8 @@ def plan_routing_bwd_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
                 continue
             flops, w_bytes = routing_work(num_caps, caps_dim, jd, n_passes,
                                           iters + 2)
-            per_sm = ctas_per_sm(fit[1], ROUTING_BWD_REGISTERS)
-            t = cluster_seconds(batch, cs, flops, w_bytes, iters + 2,
+            per_sm = ctas_per_sm(fit[1], ROUTING_CLUSTER_REGISTERS)
+            t = cluster_seconds(batch, cs, flops, w_bytes, iters + 2, rows,
                                 per_sm)
             if best is None or t < best[0]:
                 best = (t, VotesRoutingSchedule(
@@ -610,25 +660,14 @@ def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
                            *, iters: int = 3, batch: int = 1,
                            smem_budget: int = SMEM_BYTES,
                            name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Schedule of the routing BACKWARD, made on its own footprint: K8
-    (``resident`` in one CTA, ``cluster`` None) when one sample's votes,
-    logits and the backward's extra rows fit a CTA, else K9 on a cluster
-    (``plan_routing_bwd_cluster``).  ``n_passes`` counts votes
-    computations per sample: 1 with resident votes, ``iters + 2``
-    streamed (``iters + 1`` replay passes, then one merged seed+reverse
-    pass).  Raises ``PlanError`` naming the ``-bwd`` op when nothing
-    fits."""
+    """Schedule of the routing BACKWARD, made on its own footprint: the
+    replay on a cluster (``plan_routing_bwd_cluster``), each CTA's rows'
+    votes resident where they fit (K8) and streamed otherwise (K9).
+    ``n_passes`` counts votes computations per sample: 1 with resident
+    votes, ``iters + 2`` streamed (``iters + 1`` replay passes, then one
+    merged seed+reverse pass).  Raises ``PlanError`` naming the ``-bwd``
+    op when nothing fits."""
     emit = routing_bwd_emit_smem(caps_dim, j, jd)
-
-    def smem_of(bi):
-        need = max(votes_routing_bwd_smem("resident", num_caps, bi, caps_dim,
-                                          j, jd), emit)
-        return need if need <= smem_budget else None
-
-    fit = _largest_fit(num_caps, smem_of)
-    if fit is not None:
-        return VotesRoutingSchedule(mode="resident", block_i=fit[0],
-                                    smem_bytes=fit[1], n_passes=1)
     sched = plan_routing_bwd_cluster(num_caps, caps_dim, jd, j, iters=iters,
                                      batch=batch, smem_budget=smem_budget)
     if sched is not None:
@@ -750,7 +789,7 @@ def plan_primary_routing(p_pos: int, k_in: int, n_ch: int, num_caps: int,
             t = cluster_seconds(
                 batch, cs, flops + 2.0 * p_pos * k_in * n_ch,
                 w_bytes + (p_pos + n_ch) * k_in * ELEM_BYTES, iters + 3,
-                per_sm)
+                rows, per_sm)
             if best is None or t < best[0]:
                 best = (t, PrimaryRoutingSchedule(
                     mode=mode, block_i=fit[0], block_k=PIPE_BLOCK_K,
@@ -861,10 +900,10 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
     stack = cfg.routing_stack()
     for lay in stack:
         sched = plan_votes_routing(lay.in_caps, lay.in_dim, lay.jd,
-                                   lay.num_caps, iters=lay.iters,
+                                   lay.num_caps, iters=lay.iters, batch=batch,
                                    smem_budget=smem_budget, name=lay.name)
         ops.append(OpPlan(
-            name=lay.name, kernel="votes_routing", block=None,
+            name=lay.name, kernel="votes_routing", block=sched.cluster,
             smem_bytes=sched.smem_bytes,
             global_bytes=votes_routing_global_bytes(
                 batch, lay.in_caps, lay.in_dim, lay.jd, sched.n_passes,

@@ -152,6 +152,19 @@ def cluster_query(library: str, symbol: str, *sizes: int) -> dict[str, int]:
                      "max_dynamic_smem", "registers"), out))
 
 
+def call(library: str, symbol: str, argtypes: list, *args) -> None:
+    """Call a C entry of a library that launches no kernel of a model path
+    (a measurement aid, such as an empty launch): counted nowhere; raises
+    on a non-zero CUDA error code."""
+    fn = getattr(_library(library), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        msg = _library(library).repro_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel so far, by C entry name."""
     return {name: k.launches for name, k in REGISTRY.items()}

@@ -1,5 +1,6 @@
-// Votes + routing-by-agreement of ONE sample inside one CTA: the consume
-// schedule shared by votes_routing.cu (K3/K4) and primary_routing.cu (K5).
+// Votes + routing-by-agreement of ONE sample inside one CTA: the streamed
+// schedules of votes_routing.cu (K4, K13) and the fused s+b pass that
+// routing.cu (K14b) runs over votes read from device memory.
 //
 // u (the sample's I x C capsules) is already in shared memory.  Routing
 // runs iters + 1 passes; pass t folds the logits update
@@ -7,10 +8,10 @@
 // s_t = sum_i softmax_j(b_t)[i, j] u_hat[i, j, :], then squashes s_t into
 // v_t.  The last pass is the readout.  This is the reference's fused s+b
 // schedule (votes_routing.py _streamed_kernel) and equals its resident
-// routing (_routing_iterations) row by row.
+// routing (_routing_iterations) row by row.  The resident schedule (K3:
+// the votes computed once and kept on chip) runs on a thread-block cluster
+// instead (routing_cluster.cuh).
 //
-//   resident  the votes u_hat [I, J*D] of the sample are computed once
-//             into shared memory and every pass reads them there.
 //   streamed  only u and the logits stay; each pass recomputes the votes
 //             i-block by i-block from W, so W is read iters + 1 times.
 //   two-pass  K13, the unfused streamed schedule (the reference's
@@ -41,7 +42,7 @@
 
 namespace repro {
 
-enum Schedule { kResident = 0, kStreamed = 1, kTwoPass = 2 };
+enum Schedule { kStreamed = 1, kTwoPass = 2 };
 
 struct RouteScratch {
   float* b;    // [I][J] logits: shared memory, or the sample's global slab
@@ -54,7 +55,7 @@ struct RouteScratch {
 // Carve the routing scratch from p: I*J + 2*J*D + rows*(J*D + 1 + J)
 // floats (execplan.routing_smem_floats), or no I*J term when the logits
 // are given in global memory (b_global); the votes rows and couplings come
-// last, so K5's producer can use that tail for its tiles before routing.
+// last.
 __device__ inline RouteScratch carve_route(float* p, int I, int J, int jd,
                                            float* b_global = nullptr) {
   RouteScratch sc;
@@ -141,8 +142,8 @@ __device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
   __syncthreads();
 }
 
-// All routing passes of one sample; writes v [J*D] (plus r [J*D] when r
-// is given) to out.
+// All routing passes of one sample, streamed or two-pass; writes v [J*D]
+// (plus r [J*D] when r is given) to out.
 __device__ inline void route_sample(const float* u_s,
                                     const float* __restrict__ W, int I,
                                     int C, int J, int D, int iters,
@@ -150,14 +151,8 @@ __device__ inline void route_sample(const float* u_s,
                                     RouteScratch sc, const float* r,
                                     float* out) {
   const int jd = J * D, ld = jd + 1;
-  const bool resident = schedule == kResident;
-  sc.c = sc.uh + (resident ? I : block_i) * ld;
+  sc.c = sc.uh + block_i * ld;
   for (int e = threadIdx.x; e < I * J; e += blockDim.x) sc.b[e] = 0.f;
-  if (resident) {
-    for (int i0 = 0; i0 < I; i0 += block_i)
-      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, min(block_i, I - i0),
-                 jd, C, sc.uh + i0 * ld, ld);
-  }
   __syncthreads();
   for (int t = 0; t <= iters; ++t) {
     if (schedule == kTwoPass && t > 0) {
@@ -172,17 +167,13 @@ __device__ inline void route_sample(const float* u_s,
     }
     for (int n = threadIdx.x; n < jd; n += blockDim.x) sc.s[n] = 0.f;
     __syncthreads();
-    if (resident) {
-      route_rows(sc.uh, ld, I, sc.b, sc.c, sc.s, sc.v, t > 0, J, D);
-    } else {
-      for (int i0 = 0; i0 < I; i0 += block_i) {
-        const int rows = min(block_i, I - i0);
-        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C,
-                   sc.uh, ld);
-        __syncthreads();
-        route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v,
-                   schedule == kStreamed && t > 0, J, D);
-      }
+    for (int i0 = 0; i0 < I; i0 += block_i) {
+      const int rows = min(block_i, I - i0);
+      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, sc.uh,
+                 ld);
+      __syncthreads();
+      route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v,
+                 schedule == kStreamed && t > 0, J, D);
     }
     for (int j = threadIdx.x; j < J; j += blockDim.x)
       squash_into(sc.s + j * D, sc.v + j * D, D);

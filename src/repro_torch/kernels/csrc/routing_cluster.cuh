@@ -1,6 +1,6 @@
-// Routing-by-agreement of ONE sample over a thread-block cluster: the
-// consume schedule of K5 (primary_routing.cu) and the replay of K9
-// (votes_routing_bwd.cu).
+// Routing-by-agreement of ONE sample over a thread-block cluster: K3's
+// resident forward (votes_routing.cu), the consume schedule of K5
+// (primary_routing.cu) and the replay of K8/K9 (votes_routing_bwd.cu).
 //
 // routing.cuh routes a sample inside one CTA, so a batch of 8-16 samples
 // keeps 8-16 of the H100's 132 SMs busy, and one sample's votes (737 KB at

@@ -14,26 +14,25 @@
 //   du = d u_hat . W,   dW[i] = sum_b d u_hat_b[i] (x) u_b[i]
 //
 // On the TPU one sequential grid carries the whole batch, so dW's sum over
-// the batch accumulates in place.  On Hopper routing runs one CTA per
-// sample (as in K3/K4), and dW[i] crosses samples, so the backward is two
-// launches:
+// the batch accumulates in place.  On Hopper routing runs per sample, and
+// dW[i] crosses samples, so the backward is two launches:
 //
-//   replay  one CTA per sample (K8, K13), or one CLUSTER of cs CTAs per
-//           sample (K9, routing_bwd_cluster_kernel below).  It replays the
-//           forward's iters + 1 fused
-//           s+b passes (routing.cuh's schedule) on ONE logits slab in
-//           shared memory; in pass T each row's b_{T-1} goes to global
-//           memory just before the update overwrites it, and b_T right
-//           after.  Then ONE pass merges the seed and the reverse step:
-//           per votes block, db_T of its rows is formed and used at once
-//           for dv_{T-1}, so no db_T slab is held.  It writes only the
-//           logits b_{T-1}, b_T ([B, I, J] each) and ds_{T-1}, ds_T.
-//           K8 (resident) computes the sample's votes once into shared
-//           memory.  K9 runs the same schedule on routing_cluster.cuh's
-//           core: each CTA of the cluster owns a block of I/cs rows and
-//           keeps their u, logits and (resident) votes, or recomputes
-//           their votes block by block from W on every pass (streamed,
-//           iters + 2 passes); s_t and the reverse pass's dv are reduced
+//   replay  one CLUSTER of cs CTAs per sample (K8 and K9,
+//           routing_bwd_cluster_kernel below), or one CTA per sample (K13,
+//           the oracle).  It replays the forward's iters + 1 fused s+b
+//           passes (routing.cuh's schedule) on ONE logits slab; in pass T
+//           each row's b_{T-1} goes to global memory just before the
+//           update overwrites it, and b_T right after.  Then ONE pass
+//           merges the seed and the reverse step: per votes block, db_T of
+//           its rows is formed and used at once for dv_{T-1}, so no db_T
+//           slab is held.  It writes only the logits b_{T-1}, b_T ([B, I,
+//           J] each) and ds_{T-1}, ds_T.  On routing_cluster.cuh's core
+//           each CTA of the cluster owns a block of I/cs rows and keeps
+//           their u and logits, and their votes computed once (K8,
+//           "resident", where they fit: the SVHN ResCaps halves and
+//           ClassCaps, MNIST's ClassCaps at cs >= 8) or recomputed block by
+//           block from W on every pass (K9, "streamed", iters + 2 passes);
+//           a row takes a warp; s_t and the reverse pass's dv are reduced
 //           through distributed shared memory in rank order.
 //           K13 (two-pass, the oracle) replays the unfused schedule in
 //           one CTA a sample, recomputing the votes block by block: a
@@ -54,9 +53,12 @@
 // and dW written), so its bound is the bytes: ~0.004 ms at 3.35 TB/s.
 // K9's schedule does 5 votes computations per sample (about 0.40 GFLOP,
 // ~0.006 ms of fp32 at 67 TFLOP/s), the price of not holding the votes.
-// One CTA per sample kept only 16 SMs busy in the replay at batch 16 (as
-// K4 still does); K9's cluster spreads a sample over up to 16 SMs, and the
-// emit over I CTAs.
+// At the SVHN halves (u [16, 32, 8], W [32, 256, 8]) K8's byte bound is
+// 0.17 us, below any launch: there it is bound by latency, the replay's
+// chain of passes and barriers.  One CTA per sample kept only 16 SMs busy
+// at batch 16, with a thread a row (32 of 256 threads at work at the
+// halves, each through J*D serial FMAs); the cluster spreads a sample over
+// up to 16 SMs with a warp a row, and the emit over I CTAs.
 
 #include "routing_cluster.cuh"
 
@@ -94,20 +96,18 @@ __device__ inline void softmax_row(const float* b, float* c, int J) {
   for (int j = 0; j < J; ++j) c[j] = c[j] / sum;
 }
 
+// K13's replay: one CTA a sample, the votes recomputed block by block.
 __global__ void __launch_bounds__(kThreads)
 routing_bwd_replay_kernel(const float* __restrict__ u,
                           const float* __restrict__ W,
                           const float* __restrict__ g,
                           float* __restrict__ b_prev_out, float* b_last_out,
                           float* __restrict__ ds_out, int B, int I, int C,
-                          int J, int D, int iters, int schedule,
-                          int global_slab, int block_i) {
+                          int J, int D, int iters, int global_slab,
+                          int block_i) {
   extern __shared__ float smem[];
   const int jd = J * D, ld = jd + 1;
   const int smp = blockIdx.x;
-  const bool resident = schedule == kResident;   // K8; else K13
-  const bool two_pass = !resident;
-  const int step = resident ? I : block_i;
   float* bp = b_prev_out + (size_t)smp * I * J;
   float* bl = b_last_out + (size_t)smp * I * J;
   float* u_s = smem;               // [I][C]
@@ -118,26 +118,20 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
   float* s_prev = v + jd;          // [J*D] s_{T-1}
   float* ds = s_prev + jd;         // [J*D] ds_T
   float* dv = ds + jd;             // [J*D] dv_{T-1} accumulator
-  float* uh = dv + jd;             // [step][J*D + 1] votes rows
-  float* c = uh + step * ld;       // [step][J] couplings, then db_T
+  float* uh = dv + jd;             // [block_i][J*D + 1] votes rows
+  float* c = uh + block_i * ld;    // [block_i][J] couplings, then db_T
 
   const float* ub = u + (size_t)smp * I * C;
   for (int e = threadIdx.x; e < I * C; e += blockDim.x) u_s[e] = ub[e];
   for (int e = threadIdx.x; e < I * J; e += blockDim.x) b[e] = 0.f;
   __syncthreads();
-  if (resident) {
-    for (int i0 = 0; i0 < I; i0 += block_i)
-      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, min(block_i, I - i0),
-                 jd, C, uh + i0 * ld, ld);
-    __syncthreads();
-  }
 
   // Replay: passes t = 0 .. T, the forward's schedule.  b_{T-1} goes to
   // global memory just before iteration T's update overwrites it.
   for (int t = 0; t <= iters; ++t) {
-    if (two_pass && t > 0) {             // the b-pass of iteration t
-      for (int i0 = 0; i0 < I; i0 += step) {
-        const int rows = min(step, I - i0);
+    if (t > 0) {                         // the b-pass of iteration t
+      for (int i0 = 0; i0 < I; i0 += block_i) {
+        const int rows = min(block_i, I - i0);
         votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh,
                    ld);
         __syncthreads();
@@ -152,22 +146,12 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
     }
     for (int n = threadIdx.x; n < jd; n += blockDim.x) s[n] = 0.f;
     __syncthreads();
-    for (int i0 = 0; i0 < I; i0 += step) {
-      const int rows = min(step, I - i0);
-      if (!resident) {
-        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh,
-                   ld);
-        __syncthreads();
-      }
-      const float* vb = resident ? uh + i0 * ld : uh;
+    for (int i0 = 0; i0 < I; i0 += block_i) {
+      const int rows = min(block_i, I - i0);
+      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh, ld);
+      __syncthreads();
       for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-        const float* ur = vb + r * ld;
         float* br = b + (i0 + r) * J;
-        if (!two_pass && t > 0) {
-          if (t == iters)
-            for (int j = 0; j < J; ++j) bp[(i0 + r) * J + j] = br[j];
-          update_row(ur, br, v, J, D);
-        }
         if (t == iters && !global_slab)
           for (int j = 0; j < J; ++j) bl[(i0 + r) * J + j] = br[j];
         softmax_row(br, c + r * J, J);
@@ -176,7 +160,8 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
       for (int n = threadIdx.x; n < jd; n += blockDim.x) {
         const int j = n / D;
         float a = s[n];
-        for (int r = 0; r < rows; ++r) a = fmaf(c[r * J + j], vb[r * ld + n], a);
+        for (int r = 0; r < rows; ++r)
+          a = fmaf(c[r * J + j], uh[r * ld + n], a);
         s[n] = a;
       }
       __syncthreads();
@@ -199,15 +184,12 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
   for (int n = threadIdx.x; n < jd; n += blockDim.x) ds_last[n] = ds[n];
 
   // Seed + reverse in one pass: db_T of each block's rows, used at once.
-  for (int i0 = 0; i0 < I; i0 += step) {
-    const int rows = min(step, I - i0);
-    if (!resident) {
-      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh, ld);
-      __syncthreads();
-    }
-    const float* vb = resident ? uh + i0 * ld : uh;
+  for (int i0 = 0; i0 < I; i0 += block_i) {
+    const int rows = min(block_i, I - i0);
+    votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh, ld);
+    __syncthreads();
     for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float* ur = vb + r * ld;
+      const float* ur = uh + r * ld;
       float* cr = c + r * J;
       softmax_row(b + (i0 + r) * J, cr, J);
       // db_j = c_j (dc_j - sum_k c_k dc_k),  dc_j = <u_hat[r, j], ds_T[j]>;
@@ -228,7 +210,7 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
     for (int n = threadIdx.x; n < jd; n += blockDim.x) {
       const int j = n / D;
       float a = dv[n];
-      for (int r = 0; r < rows; ++r) a = fmaf(vb[r * ld + n], c[r * J + j], a);
+      for (int r = 0; r < rows; ++r) a = fmaf(uh[r * ld + n], c[r * J + j], a);
       dv[n] = a;
     }
     __syncthreads();
@@ -237,7 +219,7 @@ routing_bwd_replay_kernel(const float* __restrict__ u,
     squash_vjp_into(s_prev + j * D, dv + j * D, ds_prev + j * D, D);
 }
 
-// The shared memory of one K9 cluster CTA, in floats
+// The shared memory of one K8/K9 cluster CTA, in floats
 // (execplan.routing_bwd_cluster_smem models the same sum): the votes rows
 // with their couplings, then u and the logits of the CTA's rows, and s, v,
 // s_{T-1}, ds_T, dv and the two partials.
@@ -255,12 +237,12 @@ __host__ __device__ inline ClusterBwdLayout cluster_bwd_layout(
   return L;
 }
 
-// K9's replay on the cluster core: the sample's rows split into cs blocks
-// of ceil(I / cs) (the last ragged), one per CTA.  The forward passes run
-// as in K5 (route_cluster), writing the rows' b_{T-1} and b_T in pass T;
-// then every CTA forms ds_T = squash_vjp(s_T, g) (the same in each), its
-// rows' db_T and its partial of dv, which is reduced in rank order like s;
-// rank 0 writes ds_{T-1} = squash_vjp(s_{T-1}, dv) and ds_T.
+// K8's and K9's replay on the cluster core: the sample's rows split into
+// cs blocks of ceil(I / cs) (the last ragged), one per CTA.  The forward
+// passes run as in K3 and K5 (route_cluster), writing the rows' b_{T-1} and
+// b_T in pass T; then every CTA forms ds_T = squash_vjp(s_T, g) (the same
+// in each), its rows' db_T and its partial of dv, which is reduced in rank
+// order like s; rank 0 writes ds_{T-1} = squash_vjp(s_{T-1}, dv) and ds_T.
 // Held to 128 registers a thread, so that two CTAs of 113 KB (MNIST's
 // resident rows at cs = 8) share an SM.
 __global__ void __launch_bounds__(kThreads, 2)
@@ -406,46 +388,13 @@ cudaError_t launch_emit(const float* u, const float* W, const float* b_prev,
   return cudaGetLastError();
 }
 
-cudaError_t launch_routing_bwd(int schedule, bool global_slab, const float* u,
-                               const float* W, const float* g, float* b_prev,
-                               float* b_last, float* ds, float* du, float* dW,
-                               int B, int I, int C, int J, int D, int iters,
-                               int block_i, int smem, int emit_smem,
-                               cudaStream_t s) {
-  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      routing_bwd_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  routing_bwd_replay_kernel<<<B, kThreads, smem, s>>>(
-      u, W, g, b_prev, b_last, ds, B, I, C, J, D, iters, schedule,
-      global_slab ? 1 : 0, block_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
-                     emit_smem, s);
-}
-
 }  // namespace repro
 
-// u [B, I, C], W [I, J*D, C], g [B, J*D] -> du [B, I, C], dW [I, J*D, C].
-// Scratch in global memory: b_prev, b_last [B, I, J] (the logits b_{T-1},
-// b_T) and ds [2, B, J*D] (ds_{T-1}, ds_T).  smem_bytes / emit_smem are the
-// plan's footprints (execplan.votes_routing_bwd_smem / routing_bwd_emit_smem).
-#define REPRO_ROUTING_BWD(NAME, SCHEDULE, GLOBAL_SLAB)                        \
-  REPRO_EXPORT int NAME(const float* u, const float* W, const float* g,       \
-                        float* b_prev, float* b_last, float* ds, float* du,   \
-                        float* dW, int B, int I, int C, int J, int D,         \
-                        int iters, int block_i, int smem_bytes,               \
-                        int emit_smem, void* stream) {                        \
-    return repro::launch_routing_bwd(SCHEDULE, GLOBAL_SLAB, u, W, g, b_prev,  \
-                                     b_last, ds, du, dW, B, I, C, J, D,       \
-                                     iters, block_i, smem_bytes, emit_smem,   \
-                                     (cudaStream_t)stream);                   \
-  }
-
-REPRO_ROUTING_BWD(routing_bwd_resident_f32, repro::kResident, false)  // K8
+// Every entry: u [B, I, C], W [I, J*D, C], g [B, J*D] -> du [B, I, C],
+// dW [I, J*D, C].  Scratch in global memory: b_prev, b_last [B, I, J] (the
+// logits b_{T-1}, b_T) and ds [2, B, J*D] (ds_{T-1}, ds_T).  smem_bytes /
+// emit_smem are the plan's footprints (execplan.routing_bwd_cluster_smem
+// or votes_routing_bwd_smem / routing_bwd_emit_smem).
 
 // The kernel's own shared-memory layout in bytes (execplan models it).
 REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
@@ -455,9 +404,9 @@ REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
          (int)sizeof(float);
 }
 
-// K9: the replay on B clusters of cs CTAs, then the emit.  Arguments as
-// REPRO_ROUTING_BWD's, with resident (the CTAs' votes in shared memory) and
-// the cluster size; smem_bytes must equal the kernel's layout.
+// K8 (resident != 0: the CTAs' votes in shared memory) and K9: the replay
+// on B clusters of cs CTAs, then the emit; smem_bytes must equal the
+// kernel's layout.
 REPRO_EXPORT int routing_bwd_cluster_f32(const float* u, const float* W,
                                          const float* g, float* b_prev,
                                          float* b_last, float* ds, float* du,
@@ -503,8 +452,19 @@ REPRO_EXPORT int routing_bwd_2pass_f32(const float* u, const float* W,
                                        int D, int iters, int block_i,
                                        int global_slab, int smem_bytes,
                                        int emit_smem, void* stream) {
-  return repro::launch_routing_bwd(repro::kTwoPass, global_slab != 0, u, W, g,
-                                   b_prev, b_last, ds, du, dW, B, I, C, J, D,
-                                   iters, block_i, smem_bytes, emit_smem,
-                                   (cudaStream_t)stream);
+  using namespace repro;
+  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(
+      routing_bwd_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  routing_bwd_replay_kernel<<<B, kThreads, smem_bytes, s>>>(
+      u, W, g, b_prev, b_last, ds, B, I, C, J, D, iters, global_slab != 0,
+      block_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
+                     emit_smem, s);
 }

@@ -87,13 +87,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=64)            # the batch is a key: bounded
 def planned_votes_routing(num_caps: int, caps_dim: int, jd: int,
-                          num_classes: int, iters: int) -> tuple[str, int]:
-    """Memoized (mode, block_i) decision for ``votes_routing``."""
+                          num_classes: int, iters: int, batch: int = 1
+                          ) -> tuple[str, int, int | None]:
+    """Memoized (mode, block_i, cluster) decision for ``votes_routing`` at
+    ``batch`` (``cluster``: K3's CTAs a sample, None for one CTA)."""
     sched = execplan.plan_votes_routing(num_caps, caps_dim, jd, num_classes,
-                                        iters=iters)
-    return sched.mode, sched.block_i
+                                        iters=iters, batch=batch)
+    return (sched.mode, sched.block_i,
+            sched.cluster.cluster if sched.cluster else None)
 
 
 def _bwd_schedule(plan, op_name: str
@@ -119,37 +122,37 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
         num_classes = plan.cfg.num_classes if plan is not None else 10
     if plan is not None:
         op = plan.op(op_name)
-        mode, block_i = op.mode, op.block_i
+        mode, block_i, cluster = op.mode, op.block_i, op.cluster
     else:
-        mode, block_i = planned_votes_routing(u.shape[1], u.shape[2],
-                                              w.shape[1], num_classes, iters)
+        mode, block_i, cluster = planned_votes_routing(
+            u.shape[1], u.shape[2], w.shape[1], num_classes, iters,
+            u.shape[0])
     bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, op_name)
     out = _votes_routing(u, w, iters=iters, num_classes=num_classes,
-                         mode=mode, block_i=block_i, bwd_mode=bwd_mode,
-                         bwd_block_i=bwd_block_i, op_name=op_name,
-                         bwd_cluster=bwd_cluster)
+                         mode=mode, block_i=block_i, cluster=cluster,
+                         bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
+                         op_name=op_name, bwd_cluster=bwd_cluster)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_VOTES_ROUTING, out)
     return out
 
 
-def _layer_schedule(lay, plan) -> RoutingStatics:
+def _layer_schedule(lay, plan, batch: int) -> RoutingStatics:
     """One routing layer's kernel statics: its forward schedule from the
-    plan's op (or the memoized plan decision), its backward schedule from
-    a training plan's ``<op>-bwd`` (else planned when the backward runs,
-    whose ``PlanError`` names the ``-bwd`` op)."""
+    plan's op (or the memoized plan decision at ``batch``), its backward
+    schedule from a training plan's ``<op>-bwd`` (else planned when the
+    backward runs, whose ``PlanError`` names the ``-bwd`` op)."""
     if plan is not None:
         op = plan.op(lay.name)
-        mode, block_i = op.mode, op.block_i
+        mode, block_i, cluster = op.mode, op.block_i, op.cluster
     else:
-        mode, block_i = planned_votes_routing(lay.in_caps, lay.in_dim,
-                                              lay.jd, lay.num_caps,
-                                              lay.iters)
+        mode, block_i, cluster = planned_votes_routing(
+            lay.in_caps, lay.in_dim, lay.jd, lay.num_caps, lay.iters, batch)
     bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, lay.name)
     return RoutingStatics(iters=lay.iters, num_classes=lay.num_caps,
                           mode=mode, block_i=block_i, bwd_mode=bwd_mode,
                           bwd_block_i=bwd_block_i, op_name=lay.name,
-                          bwd_cluster=bwd_cluster)
+                          bwd_cluster=bwd_cluster, cluster=cluster)
 
 
 def res_caps_segment(x: torch.Tensor, ws, pairs, *,
@@ -168,8 +171,9 @@ def res_caps_segment(x: torch.Tensor, ws, pairs, *,
         raise ValueError(
             f"res_caps_segment: batch {x.shape[0]} exceeds the plan's "
             f"batch {plan.batch}; recompile the plan for this batch")
-    blocks = tuple((lf.num_caps, _layer_schedule(lf, plan),
-                    _layer_schedule(lg, plan)) for lf, lg in pairs)
+    blocks = tuple((lf.num_caps, _layer_schedule(lf, plan, x.shape[0]),
+                    _layer_schedule(lg, plan, x.shape[0]))
+                   for lf, lg in pairs)
     out = _res_caps_segment(x, tuple(ws), blocks=blocks)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_RES_CAPS_SEGMENT, out)

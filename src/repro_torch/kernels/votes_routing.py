@@ -6,28 +6,31 @@ The counterpart of ``repro/kernels/votes_routing.py``: the forward
 (``_resident_kernel`` / ``_streamed_kernel`` / ``_streamed_2pass_kernel``
 through ``_vr_apply``, with the optional residual-add epilogue), the
 custom VJP's backward (``_resident_bwd_kernel`` / ``_streamed_bwd_kernel``
-/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``; K9, the streamed
-backward, replays each sample on a thread-block cluster), and
+/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``; K3 and the K8/K9
+backward route each sample on a thread-block cluster), and
 ``res_caps_segment`` (``_res_segment``).  ``votes_routing`` is a
-``torch.autograd.Function``: forward ``votes_routing_plain`` for CPU
-tensors and the CUDA kernel (``csrc/votes_routing.cu``, one CTA per
-sample) for CUDA tensors; backward ``votes_routing_bwd``, whose plain
-twin and CUDA kernels (``csrc/votes_routing_bwd.cu``) compute the
-reference's stop-gradient routing VJP by one explicit formula.  The plain
-twins follow the kernels' schedule math: the i axis is zero-padded to a
-multiple of ``block_i``; ``resident`` computes the votes once and
-iterates on them; ``streamed`` folds the logits update of iteration ``t``
-into the same pass as the accumulation of ``s_t``, block by block (the
-kernel recomputes each votes block on every pass; its twin computes them
-once, which gives the same values, and runs ``routing.routing_plain``);
+``torch.autograd.Function``: forward the plain twins for CPU tensors and
+the CUDA kernels (``csrc/votes_routing.cu``: K3 a cluster a sample, K4 and
+K13 one CTA a sample) for CUDA tensors; backward ``votes_routing_bwd``,
+whose plain twin and CUDA kernels (``csrc/votes_routing_bwd.cu``) compute
+the reference's stop-gradient routing VJP by one explicit formula.  The
+plain twins follow the kernels' schedule math: the i axis is zero-padded
+to a multiple of ``block_i``; ``votes_routing_plain``'s ``resident``
+computes the votes once and iterates on them in the reference's order
+(K3's twin is the cluster's, below); ``streamed`` folds the logits update
+of iteration ``t`` into the same pass as the accumulation of ``s_t``,
+block by block (the kernel recomputes each votes block on every pass; its
+twin computes them once, which gives the same values, and runs
+``routing.routing_plain``);
 ``streamed-global`` is ``streamed`` with the logits in device memory (the
 same twin); ``streamed-2pass`` runs a b-pass and then an s-pass per
 iteration.  ``streamed-2pass`` keeps its logits where ``streamed``
 would, and in device memory where that does not fit a CTA.  The cluster
-schedules (K9 here, K5's consume) sum s rank by rank over each CTA's rows
-and add the partials in rank order (``cluster_routing_plain``,
-``votes_routing_bwd_plain``); the backward's streamed modes run only on
-the cluster.
+schedules (K3 and K8/K9 here, K5's consume) sum s rank by rank over each
+CTA's rows and add the partials in rank order (``cluster_routing_plain``,
+``votes_routing_bwd_plain``); the forward's resident votes and every
+backward but K13's run only on the cluster, at the planner's size where
+the caller names none.
 """
 
 from __future__ import annotations
@@ -45,29 +48,29 @@ from repro_torch.core.execplan import (ALL_MODES, CLUSTER_SIZES, FUSED_NAME,
                                        routing_bwd_cluster_smem,
                                        routing_bwd_emit_smem,
                                        votes_routing_bwd_smem,
+                                       votes_routing_cluster_smem,
                                        votes_routing_smem)
 from repro_torch.core.planner import SMEM_BYTES
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import (Kernel, cluster_query, on_cpu, ptr,
                                        stream_of)
 from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",      # K3/K4
-                       [_P] * 4 + [_I] * 9 + [_P])
+VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",         # K4
+                       [_P] * 4 + [_I] * 8 + [_P])
 _GLOBAL_ARGS = [_P] * 5 + [_I] * 8 + [_P]
 VOTES_ROUTING_GLOBAL = Kernel("votes_routing", "votes_routing_global_f32",
                               _GLOBAL_ARGS)          # K4, streamed-global
 VOTES_ROUTING_2PASS = Kernel("votes_routing", "votes_routing_2pass_f32",
                              _GLOBAL_ARGS)                            # K13
-_BWD_ARGS = [_P] * 8 + [_I] * 9 + [_P]
-ROUTING_BWD = {
-    "resident": Kernel("votes_routing_bwd", "routing_bwd_resident_f32",
-                       _BWD_ARGS),                                    # K8
-    ORACLE_MODE: Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
-                        [_P] * 8 + [_I] * 10 + [_P]),                 # K13
-}
-# K9: the replay on a thread-block cluster per sample, then the emit.
+# K3: resident votes, each sample on a thread-block cluster.
+VOTES_ROUTING_CLUSTER = Kernel("votes_routing", "votes_routing_cluster_f32",
+                               [_P] * 4 + [_I] * 8 + [_P])
+ROUTING_BWD_2PASS = Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
+                           [_P] * 8 + [_I] * 10 + [_P])               # K13
+# K8 (resident votes) and K9 (streamed): the replay on a thread-block
+# cluster per sample, then the emit.
 ROUTING_BWD_CLUSTER = Kernel("votes_routing_bwd", "routing_bwd_cluster_f32",
                              [_P] * 8 + [_I] * 11 + [_P])
 
@@ -128,9 +131,11 @@ def routing_2pass_plain(u_hat: torch.Tensor, *, iters: int,
 def votes_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                         num_classes: int, mode: str, block_i: int,
                         r: torch.Tensor | None = None) -> torch.Tensor:
-    """The schedule the kernels run, in plain PyTorch: u [B, I, C],
-    w [I, J*D, C] -> v [B, J*D], plus the residual ``r [B, J*D]`` when
-    given (the epilogue: v itself is never changed)."""
+    """The single-CTA schedules in plain PyTorch (K4, K13; ``resident``
+    in the reference's order -- K3's own twin is ``cluster_routing_plain``):
+    u [B, I, C], w [I, J*D, C] -> v [B, J*D], plus the residual
+    ``r [B, J*D]`` when given (the epilogue: v itself is never
+    changed)."""
     check_schedule(u.shape[1], w.shape[1], iters=iters,
                    num_classes=num_classes, mode=mode, block_i=block_i)
     bsz, _, _ = u.shape
@@ -176,22 +181,80 @@ def oracle_placement(smem_of) -> str:
         else STREAMED_GLOBAL
 
 
+@functools.lru_cache(maxsize=64)            # the batch is a key: bounded
+def planned_cluster(num_caps: int, caps_dim: int, jd: int, num_classes: int,
+                    iters: int, batch: int) -> int:
+    """The planner's K3 cluster size at ``batch``."""
+    sched = execplan.plan_votes_routing_cluster(num_caps, caps_dim, jd,
+                                                num_classes, iters=iters,
+                                                batch=batch)
+    if sched is None:
+        raise ValueError(f"votes_routing: no cluster of {CLUSTER_SIZES} "
+                         f"CTAs holds the resident votes of {num_caps} "
+                         f"capsules of {caps_dim}D -> {jd}")
+    return sched.cluster.cluster
+
+
+def fwd_cluster(u: torch.Tensor, w: torch.Tensor, *, iters: int,
+                num_classes: int, mode: str,
+                cluster: int | None) -> int | None:
+    """The forward's cluster size: resident votes run on K3's cluster
+    (the planner's size at this batch unless ``cluster`` names one), the
+    other modes in one CTA a sample."""
+    if mode != "resident":
+        if cluster is not None:
+            raise ValueError(f"votes_routing: a cluster of {cluster} CTAs "
+                             f"with {mode!r} votes; the forward runs "
+                             f"clusters with resident votes only")
+        return None
+    if cluster is None:
+        return planned_cluster(u.shape[1], u.shape[2], w.shape[1],
+                               num_classes, iters, u.shape[0])
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"votes_routing: a cluster of {cluster} CTAs; "
+                         f"clusters are {CLUSTER_SIZES} CTAs")
+    return cluster
+
+
 def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
-             iters: int, num_classes: int, mode: str,
-             block_i: int) -> torch.Tensor:
-    """K3/K4/K13 (or the plain twin on the CPU), not differentiable; adds
-    ``r [B, J*D]`` to the output when given."""
+             iters: int, num_classes: int, mode: str, block_i: int,
+             cluster: int | None = None) -> torch.Tensor:
+    """K3 (resident, on a cluster of ``cluster`` CTAs a sample), K4, K13
+    (or the plain twin on the CPU), not differentiable; adds ``r [B,
+    J*D]`` to the output when given."""
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
     if r is not None and r.shape != (bsz, jd):
         raise ValueError(f"votes_routing: residual {tuple(r.shape)}, "
                          f"expected {(bsz, jd)}")
+    cluster = fwd_cluster(u, w, iters=iters, num_classes=num_classes,
+                          mode=mode, cluster=cluster)
     extra = () if r is None else (r,)
     if on_cpu("votes_routing", u, w, *extra):
+        if cluster is not None:
+            v = cluster_routing_plain(u, w, iters=iters,
+                                      num_classes=num_classes, mode=mode,
+                                      block_i=block_i, cluster=cluster)
+            return v if r is None else v + r
         return votes_routing_plain(u, w, iters=iters,
                                    num_classes=num_classes, mode=mode,
                                    block_i=block_i, r=r)
     j = num_classes
+    rp = ptr(r) if r is not None else None
+    if cluster is not None:
+        smem = votes_routing_cluster_smem(i_dim, c, j, jd, cluster)
+        _check_smem("votes_routing", f"resident {cluster}-CTA cluster", smem)
+        out = torch.empty((bsz, jd), dtype=u.dtype, device=u.device)
+        try:
+            VOTES_ROUTING_CLUSTER(ptr(u), ptr(w), rp, ptr(out), bsz, i_dim,
+                                  c, j, jd // j, iters, cluster, smem,
+                                  stream_of(u))
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"votes_routing: the launch of {bsz} clusters of {cluster} "
+                f"CTAs ({smem} B of shared memory each) was refused: "
+                f"{err}") from err
+        return out
 
     def smem_of(m):
         return votes_routing_smem(m, i_dim, block_i, c, j, jd)
@@ -206,7 +269,6 @@ def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
     logits = (torch.empty((bsz, i_dim, j), **f32)
               if place == STREAMED_GLOBAL else None)
     lp = ptr(logits) if logits is not None else None
-    rp = ptr(r) if r is not None else None
     if mode == ORACLE_MODE:
         VOTES_ROUTING_2PASS(ptr(u), ptr(w), rp, lp, ptr(out), bsz, i_dim, c,
                             j, jd // j, iters, block_i, smem, stream_of(u))
@@ -216,8 +278,7 @@ def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
                              stream_of(u))
     else:
         VOTES_ROUTING(ptr(u), ptr(w), rp, ptr(out), bsz, i_dim, c, j,
-                      jd // j, iters, int(mode == "resident"), block_i, smem,
-                      stream_of(u))
+                      jd // j, iters, block_i, smem, stream_of(u))
     return out
 
 
@@ -300,31 +361,33 @@ def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
 
 @functools.lru_cache(maxsize=64)            # the batch is a key: bounded
 def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
-                        num_classes: int, iters: int, batch: int) -> int:
-    """The planner's K9 cluster size at ``batch`` for streamed votes."""
+                        num_classes: int, iters: int, batch: int,
+                        votes: str) -> int:
+    """The planner's K8/K9 cluster size at ``batch`` for ``votes``
+    (``resident`` or ``streamed``)."""
     sched = execplan.plan_routing_bwd_cluster(num_caps, caps_dim, jd,
                                               num_classes, iters=iters,
-                                              batch=batch, votes="streamed")
+                                              batch=batch, votes=votes)
     if sched is None:
         raise ValueError(f"votes_routing_bwd: no cluster of "
                          f"{CLUSTER_SIZES} CTAs fits {num_caps} capsules of "
-                         f"{caps_dim}D -> {jd} with streamed votes")
+                         f"{caps_dim}D -> {jd} with {votes} votes")
     return sched.cluster.cluster
 
 
 def bwd_schedule(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                  num_classes: int, mode: str,
                  cluster: int | None) -> tuple[str, int | None]:
-    """The backward's ``(mode, cluster)``: streamed votes run on K9's
-    cluster, whose CTAs keep their rows' logits on chip, so
+    """The backward's ``(mode, cluster)``: resident (K8) and streamed (K9)
+    votes run on a cluster, whose CTAs keep their rows' logits on chip, so
     ``streamed-global`` is ``streamed`` there, and without ``cluster``
-    they take the planner's size at this batch.  ``cluster`` None stays
-    one CTA a sample for resident votes (K8) and the oracle (K13)."""
+    they take the planner's size at this batch.  Only the oracle (K13)
+    replays in one CTA a sample (``cluster`` None)."""
     if mode == STREAMED_GLOBAL:
         mode = "streamed"
-    if mode == "streamed" and cluster is None:
+    if mode != ORACLE_MODE and cluster is None:
         cluster = planned_bwd_cluster(u.shape[1], u.shape[2], w.shape[1],
-                                      num_classes, iters, u.shape[0])
+                                      num_classes, iters, u.shape[0], mode)
     return mode, cluster
 
 
@@ -335,8 +398,8 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du, dW) of ``votes_routing`` at output cotangent ``g [B, J*D]``,
     in the reference's stop-gradient convention, by the kernels' schedule
-    (``bwd_schedule``): one CTA a sample (K8, K13) or a cluster of
-    ``cluster`` CTAs (K9, whose ``mode`` places each CTA's votes).
+    (``bwd_schedule``): a cluster of ``cluster`` CTAs (K8 and K9, whose
+    ``mode`` places each CTA's votes) or one CTA a sample (K13).
 
     Replay the forward (``iters + 1`` passes; under ``streamed-2pass`` a
     b-pass before each s-pass after the first), keeping ``b_{T-1}``,
@@ -400,17 +463,16 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                       cluster: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du [B, I, C], dW [I, J*D, C]) of ``votes_routing`` at cotangent
-    ``g [B, J*D]``.  K9 replays each sample on a cluster of ``cluster``
-    CTAs, their votes ``resident`` or ``streamed`` as ``mode`` says
-    (``streamed`` and ``streamed-global`` without ``cluster``: the
-    planner's size at this batch, ``bwd_schedule``).  ``cluster`` None
-    with ``resident`` votes is K8, and ``streamed-2pass`` is K13: one
-    replay CTA a sample.  On CUDA neither u_hat nor d u_hat reaches
-    device memory: the replay writes only the logits ``b_{T-1}``,
-    ``b_T`` and ``ds_{T-1}``, ``ds_T`` (K13 where its logits do not fit a
-    CTA: its slab is ``b_T`` itself); a per-capsule emit rebuilds d u_hat
-    on chip and sums dW over the batch inside the CTA.  A refused cluster
-    launch raises; nothing falls back."""
+    ``g [B, J*D]``.  K8 and K9 replay each sample on a cluster of
+    ``cluster`` CTAs, their votes ``resident`` (K8) or ``streamed`` (K9,
+    also for ``streamed-global``) as ``mode`` says; without ``cluster``
+    the planner's size at this batch (``bwd_schedule``).
+    ``streamed-2pass`` is K13: one replay CTA a sample.  On CUDA neither
+    u_hat nor d u_hat reaches device memory: the replay writes only the
+    logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``, ``ds_T`` (K13 where its
+    logits do not fit a CTA: its slab is ``b_T`` itself); a per-capsule
+    emit rebuilds d u_hat on chip and sums dW over the batch inside the
+    CTA.  A refused cluster launch raises; nothing falls back."""
     _check_shapes(u, w)
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
@@ -432,15 +494,15 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                                        num_classes=num_classes, mode=mode,
                                        block_i=block_i, cluster=cluster)
     j = num_classes
-
-    def smem_of(m):
-        if cluster is not None:
-            return routing_bwd_cluster_smem(m, i_dim, block_i, c, j, jd,
-                                            cluster)
-        return votes_routing_bwd_smem(m, i_dim, block_i, c, j, jd)
-
-    place = oracle_placement(smem_of) if mode == ORACLE_MODE else mode
-    smem = smem_of(place)
+    if cluster is not None:
+        place = mode
+        smem = routing_bwd_cluster_smem(mode, i_dim, block_i, c, j, jd,
+                                        cluster)
+    else:
+        def smem_of(m):
+            return votes_routing_bwd_smem(m, i_dim, block_i, c, j, jd)
+        place = oracle_placement(smem_of)
+        smem = smem_of(place)
     emit = routing_bwd_emit_smem(c, j, jd)
     _check_smem("votes_routing_bwd", mode, max(smem, emit))
     f32 = dict(dtype=u.dtype, device=u.device)
@@ -460,17 +522,34 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                 f"{cluster} CTAs ({smem} B of shared memory each) was "
                 f"refused: {err}") from err
         return du, dw
-    args.append(block_i)
-    if mode == ORACLE_MODE:
-        args.append(int(place == STREAMED_GLOBAL))
-    ROUTING_BWD[mode](*args, smem, emit, stream_of(u))
+    ROUTING_BWD_2PASS(*args, block_i, int(place == STREAMED_GLOBAL), smem,
+                      emit, stream_of(u))
     return du, dw
+
+
+def cluster_occupancy(i_dim: int, caps_dim: int, num_classes: int,
+                      out_dim: int, *, cluster: int) -> dict[str, int]:
+    """On the card: how many K3 clusters of ``cluster`` CTAs run at once,
+    and the kernel's attributes (``build.cluster_query``)."""
+    return cluster_query("votes_routing", "votes_routing_cluster_occupancy",
+                         i_dim, caps_dim, num_classes, out_dim, cluster)
+
+
+def empty_launch(bsz: int, cluster: int, smem: int,
+                 device: torch.device) -> None:
+    """On the card: an empty kernel on ``bsz`` clusters of ``cluster`` CTAs
+    with ``smem`` bytes of shared memory each, on the current stream --
+    the floor under a K3 or K8 launch of that shape (a measurement aid,
+    on no model path and counted nowhere)."""
+    build.call("votes_routing", "empty_cluster_launch", [_I] * 3 + [_P],
+               bsz, cluster, smem,
+               ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
 
 
 def bwd_cluster_occupancy(i_dim: int, caps_dim: int, num_classes: int,
                           out_dim: int, *, mode: str, block_i: int,
                           cluster: int) -> dict[str, int]:
-    """On the card: how many K9 replay clusters of this schedule run at
+    """On the card: how many K8/K9 replay clusters of this schedule run at
     once, and the kernel's attributes (``build.cluster_query``)."""
     return cluster_query("votes_routing_bwd",
                          "routing_bwd_cluster_occupancy", i_dim, caps_dim,
@@ -494,8 +573,10 @@ def planned_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int,
 
 
 class RoutingStatics(NamedTuple):
-    """One votes+routing call: its forward schedule, and the backward's
-    when the caller fixed it (``bwd_mode`` None: planned in backward)."""
+    """One votes+routing call: its forward schedule (``cluster`` None with
+    resident votes: the planner's K3 size at the call's batch), and the
+    backward's when the caller fixed it (``bwd_mode`` None: planned in
+    backward)."""
 
     iters: int
     num_classes: int
@@ -505,18 +586,20 @@ class RoutingStatics(NamedTuple):
     bwd_block_i: int | None
     op_name: str = FUSED_NAME
     bwd_cluster: int | None = None
+    cluster: int | None = None
 
 
 def routing_statics(i_dim: int, jd: int, *, iters: int, num_classes: int,
                     mode: str, block_i: int, bwd_mode: str | None,
                     bwd_block_i: int | None, op_name: str = FUSED_NAME,
-                    bwd_cluster: int | None = None) -> RoutingStatics:
+                    bwd_cluster: int | None = None,
+                    cluster: int | None = None) -> RoutingStatics:
     """Clamp and check the forward schedule; the backward's is checked
     where it runs."""
     st = RoutingStatics(iters=iters, num_classes=num_classes, mode=mode,
                         block_i=min(block_i, i_dim), bwd_mode=bwd_mode,
                         bwd_block_i=bwd_block_i, op_name=op_name,
-                        bwd_cluster=bwd_cluster)
+                        bwd_cluster=bwd_cluster, cluster=cluster)
     check_schedule(i_dim, jd, iters=iters, num_classes=num_classes,
                    mode=st.mode, block_i=st.block_i)
     return st
@@ -542,14 +625,14 @@ def routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 def _forward_st(u: torch.Tensor, w: torch.Tensor, st: RoutingStatics,
                 r: torch.Tensor | None = None) -> torch.Tensor:
     return _forward(u, w, r, iters=st.iters, num_classes=st.num_classes,
-                    mode=st.mode, block_i=st.block_i)
+                    mode=st.mode, block_i=st.block_i, cluster=st.cluster)
 
 
 class _VotesRouting(torch.autograd.Function):
     """The reference's ``_vr_core`` custom VJP, and with a residual ``r``
     its ``_vr_core_res``: saves ``(u, w)``; the backward recomputes the
-    routing from them (K8/K9) and passes ``r``'s cotangent through (the
-    add is linear)."""
+    routing from them (K8/K9, K13) and passes ``r``'s cotangent through
+    (the add is linear)."""
 
     @staticmethod
     def forward(ctx, u, w, r, st: RoutingStatics):
@@ -569,13 +652,16 @@ class _VotesRouting(torch.autograd.Function):
 def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
                   r: torch.Tensor | None = None, iters: int = 3,
                   num_classes: int = 10, mode: str = "streamed",
-                  block_i: int = 128, bwd_mode: str | None = None,
+                  block_i: int = 128, cluster: int | None = None,
+                  bwd_mode: str | None = None,
                   bwd_block_i: int | None = None,
                   op_name: str = FUSED_NAME,
                   bwd_cluster: int | None = None) -> torch.Tensor:
-    """K3/K4 (K13 under ``mode="streamed-2pass"``): u [B, I, C],
-    w [I, J*D, C] -> v [B, J*D] (votes + routing, u_hat never leaves the
-    chip on CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
+    """K3 (``mode="resident"``, each sample on a cluster of ``cluster``
+    CTAs; None: the planner's size at this batch), K4 (streamed, one CTA a
+    sample) or K13 (``mode="streamed-2pass"``): u [B, I, C], w [I, J*D,
+    C] -> v [B, J*D] (votes + routing, u_hat never leaves the chip on
+    CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
     epilogue.  Differentiable: the backward runs ``votes_routing_bwd`` on
     ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
     forward's) and ``bwd_cluster`` when ``bwd_mode`` is given, else on
@@ -584,7 +670,8 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
     st = routing_statics(u.shape[1], w.shape[1], iters=iters,
                          num_classes=num_classes, mode=mode, block_i=block_i,
                          bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                         op_name=op_name, bwd_cluster=bwd_cluster)
+                         op_name=op_name, bwd_cluster=bwd_cluster,
+                         cluster=cluster)
     return _VotesRouting.apply(u, w, r, st)
 
 
@@ -671,7 +758,7 @@ def _seg_statics(stat, i_dim: int, jd: int) -> RoutingStatics:
                            num_classes=st.num_classes, mode=st.mode,
                            block_i=max(1, st.block_i), bwd_mode=st.bwd_mode,
                            bwd_block_i=bwd_bi, op_name=st.op_name,
-                           bwd_cluster=st.bwd_cluster)
+                           bwd_cluster=st.bwd_cluster, cluster=st.cluster)
 
 
 def res_caps_segment(x: torch.Tensor, ws, *, blocks) -> torch.Tensor:

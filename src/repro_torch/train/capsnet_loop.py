@@ -7,7 +7,7 @@ same plan-driven kernels that serve inference, with the backward
 schedules pinned by ONE ``compile_plan(train=True, pipeline=True)``
 (``self.plan``, read at every step): the forward runs Conv1 and the
 pipelined PrimaryCaps->routing kernel (K5); the backward runs the routing
-backward (K8 in one CTA a sample, or K9 on a cluster), the conv backward
+backward on a cluster (K8 with resident votes, K9 streamed), the conv backward
 (K6 dW, K2 dpatches, K7 dx) and the recomputes (K1, K2).
 
 Two optimizers: ``sgd`` (default; fixed ``lr``, params-only checkpoints)

@@ -216,9 +216,17 @@ def test_every_cluster_cta_fits_at_batches_1_to_64(name):
         assert pr.smem_bytes == execplan.primary_routing_smem(
             pr.mode, cfg.pc_out ** 2, cfg.pc_channels, pr.block_i,
             cfg.primary_dim, lay.num_caps, lay.jd, pr.cluster)
-        bwd = plan.op(lay.name + BWD_SUFFIX)
-        assert bwd.cluster in CLUSTER_SIZES
-        assert bwd.block.rows == -(-lay.in_caps // bwd.cluster)
+        # Every routing op on a cluster (K3 forward, K8/K9 backward) takes
+        # ceil(I / cs) rows a CTA, batch x cs CTAs.
+        for k, lay_ in enumerate(cfg.routing_stack()):
+            for op in (plan.op(lay_.name) if k else None,
+                       plan.op(lay_.name + BWD_SUFFIX)):
+                if op is None or op.cluster is None:
+                    continue
+                assert op.cluster in CLUSTER_SIZES
+                assert op.block.rows == -(-lay_.in_caps // op.cluster)
+                assert op.block.ctas == batch * op.cluster
+        assert plan.op(lay.name + BWD_SUFFIX).cluster in CLUSTER_SIZES
 
 
 def test_clusters_fill_the_card_at_the_serving_batch():
@@ -241,24 +249,28 @@ def test_svhn_pipelines_as_the_reference_does():
 
 
 def test_k3_k8_and_k13_plans_are_unchanged():
-    """The single-CTA schedules keep their plans: K3 (resident forward),
-    K8 (resident backward, no cluster) at the SVHN halves and ClassCaps,
-    and K13's logits placement."""
-    plan = compile_plan(capsnet_svhn.config(), batch=16, train=True)
-    for k in range(1, 5):
-        half = plan.op(f"ClassCaps-Routing[{k}]")
-        hbwd = plan.op(f"ClassCaps-Routing[{k}]{BWD_SUFFIX}")
-        assert (half.mode, half.smem_bytes, half.block) == ("resident",
-                                                            44_160, None)
-        assert (hbwd.mode, hbwd.block, hbwd.n_passes) == ("resident", None,
-                                                          1)
-        assert hbwd.smem_bytes == max(
-            execplan.votes_routing_bwd_smem("resident", 32, 32, 8, 32, 256),
-            execplan.routing_bwd_emit_smem(8, 32, 256))
-    cc = plan.op(execplan.FUSED_NAME + BWD_SUFFIX)
-    assert (cc.mode, cc.block) == ("resident", None)
+    """K3 and K8 keep their resident votes, now each sample on a cluster:
+    at every batch the SVHN ResCaps halves' and ClassCaps' forward and
+    ``-bwd`` ops are cluster plans of ceil(I / cs) rows a CTA whose
+    footprint fits; K13 keeps its logits placement."""
+    cfg = capsnet_svhn.config()
+    for batch in (1, 2, 3, 8, 16, 33, 64):
+        plan = compile_plan(cfg, batch=batch, train=True)
+        for lay in cfg.routing_stack()[1:]:
+            for op in (plan.op(lay.name), plan.op(lay.name + BWD_SUFFIX)):
+                assert op.mode == "resident" and op.n_passes == 1
+                assert op.cluster in CLUSTER_SIZES
+                assert op.block.rows == -(-lay.in_caps // op.cluster)
+                assert 0 < op.smem_bytes <= planner.SMEM_BYTES
+            hbwd = plan.op(lay.name + BWD_SUFFIX)
+            assert hbwd.smem_bytes == max(
+                execplan.routing_bwd_cluster_smem(
+                    "resident", lay.in_caps, hbwd.block_i, lay.in_dim,
+                    lay.num_caps, lay.jd, hbwd.cluster),
+                execplan.routing_bwd_emit_smem(lay.in_dim, lay.num_caps,
+                                               lay.jd))
     smoke = compile_plan(capsnet_mnist.smoke_config(), batch=16, train=True)
-    assert smoke.op(execplan.FUSED_NAME + BWD_SUFFIX).cluster is None
+    assert smoke.op(execplan.FUSED_NAME + BWD_SUFFIX).cluster in CLUSTER_SIZES
     for (i, c, j, d, bi), want in (((1152, 8, 10, 16, 128), "streamed"),
                                    ((2048, 8, 64, 8, 64),
                                     execplan.STREAMED_GLOBAL)):

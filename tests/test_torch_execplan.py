@@ -177,5 +177,6 @@ def test_planless_ops_run_the_memoized_plan_decision():
     u = u.reshape(2, cfg.num_primary, cfg.primary_dim)
     torch.testing.assert_close(ops.votes_routing(u, w_cc),
                                ops.votes_routing(u, w_cc, plan=perop))
-    assert ops.planned_votes_routing(cfg.num_primary, cfg.primary_dim, 80,
-                                     10, 3) == ("resident", cfg.num_primary)
+    mode, block_i, cs = ops.planned_votes_routing(cfg.num_primary,
+                                                  cfg.primary_dim, 80, 10, 3)
+    assert (mode, block_i) == ("resident", -(-cfg.num_primary // cs))

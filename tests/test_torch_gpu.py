@@ -41,6 +41,19 @@ def _rand(seed, *shape, scale=1.0, uniform=False, device="cpu"):
     return torch.tensor((scale * x).astype(np.float32), device=device)
 
 
+def _fwd_twin(u, w, r=None, *, cluster=None, **kw):
+    """The forward's plain twin on the schedule the wrapper runs: K3's
+    cluster order for resident votes (at the planner's size unless
+    ``cluster`` names one), else ``votes_routing_plain``."""
+    cs = k34.fwd_cluster(u, w, iters=kw["iters"],
+                         num_classes=kw["num_classes"], mode=kw["mode"],
+                         cluster=cluster)
+    if cs is None:
+        return k34.votes_routing_plain(u, w, r=r, **kw)
+    v = k34.cluster_routing_plain(u, w, cluster=cs, **kw)
+    return v if r is None else v + r
+
+
 def test_kernels_launch_and_match_twins_on_the_card(cuda):
     build.reset_launch_counts()
     x = _rand(1, 2, 10, 10, 8, uniform=True, device=cuda)
@@ -62,7 +75,7 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
     for mode in ("resident", "streamed"):
         kw = dict(iters=3, num_classes=4, mode=mode, block_i=24)
         torch.testing.assert_close(k34.votes_routing(u, w_cc, **kw),
-                                   k34.votes_routing_plain(u, w_cc, **kw),
+                                   _fwd_twin(u, w_cc, **kw),
                                    rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(
             k5.primary_routing_patches(p, w2, b_pc, w_cc, **kw),
@@ -70,15 +83,16 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
             rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
-                "votes_routing_f32", "primary_routing_f32"):
+                "votes_routing_f32", "votes_routing_cluster_f32",
+                "primary_routing_f32"):
         assert counts[sym] > 0, sym
 
 
 @pytest.mark.parametrize("cs", [1, 2, 4])
 def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
-    """K5 and K9 on clusters of cs CTAs against their twins (the twins sum
-    s and dv rank by rank, in rank order), and a second launch of each
-    repeats the bits (no float atomics)."""
+    """K3, K5 and K8/K9 on clusters of cs CTAs against their twins (the
+    twins sum s and dv rank by rank, in rank order), and a second launch
+    of each repeats the bits (no float atomics)."""
     build.reset_launch_counts()
     x = _rand(30, 3, 10, 10, 8, uniform=True, device=cuda)
     w_pc = _rand(31, 3, 3, 8, 16, scale=0.2, device=cuda)
@@ -98,6 +112,12 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
             got, k5.primary_routing_patches_plain(p, w2, b_pc, w_cc, **kw),
             rtol=1e-5, atol=1e-6)
         kw["num_classes"] = 5
+        if mode == "resident":              # K3, with the residual
+            r = _rand(37, 3, 40, scale=0.1, device=cuda)
+            got = k34.votes_routing(u, w, r=r, **kw)
+            assert torch.equal(got, k34.votes_routing(u, w, r=r, **kw))
+            torch.testing.assert_close(got, _fwd_twin(u, w, r, **kw),
+                                       rtol=1e-5, atol=1e-6)
         got = k34.votes_routing_bwd(u, w, g, **kw)
         again = k34.votes_routing_bwd(u, w, g, **kw)
         want = k34.votes_routing_bwd_plain(u, w, g, **kw)
@@ -106,6 +126,7 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
             torch.testing.assert_close(x_, z_, rtol=1e-4, atol=1e-6)
     counts = build.launch_counts()
     assert counts["primary_routing_f32"] == 4
+    assert counts["votes_routing_cluster_f32"] == 2
     assert counts["routing_bwd_cluster_f32"] == 4
 
 
@@ -157,6 +178,42 @@ def test_cluster_footprint_model_matches_the_kernels(cuda):
                                         cluster=bwd.cluster)
         assert (occ["static_smem"], occ["max_dynamic_smem"]) == (0, replay)
         assert occ["max_active_clusters"] >= 1
+
+
+def test_k3_k8_footprint_model_matches_the_kernels(cuda):
+    """K3's and K8's planned footprints (the SVHN ResCaps halves and
+    ClassCaps, the MNIST smoke ClassCaps) are the kernels' own layouts,
+    and the card holds their clusters."""
+    import ctypes
+    k3_bytes = build._library(
+        "votes_routing").votes_routing_cluster_smem_bytes
+    k3_bytes.argtypes, k3_bytes.restype = [ctypes.c_int] * 5, ctypes.c_int
+    k8_bytes = build._library(
+        "votes_routing_bwd").routing_bwd_cluster_smem_bytes
+    k8_bytes.argtypes, k8_bytes.restype = [ctypes.c_int] * 7, ctypes.c_int
+    for cfg, batch in ((capsnet_svhn.config(), 8),
+                       (capsnet_svhn.config(), 16),
+                       (capsnet_mnist.smoke_config(), 16)):
+        plan = execplan.compile_plan(cfg, batch=batch, pipeline=False,
+                                     train=True)
+        for lay in cfg.routing_stack():
+            fwd, bwd = plan.op(lay.name), plan.bwd_op(lay.name)
+            if fwd.mode != "resident":
+                continue
+            d = lay.caps_dim
+            assert k3_bytes(lay.in_caps, lay.in_dim, lay.num_caps, d,
+                            fwd.cluster) == fwd.smem_bytes
+            occ = k34.cluster_occupancy(lay.in_caps, lay.in_dim,
+                                        lay.num_caps, d, cluster=fwd.cluster)
+            assert (occ["static_smem"], occ["max_dynamic_smem"]) == (
+                0, fwd.smem_bytes)
+            assert occ["max_active_clusters"] >= 1
+            assert bwd.mode == "resident" and bwd.cluster is not None
+            assert k8_bytes(lay.in_caps, lay.in_dim, lay.num_caps, d,
+                            bwd.cluster, 1, bwd.block_i) == \
+                execplan.routing_bwd_cluster_smem(
+                    "resident", lay.in_caps, bwd.block_i, lay.in_dim,
+                    lay.num_caps, lay.jd, bwd.cluster)
 
 
 @pytest.mark.parametrize("epi,sd", [("none", 0), ("relu", 0), ("squash", 4)])
@@ -238,7 +295,8 @@ def test_forward_on_the_card_matches_the_plain_forward(cuda, pipeline):
     build.reset_launch_counts()
     got = capsnet.forward(params, images, cfg, backend="kernels", plan=plan,
                           device=cuda)
-    routed = "primary_routing_f32" if pipeline else "votes_routing_f32"
+    routed = ("primary_routing_f32" if pipeline
+              else "votes_routing_cluster_f32")
     assert build.launch_counts()[routed] == 1
     want = capsnet.forward(params, images, cfg, backend="torch", device=cuda)
     for k in ("class_caps", "lengths", "reconstruction"):
@@ -291,8 +349,9 @@ def test_backward_kernels_launch_and_match_twins_on_the_card(cuda):
             torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("matmul_at_b_f32", "col2im_patches_f32",
-                "routing_bwd_resident_f32", "routing_bwd_cluster_f32"):
+                "routing_bwd_cluster_f32"):
         assert counts[sym] > 0, sym
+    assert counts["routing_bwd_cluster_f32"] == 2     # K8 and K9
 
 
 @pytest.mark.parametrize("pipeline", [True, False])
@@ -315,7 +374,7 @@ def test_total_loss_backward_on_the_card_matches_the_plain_backend(
     want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
                                      backend="torch", device=cuda)
     for sym in ("matmul_at_b_f32", "col2im_patches_f32",
-                "routing_bwd_resident_f32"):
+                "routing_bwd_cluster_f32"):
         assert counts[sym] > 0, sym
     for k in params:
         scale = want[k].abs().max().clamp_min(1e-12)
@@ -402,8 +461,7 @@ def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
         for rr in (None, r):
             torch.testing.assert_close(
                 k34.votes_routing(u, w, r=rr, **kw),
-                k34.votes_routing_plain(u, w, r=rr, **kw),
-                rtol=1e-5, atol=1e-6)
+                _fwd_twin(u, w, rr, **kw), rtol=1e-5, atol=1e-6)
         got = k34.votes_routing_bwd(u, w, g, **kw)
         want = k34.votes_routing_bwd_plain(u, w, g, **kw)
         for x, y in zip(got, want):
@@ -448,7 +506,8 @@ def test_deep_stack_forward_and_backward_on_the_card(cuda, module):
     counts = build.launch_counts()
     want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
                                      backend="torch", device=cuda)
-    assert counts["routing_bwd_resident_f32"] >= 5
+    # K8 on clusters: at least each ResCaps half's and ClassCaps' backward.
+    assert counts["routing_bwd_cluster_f32"] >= 5
     for k in params:
         scale = want[k].abs().max().clamp_min(1e-12)
         assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k

@@ -153,8 +153,8 @@ def test_every_kernel_has_a_launch_counter():
                                    "votes_routing_f32", "primary_routing_f32",
                                    "votes_routing_global_f32",
                                    "votes_routing_2pass_f32",
+                                   "votes_routing_cluster_f32",
                                    "matmul_at_b_f32", "col2im_patches_f32",
-                                   "routing_bwd_resident_f32",
                                    "routing_bwd_2pass_f32",
                                    "routing_bwd_cluster_f32",
                                    "caps_votes_f32", "routing_f32",

@@ -327,11 +327,15 @@ def test_full_width_svhn_plans_within_one_cta(train, batch, pipeline):
         neck = plan.op("ClassCaps-Routing[0]")
         assert (neck.mode, neck.block_i, neck.n_passes,
                 neck.smem_bytes) == (STREAMED_GLOBAL, 64, 4, 217_344)
-    for k in range(1, 5):                   # the ResCaps halves, 32 -> 32x8
-        half = plan.op(f"ClassCaps-Routing[{k}]")
-        assert (half.mode, half.smem_bytes) == ("resident", 44_160)
-    assert (plan.op("ClassCaps-Routing").mode,
-            plan.op("ClassCaps-Routing").smem_bytes) == ("resident", 49_664)
+    # The ResCaps halves (32 -> 32x8) and ClassCaps (64 -> 10x16): K3,
+    # resident votes on a cluster (tests/test_torch_k3k8_cluster.py).
+    for name, i_dim, j, jd in [(f"ClassCaps-Routing[{k}]", 32, 32, 256)
+                               for k in range(1, 5)] + [
+                                   ("ClassCaps-Routing", 64, 10, 160)]:
+        op = plan.op(name)
+        assert (op.mode, op.smem_bytes) == (
+            "resident", execplan.votes_routing_cluster_smem(
+                i_dim, 8, j, jd, op.cluster))
     if train:
         # K9 replays the bottleneck on a cluster with the logits on chip.
         nbwd = plan.op("ClassCaps-Routing[0]-bwd")

@@ -153,8 +153,8 @@ def test_full_width_backward_streams_because_resident_cannot_fit():
     bwd = plan.op(FUSED_NAME + BWD_SUFFIX)
     assert (bwd.kernel, bwd.mode, bwd.block_i, bwd.n_passes,
             bwd.cluster) == ("votes_routing_bwd", "resident", 144, 1, 8)
-    assert execplan.votes_routing_bwd_smem(
-        "resident", 1152, 128, 8, 10, 160) > planner.SMEM_BYTES
+    assert execplan.votes_routing_cluster_smem(
+        1152, 8, 10, 160, 1) > planner.SMEM_BYTES
     # 144 votes rows (161 floats each) with their couplings, the rows' u
     # and logits, and 7 [J*D] vectors.
     assert bwd.smem_bytes == 4 * (144 * (161 + 10) + 144 * (8 + 10)
