@@ -10,13 +10,13 @@ holds every kernel against its plain PyTorch twin on the card at the
 MNIST CapsuleNet's shapes (both routing schedules; the K2 GEMM also at
 capsnet-svhn's PrimaryCaps shape, twice each for identical bits, then
 timed beside ``F.conv2d`` and ``torch.addmm`` with a sweep of its split
-of K; K3, K5 and K8/K9, which route each sample over a thread-block
-cluster, at MNIST batch 8 and 16, the smoke config, the SVHN bottleneck
-and (K3, K8) the SVHN ResCaps half and ClassCaps, twice each for
-identical bits, then swept over every cluster size beside the plan's
-model and the card's co-resident clusters, the planned size against the
-best, K8's and K9's replay and emit timed apart, and K3 and K8 beside an
-empty launch of their grids), runs the
+of K; K3, K4, K5, K8/K9 and K14b, which route each sample over a
+thread-block cluster, at MNIST batch 8 and 16, the smoke config, the
+SVHN bottleneck and (K3, K8) the SVHN ResCaps half and ClassCaps, twice
+each for identical bits, then swept over every cluster size beside the
+plan's model and the card's co-resident clusters, the planned size
+against the best, K8's and K9's replay and emit timed apart, and K3, K4,
+K8 and K14b beside an empty launch of their grids), runs the
 full-width forward on the pipelined and the per-op plan against the plain
 forward, serves 32 seeded requests through ``CapsuleEngine`` on both
 plans, and times each kernel at the engine's batch.  Then it trains: the backward kernels (K6
@@ -28,17 +28,18 @@ against the plain backend's autograd gradients, 20
 SGD steps of ``CapsTrainLoop`` on the full-width network on each plan
 (the loss must fall) and 4 on the CLI's default smoke config, and the
 backward kernels' times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
-device memory, K14b routing reading it back) and the standalone squash
+device memory, K14b routing reading it back on a cluster) and the standalone squash
 (K10) with its backward: the path at full width (and one gradient of a
 network whose capsule cannot fuse), each kernel against its twin, the
 split v against the fused kernel's, and their times and modeled bytes
 side by side.  Phase 12, deep stacks, runs the full-width SVHN
-CapsuleNet (a plain bottleneck -- K5 on the pipelined plan, K4 with its
-logits in device memory on the per-op plan -- two reversible ResCaps
+CapsuleNet (a plain bottleneck -- K5 on the pipelined plan, K4 streaming
+its votes on a cluster on the per-op plan -- two reversible ResCaps
 blocks, ClassCaps): its forward on both plans against the plain forward,
 16 requests through the engine on both plans, the residual epilogue,
-K3, K5, K8 and K9 on their clusters, the streamed-global K4 and K13 (the
-unfused oracle) against their twins and the fused kernels, one training
+K3, K4, K5, K8 and K9 on their clusters, K4 with its logits in device
+memory (K4g) and K13 (the unfused oracle) against their twins and the
+fused kernels, one training
 gradient through the reversible segment K12 (and on the CIFAR-10 smoke
 config), the SVHN smoke config's pipelined plan, 20 full-width training
 steps on each plan, and the new kernels' times.  Phase 13, LM serving, frees the CapsuleNet's tensors and serves
@@ -499,18 +500,19 @@ def same_predictions(name: str, lengths_k, lengths_t, atol: float) -> None:
 def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     """Phase 12, deep stacks, at the full width of ``capsnet-svhn``: 32x32x3
     -> Conv1 -> PrimaryCaps (2048 capsules of 8D) -> the plain bottleneck
-    routed to 64 x 8D with its logits in device memory (K4 in the plan's
-    streamed-global mode) -> two reversible ResCaps blocks (K3 with the
+    routed to 64 x 8D (K5 on the pipelined plan; on the per-op plan K4,
+    its votes streamed on a cluster whose CTAs hold their rows' logits)
+    -> two reversible ResCaps blocks (K3 with the
     residual epilogue on clusters, inside the K12 segment; K8 in its
     backward) -> ClassCaps (K3).  The forward at the engine's batch
     against the plain forward, 16 requests through the engine, each new
-    kernel (and K13, the unfused oracle, at
-    the MNIST and the bottleneck shapes) against its twin and the fused
-    kernel, one training gradient through K12 (and on the CIFAR-10 smoke
+    kernel (K4 also with streamed-global named, and K13, the unfused
+    oracle, at the MNIST and the bottleneck shapes) against its twin and
+    the fused kernel, one training gradient through K12 (and on the CIFAR-10 smoke
     config's all-residual segment), the SVHN smoke config's pipelined plan
     (K5 with J = 16), 20 training steps, and the new kernels' times.
     Appends the new kernels' rows to ``rows``; ``mnist`` holds the MNIST
-    ClassCaps inputs (K13's other shape)."""
+    ClassCaps inputs and schedules (K3's, K4's and K13's sites there)."""
     import numpy as np
     import torch
 
@@ -552,10 +554,11 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     spr = plan.op(execplan.PIPE_NAME)
     hop, fop = plan.op(half.name), plan.op(final.name)
     hbwd = tplan.bwd_op(half.name)
-    if not plan.pipelined or neck.mode != GLOBAL or not nbwd.cluster:
+    if not plan.pipelined or neck.mode != "streamed" or not neck.cluster \
+            or not nbwd.cluster:
         raise AssertionError("SVHN plans: expected K5 on the pipelined "
-                             "plan, K4 streamed-global on the per-op plan "
-                             "and K9 on a cluster")
+                             "plan, K4 streamed on a cluster on the per-op "
+                             "plan and K9 on a cluster")
     if any(op.mode != "resident" or op.cluster is None
            for p in (plan, pplan, tplan) for lay in stack[1:]
            for op in (p.op(lay.name), p.bwd_op(lay.name)) if op):
@@ -573,20 +576,20 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         ref_out = capsnet.forward(params, images, cfg, backend="torch",
                                   device=dev)
         for label, p, want_counts in (
-                ("pipelined", plan, (("im2col_patches_f32", 2),
-                                     ("matmul_bias_act_f32", 1),
-                                     ("primary_routing_f32", 1),
-                                     ("votes_routing_global_f32", 0),
-                                     ("votes_routing_cluster_f32", 5),
-                                     ("votes_routing_f32", 0),
-                                     ("votes_routing_2pass_f32", 0))),
-                ("per-op", pplan, (("im2col_patches_f32", 2),
-                                   ("matmul_bias_act_f32", 2),
-                                   ("primary_routing_f32", 0),
-                                   ("votes_routing_global_f32", 1),
-                                   ("votes_routing_cluster_f32", 5),
-                                   ("votes_routing_f32", 0),
-                                   ("votes_routing_2pass_f32", 0)))):
+                ("pipelined", plan, (
+                    ("im2col_patches_f32", 2), ("matmul_bias_act_f32", 1),
+                    ("primary_routing_f32", 1),
+                    ("votes_routing_global_cluster_f32", 0),
+                    ("votes_routing_cluster_f32", 5),
+                    ("votes_routing_streamed_cluster_f32", 0),
+                    ("votes_routing_2pass_f32", 0))),
+                ("per-op", pplan, (
+                    ("im2col_patches_f32", 2), ("matmul_bias_act_f32", 2),
+                    ("primary_routing_f32", 0),
+                    ("votes_routing_global_cluster_f32", 0),
+                    ("votes_routing_cluster_f32", 5),
+                    ("votes_routing_streamed_cluster_f32", 1),
+                    ("votes_routing_2pass_f32", 0)))):
             build.reset_launch_counts()
             out = capsnet.forward(params, images, cfg, backend="kernels",
                                   plan=p, device=dev)
@@ -620,7 +623,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                     device=dev)["lengths"].cpu()
     served = {}
     for label, plan_, sym in (("pipelined", plan, "primary_routing_f32"),
-                              ("per-op", pplan, "votes_routing_global_f32")):
+                              ("per-op", pplan,
+                               "votes_routing_streamed_cluster_f32")):
         engine = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
                                device=dev)
         engine.plan = plan_
@@ -656,7 +660,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     r1 = x1.reshape(SLOTS, -1)
     g0 = randn(tb, lay0.jd, scale=1e-2)
     u, wcc, tu, g = mnist["u"], mnist["wcc"], mnist["tu"], mnist["g"]
-    mb_i, mbwd = mnist["block_i"], mnist["bwd"]
+    mbwd, mvr, mst = mnist["bwd"], mnist["vr"], mnist["mst"]
+    mb_i = 128                    # K13's i-tile at MNIST width
     kw0 = dict(iters=lay0.iters, num_classes=lay0.num_caps)
     kwh = dict(iters=half.iters, num_classes=half.num_caps)
     kwm = dict(iters=3, num_classes=10)
@@ -672,14 +677,18 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             for part, x, y in zip(("du", "dW"), got, want)))
 
     kwf = dict(iters=final.iters, num_classes=final.num_caps)
+    k4_rows = {"streamed": "votes_routing_streamed_cluster",
+               GLOBAL: "votes_routing_global_cluster"}
     with torch.no_grad():
         for mode in ("streamed", GLOBAL):
-            held("votes_routing", f"K4 residual epilogue, {mode}, SVHN "
-                 f"half {half.in_caps}->{half.num_caps}x{half.caps_dim}",
-                 k34.votes_routing(x2, wf, r=r1, mode=mode, block_i=12,
-                                   **kwh),
-                 k34.votes_routing_plain(x2, wf, r=r1, mode=mode,
-                                         block_i=12, **kwh), ROUTING)
+            kw4 = dict(mode=mode, block_i=12, **kwh)
+            cs4 = k34.fwd_cluster(x2, wf, cluster=None, **kw4)
+            held(k4_rows[mode], f"K4 residual epilogue, {mode}, SVHN "
+                 f"half {half.in_caps}->{half.num_caps}x{half.caps_dim}, "
+                 f"{cs4}-CTA clusters",
+                 k34.votes_routing(x2, wf, r=r1, **kw4),
+                 k34.cluster_routing_plain(x2, wf, r=r1, cluster=cs4,
+                                           **kw4), ROUTING)
         # K3 on the plan's clusters: a half with the residual epilogue and
         # ClassCaps, each twice for identical bits.
         for label, uu, ww, rr, op, kw in (
@@ -696,12 +705,27 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                        block_i=op.block_i,
                                        cluster=op.cluster, **kw))),
                  k3_twin(uu, ww, rr, op.cluster, **kw), ROUTING)
-        v_neck = k34.votes_routing(u0, w0, mode=GLOBAL,
-                                   block_i=neck.block_i, **kw0)
-        held("votes_routing_global", "K4 streamed-global, SVHN bottleneck",
-             v_neck, k34.votes_routing_plain(u0, w0, mode=GLOBAL,
-                                             block_i=neck.block_i, **kw0),
+        # K4 at the bottleneck on the per-op plan's cluster, and with
+        # streamed-global named (on the planner's size for it), each twice
+        # for identical bits.
+        kwn = dict(mode=neck.mode, block_i=neck.block_i, **kw0)
+        print(f"K4 SVHN bottleneck batch {SLOTS}: {neck.mode} votes, "
+              f"block_i {neck.block_i}, clusters of {neck.cluster} "
+              f"({neck.block.ctas} CTAs), {neck.smem_bytes} B a CTA",
+              flush=True)
+        v_neck = same_bits("K4 SVHN bottleneck", lambda: k34.votes_routing(
+            u0, w0, cluster=neck.cluster, **kwn))
+        held("votes_routing_streamed_cluster", f"K4 streamed, SVHN "
+             f"bottleneck, {neck.cluster}-CTA clusters", v_neck,
+             k34.cluster_routing_plain(u0, w0, cluster=neck.cluster, **kwn),
              ROUTING)
+        kwg = dict(kw0, mode=GLOBAL, block_i=neck.block_i)
+        gcs = k34.fwd_cluster(u0, w0, cluster=None, **kwg)
+        held("votes_routing_global_cluster", f"K4 streamed-global, SVHN "
+             f"bottleneck, {gcs}-CTA clusters", same_bits(
+                 "K4g SVHN bottleneck", lambda: k34.votes_routing(
+                     u0, w0, cluster=gcs, **kwg)),
+             k34.cluster_routing_plain(u0, w0, cluster=gcs, **kwg), ROUTING)
         # K5 on the pipelined plan's cluster, from the plain path's
         # patches, twice for identical bits.
         svp = conv_patches(cfg, params, images)
@@ -735,12 +759,14 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
              f"{tb}", same_bits("K8 SVHN half", lambda: k34.votes_routing_bwd(
                  tx2, wf, gh, **kw8, **kwh)),
              k34.votes_routing_bwd_plain(tx2, wf, gh, **kw8, **kwh))
+    # K13 against K4 on its cluster: within ROUTING, no longer bit for bit
+    # (the cluster sums s rank by rank).
     build.reset_launch_counts()
     with torch.no_grad():
         for label, uu, ww, bi, kw, fused in (
                 ("MNIST ClassCaps", u, wcc, mb_i, kwm,
-                 k34.votes_routing(u, wcc, mode="streamed", block_i=mb_i,
-                                   **kwm)),
+                 k34.votes_routing(u, wcc, mode="streamed",
+                                   block_i=mst.block_i, **kwm)),
                 ("SVHN bottleneck", u0, w0, neck.block_i, kw0, v_neck)):
             got = k34.votes_routing(uu, ww, mode=ORACLE, block_i=bi, **kw)
             held("votes_routing_2pass", f"K13 forward, {label}", got,
@@ -863,7 +889,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     for key, syms in (("sgd pipelined", ("primary_routing_f32",
                                          "routing_bwd_cluster_f32",
                                          "votes_routing_cluster_f32")),
-                      ("adam per-op", ("votes_routing_global_f32",
+                      ("adam per-op", ("votes_routing_streamed_cluster_f32",
                                        "routing_bwd_cluster_f32",
                                        "votes_routing_cluster_f32"))):
         for sym in syms:
@@ -974,16 +1000,6 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
               flops=routing_flops(SLOTS, u.shape[1], u.shape[2],
                                   wcc.shape[1], 3))
     new = [
-        ("votes_routing_global", "votes_routing.cu",
-         "src/repro/kernels/votes_routing.py:139",
-         "serve, SVHN full width, per-op plan (bottleneck, "
-         "streamed-global)", served["per-op"], [
-             (lay0.name + " (SVHN, 8)",
-              lambda: k34.votes_routing(u0, w0, mode=GLOBAL,
-                                        block_i=neck.block_i, **kw0),
-              lambda: k34.votes_routing_plain(u0, w0, mode=GLOBAL,
-                                              block_i=neck.block_i, **kw0),
-              None, neck_bytes, neck_flops)]),
         ("votes_routing_2pass", "votes_routing.cu",
          "src/repro/kernels/votes_routing.py:189",
          "oracle only: 0 launches on the SVHN serving path", serve_counts, [
@@ -1020,10 +1036,9 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                                 3))]),
     ]
     fused = {"votes_routing_2pass": [
-        lambda: k34.votes_routing(u, wcc, mode="streamed", block_i=mb_i,
-                                  **kwm),
-        lambda: k34.votes_routing(u0, w0, mode=GLOBAL, block_i=neck.block_i,
-                                  **kw0)],
+        lambda: k34.votes_routing(u, wcc, mode="streamed",
+                                  block_i=mst.block_i, **kwm),
+        lambda: k34.votes_routing(u0, w0, cluster=neck.cluster, **kwn)],
         "routing_bwd_2pass": [
         lambda: k34.votes_routing_bwd(tu, wcc, g, mode=mbwd.mode,
                                       block_i=mbwd.block_i,
@@ -1044,17 +1059,102 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                 device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=None, path=path, sites=site_rows))
-        # K3 on its clusters: a half with the residual epilogue (the row's
-        # main site), ClassCaps and the MNIST smoke config, each beside an
-        # empty launch of its grid; every cluster size at the SVHN shapes.
+        # K4 on its clusters: the per-op plan's bottleneck (the row's main
+        # site), MNIST with streamed votes named and the smoke config's
+        # ragged tile; K4g (streamed-global named) at the bottleneck; each
+        # beside an empty launch of its grid.
         by_name = {r["name"]: r for r in rows}
         su, swcc, svr = mnist["su"], mnist["swcc"], mnist["svr"]
+        mn_bytes = 4.0 * (u.numel() + wcc.numel() + SLOTS * wcc.shape[1])
+        k4_sites = {"votes_routing_streamed_cluster": [],
+                    "votes_routing_global_cluster": []}
+        for kernel, op_name, uu, ww, kw, nbytes in (
+                (k4_rows["streamed"], lay0.name + " (SVHN bottleneck, 8)",
+                 u0, w0, kwn, neck_bytes),
+                (k4_rows["streamed"], execplan.FUSED_NAME
+                 + " (MNIST, streamed named, 8)", u, wcc,
+                 dict(kwm, mode="streamed", block_i=mst.block_i),
+                 mn_bytes),
+                (k4_rows["streamed"], execplan.FUSED_NAME
+                 + " (MNIST smoke, streamed, block_i 24, 8)", su, swcc,
+                 dict(kwm, mode="streamed", block_i=24),
+                 4.0 * (su.numel() + swcc.numel()
+                        + SLOTS * swcc.shape[1])),
+                (k4_rows[GLOBAL], lay0.name
+                 + " (SVHN bottleneck, streamed-global named, 8)", u0, w0,
+                 kwg, neck_bytes)):
+            cs4 = k34.fwd_cluster(uu, ww, cluster=None, **kw)
+            smem4 = execplan.votes_routing_cluster_smem(
+                uu.shape[1], uu.shape[2], kw["num_classes"], ww.shape[1],
+                cs4, mode=kw["mode"], block_i=kw["block_i"])
+            site = timed_sites([(
+                op_name,
+                lambda uu=uu, ww=ww, kw=kw, cs4=cs4: k34.votes_routing(
+                    uu, ww, cluster=cs4, **kw),
+                lambda uu=uu, ww=ww, kw=kw, cs4=cs4:
+                    k34.cluster_routing_plain(uu, ww, cluster=cs4, **kw),
+                None, nbytes,
+                routing_flops(SLOTS, uu.shape[1], uu.shape[2], ww.shape[1],
+                              kw["iters"]))])[0]
+            site.update(cluster=cs4, ctas=SLOTS * cs4, mode=kw["mode"],
+                        block_i=kw["block_i"], smem_bytes=smem4,
+                        empty_launch=empty_floor(SLOTS, cs4, smem4))
+            print(f"K4 {op_name}: {kw['mode']} votes, block_i "
+                  f"{kw['block_i']}, clusters of {cs4}, device "
+                  f"{site['device_ms']} ms, bound {site['bound_ms']:.6f} ms "
+                  f"({site['bound_by']}), empty launch "
+                  f"{json.dumps(site['empty_launch'])}", flush=True)
+            k4_sites[kernel].append(site)
+        for kernel, path, counts in (
+                (k4_rows["streamed"], "serve, SVHN full width, per-op plan "
+                 "(the bottleneck)", served["per-op"]),
+                (k4_rows[GLOBAL], "no main path (CIFAR-10's full-width "
+                 "halves plan it; not run at full width here): the SVHN "
+                 "bottleneck with streamed-global named", served["per-op"])):
+            main = k4_sites[kernel][0]
+            row = dict(
+                name=kernel, route="cuda",
+                source="src/repro_torch/kernels/csrc/votes_routing.cu",
+                replaces="src/repro/kernels/votes_routing.py:139",
+                launches=counts[f"{kernel}_f32"],
+                max_abs_err=max(errs[kernel], mnist["k4_err"]
+                                if kernel == k4_rows["streamed"] else 0.0),
+                ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, path=path,
+                cluster=main["cluster"], ctas=main["ctas"],
+                sites=k4_sites[kernel])
+            rows.append(row)
+            by_name[kernel] = row
+        # Every cluster size at the bottleneck: streamed-global below 4
+        # CTAs, streamed from 4 up.
+        k4_row = by_name[k4_rows["streamed"]]
+        k4_row["cluster_sweep"] = {"SVHN bottleneck, 8": cluster_sweep(
+            f"K4 SVHN bottleneck batch {SLOTS}",
+            lambda cs: execplan.plan_votes_routing_cluster(
+                lay0.in_caps, lay0.in_dim, lay0.jd, lay0.num_caps,
+                iters=lay0.iters, batch=SLOTS, cluster=cs),
+            lambda sc, cs: k34.votes_routing(
+                u0, w0, mode=sc.mode, block_i=sc.block_i, cluster=cs,
+                **kw0),
+            lambda sc, cs: k34.cluster_occupancy(
+                lay0.in_caps, lay0.in_dim, lay0.num_caps, lay0.caps_dim,
+                cluster=cs, mode=sc.mode, block_i=sc.block_i))}
+        k4_row["planned_over_best"] = sweep_miss(
+            f"K4 SVHN bottleneck batch {SLOTS}",
+            k4_row["cluster_sweep"]["SVHN bottleneck, 8"], neck.cluster)
+        # K3 on its clusters: a half with the residual epilogue (the row's
+        # main site), ClassCaps, the MNIST per-op ClassCaps and the MNIST
+        # smoke config, each beside an empty launch of its grid; every
+        # cluster size at the SVHN shapes and at MNIST.
         k3_sites = []
         for op_name, uu, ww, rr, op, kw in (
                 (half.name + " (SVHN half + residual, 8)", x2, wf, r1, hop,
                  kwh),
                 (final.name + " (SVHN ClassCaps, 8)", h0, wfin, None, fop,
                  kwf),
+                (execplan.FUSED_NAME + " (MNIST per-op, 8)", u, wcc, None,
+                 mvr, dict(iters=3, num_classes=10)),
                 (execplan.FUSED_NAME + " (MNIST smoke, 8)", su, swcc, None,
                  svr, dict(iters=3, num_classes=10))):
             site = timed_sites([(
@@ -1091,14 +1191,19 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             sites=k3_sites, cluster_sweep={})
         rows.append(k3_row)
         by_name[k3_row["name"]] = k3_row
-        for label, uu, ww, rr, lay, kw in (
-                ("SVHN half + residual, 8", x2, wf, r1, half, kwh),
-                ("SVHN ClassCaps, 8", h0, wfin, None, final, kwf)):
+        for label, uu, ww, rr, lay, kw, planned in (
+                ("SVHN half + residual, 8", x2, wf, r1, half, kwh,
+                 hop.cluster),
+                ("SVHN ClassCaps, 8", h0, wfin, None, final, kwf,
+                 fop.cluster),
+                ("MNIST per-op, 8", u, wcc, None, mnist["lay"], kwm,
+                 mvr.cluster)):
             k3_row["cluster_sweep"][label] = cluster_sweep(
                 f"K3 {label}",
                 lambda cs, lay=lay: execplan.plan_votes_routing_cluster(
                     lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
-                    iters=lay.iters, batch=SLOTS, cluster=cs),
+                    iters=lay.iters, batch=SLOTS, cluster=cs,
+                    votes="resident"),
                 lambda sc, cs, uu=uu, ww=ww, rr=rr, kw=kw: k34.votes_routing(
                     uu, ww, r=rr, mode=sc.mode, block_i=sc.block_i,
                     cluster=cs, **kw),
@@ -1106,9 +1211,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                     lay.in_caps, lay.in_dim, lay.num_caps, lay.caps_dim,
                     cluster=cs))
             sweep_miss(f"K3 {label}", k3_row["cluster_sweep"][label],
-                       (hop if lay is half else fop).cluster)
-        by_name["votes_routing"]["max_abs_err"] = max(
-            by_name["votes_routing"]["max_abs_err"], errs["votes_routing"])
+                       planned)
         # K5 and K9 at the SVHN bottleneck, as sites of their rows, with
         # every cluster size.
         k5_row = by_name["primary_routing"]
@@ -1923,6 +2026,10 @@ def capsnet_phases(dev) -> list[dict]:
     psv = psv.reshape(psv.shape[0] * psv.shape[1], -1)
     wsv = svw.reshape(-1, svcfg.pc_channels)
     vr, pr = perop.op(execplan.FUSED_NAME), plan.op(execplan.PIPE_NAME)
+    # K4 with streamed votes named at MNIST width: the planner's cluster.
+    mst = execplan.plan_votes_routing_cluster(
+        lay.in_caps, lay.in_dim, lay.jd, lay.num_caps, batch=SLOTS,
+        votes="streamed")
     svr, spr = sperop.op(execplan.FUSED_NAME), splan.op(execplan.PIPE_NAME)
     p1 = k12.im2col_patches_plain(images, kh=k1, kw=k1)
     ppc = k12.im2col_patches_plain(x1, kh=kp, kw=kp, stride=cfg.pc_stride)
@@ -1964,25 +2071,32 @@ def capsnet_phases(dev) -> list[dict]:
                  blk.tiles, pp, ww, bb, **kw)),
              k12.matmul_bias_act_plain(pp, ww, bb, split_k=blk.split_k,
                                        block_k=blk.block_k, **kw), tol)
-    held("votes_routing", "K4 votes_routing streamed, MNIST",
-         k34.votes_routing(u, wcc, mode=vr.mode, block_i=vr.block_i),
-         k34.votes_routing_plain(u, wcc, iters=3, num_classes=10,
-                                 mode=vr.mode, block_i=vr.block_i), ROUTING)
-    # K3 on the plan's cluster, twice for identical bits (its times are
-    # sites of K3's row, phase 12).
-    print(f"K3 smoke batch {SLOTS}: clusters of {svr.cluster} "
-          f"({svr.block.ctas} CTAs), {svr.smem_bytes} B a CTA", flush=True)
-    held("votes_routing_cluster", f"K3 votes_routing resident, smoke, "
-         f"{svr.cluster}-CTA clusters", same_bits(
-             "K3 smoke", lambda: k34.votes_routing(
-                 su, swcc, mode=svr.mode, block_i=svr.block_i,
-                 cluster=svr.cluster)),
-         k3_twin(su, swcc, None, svr.cluster, iters=3, num_classes=10),
-         ROUTING)
-    held("votes_routing", "K4 votes_routing streamed, smoke, ragged i",
-         k34.votes_routing(su, swcc, mode="streamed", block_i=24),
-         k34.votes_routing_plain(su, swcc, iters=3, num_classes=10,
-                                 mode="streamed", block_i=24), ROUTING)
+    # K3 on the plans' clusters (the MNIST per-op ClassCaps, whose votes
+    # fit a cluster CTA's rows, and the smoke config), and K4 with
+    # streamed votes named (MNIST, on the planner's streamed cluster; the
+    # smoke config with a ragged i-tile), each twice for identical bits
+    # (their times are sites of K3's and K4's rows, phase 12).
+    for label, uu, ww, op in (("MNIST per-op", u, wcc, vr),
+                              ("smoke", su, swcc, svr)):
+        print(f"K3 {label} batch {SLOTS}: clusters of {op.cluster} "
+              f"({op.block.ctas} CTAs), {op.smem_bytes} B a CTA", flush=True)
+        held("votes_routing_cluster", f"K3 votes_routing resident, {label}, "
+             f"{op.cluster}-CTA clusters", same_bits(
+                 f"K3 {label}", lambda: k34.votes_routing(
+                     uu, ww, mode=op.mode, block_i=op.block_i,
+                     cluster=op.cluster)),
+             k3_twin(uu, ww, None, op.cluster, iters=3, num_classes=10),
+             ROUTING)
+    for label, uu, ww, bi in (("MNIST", u, wcc, mst.block_i),
+                              ("smoke, ragged i", su, swcc, 24)):
+        kw4 = dict(iters=3, num_classes=10, mode="streamed", block_i=bi)
+        cs4 = k34.fwd_cluster(uu, ww, cluster=None, **kw4)
+        print(f"K4 streamed {label} batch {SLOTS}: block_i {bi}, clusters "
+              f"of {cs4}", flush=True)
+        held("votes_routing_streamed_cluster", f"K4 votes_routing streamed, "
+             f"{label}, {cs4}-CTA clusters", same_bits(
+                 f"K4 {label}", lambda: k34.votes_routing(uu, ww, **kw4)),
+             k34.cluster_routing_plain(uu, ww, cluster=cs4, **kw4), ROUTING)
     # K5 on the plan's cluster (MNIST at batch 8; batch 16 in phase 7), each
     # twice for identical bits.
     for (label, pp, wp, bp, ww, op) in (
@@ -1999,8 +2113,7 @@ def capsnet_phases(dev) -> list[dict]:
              k5.primary_routing_patches_plain(pp, wp, bp, ww, iters=3,
                                               num_classes=10, **kw5),
              ROUTING)
-    assert (pr.mode, perop.op(execplan.FUSED_NAME).mode) == ("resident",
-                                                             "streamed")
+    assert (pr.mode, vr.mode) == ("resident", "resident") and vr.cluster > 1
     assert pr.cluster > 1 and splan.op(execplan.PIPE_NAME).mode == "resident"
     assert svr.mode == "resident" and svr.cluster in execplan.CLUSTER_SIZES
 
@@ -2021,7 +2134,7 @@ def capsnet_phases(dev) -> list[dict]:
                       ROUTING)
             same_predictions(f"forward {label}", out["lengths"].cpu(),
                              ref_out["lengths"].cpu(), ROUTING[1])
-    if launches["per-op"]["votes_routing_f32"] < 1 or \
+    if launches["per-op"]["votes_routing_cluster_f32"] < 1 or \
             launches["per-op"]["matmul_bias_act_f32"] < 2:
         raise AssertionError("the per-op forward did not run its kernels")
 
@@ -2133,16 +2246,6 @@ def capsnet_phases(dev) -> list[dict]:
             k2_site("PrimaryCaps (SVHN)", "svhn",
                     lambda: F.conv2d(svx1_nchw, svw_oihw, svb,
                                      stride=svcfg.pc_stride))],
-        "votes_routing": [
-            (execplan.FUSED_NAME, "per-op",
-             lambda: k34.votes_routing(u, wcc, mode=vr.mode,
-                                       block_i=vr.block_i),
-             lambda: k34.votes_routing_plain(u, wcc, iters=it,
-                                             num_classes=lay.num_caps,
-                                             mode=vr.mode,
-                                             block_i=vr.block_i), None,
-             4.0 * (u.numel() + wcc.numel() + b_ * jd),
-             routing_flops(b_, i_, c_, jd, it))],
         "primary_routing": [
             (execplan.PIPE_NAME + " (MNIST, 8)", "main",
              lambda: k5.primary_routing_patches(
@@ -2161,9 +2264,6 @@ def capsnet_phases(dev) -> list[dict]:
                            "src/repro/kernels/conv_im2col.py:54", "main"),
         "matmul_bias_act": ("conv_im2col.cu",
                             "src/repro/kernels/conv_im2col.py:150", "main"),
-        "votes_routing": ("votes_routing.cu",
-                          "src/repro/kernels/votes_routing.py:139",
-                          "per-op"),
         "primary_routing": ("primary_routing.cu",
                             "src/repro/kernels/primary_routing.py:132",
                             "main"),
@@ -2589,7 +2689,8 @@ def capsnet_phases(dev) -> list[dict]:
 
     # 11. The split ClassCaps path (K14a caps_votes writes u_hat to device
     # memory, K14b routing reads it back: the paper's baseline) against
-    # the fused K4, and the standalone squash (K10) with its VJP.  u is
+    # the fused ClassCaps (K3 on the per-op plan), and the standalone
+    # squash (K10) with its VJP.  u is
     # the per-op plan's PrimaryCaps output, W the routing weights.
     with torch.no_grad():
         x_pre = ops.conv2d(x1, params["pc_w"], params["pc_b"],
@@ -2615,11 +2716,16 @@ def capsnet_phases(dev) -> list[dict]:
                                       train=True)
     assert not wide_plan.op("PrimaryCaps").fuses_squash
     cv_bi = ops.planned_block_i(i_, c_, jd, b_)
-    rt_bi = ops.planned_routing(i_, lay.num_caps, jd)
+    rt_mode, rt_bi, rt_cs = ops.planned_routing(i_, lay.num_caps, jd, it, b_)
+    rt_kw = dict(iters=it, num_classes=lay.num_caps, mode=rt_mode,
+                 block_i=rt_bi, cluster=rt_cs)
+    rt_smem = execplan.routing_split_cluster_smem(rt_mode, i_, rt_bi,
+                                                  lay.num_caps, jd, rt_cs)
     sq_rows = perop.op("PrimaryCaps").block_rows
     print(f"split plan: caps_votes block_i {cv_bi} "
-          f"({-(-i_ // cv_bi)} CTAs), routing block_i {rt_bi}, squash "
-          f"block_rows {sq_rows} (D={c_}) / "
+          f"({-(-i_ // cv_bi)} CTAs), routing {rt_mode} rows, block_i "
+          f"{rt_bi}, clusters of {rt_cs} ({b_ * rt_cs} CTAs, {rt_smem} B a "
+          f"CTA), squash block_rows {sq_rows} (D={c_}) / "
           f"{execplan.squash_block_rows(256)} (D=256)", flush=True)
 
     # The path, with the counts at 0: the split path at full width, the
@@ -2638,7 +2744,7 @@ def capsnet_phases(dev) -> list[dict]:
     torch.cuda.synchronize()
     split_launches = build.launch_counts()
     print(f"split: launches {split_launches}", flush=True)
-    for sym in ("caps_votes_f32", "routing_f32", "squash_f32",
+    for sym in ("caps_votes_f32", "routing_cluster_f32", "squash_f32",
                 "squash_bwd_f32"):
         if split_launches[sym] < 1:
             raise AssertionError(f"split: {sym} was never launched")
@@ -2651,15 +2757,21 @@ def capsnet_phases(dev) -> list[dict]:
         held("caps_votes", "K14a caps_votes MNIST, block_i 7 (ragged)",
              k14a.caps_votes(u_pc, wcc, block_i=7),
              k14a.caps_votes_plain(u_pc, wcc, block_i=7), SPLIT)
-        held("routing", "K14b routing MNIST", v_split,
-             k14b.routing_plain(u_hat, iters=it, num_classes=lay.num_caps,
-                                block_i=rt_bi), SPLIT)
-        held("routing", "K14b routing MNIST, block_i 100 (ragged)",
-             k14b.routing(u_hat, iters=it, num_classes=lay.num_caps,
-                          block_i=100),
-             k14b.routing_plain(u_hat, iters=it, num_classes=lay.num_caps,
-                                block_i=100), SPLIT)
-        check("split v against the fused K4 v", v_split, v_fused, SPLIT)
+        # K14b on the plan's cluster, and streamed in ragged tiles of 100
+        # rows (on 2-CTA clusters: 576 rows a CTA), each twice for
+        # identical bits.
+        held("routing_cluster", f"K14b routing MNIST, {rt_mode} rows, "
+             f"{rt_cs}-CTA clusters", v_split, k14b.routing_plain(
+                 u_hat, **rt_kw), SPLIT)
+        same_bits("K14b MNIST", lambda: k14b.routing(u_hat, **rt_kw))
+        rg_kw = dict(iters=it, num_classes=lay.num_caps, mode="streamed",
+                     block_i=100, cluster=2)
+        held("routing_cluster", "K14b routing MNIST, streamed block_i 100 "
+             "(ragged), 2-CTA clusters", same_bits(
+                 "K14b MNIST ragged", lambda: k14b.routing(u_hat, **rg_kw)),
+             k14b.routing_plain(u_hat, **rg_kw), SPLIT)
+        check("split v against the fused ClassCaps v (K3)", v_split, v_fused,
+              SPLIT)
         lengths = [torch.linalg.vector_norm(
             v.reshape(b_, lay.num_caps, lay.caps_dim), dim=-1).cpu()
             for v in (v_split, v_fused)]
@@ -2693,13 +2805,10 @@ def capsnet_phases(dev) -> list[dict]:
            lambda: k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi),
            lambda: torch.einsum("bic,inc->bin", u_pc, wcc),
            4.0 * (u_pc.numel() + wcc.numel() + n_uh), 2.0 * n_uh * c_)]),
-        ("routing", "routing.cu", "src/repro/kernels/routing.py:34",
+        ("routing_cluster", "routing.cu", "src/repro/kernels/routing.py:34",
          [("Sum+Squash / Update+Sum (split)",
-           lambda: k14b.routing(u_hat, iters=it, num_classes=lay.num_caps,
-                                block_i=rt_bi),
-           lambda: k14b.routing_plain(u_hat, iters=it,
-                                      num_classes=lay.num_caps,
-                                      block_i=rt_bi), None,
+           lambda: k14b.routing(u_hat, **rt_kw),
+           lambda: k14b.routing_plain(u_hat, **rt_kw), None,
            4.0 * (n_uh + b_ * jd), 2.0 * n_uh * (2 * it + 1))]),
         ("squash", "squash.cu", "src/repro/kernels/squash.py:24",
          [("PrimaryCaps capsules [9216, 8]",
@@ -2742,6 +2851,36 @@ def capsnet_phases(dev) -> list[dict]:
                 path="split path (caps_votes -> routing) and standalone "
                      "squash, MNIST width, batch 8",
                 sites=site_rows))
+        # K14b's cluster size at MNIST batch 8: the plan's among every
+        # size, beside an empty launch of its grid.
+        k14b_row = next(r for r in rows if r["name"] == "routing_cluster")
+        k14b_row.update(cluster=rt_cs, ctas=b_ * rt_cs, mode=rt_mode,
+                        empty_launch=empty_floor(b_, rt_cs, rt_smem))
+
+        def k14b_plan_at(cs):
+            try:
+                return execplan.plan_routing_split(i_, lay.num_caps, jd,
+                                                   iters=it, batch=b_,
+                                                   cluster=cs)
+            except execplan.PlanError:
+                return None
+
+        k14b_row["cluster_sweep"] = {"MNIST, 8": cluster_sweep(
+            f"K14b MNIST batch {b_}", k14b_plan_at,
+            lambda sc, cs: k14b.routing(
+                u_hat, iters=it, num_classes=lay.num_caps, mode=sc.mode,
+                block_i=sc.block_i, cluster=cs),
+            lambda sc, cs: k14b.cluster_occupancy(
+                i_, lay.num_caps, lay.caps_dim, mode=sc.mode,
+                block_i=sc.block_i, cluster=cs))}
+        k14b_row["planned_over_best"] = sweep_miss(
+            f"K14b MNIST batch {b_}", k14b_row["cluster_sweep"]["MNIST, 8"],
+            rt_cs)
+        print(f"K14b MNIST batch {b_}: device {k14b_row['device_ms']} ms, "
+              f"bound {k14b_row['bound_ms']:.6f} ms ({k14b_row['bound_by']})"
+              f", empty launch {json.dumps(k14b_row['empty_launch'])}",
+              flush=True)
+
         def split_path():
             return ops.routing(ops.caps_votes(u_pc, wcc, plan=perop),
                                plan=perop)
@@ -2769,15 +2908,17 @@ def capsnet_phases(dev) -> list[dict]:
     print(f"split vs fused at batch {b_}: split (caps_votes -> routing) "
           f"{split_ms:.4f} ms (device {split_dev} ms), modeled global "
           f"bytes {split_bytes:.0f} of which u_hat {uhat_bytes:.0f} "
-          f"({uhat_bytes / split_bytes:.1%}); fused K4 {fused_ms:.4f} ms "
+          f"({uhat_bytes / split_bytes:.1%}); fused ({vr.mode}, "
+          f"{vr.cluster}-CTA clusters) {fused_ms:.4f} ms "
           f"(device {fused_dev} ms), each tensor once {fused_once:.0f} B, "
           f"as the plan models it (W per sample per pass, mostly from L2) "
           f"{vr.global_bytes:.0f} B", flush=True)
 
     # 12. Deep stacks at the full width of capsnet-svhn.
     deep_stacks(dev, rng, rows, dict(
-        u=u, wcc=wcc, tu=tu, g=g, block_i=vr.block_i, bwd=vbwd, su=su,
-        swcc=swcc, svr=svr, k3_err=errs["votes_routing_cluster"]))
+        u=u, wcc=wcc, tu=tu, g=g, vr=vr, mst=mst, bwd=vbwd, su=su,
+        swcc=swcc, svr=svr, lay=lay, k3_err=errs["votes_routing_cluster"],
+        k4_err=errs["votes_routing_streamed_cluster"]))
     return rows
 
 

@@ -15,40 +15,40 @@ executed kernel call, with the reference's op names:
                        floats); a wider capsule plans the plain GEMM and
                        the standalone squash (K10) over ``block_rows``
                        rows per CTA.
-  ClassCaps-Routing    ``votes_routing``: votes + every routing iteration.
-                       K3 (``resident``, a ``ClusterPlan`` block) routes
-                       each sample on a thread-block cluster with the
-                       votes of each CTA's rows on chip; K4 (``streamed``
-                       or ``streamed-global``, ``block`` None) one CTA per
-                       sample.
+  ClassCaps-Routing    ``votes_routing``: votes + every routing iteration,
+                       each sample on a thread-block cluster (a
+                       ``ClusterPlan`` block): K3 (``resident``) with the
+                       votes of each CTA's rows on chip, K4 (``streamed``
+                       or ``streamed-global``) recomputing them from W on
+                       every pass.
   PrimaryCaps-Routing  ``primary_routing`` (K5, ``pipeline=True``):
                        PrimaryCaps + the first routing layer in one
                        kernel, each sample on a thread-block cluster, u
                        kept in the cluster's shared memory.
 
 The budget is the shared memory of one CTA (``planner.SMEM_BYTES``), not
-the TPU's VMEM.  The routing kernels run one CTA or one cluster per
-sample, so their footprints do not grow with the batch; a schedule that
-fits, fits at every batch.  ``resident`` computes the votes once and
-keeps them in shared memory -- a cluster's CTAs each their rows' --
-while ``streamed`` keeps u and the logits and recomputes the votes from
-W on each of the ``iters + 1`` passes.  The forward is ``resident`` (K3
-on a cluster) where one CTA could hold a whole sample's votes, as before
-the cluster; at MNIST width one sample's votes (1152 x 160 fp32 = 737,280
-B) do not fit, so the plan picks ``streamed`` for K4 (K5 and K9 split
-the sample over a thread-block cluster instead: see below).
-``streamed-global`` is ``streamed`` with the logits ``[I, J]`` moved to
-a per-sample scratch in global memory (B*I*J floats, which stay in the
-50 MB L2): the plan picks it only when one sample's logits leave no room
-in a CTA -- the SVHN bottleneck's 2048 x 64 logits are 524 KB -- so
-every plan that fitted before plans exactly as before.  It does the same arithmetic in the same
-order as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule:
-an s-pass and a b-pass per iteration) is the oracle of the fused pass
-and never a plan mode; ``ExecutionPlan.validate`` rejects it.
+the TPU's VMEM.  The routing kernels run one cluster per sample, so their
+footprints do not grow with the batch; a schedule that fits, fits at
+every batch.  ``resident`` computes the votes once and keeps them in
+shared memory, each cluster CTA its rows', while ``streamed`` keeps u and
+the logits of its rows and recomputes the votes from W on each of the
+``iters + 1`` passes, ``block_i`` rows at a time.  For each cluster size
+the forward takes resident votes where a CTA's rows' votes fit (K3: the
+SVHN ResCaps halves and ClassCaps, MNIST's ClassCaps from 4 CTAs up),
+else streamed (K4: the SVHN bottleneck, whose 2048 x 64 logits, 524 KB a
+sample, fit a CTA from 4 CTAs up), else ``streamed-global`` (K4g):
+streamed with the CTA's rows' logits in a per-sample scratch in global
+memory (B*I*J floats, which stay in the 50 MB L2), only where even a
+16-CTA cluster's share of them fits no CTA (CIFAR-10's full-width halves,
+64 rows x 1024 logits).  It does the same arithmetic in the same order
+as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule: an
+s-pass and a b-pass per iteration, one CTA a sample) is the oracle of the
+fused pass and never a plan mode; ``ExecutionPlan.validate`` rejects it.
 
-Cluster schedules (K3, K5, and K8/K9 below): one sample runs on a cluster of
-``cs`` CTAs (``CLUSTER_SIZES``), each owning a share of its capsule rows
-and keeping their u and logits in its own shared memory; only s (and in
+Cluster schedules (K3/K4, K5, K14b and K8/K9 below): one sample runs on
+a cluster of ``cs`` CTAs (``CLUSTER_SIZES``), each owning a share of its
+capsule rows and keeping their u and logits in its own shared memory
+(K4g: the logits in global memory); only s (and in
 the backward dv) crosses CTAs, summed in rank order through distributed
 shared memory once a pass (``csrc/routing_cluster.cuh``).  Such an op's
 ``block`` is a ``ClusterPlan``, and its ``mode`` says where each CTA keeps
@@ -66,10 +66,11 @@ reference's plan, and at SVHN's bottleneck the logits of a CTA's rows fit,
 so the pipelined plan exists there too.
 
 The split ClassCaps path -- ``caps_votes`` (K14a) writing u_hat to
-device memory, then ``routing`` (K14b) reading it back -- is the paper's
-baseline and never a plan op; ``plan_caps_votes`` and
-``plan_routing_split`` give its tiles, ``split_votes_routing_global_bytes``
-its traffic, for the comparison with the fused op.
+device memory, then ``routing`` (K14b, a cluster a sample) reading it
+back -- is the paper's baseline and never a plan op; ``plan_caps_votes``
+and ``plan_routing_split`` give its schedules,
+``split_votes_routing_global_bytes`` its traffic, for the comparison with
+the fused op.
 
 ``compile_plan(train=True)`` appends one backward op per executed kernel,
 named ``<op>-bwd`` and listed in reverse network order (the order the
@@ -186,7 +187,7 @@ class OpPlan:
     """The compiled schedule of one kernel call.
 
     ``block`` holds the GEMM tiles of the conv ops, or the
-    ``ClusterPlan`` of a cluster schedule (K3, K5, K8/K9); ``block_i`` /
+    ``ClusterPlan`` of a cluster schedule (K3/K4, K5, K8/K9); ``block_i`` /
     ``mode`` / ``n_passes`` the routing schedule (the votes are computed
     from W ``n_passes`` times per sample); ``block_k`` the pipelined
     producer's K stage; ``dx_block`` a
@@ -323,21 +324,21 @@ def activation_residency_bytes(cfg: CapsNetConfig, *, batch: int = 1,
 
 def routing_smem_floats(mode: str, num_caps: int, block_i: int, j: int,
                         jd: int) -> int:
-    """Streamed votes + routing scratch of one CTA beyond u, in floats
-    (K4, K13, K14b; resident votes run on K3's cluster,
-    ``votes_routing_cluster_smem``): the logits ``[I, J]`` (in global
-    memory, so no term, under ``streamed-global``), s and v ``[J*D]``,
-    and ``block_i`` votes rows with their couplings.  Votes rows are
-    padded to ``J*D + 1`` floats so that the per-row logits update reads
-    shared memory without bank conflicts."""
+    """Routing scratch beyond u of one K13 CTA (the single-CTA oracle; the
+    fused schedules run on clusters, ``votes_routing_cluster_smem``), in
+    floats: the logits ``[I, J]`` (in global memory, so no term, under
+    ``streamed-global``), s and v ``[J*D]``, and ``block_i`` votes rows
+    with their couplings.  Votes rows are padded to ``J*D + 1`` floats so
+    that the per-row logits update reads shared memory without bank
+    conflicts."""
     logits = 0 if mode == STREAMED_GLOBAL else num_caps * j
     return logits + 2 * jd + block_i * (jd + 1 + j)
 
 
 def votes_routing_smem(mode: str, num_caps: int, block_i: int, caps_dim: int,
                        j: int, jd: int) -> int:
-    """Shared memory of one ``votes_routing`` CTA: u of its sample plus
-    the routing scratch."""
+    """Shared memory of one K13 CTA: u of its sample plus the routing
+    scratch."""
     return (num_caps * caps_dim
             + routing_smem_floats(mode, num_caps, block_i, j, jd)) * ELEM_BYTES
 
@@ -347,8 +348,8 @@ class VotesRoutingSchedule:
     mode: str
     block_i: int
     smem_bytes: int
-    n_passes: int            # W reads per sample: 1 resident, iters+1 str.
-    cluster: ClusterPlan | None = None    # a cluster schedule (K3, K8/K9)
+    n_passes: int            # votes reads per sample: 1 resident, iters+1 str.
+    cluster: ClusterPlan | None = None    # its cluster (K3/K4, K8/K9, K14b)
     seconds: float = 0.0     # a cluster schedule's cluster_seconds
 
 
@@ -367,34 +368,25 @@ def plan_votes_routing(num_caps: int, caps_dim: int, jd: int, j: int, *,
                        iters: int = 3, batch: int = 1,
                        smem_budget: int = SMEM_BYTES,
                        name: str = FUSED_NAME) -> VotesRoutingSchedule:
-    """Schedule of ``votes_routing``: resident (K3 on a cluster,
-    ``plan_votes_routing_cluster`` at ``batch``) when one CTA holds one
-    sample's votes, else streamed at the largest i-tile that fits, else
-    streamed-global (the logits in global memory) at the largest i-tile
-    that fits.  Raises ``PlanError`` naming the op when even
-    streamed-global ``block_i=1`` does not fit."""
-    if votes_routing_cluster_smem(num_caps, caps_dim, j, jd,
-                                  1) <= smem_budget:
-        return plan_votes_routing_cluster(num_caps, caps_dim, jd, j,
-                                          iters=iters, batch=batch,
-                                          smem_budget=smem_budget)
-
-    def fits(mode):
-        def smem_of(bi):
-            need = votes_routing_smem(mode, num_caps, bi, caps_dim, j, jd)
-            return need if need <= smem_budget else None
-        return smem_of
-
-    for mode in ("streamed", STREAMED_GLOBAL):
-        fit = _largest_fit(num_caps, fits(mode))
-        if fit is not None:
-            return VotesRoutingSchedule(mode=mode, block_i=fit[0],
-                                        smem_bytes=fit[1], n_passes=iters + 1)
-    need = votes_routing_smem(STREAMED_GLOBAL, num_caps, 1, caps_dim, j, jd)
+    """Schedule of ``votes_routing``: the cluster schedule of
+    ``plan_votes_routing_cluster`` at ``batch`` (for each cluster size
+    resident votes, else streamed, else streamed-global; the least
+    modeled time).  Raises ``PlanError`` naming the op when even a 16-CTA
+    cluster streaming ``block_i=1`` with its logits in global memory does
+    not fit."""
+    sched = plan_votes_routing_cluster(num_caps, caps_dim, jd, j,
+                                       iters=iters, batch=batch,
+                                       smem_budget=smem_budget)
+    if sched is not None:
+        return sched
+    cs = CLUSTER_SIZES[-1]
+    need = votes_routing_cluster_smem(num_caps, caps_dim, j, jd, cs,
+                                      mode=STREAMED_GLOBAL, block_i=1)
     raise PlanError(
-        f"{name}: no feasible schedule: even {STREAMED_GLOBAL} block_i=1 needs "
-        f"{need} B of shared memory per CTA, over the {smem_budget} B "
-        f"budget ({num_caps} capsules of {caps_dim}D -> {jd})")
+        f"{name}: no feasible schedule: even {STREAMED_GLOBAL} block_i=1 on "
+        f"a {cs}-CTA cluster needs {need} B of shared memory per CTA, over "
+        f"the {smem_budget} B budget ({num_caps} capsules of {caps_dim}D -> "
+        f"{jd})")
 
 
 def votes_routing_global_bytes(batch: int, num_caps: int, caps_dim: int,
@@ -459,39 +451,76 @@ def routing_work(num_caps: int, caps_dim: int, jd: int, n_votes: int,
 
 
 def votes_routing_cluster_smem(num_caps: int, caps_dim: int, j: int, jd: int,
-                               cluster: int) -> int:
-    """Shared memory of one CTA of K3's cluster (``csrc/votes_routing.cu``,
-    ``cluster_fwd_layout``): the votes rows of its ``ceil(I / cluster)``
-    rows with their couplings, the rows' u and logits, and four [J*D]
-    vectors (s, v and the two partials of s)."""
+                               cluster: int, *, mode: str = "resident",
+                               block_i: int = 1) -> int:
+    """Shared memory of one CTA of K3/K4's cluster (``csrc/votes_routing.cu``,
+    ``cluster_fwd_layout``): the votes rows -- all of its ``ceil(I /
+    cluster)`` rows when ``resident``, ``block_i`` of them when streamed --
+    with their couplings, the rows' u and (except under
+    ``streamed-global``) logits, and four [J*D] vectors (s, v and the two
+    partials of s)."""
     rows = -(-num_caps // cluster)
-    return (rows * (jd + 1 + j) + rows * (caps_dim + j)
+    vrows = rows if mode == "resident" else min(block_i, rows)
+    logits = 0 if mode == STREAMED_GLOBAL else rows * j
+    return (vrows * (jd + 1 + j) + rows * caps_dim + logits
             + 4 * jd) * ELEM_BYTES
+
+
+def _cluster_fit(rows: int, smem_of, block_i: int | None):
+    """The i-tile of a cluster CTA's ``rows``: ``block_i`` clamped to them
+    when given (with its footprint, None where it does not fit), else the
+    largest that fits (``_largest_fit``)."""
+    if block_i is None:
+        return _largest_fit(rows, smem_of)
+    bi = max(1, min(block_i, rows))
+    need = smem_of(bi)
+    return None if need is None else (bi, need)
 
 
 def plan_votes_routing_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
                                *, iters: int = 3, batch: int = 1,
                                smem_budget: int = SMEM_BYTES,
-                               cluster: int | None = None
+                               cluster: int | None = None,
+                               votes: str | None = None,
+                               block_i: int | None = None
                                ) -> VotesRoutingSchedule | None:
-    """K3's cluster schedule, resident votes in each CTA: of the cluster
-    sizes whose footprint fits (only ``cluster`` when given), the least
-    ``cluster_seconds`` at ``batch`` (``iters + 1`` passes, the votes
-    once), the smaller cluster on a tie.  None where no size fits."""
-    flops, w_bytes = routing_work(num_caps, caps_dim, jd, 1, iters + 1)
+    """K3/K4's cluster schedule, the forward twin of
+    ``plan_routing_bwd_cluster``: for each cluster size (only ``cluster``
+    when given), resident votes in each CTA where they fit, else streamed
+    at the largest i-tile that fits (``block_i`` when given), else
+    streamed-global (the CTA's rows' logits in global memory) likewise;
+    only the placement ``votes`` when given.  Of those, the least
+    ``cluster_seconds`` at ``batch`` (resident: the votes once; streamed:
+    once a pass, and under streamed-global the logits read and written
+    once a pass), the smaller cluster on a tie.  None where no size
+    fits."""
+    placements = tuple(m for m in MODES if votes in (None, m))
     best = None
     for cs in (CLUSTER_SIZES if cluster is None else (cluster,)):
-        need = votes_routing_cluster_smem(num_caps, caps_dim, j, jd, cs)
-        if need > smem_budget:
-            continue
         rows = -(-num_caps // cs)
-        per_sm = ctas_per_sm(need, ROUTING_CLUSTER_REGISTERS)
-        t = cluster_seconds(batch, cs, flops, w_bytes, iters + 1, rows,
-                            per_sm)
-        if best is None or t < best.seconds:
-            best = VotesRoutingSchedule(
-                mode="resident", block_i=rows, smem_bytes=need, n_passes=1,
-                cluster=cluster_plan(batch, cs, rows, per_sm), seconds=t)
+        for mode in placements:
+            def smem_of(bi, mode=mode, cs=cs):
+                need = votes_routing_cluster_smem(num_caps, caps_dim, j, jd,
+                                                  cs, mode=mode, block_i=bi)
+                return need if need <= smem_budget else None
+            fit = _cluster_fit(rows, smem_of,
+                               None if mode == "resident" else block_i)
+            if fit is None:
+                continue
+            n_passes = 1 if mode == "resident" else iters + 1
+            flops, w_bytes = routing_work(num_caps, caps_dim, jd, n_passes,
+                                          iters + 1)
+            if mode == STREAMED_GLOBAL:
+                w_bytes += 2.0 * (iters + 1) * num_caps * j * ELEM_BYTES
+            per_sm = ctas_per_sm(fit[1], ROUTING_CLUSTER_REGISTERS)
+            t = cluster_seconds(batch, cs, flops, w_bytes, iters + 1, rows,
+                                per_sm)
+            if best is None or t < best.seconds:
+                best = VotesRoutingSchedule(
+                    mode=mode, block_i=rows if mode == "resident" else fit[0],
+                    smem_bytes=fit[1], n_passes=n_passes,
+                    cluster=cluster_plan(batch, cs, rows, per_sm), seconds=t)
+            break
     return best
 
 
@@ -530,31 +559,63 @@ def plan_caps_votes(num_caps: int, caps_dim: int, out_dim: int, batch: int,
     return 1
 
 
-def routing_split_smem(num_caps: int, j: int, jd: int, block_i: int) -> int:
-    """Shared memory of one ``routing`` CTA: the streamed routing scratch
-    of ``votes_routing`` (logits, s, v, one tile of u_hat rows and their
-    couplings) with no u, since the votes come from device memory."""
-    return routing_smem_floats("streamed", num_caps, block_i, j,
-                               jd) * ELEM_BYTES
+def routing_split_cluster_smem(mode: str, num_caps: int, block_i: int,
+                               j: int, jd: int, cluster: int) -> int:
+    """Shared memory of one CTA of K14b's cluster (``csrc/routing.cu``,
+    ``split_layout``): the u_hat rows -- all of its ``ceil(I / cluster)``
+    rows when ``resident``, ``block_i`` of them when ``streamed`` -- padded
+    to ``J*D + 1`` floats, with their couplings, the rows' logits, and four
+    [J*D] vectors (s, v and the two partials of s); no u, since the votes
+    come from device memory."""
+    rows = -(-num_caps // cluster)
+    vrows = rows if mode == "resident" else min(block_i, rows)
+    return (vrows * (jd + 1 + j) + rows * j + 4 * jd) * ELEM_BYTES
 
 
-def plan_routing_split(num_caps: int, j: int, jd: int,
-                       smem_budget: int = SMEM_BYTES) -> int:
-    """``block_i`` of ``routing``: the largest u_hat tile that fits.
-    Raises ``PlanError`` when the logits alone leave no room for one
-    row."""
-    def smem_of(bi):
-        need = routing_split_smem(num_caps, j, jd, bi)
-        return need if need <= smem_budget else None
-
-    fit = _largest_fit(num_caps, smem_of)
-    if fit is None:
+def plan_routing_split(num_caps: int, j: int, jd: int, *, iters: int = 3,
+                       batch: int = 1, smem_budget: int = SMEM_BYTES,
+                       cluster: int | None = None, votes: str | None = None,
+                       block_i: int | None = None) -> VotesRoutingSchedule:
+    """K14b's schedule: for each cluster size (only ``cluster`` when
+    given), each CTA's rows of u_hat copied on chip once (``resident``)
+    where they fit, else ``streamed`` ``block_i`` rows a pass at the
+    largest tile that fits (``block_i`` when given); only the placement
+    ``votes`` when given.  Of those, the least ``cluster_seconds`` at
+    ``batch`` (u_hat read once, or once a pass), the smaller cluster on a
+    tie.  Raises ``PlanError`` when nothing fits."""
+    best = None
+    sizes = CLUSTER_SIZES if cluster is None else (cluster,)
+    for cs in sizes:
+        rows = -(-num_caps // cs)
+        for mode in (m for m in ("resident", "streamed")
+                     if votes in (None, m)):
+            def smem_of(bi, mode=mode, cs=cs):
+                need = routing_split_cluster_smem(mode, num_caps, bi, j, jd,
+                                                  cs)
+                return need if need <= smem_budget else None
+            fit = _cluster_fit(rows, smem_of,
+                               None if mode == "resident" else block_i)
+            if fit is None:
+                continue
+            n_passes = 1 if mode == "resident" else iters + 1
+            per_sm = ctas_per_sm(fit[1], ROUTING_CLUSTER_REGISTERS)
+            t = cluster_seconds(batch, cs, 4.0 * (iters + 1) * num_caps * jd,
+                                float(n_passes * num_caps * jd * ELEM_BYTES),
+                                iters + 1, rows, per_sm)
+            if best is None or t < best.seconds:
+                best = VotesRoutingSchedule(
+                    mode=mode, block_i=rows if mode == "resident" else fit[0],
+                    smem_bytes=fit[1], n_passes=n_passes,
+                    cluster=cluster_plan(batch, cs, rows, per_sm), seconds=t)
+            break
+    if best is None:
+        need = routing_split_cluster_smem("streamed", num_caps, 1, j, jd,
+                                          sizes[-1])
         raise PlanError(
-            f"routing: no feasible schedule: even block_i=1 needs "
-            f"{routing_split_smem(num_caps, j, jd, 1)} B of shared memory "
-            f"per CTA, over the {smem_budget} B budget ({num_caps} "
-            f"capsules -> {jd})")
-    return fit[0]
+            f"routing: no feasible schedule: even a {sizes[-1]}-CTA cluster "
+            f"streaming block_i=1 needs {need} B of shared memory per CTA, "
+            f"over the {smem_budget} B budget ({num_caps} capsules -> {jd})")
+    return best
 
 
 def split_votes_routing_global_bytes(batch: int, num_caps: int,

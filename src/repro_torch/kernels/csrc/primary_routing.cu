@@ -251,8 +251,9 @@ primary_routing_kernel(Args a) {
 
   const int groups = a.N / a.C, gs = L.ns / a.C;
   const OwnedRows own{L.rows, rank * gs, gs, cs > 1 ? groups : 0};
-  route_cluster(cl, sc, u_s, a.W, own, a.C, a.J, a.D, a.iters,
-                a.resident != 0, a.block_i, nullptr, nullptr, nullptr);
+  route_cluster(cl, sc, VotesOfW{u_s, a.W, own, a.C}, own, a.J, a.D,
+                a.iters, a.resident != 0, a.block_i, nullptr, nullptr,
+                nullptr);
   if (rank == 0)
     for (int n = threadIdx.x; n < jd; n += blockDim.x)
       a.out[(size_t)smp * jd + n] = sc.v[n];

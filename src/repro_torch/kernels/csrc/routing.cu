@@ -7,105 +7,118 @@
 // Inference only: the reference applies no stop-gradient here, and the
 // forward values do not depend on one.
 //
-// On Hopper one CTA takes one sample, as votes_routing.cu does, and runs
-// the same fused s+b schedule (routing.cuh: iters + 1 passes, pass t
-// folds the logits update of iteration t into the accumulation of s_t).
-// One sample's u_hat (1152 x 160 fp32 = 737,280 B) is over the 232,448 B
-// a CTA may hold, so the logits [I, J] (46,080 B), s and v stay in shared
-// memory and u_hat streams from device memory on every pass, in tiles of
-// block_i rows (execplan.plan_routing_split) copied with batches of
-// float4 reads into rows padded to J*D + 1 floats.  The first pass reads
-// u_hat from HBM (or from L2, where K14a just wrote it); the later passes
-// from L2.
-// What bounds it: with one CTA per sample only B SMs work (8 of 132 at
-// serving batch 8), each limited by its own L2 bandwidth and by the
-// per-row logits update; the function itself needs u_hat once (5.9 MB at
-// batch 8).  Splitting i over a thread-block cluster is later work.
+// On Hopper each sample routes on a thread-block cluster of cs CTAs, on
+// the pass loop that K3/K4/K5/K9 share (routing_cluster.cuh's
+// route_cluster: iters + 1 fused s+b passes, a warp a row, s summed in
+// rank order through distributed shared memory), with the votes read
+// from u_hat instead of computed from W (its VotesRead source).  CTA rank
+// r owns the sample's rows [r * ceil(I / cs), ...) with their logits, s,
+// v and the two partials in its shared memory.  Where they fit
+// ("resident": 144 rows x 161 floats, 93 KB, at MNIST on clusters of 8)
+// it copies its rows of u_hat once, with batches of float4 reads, into
+// rows padded to J*D + 1 floats, so each sample's u_hat is read from
+// device memory once (737,280 B at MNIST, 5.9 MB at batch 8) -- where one
+// CTA a sample read the whole of it through one SM on each of the 4
+// passes.  Otherwise ("streamed") it reads block_i rows on every pass, the
+// passes after the first from L2.
+// What bounds it: the bytes, u_hat once (1.8 us at 3.35 TB/s at MNIST
+// batch 8), below the passes' chain of dependent steps and cluster
+// barriers; a cluster spreads a batch of 8 over up to 128 SMs.
 
-#include <stdint.h>
-
-#include "routing.cuh"
+#include "routing_cluster.cuh"
 
 namespace repro {
 
-constexpr int kLoadBatch = 8;   // float4 loads a thread has in flight
+// The shared memory of one K14b cluster CTA, in floats
+// (execplan.routing_split_cluster_smem models the same sum): the u_hat rows
+// -- all of its ceil(I / cs) rows when resident, block_i of them when
+// streamed -- with their couplings, then the rows' logits, and s, v and the
+// two partials of s.
+struct SplitLayout {
+  int rows, vrows, total;
+};
 
-// Copy `rows` rows of jd floats (contiguous at src) into dst, row pitch ld.
-// Each thread starts kLoadBatch loads before it stores any: one L2 round
-// trip per batch instead of one per float4.
-__device__ inline void load_rows(const float* __restrict__ src, int rows,
-                                 int jd, float* dst, int ld) {
-  const int total = rows * jd;
-  if (jd % 4 == 0 && (uintptr_t)src % 16 == 0) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    const int total4 = total / 4;
-    for (int f0 = threadIdx.x; f0 < total4; f0 += kLoadBatch * blockDim.x) {
-      float4 v[kLoadBatch];
-#pragma unroll
-      for (int k = 0; k < kLoadBatch; ++k) {
-        const int f = f0 + k * blockDim.x;
-        if (f < total4) v[k] = __ldg(src4 + f);
-      }
-#pragma unroll
-      for (int k = 0; k < kLoadBatch; ++k) {
-        const int f = f0 + k * blockDim.x;
-        if (f < total4) {
-          const int r = 4 * f / jd, n = 4 * f - r * jd;  // never straddles
-          float* d = dst + r * ld + n;
-          d[0] = v[k].x;
-          d[1] = v[k].y;
-          d[2] = v[k].z;
-          d[3] = v[k].w;
-        }
-      }
-    }
-  } else {
-    for (int f = threadIdx.x; f < total; f += blockDim.x) {
-      const int r = f / jd;
-      dst[r * ld + (f - r * jd)] = __ldg(src + f);
-    }
-  }
+__host__ __device__ inline SplitLayout split_layout(int I, int J, int D,
+                                                    int cs, int resident,
+                                                    int block_i) {
+  SplitLayout L;
+  L.rows = (I + cs - 1) / cs;
+  L.vrows = resident ? L.rows : min(block_i, L.rows);
+  const int jd = J * D;
+  L.total = L.vrows * (jd + 1 + J) + L.rows * J + 4 * jd;
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
-routing_kernel(const float* __restrict__ u_hat, float* __restrict__ out,
-               int I, int J, int D, int iters, int block_i) {
-  extern __shared__ float smem[];
+// One sample per cluster of cs CTAs, rank r owning the sample's rows
+// [r * rows, (r + 1) * rows) (the last block ragged or empty).  Held to 128
+// registers a thread, so that two CTAs share an SM where their shared
+// memory allows.
+__global__ void __launch_bounds__(kThreads, 2)
+routing_cluster_kernel(const float* __restrict__ u_hat,
+                       float* __restrict__ out, int I, int J, int D,
+                       int iters, int resident, int block_i) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int smp = blockIdx.x / cs;
   const int jd = J * D, ld = jd + 1;
-  RouteScratch sc = carve_route(smem, I, J, jd);
-  sc.c = sc.uh + block_i * ld;
-  const float* uh = u_hat + (size_t)blockIdx.x * I * jd;
-  for (int e = threadIdx.x; e < I * J; e += blockDim.x) sc.b[e] = 0.f;
-  for (int t = 0; t <= iters; ++t) {
-    for (int n = threadIdx.x; n < jd; n += blockDim.x) sc.s[n] = 0.f;
-    for (int i0 = 0; i0 < I; i0 += block_i) {
-      const int rows = min(block_i, I - i0);
-      load_rows(uh + (size_t)i0 * jd, rows, jd, sc.uh, ld);
-      __syncthreads();
-      route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v, t > 0, J,
-                 D);                             // ends with __syncthreads
-    }
-    for (int j = threadIdx.x; j < J; j += blockDim.x)
-      squash_into(sc.s + j * D, sc.v + j * D, D);
-    __syncthreads();
-  }
-  for (int n = threadIdx.x; n < jd; n += blockDim.x)
-    out[(size_t)blockIdx.x * jd + n] = sc.v[n];
+  const SplitLayout L = split_layout(I, J, D, cs, resident, block_i);
+  const int i0 = min(I, rank * L.rows);
+  const int n = min(I, i0 + L.rows) - i0;
+  const OwnedRows own{n, i0, max(n, 1), 0};
+  ClusterScratch sc;
+  sc.uh = smem;                                 // [vrows][J*D + 1]
+  sc.c = sc.uh + L.vrows * ld;                  // [vrows][J]
+  sc.b = sc.c + L.vrows * J;                    // [rows][J]
+  sc.s = sc.b + L.rows * J;
+  sc.v = sc.s + jd;
+  sc.part = sc.v + jd;                          // [2][J*D]
+  route_cluster(cl, sc, VotesRead{u_hat + (size_t)smp * I * jd, own}, own, J,
+                D, iters, resident != 0, resident ? max(n, 1) : block_i,
+                nullptr, nullptr, nullptr);
+  if (rank == 0)
+    for (int e = threadIdx.x; e < jd; e += blockDim.x)
+      out[(size_t)smp * jd + e] = sc.v[e];
+  cl.sync();                      // no CTA leaves while a peer reads it
 }
 
 }  // namespace repro
 
-// u_hat [B, I, J*D] -> v [B, J*D].  smem_bytes is the plan's footprint
-// (execplan.routing_split_smem).
-REPRO_EXPORT int routing_f32(const float* u_hat, float* out, int B, int I,
-                             int J, int D, int iters, int block_i,
-                             int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      repro::routing_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return err;
-  repro::routing_kernel<<<B, repro::kThreads, smem_bytes,
-                          (cudaStream_t)stream>>>(u_hat, out, I, J, D, iters,
-                                                  block_i);
-  return cudaGetLastError();
+// K14b's shared-memory layout in bytes (execplan models it).
+REPRO_EXPORT int routing_cluster_smem_bytes(int I, int J, int D, int cs,
+                                            int resident, int block_i) {
+  return repro::split_layout(I, J, D, cs, resident, block_i).total *
+         (int)sizeof(float);
+}
+
+// u_hat [B, I, J*D] -> v [B, J*D] on B clusters of cs CTAs (1, 2, 4, 8 or
+// 16), the rows' u_hat copied once (resident != 0) or block_i rows a pass.
+// smem_bytes is the plan's footprint (execplan.routing_split_cluster_smem),
+// which must equal the kernel's layout.  A refused launch returns the
+// runtime's error, never another schedule.
+REPRO_EXPORT int routing_cluster_f32(const float* u_hat, float* out, int B,
+                                     int I, int J, int D, int iters,
+                                     int resident, int block_i, int cs,
+                                     int smem_bytes, void* stream) {
+  using namespace repro;
+  if (B < 1 || I < 1 || iters < 0 || block_i < 1 || cs < 1 || cs > 16 ||
+      split_layout(I, J, D, cs, resident, block_i).total *
+              (int)sizeof(float) != smem_bytes)
+    return cudaErrorInvalidValue;
+  return launch_clusters(routing_cluster_kernel, B, cs, smem_bytes,
+                         (cudaStream_t)stream, u_hat, out, I, J, D, iters,
+                         resident, block_i);
+}
+
+// out = {max active clusters, static shared bytes, max dynamic shared
+// bytes, registers a thread} of K14b at these sizes.
+REPRO_EXPORT int routing_cluster_occupancy(int I, int J, int D, int cs,
+                                           int resident, int block_i,
+                                           int* out) {
+  using namespace repro;
+  return cluster_occupancy(
+      routing_cluster_kernel, cs,
+      split_layout(I, J, D, cs, resident, block_i).total * (int)sizeof(float),
+      out);
 }

@@ -1,34 +1,30 @@
-// Votes + routing-by-agreement of ONE sample inside one CTA: the streamed
-// schedules of votes_routing.cu (K4, K13) and the fused s+b pass that
-// routing.cu (K14b) runs over votes read from device memory.
+// Votes + routing-by-agreement of ONE sample inside one CTA: K13, the
+// unfused streamed schedule of votes_routing.cu (the reference's
+// _streamed_2pass_kernel, mode "streamed-2pass"), and the votes and logits
+// helpers that K13b's replay (votes_routing_bwd.cu) shares with it.
 //
 // u (the sample's I x C capsules) is already in shared memory.  Routing
-// runs iters + 1 passes; pass t folds the logits update
-// b_t = b_{t-1} + <u_hat, v_{t-1}> (t > 0) into the accumulation of
-// s_t = sum_i softmax_j(b_t)[i, j] u_hat[i, j, :], then squashes s_t into
-// v_t.  The last pass is the readout.  This is the reference's fused s+b
-// schedule (votes_routing.py _streamed_kernel) and equals its resident
-// routing (_routing_iterations) row by row.  The resident schedule (K3:
-// the votes computed once and kept on chip) runs on a thread-block cluster
-// instead (routing_cluster.cuh).
+// runs iters + 1 s-passes; before each s-pass after the first, a b-pass
+// recomputes the votes i-block by i-block from W and folds iteration t's
+// logits update b_t = b_{t-1} + <u_hat, v_{t-1}> into the logits; the
+// s-pass recomputes them again and accumulates s_t = sum_i softmax_j(b_t)
+// [i, j] u_hat[i, j, :], then squashes s_t into v_t.  So W is read
+// 2 * iters + 1 times.  It is the oracle of the fused s+b pass (the
+// reference's _streamed_kernel), never a plan mode: per row it does the
+// same operations in the same order, one thread a row.  The fused schedule
+// itself -- K3, K4 (votes_routing.cu) and K14b (routing.cu) -- runs each
+// sample on a thread-block cluster (routing_cluster.cuh), its s summed rank
+// by rank, so K13 agrees with K4 within the routing tolerance
+// (chip_smoke.py's ROUTING), no longer to the bit.
 //
-//   streamed  only u and the logits stay; each pass recomputes the votes
-//             i-block by i-block from W, so W is read iters + 1 times.
-//   two-pass  K13, the unfused streamed schedule (the reference's
-//             _streamed_2pass_kernel, mode "streamed-2pass"): iteration t
-//             runs a b-pass (votes recomputed, logits updated) and then an
-//             s-pass of its own, so W is read 2 * iters + 1 times.  It is
-//             the oracle of the fused pass, never a plan mode; per row it
-//             does the same operations in the same order.
-//
-// The logits live in shared memory, or -- the plan's "streamed-global"
-// mode, where one sample's I x J logits do not fit a CTA (2048 x 64 fp32 =
-// 524 KB at the SVHN bottleneck) -- in the sample's slab of a scratch in
-// global memory that the wrapper allocates (B * I * J floats, resident in
-// the 50 MB L2).  That is only where RouteScratch::b points: the schedule
-// and its arithmetic are the same.  An optional residual r [J*D] is added
-// to v just before the store (the ResCapsBlock coupling epilogue); s and v
-// themselves stay pure, as the reference keeps v_scr pure.
+// The logits live in shared memory, or -- where one sample's I x J logits
+// do not fit a CTA (2048 x 64 fp32 = 524 KB at the SVHN bottleneck) -- in
+// the sample's slab of a scratch in global memory that the wrapper
+// allocates (B * I * J floats, resident in the 50 MB L2).  That is only
+// where RouteScratch::b points: the schedule and its arithmetic are the
+// same.  An optional residual r [J*D] is added to v just before the store
+// (the ResCapsBlock coupling epilogue); s and v themselves stay pure, as
+// the reference keeps v_scr pure.
 //
 // Rows past I are never computed: the reference zero-pads the i axis to a
 // multiple of block_i, and zero rows add nothing to s and leave their own
@@ -41,8 +37,6 @@
 #include "common.cuh"
 
 namespace repro {
-
-enum Schedule { kStreamed = 1, kTwoPass = 2 };
 
 struct RouteScratch {
   float* b;    // [I][J] logits: shared memory, or the sample's global slab
@@ -63,7 +57,7 @@ __device__ inline RouteScratch carve_route(float* p, int I, int J, int jd,
   sc.s = b_global ? p : p + I * J;
   sc.v = sc.s + jd;
   sc.uh = sc.v + jd;
-  sc.c = nullptr;                  // placed by route_sample after the votes
+  sc.c = nullptr;                  // placed by route_2pass after the votes
   return sc;
 }
 
@@ -111,16 +105,14 @@ __device__ inline void update_rows(const float* uh, int ld, int rows,
   __syncthreads();
 }
 
-// One fused s+b step over `rows` rows: update their logits (if `update`),
-// soften them into couplings, and add their share of s.
-__device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
-                                  float* c, float* s, const float* v,
-                                  bool update, int J, int D) {
+// The s-pass over `rows` rows: soften their logits into couplings, and add
+// their share of s.
+__device__ inline void route_rows(const float* uh, int ld, int rows,
+                                  const float* b, float* c, float* s, int J,
+                                  int D) {
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const float* ur = uh + r * ld;
-    float* br = b + r * J;
+    const float* br = b + r * J;
     float* cr = c + r * J;
-    if (update) update_row(ur, br, v, J, D);
     float m = -INFINITY;
     for (int j = 0; j < J; ++j) m = fmaxf(m, br[j]);
     float sum = 0.f;
@@ -142,20 +134,19 @@ __device__ inline void route_rows(const float* uh, int ld, int rows, float* b,
   __syncthreads();
 }
 
-// All routing passes of one sample, streamed or two-pass; writes v [J*D]
-// (plus r [J*D] when r is given) to out.
-__device__ inline void route_sample(const float* u_s,
-                                    const float* __restrict__ W, int I,
-                                    int C, int J, int D, int iters,
-                                    int schedule, int block_i,
-                                    RouteScratch sc, const float* r,
-                                    float* out) {
+// All routing passes of one sample on K13's two-pass schedule; writes v
+// [J*D] (plus r [J*D] when r is given) to out.
+__device__ inline void route_2pass(const float* u_s,
+                                   const float* __restrict__ W, int I, int C,
+                                   int J, int D, int iters, int block_i,
+                                   RouteScratch sc, const float* r,
+                                   float* out) {
   const int jd = J * D, ld = jd + 1;
   sc.c = sc.uh + block_i * ld;
   for (int e = threadIdx.x; e < I * J; e += blockDim.x) sc.b[e] = 0.f;
   __syncthreads();
   for (int t = 0; t <= iters; ++t) {
-    if (schedule == kTwoPass && t > 0) {
+    if (t > 0) {
       // b-pass of iteration t: b_t = b_{t-1} + <u_hat, v_{t-1}>.
       for (int i0 = 0; i0 < I; i0 += block_i) {
         const int rows = min(block_i, I - i0);
@@ -172,8 +163,7 @@ __device__ inline void route_sample(const float* u_s,
       votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, sc.uh,
                  ld);
       __syncthreads();
-      route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, sc.v,
-                 schedule == kStreamed && t > 0, J, D);
+      route_rows(sc.uh, ld, rows, sc.b + i0 * J, sc.c, sc.s, J, D);
     }
     for (int j = threadIdx.x; j < J; j += blockDim.x)
       squash_into(sc.s + j * D, sc.v + j * D, D);

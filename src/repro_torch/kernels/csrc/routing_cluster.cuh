@@ -1,10 +1,11 @@
-// Routing-by-agreement of ONE sample over a thread-block cluster: K3's
-// resident forward (votes_routing.cu), the consume schedule of K5
-// (primary_routing.cu) and the replay of K8/K9 (votes_routing_bwd.cu).
+// Routing-by-agreement of ONE sample over a thread-block cluster: the
+// forward of K3 and K4 (votes_routing.cu), the consume schedule of K5
+// (primary_routing.cu), the replay of K8/K9 (votes_routing_bwd.cu) and the
+// split path's K14b (routing.cu), all on one pass loop (route_cluster).
 //
-// routing.cuh routes a sample inside one CTA, so a batch of 8-16 samples
-// keeps 8-16 of the H100's 132 SMs busy, and one sample's votes (737 KB at
-// MNIST) or logits (524 KB at the SVHN bottleneck) do not fit that CTA.
+// One CTA a sample (routing.cuh, now only K13's oracle) keeps a batch of
+// 8-16 samples on 8-16 of the H100's 132 SMs, and one sample's votes (737
+// KB at MNIST) or logits (524 KB at the SVHN bottleneck) do not fit it.
 // Here a cluster of cs CTAs (1, 2, 4, 8 or 16; 16 is a non-portable size)
 // shares the sample.  CTA rank r owns a fixed set of capsule rows and keeps
 // their u, their logits and -- where they fit -- their votes in its own
@@ -12,7 +13,7 @@
 //
 // Each pass t = 0 .. iters folds the logits update b_t = b_{t-1} +
 // <u_hat, v_{t-1}> (t > 0) into the accumulation of the CTA's share of
-// s_t over its own rows (the fused s+b pass of routing.cuh), writes that
+// s_t over its own rows (the reference's fused s+b pass), writes that
 // partial into its own shared memory and waits at cluster.sync().  Then
 // every CTA reads all cs partials through distributed shared memory
 // (cluster.map_shared_rank) and sums them in rank order 0 .. cs-1, so every
@@ -24,11 +25,16 @@
 // a pass suffices, and the caller's last cluster.sync() keeps every CTA
 // alive until its peers have read its last partial.
 //
-// Votes: "resident" computes the CTA's rows' votes once into shared memory
-// (one read of their W rows a sample); "streamed" recomputes them block by
-// block from W on every pass, keeping only u and the logits.  A row's
-// logits work (the update, the softmax) takes one warp, its lanes the
-// classes.
+// Votes: "resident" brings the CTA's rows' votes into shared memory once;
+// "streamed" brings them block by block on every pass, keeping only the
+// rows' logits (and u).  Where they come from is the caller's votes source:
+// computed from W and u (VotesOfW: one read of the rows' W a sample when
+// resident, one a pass when streamed), or read from a u_hat in device
+// memory (VotesRead, K14b).  The logits sit in the CTA's shared memory,
+// or -- K4's streamed-global placement, where even a 16-CTA cluster's
+// share of them fits no CTA -- in the sample's rows of a global scratch;
+// the arithmetic is the same.  A row's logits work (the update, the
+// softmax) takes one warp, its lanes the classes.
 //
 // Only s (J*D floats: 160 at MNIST, 512 at the SVHN bottleneck) crosses
 // CTAs in a pass, from 2 to 16 SMs' shared memory, which is what the
@@ -60,7 +66,7 @@ struct OwnedRows {
 
 // The shared memory one cluster CTA routes in.
 struct ClusterScratch {
-  float* b;     // [n][J] the CTA's rows' logits
+  float* b;     // [n][J] the CTA's rows' logits (or their global rows)
   float* s;     // [J*D] s_t, reduced over the cluster
   float* v;     // [J*D] squash(s_t)
   float* part;  // [2][J*D] this CTA's partial s, by the parity of t
@@ -118,6 +124,70 @@ __device__ inline void votes_owned(const float* u_s, const float* W,
   }
 }
 
+constexpr int kLoadBatch = 8;   // float4 loads a thread has in flight
+
+// Copy `rows` rows of jd floats (contiguous at src) into dst, row pitch ld.
+// Each thread starts kLoadBatch loads before it stores any: one L2 round
+// trip per batch instead of one per float4.
+__device__ inline void load_rows(const float* __restrict__ src, int rows,
+                                 int jd, float* dst, int ld) {
+  const int total = rows * jd;
+  if (jd % 4 == 0 && (uintptr_t)src % 16 == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    const int total4 = total / 4;
+    for (int f0 = threadIdx.x; f0 < total4; f0 += kLoadBatch * blockDim.x) {
+      float4 v[kLoadBatch];
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        const int f = f0 + k * blockDim.x;
+        if (f < total4) v[k] = __ldg(src4 + f);
+      }
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        const int f = f0 + k * blockDim.x;
+        if (f < total4) {
+          const int r = 4 * f / jd, n = 4 * f - r * jd;  // never straddles
+          float* d = dst + r * ld + n;
+          d[0] = v[k].x;
+          d[1] = v[k].y;
+          d[2] = v[k].z;
+          d[3] = v[k].w;
+        }
+      }
+    }
+  } else {
+    for (int f = threadIdx.x; f < total; f += blockDim.x) {
+      const int r = f / jd;
+      dst[r * ld + (f - r * jd)] = __ldg(src + f);
+    }
+  }
+}
+
+// The votes sources of route_cluster: each fills uh (row pitch ld) with
+// the votes of the owned local rows [l0, l0 + rows).
+// Computed from W and the rows' u in shared memory (K3, K4, K5, K8/K9).
+struct VotesOfW {
+  const float* u_s;
+  const float* W;
+  OwnedRows own;
+  int C;
+  __device__ void operator()(int l0, int rows, int jd, float* uh,
+                             int ld) const {
+    votes_owned(u_s, W, own, l0, rows, jd, C, uh, ld);
+  }
+};
+
+// Read from the sample's u_hat [I][J*D] in device memory (K14b), whose
+// owned rows are one block (own.stride == 0).
+struct VotesRead {
+  const float* uh_g;
+  OwnedRows own;
+  __device__ void operator()(int l0, int rows, int jd, float* uh,
+                             int ld) const {
+    load_rows(uh_g + (size_t)own.global(l0) * jd, rows, jd, uh, ld);
+  }
+};
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -146,7 +216,7 @@ __device__ inline void softmax_warp(const float* br, float* cr, int J,
   for (int j = lane; j < J; j += 32) cr[j] = cr[j] / sum;
 }
 
-// routing.cuh's route_rows over the owned local rows [l0, l0 + rows), whose
+// The fused s+b step over the owned local rows [l0, l0 + rows), whose
 // votes are at uh: the logits update (if `update`), the couplings, and the
 // rows' share of s added to s.  One warp takes a row, its lanes the classes:
 // one thread walking a row's J*D products and J exponentials serially set
@@ -238,20 +308,21 @@ __device__ inline void cluster_sum(cg::cluster_group& cl, float* mine,
   __syncthreads();
 }
 
-// Every routing pass of the cluster's sample: on return sc.s holds s_T and
-// sc.v holds v_T (T = iters) in every CTA, and s_prev (if given) s_{T-1}.
+// Every routing pass of the cluster's sample, its votes from `votes` (a
+// votes source above): on return sc.s holds s_T and sc.v holds v_T (T =
+// iters) in every CTA, and s_prev (if given) s_{T-1}.
 // bp / bl: see route_owned (pass T only).  The caller's last cluster.sync()
 // must follow the last read of sc.part by a peer (see the note above).
+template <class Votes>
 __device__ inline void route_cluster(cg::cluster_group& cl,
                                      const ClusterScratch& sc,
-                                     const float* u_s, const float* W,
-                                     const OwnedRows& own, int C, int J,
-                                     int D, int iters, bool resident,
-                                     int block_i, float* s_prev, float* bp,
-                                     float* bl) {
+                                     const Votes& votes,
+                                     const OwnedRows& own, int J, int D,
+                                     int iters, bool resident, int block_i,
+                                     float* s_prev, float* bp, float* bl) {
   const int jd = J * D, ld = jd + 1;
   for (int e = threadIdx.x; e < own.n * J; e += blockDim.x) sc.b[e] = 0.f;
-  if (resident) votes_owned(u_s, W, own, 0, own.n, jd, C, sc.uh, ld);
+  if (resident) votes(0, own.n, jd, sc.uh, ld);
   __syncthreads();
   const int step = resident ? max(own.n, 1) : block_i;
   for (int t = 0; t <= iters; ++t) {
@@ -262,7 +333,7 @@ __device__ inline void route_cluster(cg::cluster_group& cl,
     for (int l0 = 0; l0 < own.n; l0 += step) {
       const int rows = min(step, own.n - l0);
       if (!resident) {
-        votes_owned(u_s, W, own, l0, rows, jd, C, sc.uh, ld);
+        votes(l0, rows, jd, sc.uh, ld);
         __syncthreads();
       }
       route_owned(resident ? sc.uh + l0 * ld : sc.uh, ld, l0, rows, sc.b,

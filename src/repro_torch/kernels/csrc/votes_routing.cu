@@ -7,54 +7,63 @@
 // _streamed_2pass_kernel (K13), all dispatched through _vr_apply, each
 // with the optional residual-add epilogue (r [B, J*D] added to the output
 // just before the store: one coupling half of a ResCapsBlock).  The plan's
-// mode picks the kernel.
+// mode picks the placement of the votes and the logits.
 //
 // On the TPU the whole batch shares one sequential grid.  On Hopper
 // routing is independent per sample.
 //
-// K3 (votes_routing_cluster_kernel, the plan's "resident" mode, where one
-// CTA could hold a whole sample's votes: the SVHN ResCaps halves, 32 x 8D
-// routed to 32 x 8D, and its ClassCaps, 64 x 8D to 10 x 16D) routes each
-// sample on a thread-block cluster of cs CTAs (routing_cluster.cuh), each
-// owning a block of ceil(I / cs) rows with their u, logits and votes in
-// its shared memory; s is summed in rank order through distributed shared
-// memory once a pass, so a second launch repeats the bits.  What bounds
-// it: not bytes -- a half moves 0.29 MB at batch 8, 86 ns at 3.35 TB/s,
-// less than any launch -- but latency: 4 routing passes, each a chain of
-// dependent steps (the votes' W loads from L2, the logits update, a
-// softmax, the sum of s over the rows, a cluster barrier, the squash).
-// One CTA a sample ran that chain on 8 of 132 SMs with a thread a row
-// (32 of 256 threads at work, each through J*D serial FMAs and J
-// exponentials); here a sample takes up to 16 SMs, each CTA's votes are a
-// cs-th of the W stream, and a row takes a warp (lanes on the classes,
-// the softmax reduced by shuffles; its logits contiguous, so no bank
-// conflicts).  At ClassCaps' J = 10 a warp a row leaves 22 lanes idle;
-// the mapping is kept because it is the cluster core's (the same sums in
-// the same order as K5's and K8/K9's), and a CTA's rows at the planned
-// cluster sizes are at most a few per warp, so the idle lanes add a few
-// serial steps, not a longer chain per row.  Rank 0 writes v (+ r).
+// K3 and K4 (votes_routing_cluster_kernel) route each sample on a
+// thread-block cluster of cs CTAs (routing_cluster.cuh), each owning a
+// block of ceil(I / cs) rows with their u and logits in its shared memory;
+// s is summed in rank order through distributed shared memory once a pass,
+// so a second launch repeats the bits.  The placement of the votes is the
+// kernel's template argument:
 //
-// K4 (votes_routing_kernel, streamed; and the plan's "streamed-global"
-// mode) takes one CTA per sample: u (I*C floats), the logits (I*J), s
-// and v (J*D each) stay in its shared memory, and each pass recomputes
-// the votes block by block from W -- iters + 1 reads of W per sample,
-// from the 50 MB L2 after the first CTA.  At MNIST width one sample's
-// votes (1152 x 160 fp32 = 737,280 B) fit no CTA, so the plan streams;
-// at the SVHN bottleneck (2048 capsules routed to 64, 524 KB of logits
-// a sample) even the logits do not fit, and "streamed-global" keeps them
-// in a per-sample slab of a global scratch (4.2 MB at batch 8,
-// L2-resident) with the schedule unchanged.  K4 on the cluster core is
-// later work.
+//   resident  (K3, the SVHN ResCaps halves and ClassCaps, MNIST's ClassCaps
+//             at cs >= 4) the CTA's rows' votes are computed once and kept.
+//   streamed  (K4, the SVHN bottleneck: 2048 capsules routed to 64 x 8D)
+//             only block_i votes rows are held, recomputed from W on each
+//             of the iters + 1 passes: iters + 1 reads of the rows' W a
+//             sample, from the 50 MB L2 after the first cluster.
+//
+// and the logits are the CTA's rows' in shared memory, or -- the plan's
+// "streamed-global" (K4g), only where even a 16-CTA cluster's share of a
+// sample's logits fits no CTA (CIFAR-10's full-width halves, 64 rows x 1024
+// logits = 256 KB) -- the rows of the sample's slab of a [B, I, J] scratch
+// in global memory, with the arithmetic unchanged.
+//
+// What bounds it: not bytes -- the MNIST ClassCaps moves 0.6 MB at batch 8
+// (0.19 us at 3.35 TB/s), the SVHN bottleneck 34 MB (10 us: W, once) -- but
+// latency: iters + 1 routing passes, each a chain of dependent steps (the
+// votes' W loads from L2, the logits update, a softmax, the sum of s over
+// the rows, a cluster barrier, the squash), and with streamed votes the W
+// stream each pass (33.5 MB at the SVHN bottleneck, from L2, bound by its
+// latency and the bytes in flight).  One CTA a sample (the earlier K4) ran
+// that chain on 8 of 132 SMs with a thread a row (32 of 256 threads at work
+// at MNIST, each through J*D serial FMAs and J exponentials; at SVHN's
+// J = 64 the row stride of J floats hit one bank, and the logits went
+// through L2 every pass).  Here a sample takes up to 16 SMs, each CTA's
+// votes are a cs-th of the W stream, and a row takes a warp (lanes on the
+// classes, the softmax reduced by shuffles; its logits contiguous, so no
+// bank conflicts).  At ClassCaps' J = 10 a warp a row leaves 22 lanes idle;
+// the mapping is kept because it is the cluster core's (the same sums in
+// the same order as K5's, K8/K9's and K14b's).  Rank 0 writes v (+ r).
+//
+// K13 (votes_routing_2pass_kernel) keeps one CTA a sample and a thread a
+// row (routing.cuh): it is the oracle, on no plan.
 
 #include "routing_cluster.cuh"
 
 namespace repro {
 
+// K13: one sample per CTA; u, and the logits unless given in global memory,
+// in its shared memory (execplan.votes_routing_smem).
 __global__ void __launch_bounds__(kThreads)
-votes_routing_kernel(const float* __restrict__ u, const float* __restrict__ W,
-                     const float* __restrict__ r, float* logits,
-                     float* __restrict__ out, int I, int C, int J, int D,
-                     int iters, int schedule, int block_i) {
+votes_routing_2pass_kernel(const float* __restrict__ u,
+                           const float* __restrict__ W,
+                           const float* __restrict__ r, float* logits,
+                           float* __restrict__ out, int I, int C, int J,
+                           int D, int iters, int block_i) {
   extern __shared__ float smem[];
   const int jd = J * D;
   float* u_s = smem;                                   // [I][C]
@@ -64,78 +73,76 @@ votes_routing_kernel(const float* __restrict__ u, const float* __restrict__ W,
       u_s + I * C, I, J, jd,
       logits ? logits + (size_t)blockIdx.x * I * J : nullptr);
   __syncthreads();
-  route_sample(u_s, W, I, C, J, D, iters, schedule, block_i, sc,
-               r ? r + (size_t)blockIdx.x * jd : nullptr,
-               out + (size_t)blockIdx.x * jd);
+  route_2pass(u_s, W, I, C, J, D, iters, block_i, sc,
+              r ? r + (size_t)blockIdx.x * jd : nullptr,
+              out + (size_t)blockIdx.x * jd);
 }
 
-cudaError_t launch_votes_routing(const float* u, const float* W,
-                                 const float* r, float* logits, float* out,
-                                 int B, int I, int C, int J, int D, int iters,
-                                 int schedule, int block_i, int smem_bytes,
-                                 cudaStream_t stream) {
-  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      votes_routing_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return err;
-  votes_routing_kernel<<<B, kThreads, smem_bytes, stream>>>(
-      u, W, r, logits, out, I, C, J, D, iters, schedule, block_i);
-  return cudaGetLastError();
-}
-
-// The shared memory of one K3 cluster CTA, in floats
+// The shared memory of one K3/K4 cluster CTA, in floats
 // (execplan.votes_routing_cluster_smem models the same sum): the votes rows
-// of its ceil(I / cs) rows with their couplings, then the rows' u and
-// logits, and s, v and the two partials of s.
+// -- all of its ceil(I / cs) rows when resident, block_i of them when
+// streamed -- with their couplings, then the rows' u and (unless they are
+// in global memory) logits, and s, v and the two partials of s.
 struct ClusterFwdLayout {
-  int rows, total;
+  int rows, vrows, total;
 };
 
-__host__ __device__ inline ClusterFwdLayout cluster_fwd_layout(int I, int C,
-                                                               int J, int D,
-                                                               int cs) {
+__host__ __device__ inline ClusterFwdLayout cluster_fwd_layout(
+    int I, int C, int J, int D, int cs, int resident, int block_i,
+    int logits_global) {
   ClusterFwdLayout L;
   L.rows = (I + cs - 1) / cs;
+  L.vrows = resident ? L.rows : min(block_i, L.rows);
   const int jd = J * D;
-  L.total = L.rows * (jd + 1 + J) + L.rows * (C + J) + 4 * jd;
+  L.total = L.vrows * (jd + 1 + J) + L.rows * (C + (logits_global ? 0 : J)) +
+            4 * jd;
   return L;
 }
 
-// K3: one sample per cluster of cs CTAs, rank r owning the sample's rows
-// [r * rows, (r + 1) * rows) (the last block ragged or empty).  Held to 128
-// registers a thread, so that two CTAs share an SM.
+// K3 (kResident) and K4: one sample per cluster of cs CTAs, rank r owning
+// the sample's rows [r * rows, (r + 1) * rows) (the last block ragged or
+// empty).  logits is null (the rows' logits in shared memory) or the
+// [B, I, J] scratch.  Held to 128 registers a thread, so that two CTAs
+// share an SM where their shared memory allows.
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads, 2)
 votes_routing_cluster_kernel(const float* __restrict__ u,
                              const float* __restrict__ W,
-                             const float* __restrict__ r,
+                             const float* __restrict__ r, float* logits,
                              float* __restrict__ out, int I, int C, int J,
-                             int D, int iters) {
+                             int D, int iters, int block_i) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
   const int smp = blockIdx.x / cs;
   const int jd = J * D, ld = jd + 1;
-  const ClusterFwdLayout L = cluster_fwd_layout(I, C, J, D, cs);
+  const ClusterFwdLayout L = cluster_fwd_layout(I, C, J, D, cs, kResident,
+                                                block_i, logits != nullptr);
   const int i0 = min(I, rank * L.rows);
   const int n = min(I, i0 + L.rows) - i0;
   const OwnedRows own{n, i0, max(n, 1), 0};
   ClusterScratch sc;
-  sc.uh = smem;                                 // [rows][J*D + 1]
-  sc.c = sc.uh + L.rows * ld;                   // [rows][J]
-  float* u_s = sc.c + L.rows * J;               // [rows][C]
-  sc.b = u_s + L.rows * C;                      // [rows][J]
-  sc.s = sc.b + L.rows * J;
+  sc.uh = smem;                                 // [vrows][J*D + 1]
+  sc.c = sc.uh + L.vrows * ld;                  // [vrows][J]
+  float* u_s = sc.c + L.vrows * J;              // [rows][C]
+  float* rest = u_s + L.rows * C;
+  if (logits) {
+    sc.b = logits + ((size_t)smp * I + i0) * J;  // the rows of the slab
+  } else {
+    sc.b = rest;                                // [rows][J]
+    rest += L.rows * J;
+  }
+  sc.s = rest;
   sc.v = sc.s + jd;
   sc.part = sc.v + jd;                          // [2][J*D]
 
   const float* ub = u + ((size_t)smp * I + i0) * C;
   for (int e = threadIdx.x; e < n * C; e += blockDim.x) u_s[e] = ub[e];
   __syncthreads();
-  route_cluster(cl, sc, u_s, W, own, C, J, D, iters, true, max(n, 1),
-                nullptr, nullptr, nullptr);
+  route_cluster(cl, sc, VotesOfW{u_s, W, own, C}, own, J, D, iters,
+                kResident, kResident ? max(n, 1) : block_i, nullptr, nullptr,
+                nullptr);
   if (rank == 0) {
     const float* rb = r ? r + (size_t)smp * jd : nullptr;
     float* ob = out + (size_t)smp * jd;
@@ -145,86 +152,123 @@ votes_routing_cluster_kernel(const float* __restrict__ u,
   cl.sync();                      // no CTA leaves while a peer reads it
 }
 
+inline void (*cluster_kernel_for(int resident))(const float*, const float*,
+                                                const float*, float*, float*,
+                                                int, int, int, int, int,
+                                                int) {
+  return resident ? votes_routing_cluster_kernel<true>
+                  : votes_routing_cluster_kernel<false>;
+}
+
+// Checks and launches K3/K4 on B clusters of cs CTAs.
+cudaError_t launch_cluster_fwd(const float* u, const float* W, const float* r,
+                               float* logits, float* out, int B, int I, int C,
+                               int J, int D, int iters, int resident,
+                               int block_i, int cs, int smem_bytes,
+                               cudaStream_t stream) {
+  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
+      cluster_fwd_layout(I, C, J, D, cs, resident, block_i,
+                         logits != nullptr).total *
+              (int)sizeof(float) != smem_bytes)
+    return cudaErrorInvalidValue;
+  return launch_clusters(cluster_kernel_for(resident), B, cs, smem_bytes,
+                         stream, u, W, r, logits, out, I, C, J, D, iters,
+                         block_i);
+}
+
 // Does nothing: launched on a kernel's grid, cluster and shared memory, its
 // time is the floor under that launch (chip_smoke.py prints it beside the
-// byte bounds of K3 and K8, which are below any launch).
+// byte bounds of K3, K4, K8 and K14b, which are below any launch).
 __global__ void __launch_bounds__(kThreads) empty_cluster_kernel() {}
 
 }  // namespace repro
 
 // u [B, I, C], W [I, J*D, C] -> out [B, J*D] = v (+ r [B, J*D] when r is
-// not null).  smem_bytes is the plan's footprint
-// (execplan.votes_routing_smem).
-//
-// K4, the logits in shared memory.
-REPRO_EXPORT int votes_routing_f32(const float* u, const float* W,
-                                   const float* r, float* out, int B, int I,
-                                   int C, int J, int D, int iters,
-                                   int block_i, int smem_bytes,
-                                   void* stream) {
-  return repro::launch_votes_routing(u, W, r, nullptr, out, B, I, C, J, D,
-                                     iters, repro::kStreamed, block_i,
-                                     smem_bytes, (cudaStream_t)stream);
-}
+// not null).  smem_bytes is the plan's footprint, which must equal the
+// kernel's layout (execplan.votes_routing_cluster_smem; for K13
+// execplan.votes_routing_smem).  A refused launch returns the runtime's
+// error, never another schedule.
 
-// K4 in the plan's "streamed-global" mode: logits [B, I, J] is the scratch
-// in global memory (written and read only by the kernel).
-REPRO_EXPORT int votes_routing_global_f32(const float* u, const float* W,
-                                          const float* r, float* logits,
-                                          float* out, int B, int I, int C,
-                                          int J, int D, int iters,
-                                          int block_i, int smem_bytes,
-                                          void* stream) {
-  return repro::launch_votes_routing(u, W, r, logits, out, B, I, C, J, D,
-                                     iters, repro::kStreamed, block_i,
-                                     smem_bytes, (cudaStream_t)stream);
-}
-
-// K13, the unfused oracle: logits [B, I, J] in global memory, or null to
-// keep them in shared memory (the placement of the schedule it checks).
+// K13, the unfused oracle, one CTA a sample: logits [B, I, J] in global
+// memory, or null to keep them in shared memory (the placement of the
+// schedule it checks).
 REPRO_EXPORT int votes_routing_2pass_f32(const float* u, const float* W,
                                          const float* r, float* logits,
                                          float* out, int B, int I, int C,
                                          int J, int D, int iters, int block_i,
                                          int smem_bytes, void* stream) {
-  return repro::launch_votes_routing(u, W, r, logits, out, B, I, C, J, D,
-                                     iters, repro::kTwoPass, block_i,
-                                     smem_bytes, (cudaStream_t)stream);
+  using namespace repro;
+  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      votes_routing_2pass_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  votes_routing_2pass_kernel<<<B, kThreads, smem_bytes,
+                               (cudaStream_t)stream>>>(
+      u, W, r, logits, out, I, C, J, D, iters, block_i);
+  return cudaGetLastError();
 }
 
-// K3's shared-memory layout in bytes (execplan models it).
+// K3/K4's shared-memory layout in bytes (execplan models it).
 REPRO_EXPORT int votes_routing_cluster_smem_bytes(int I, int C, int J, int D,
-                                                  int cs) {
-  return repro::cluster_fwd_layout(I, C, J, D, cs).total *
+                                                  int cs, int resident,
+                                                  int block_i,
+                                                  int logits_global) {
+  return repro::cluster_fwd_layout(I, C, J, D, cs, resident, block_i,
+                                   logits_global).total *
          (int)sizeof(float);
 }
 
-// K3: B clusters of cs CTAs (1, 2, 4, 8 or 16), one sample each; arguments
-// as votes_routing_f32's, r may be null.  smem_bytes must equal the
-// kernel's layout.  A refused launch returns the runtime's error.
+// K3: resident votes on B clusters of cs CTAs (1, 2, 4, 8 or 16), one
+// sample each; r may be null.
 REPRO_EXPORT int votes_routing_cluster_f32(const float* u, const float* W,
                                            const float* r, float* out, int B,
                                            int I, int C, int J, int D,
                                            int iters, int cs, int smem_bytes,
                                            void* stream) {
-  using namespace repro;
-  if (B < 1 || I < 1 || iters < 1 || cs < 1 || cs > 16 ||
-      cluster_fwd_layout(I, C, J, D, cs).total * (int)sizeof(float) !=
-          smem_bytes)
-    return cudaErrorInvalidValue;
-  return launch_clusters(votes_routing_cluster_kernel, B, cs, smem_bytes,
-                         (cudaStream_t)stream, u, W, r, out, I, C, J, D,
-                         iters);
+  return repro::launch_cluster_fwd(u, W, r, nullptr, out, B, I, C, J, D,
+                                   iters, 1, 1, cs, smem_bytes,
+                                   (cudaStream_t)stream);
+}
+
+// K4: streamed votes (block_i rows at a time) on B clusters of cs CTAs, the
+// rows' logits in shared memory.
+REPRO_EXPORT int votes_routing_streamed_cluster_f32(
+    const float* u, const float* W, const float* r, float* out, int B, int I,
+    int C, int J, int D, int iters, int block_i, int cs, int smem_bytes,
+    void* stream) {
+  return repro::launch_cluster_fwd(u, W, r, nullptr, out, B, I, C, J, D,
+                                   iters, 0, block_i, cs, smem_bytes,
+                                   (cudaStream_t)stream);
+}
+
+// K4g, the plan's "streamed-global": K4 with the logits in logits [B, I, J]
+// (a scratch in global memory, written and read only by the kernel).
+REPRO_EXPORT int votes_routing_global_cluster_f32(
+    const float* u, const float* W, const float* r, float* logits, float* out,
+    int B, int I, int C, int J, int D, int iters, int block_i, int cs,
+    int smem_bytes, void* stream) {
+  if (!logits) return cudaErrorInvalidValue;
+  return repro::launch_cluster_fwd(u, W, r, logits, out, B, I, C, J, D,
+                                   iters, 0, block_i, cs, smem_bytes,
+                                   (cudaStream_t)stream);
 }
 
 // out = {max active clusters, static shared bytes, max dynamic shared
-// bytes, registers a thread} of K3 at these sizes.
+// bytes, registers a thread} of K3/K4 at these sizes.
 REPRO_EXPORT int votes_routing_cluster_occupancy(int I, int C, int J, int D,
-                                                 int cs, int* out) {
+                                                 int cs, int resident,
+                                                 int block_i,
+                                                 int logits_global,
+                                                 int* out) {
   using namespace repro;
   return cluster_occupancy(
-      votes_routing_cluster_kernel, cs,
-      cluster_fwd_layout(I, C, J, D, cs).total * (int)sizeof(float), out);
+      cluster_kernel_for(resident), cs,
+      cluster_fwd_layout(I, C, J, D, cs, resident, block_i, logits_global)
+              .total *
+          (int)sizeof(float),
+      out);
 }
 
 // An empty launch of B clusters of cs CTAs with smem bytes of shared memory

@@ -20,7 +20,7 @@
 //   replay  one CLUSTER of cs CTAs per sample (K8 and K9,
 //           routing_bwd_cluster_kernel below), or one CTA per sample (K13,
 //           the oracle).  It replays the forward's iters + 1 fused s+b
-//           passes (routing.cuh's schedule) on ONE logits slab; in pass T
+//           passes (route_cluster's schedule) on ONE logits slab; in pass T
 //           each row's b_{T-1} goes to global memory just before the
 //           update overwrites it, and b_T right after.  Then ONE pass
 //           merges the seed and the reverse step: per votes block, db_T of
@@ -278,8 +278,9 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   const float* ub = u + ((size_t)smp * I + i0) * C;
   for (int e = threadIdx.x; e < n * C; e += blockDim.x) u_s[e] = ub[e];
   __syncthreads();
-  route_cluster(cl, sc, u_s, W, own, C, J, D, iters, resident != 0, block_i,
-                s_prev, b_prev_out + (size_t)smp * I * J,
+  route_cluster(cl, sc, VotesOfW{u_s, W, own, C}, own, J, D, iters,
+                resident != 0, block_i, s_prev,
+                b_prev_out + (size_t)smp * I * J,
                 b_last_out + (size_t)smp * I * J);
 
   // Seed + reverse: the partial of dv goes to the half of the partials that

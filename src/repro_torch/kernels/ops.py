@@ -92,7 +92,7 @@ def planned_votes_routing(num_caps: int, caps_dim: int, jd: int,
                           num_classes: int, iters: int, batch: int = 1
                           ) -> tuple[str, int, int | None]:
     """Memoized (mode, block_i, cluster) decision for ``votes_routing`` at
-    ``batch`` (``cluster``: K3's CTAs a sample, None for one CTA)."""
+    ``batch`` (``cluster``: K3/K4's CTAs a sample)."""
     sched = execplan.plan_votes_routing(num_caps, caps_dim, jd, num_classes,
                                         iters=iters, batch=batch)
     return (sched.mode, sched.block_i,
@@ -258,28 +258,34 @@ def caps_votes(u: torch.Tensor, w: torch.Tensor, *, plan=None,
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def planned_routing(num_caps: int, j: int, jd: int,
-                    smem_budget: int = SMEM_BYTES) -> int:
-    """Memoized ``execplan.plan_routing_split`` pick of K14b's u_hat
-    tile."""
-    return execplan.plan_routing_split(num_caps, j, jd, smem_budget)
+@functools.lru_cache(maxsize=64)            # the batch is a key: bounded
+def planned_routing(num_caps: int, j: int, jd: int, iters: int = 3,
+                    batch: int = 1, smem_budget: int = SMEM_BYTES
+                    ) -> tuple[str, int, int]:
+    """Memoized ``execplan.plan_routing_split`` decision for K14b at
+    ``batch``: ``(mode, block_i, cluster)``, the placement of each CTA's
+    rows of u_hat, their tile and the cluster's CTAs a sample."""
+    sched = execplan.plan_routing_split(num_caps, j, jd, iters=iters,
+                                        batch=batch, smem_budget=smem_budget)
+    return sched.mode, sched.block_i, sched.cluster.cluster
 
 
 def routing(u_hat: torch.Tensor, *, plan=None, iters: int | None = None,
             num_classes: int | None = None) -> torch.Tensor:
     """u_hat: [B, I, J*D] -> v [B, J*D] (K14b: every routing iteration
-    over the materialized votes).  ``iters`` / ``num_classes`` default to
-    the plan's config, else 3 and 10."""
+    over the materialized votes, each sample on a thread-block cluster,
+    on the planner's schedule at this batch).  ``iters`` /
+    ``num_classes`` default to the plan's config, else 3 and 10."""
     if iters is None:
         iters = plan.cfg.routing_iters if plan is not None else 3
     if num_classes is None:
         num_classes = plan.cfg.num_classes if plan is not None else 10
     budget = plan.smem_budget if plan is not None else SMEM_BYTES
-    block_i = planned_routing(u_hat.shape[1], num_classes, u_hat.shape[2],
-                              budget)
-    out = _routing(u_hat, iters=iters, num_classes=num_classes,
-                   block_i=block_i)
+    mode, block_i, cluster = planned_routing(
+        u_hat.shape[1], num_classes, u_hat.shape[2], iters,
+        max(u_hat.shape[0], 1), budget)
+    out = _routing(u_hat, iters=iters, num_classes=num_classes, mode=mode,
+                   block_i=block_i, cluster=cluster)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_ROUTING, out)
     return out

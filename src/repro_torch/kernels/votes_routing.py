@@ -10,27 +10,27 @@ custom VJP's backward (``_resident_bwd_kernel`` / ``_streamed_bwd_kernel``
 backward route each sample on a thread-block cluster), and
 ``res_caps_segment`` (``_res_segment``).  ``votes_routing`` is a
 ``torch.autograd.Function``: forward the plain twins for CPU tensors and
-the CUDA kernels (``csrc/votes_routing.cu``: K3 a cluster a sample, K4 and
-K13 one CTA a sample) for CUDA tensors; backward ``votes_routing_bwd``,
-whose plain twin and CUDA kernels (``csrc/votes_routing_bwd.cu``) compute
-the reference's stop-gradient routing VJP by one explicit formula.  The
-plain twins follow the kernels' schedule math: the i axis is zero-padded
-to a multiple of ``block_i``; ``votes_routing_plain``'s ``resident``
-computes the votes once and iterates on them in the reference's order
-(K3's twin is the cluster's, below); ``streamed`` folds the logits update
+the CUDA kernels (``csrc/votes_routing.cu``: K3 and K4 a cluster a
+sample, K13 one CTA a sample) for CUDA tensors; backward
+``votes_routing_bwd``, whose plain twin and CUDA kernels
+(``csrc/votes_routing_bwd.cu``) compute the reference's stop-gradient
+routing VJP by one explicit formula.  The cluster schedules (K3 and K4,
+K8/K9 here, K5's consume, K14b) sum s rank by rank over each CTA's rows
+and add the partials in rank order (``cluster_routing_plain``,
+``votes_routing_bwd_plain``, over ``cluster_plain.replay``): ``resident``
+computes each CTA's rows' votes once, ``streamed`` folds the logits update
 of iteration ``t`` into the same pass as the accumulation of ``s_t``,
-block by block (the kernel recomputes each votes block on every pass; its
-twin computes them once, which gives the same values, and runs
-``routing.routing_plain``);
-``streamed-global`` is ``streamed`` with the logits in device memory (the
-same twin); ``streamed-2pass`` runs a b-pass and then an s-pass per
-iteration.  ``streamed-2pass`` keeps its logits where ``streamed``
-would, and in device memory where that does not fit a CTA.  The cluster
-schedules (K3 and K8/K9 here, K5's consume) sum s rank by rank over each
-CTA's rows and add the partials in rank order (``cluster_routing_plain``,
-``votes_routing_bwd_plain``); the forward's resident votes and every
-backward but K13's run only on the cluster, at the planner's size where
-the caller names none.
+``block_i`` rows at a time (the kernel recomputes each votes block on
+every pass; its twin computes them once, which gives the same values),
+and ``streamed-global`` is ``streamed`` with the logits in device memory
+(the same twin).  Every forward but K13's and every backward but K13's
+runs only on a cluster, at the planner's size where the caller names none.
+``streamed-2pass`` (K13, the oracle) runs a b-pass and then an s-pass per
+iteration in one CTA a sample, the i axis zero-padded to a multiple of
+``block_i``, and keeps its logits where ``streamed`` would on one CTA, in
+device memory where that does not fit.  ``votes_routing_plain`` keeps the
+one-CTA orders: the reference's for ``resident``, one CTA's fused passes
+(``routing.routing_plain`` at one rank) for the streamed modes, K13's.
 """
 
 from __future__ import annotations
@@ -54,19 +54,23 @@ from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import (Kernel, cluster_query, on_cpu, ptr,
                                        stream_of)
+from repro_torch.kernels.cluster_plain import cluster_spans  # noqa: F401
+from repro_torch.kernels.cluster_plain import rank_blocks, replay
 from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-VOTES_ROUTING = Kernel("votes_routing", "votes_routing_f32",         # K4
-                       [_P] * 4 + [_I] * 8 + [_P])
-_GLOBAL_ARGS = [_P] * 5 + [_I] * 8 + [_P]
-VOTES_ROUTING_GLOBAL = Kernel("votes_routing", "votes_routing_global_f32",
-                              _GLOBAL_ARGS)          # K4, streamed-global
 VOTES_ROUTING_2PASS = Kernel("votes_routing", "votes_routing_2pass_f32",
-                             _GLOBAL_ARGS)                            # K13
-# K3: resident votes, each sample on a thread-block cluster.
+                             [_P] * 5 + [_I] * 8 + [_P])              # K13
+# Each sample on a thread-block cluster: K3 (resident votes), K4 (streamed)
+# and K4g (streamed, the logits in global memory), one kernel.
 VOTES_ROUTING_CLUSTER = Kernel("votes_routing", "votes_routing_cluster_f32",
                                [_P] * 4 + [_I] * 8 + [_P])
+VOTES_ROUTING_STREAMED = Kernel("votes_routing",
+                                "votes_routing_streamed_cluster_f32",
+                                [_P] * 4 + [_I] * 9 + [_P])
+VOTES_ROUTING_GLOBAL = Kernel("votes_routing",
+                              "votes_routing_global_cluster_f32",
+                              [_P] * 5 + [_I] * 9 + [_P])
 ROUTING_BWD_2PASS = Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
                            [_P] * 8 + [_I] * 10 + [_P])               # K13
 # K8 (resident votes) and K9 (streamed): the replay on a thread-block
@@ -131,11 +135,11 @@ def routing_2pass_plain(u_hat: torch.Tensor, *, iters: int,
 def votes_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                         num_classes: int, mode: str, block_i: int,
                         r: torch.Tensor | None = None) -> torch.Tensor:
-    """The single-CTA schedules in plain PyTorch (K4, K13; ``resident``
-    in the reference's order -- K3's own twin is ``cluster_routing_plain``):
-    u [B, I, C], w [I, J*D, C] -> v [B, J*D], plus the residual
-    ``r [B, J*D]`` when given (the epilogue: v itself is never
-    changed)."""
+    """The one-CTA orders in plain PyTorch (K13's own, one CTA's fused
+    passes for the streamed modes, ``resident`` in the reference's order;
+    the cluster kernels' twin is ``cluster_routing_plain``): u [B, I, C],
+    w [I, J*D, C] -> v [B, J*D], plus the residual ``r [B, J*D]`` when
+    given (the epilogue: v itself is never changed)."""
     check_schedule(u.shape[1], w.shape[1], iters=iters,
                    num_classes=num_classes, mode=mode, block_i=block_i)
     bsz, _, _ = u.shape
@@ -183,72 +187,92 @@ def oracle_placement(smem_of) -> str:
 
 @functools.lru_cache(maxsize=64)            # the batch is a key: bounded
 def planned_cluster(num_caps: int, caps_dim: int, jd: int, num_classes: int,
-                    iters: int, batch: int) -> int:
-    """The planner's K3 cluster size at ``batch``."""
-    sched = execplan.plan_votes_routing_cluster(num_caps, caps_dim, jd,
-                                                num_classes, iters=iters,
-                                                batch=batch)
+                    iters: int, batch: int, mode: str = "resident",
+                    block_i: int | None = None) -> int:
+    """The planner's K3/K4 cluster size at ``batch`` for ``mode``'s
+    placement of the votes and logits (at the i-tile ``block_i`` when
+    given)."""
+    sched = execplan.plan_votes_routing_cluster(
+        num_caps, caps_dim, jd, num_classes, iters=iters, batch=batch,
+        votes=mode, block_i=block_i)
     if sched is None:
         raise ValueError(f"votes_routing: no cluster of {CLUSTER_SIZES} "
-                         f"CTAs holds the resident votes of {num_caps} "
+                         f"CTAs holds the {mode} votes of {num_caps} "
                          f"capsules of {caps_dim}D -> {jd}")
     return sched.cluster.cluster
 
 
 def fwd_cluster(u: torch.Tensor, w: torch.Tensor, *, iters: int,
-                num_classes: int, mode: str,
-                cluster: int | None) -> int | None:
-    """The forward's cluster size: resident votes run on K3's cluster
-    (the planner's size at this batch unless ``cluster`` names one), the
-    other modes in one CTA a sample."""
-    if mode != "resident":
+                num_classes: int, mode: str, cluster: int | None,
+                block_i: int | None = None) -> int | None:
+    """The forward's cluster size: every plan mode runs on K3/K4's cluster
+    (the planner's size at this batch for the mode and i-tile unless
+    ``cluster`` names one); only the oracle K13 (``streamed-2pass``) runs
+    one CTA a sample (None)."""
+    if mode == ORACLE_MODE:
         if cluster is not None:
             raise ValueError(f"votes_routing: a cluster of {cluster} CTAs "
-                             f"with {mode!r} votes; the forward runs "
-                             f"clusters with resident votes only")
+                             f"with {mode!r} votes; the oracle runs one "
+                             f"CTA a sample")
         return None
     if cluster is None:
         return planned_cluster(u.shape[1], u.shape[2], w.shape[1],
-                               num_classes, iters, u.shape[0])
+                               num_classes, iters, u.shape[0], mode,
+                               None if mode == "resident" else block_i)
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"votes_routing: a cluster of {cluster} CTAs; "
                          f"clusters are {CLUSTER_SIZES} CTAs")
     return cluster
 
 
+# The cluster kernel's C entry for each placement of the votes and logits.
+_CLUSTER_ENTRY = {"resident": VOTES_ROUTING_CLUSTER,
+                  "streamed": VOTES_ROUTING_STREAMED,
+                  STREAMED_GLOBAL: VOTES_ROUTING_GLOBAL}
+
+
 def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
              iters: int, num_classes: int, mode: str, block_i: int,
              cluster: int | None = None) -> torch.Tensor:
-    """K3 (resident, on a cluster of ``cluster`` CTAs a sample), K4, K13
-    (or the plain twin on the CPU), not differentiable; adds ``r [B,
-    J*D]`` to the output when given."""
+    """K3/K4 (each sample on a cluster of ``cluster`` CTAs, its votes
+    placed by ``mode``), K13 (one CTA a sample), or the plain twin on the
+    CPU; not differentiable; adds ``r [B, J*D]`` to the output when
+    given.  A refused cluster launch raises, naming its grid and shared
+    memory; nothing falls back."""
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
     if r is not None and r.shape != (bsz, jd):
         raise ValueError(f"votes_routing: residual {tuple(r.shape)}, "
                          f"expected {(bsz, jd)}")
     cluster = fwd_cluster(u, w, iters=iters, num_classes=num_classes,
-                          mode=mode, cluster=cluster)
+                          mode=mode, cluster=cluster, block_i=block_i)
     extra = () if r is None else (r,)
     if on_cpu("votes_routing", u, w, *extra):
         if cluster is not None:
-            v = cluster_routing_plain(u, w, iters=iters,
-                                      num_classes=num_classes, mode=mode,
-                                      block_i=block_i, cluster=cluster)
-            return v if r is None else v + r
+            return cluster_routing_plain(u, w, iters=iters,
+                                         num_classes=num_classes, mode=mode,
+                                         block_i=block_i, cluster=cluster,
+                                         r=r)
         return votes_routing_plain(u, w, iters=iters,
                                    num_classes=num_classes, mode=mode,
                                    block_i=block_i, r=r)
     j = num_classes
     rp = ptr(r) if r is not None else None
+    f32 = dict(dtype=u.dtype, device=u.device)
+    out = torch.empty((bsz, jd), **f32)
     if cluster is not None:
-        smem = votes_routing_cluster_smem(i_dim, c, j, jd, cluster)
-        _check_smem("votes_routing", f"resident {cluster}-CTA cluster", smem)
-        out = torch.empty((bsz, jd), dtype=u.dtype, device=u.device)
+        smem = votes_routing_cluster_smem(i_dim, c, j, jd, cluster,
+                                          mode=mode, block_i=block_i)
+        _check_smem("votes_routing", f"{mode} {cluster}-CTA cluster", smem)
+        # streamed-global's logits scratch [B, I, J]: written and read by
+        # the kernel alone.
+        logits = ([torch.empty((bsz, i_dim, j), **f32)]
+                  if mode == STREAMED_GLOBAL else [])
+        tile = [] if mode == "resident" else [block_i]
         try:
-            VOTES_ROUTING_CLUSTER(ptr(u), ptr(w), rp, ptr(out), bsz, i_dim,
-                                  c, j, jd // j, iters, cluster, smem,
-                                  stream_of(u))
+            _CLUSTER_ENTRY[mode](ptr(u), ptr(w), rp, *map(ptr, logits),
+                                 ptr(out), bsz, i_dim, c, j, jd // j, iters,
+                                 *tile, cluster, smem, stream_of(u))
         except RuntimeError as err:
             raise RuntimeError(
                 f"votes_routing: the launch of {bsz} clusters of {cluster} "
@@ -259,104 +283,40 @@ def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
     def smem_of(m):
         return votes_routing_smem(m, i_dim, block_i, c, j, jd)
 
-    place = oracle_placement(smem_of) if mode == ORACLE_MODE else mode
+    place = oracle_placement(smem_of)
     smem = smem_of(place)
     _check_smem("votes_routing", mode, smem)
-    f32 = dict(dtype=u.dtype, device=u.device)
-    out = torch.empty((bsz, jd), **f32)
-    # The logits scratch of streamed-global (K13: where it keeps them in
-    # global memory), [B, I, J]: written and read by the kernel alone.
+    # K13's logits scratch where they do not fit its CTA, [B, I, J].
     logits = (torch.empty((bsz, i_dim, j), **f32)
               if place == STREAMED_GLOBAL else None)
-    lp = ptr(logits) if logits is not None else None
-    if mode == ORACLE_MODE:
-        VOTES_ROUTING_2PASS(ptr(u), ptr(w), rp, lp, ptr(out), bsz, i_dim, c,
-                            j, jd // j, iters, block_i, smem, stream_of(u))
-    elif mode == STREAMED_GLOBAL:
-        VOTES_ROUTING_GLOBAL(ptr(u), ptr(w), rp, lp, ptr(out), bsz, i_dim,
-                             c, j, jd // j, iters, block_i, smem,
-                             stream_of(u))
-    else:
-        VOTES_ROUTING(ptr(u), ptr(w), rp, ptr(out), bsz, i_dim, c, j,
-                      jd // j, iters, block_i, smem, stream_of(u))
+    VOTES_ROUTING_2PASS(ptr(u), ptr(w), rp,
+                        ptr(logits) if logits is not None else None,
+                        ptr(out), bsz, i_dim, c, j, jd // j, iters, block_i,
+                        smem, stream_of(u))
     return out
-
-
-def cluster_spans(i_dim: int, cluster: int) -> list[tuple[int, int]]:
-    """The rows ``[lo, hi)`` each CTA of a ``cluster``-CTA routing cluster
-    owns: blocks of ``ceil(I / cluster)``, the last ragged (or empty)."""
-    rows = -(-i_dim // cluster)
-    return [(min(i_dim, r * rows), min(i_dim, (r + 1) * rows))
-            for r in range(cluster)]
-
-
-def _rank_blocks(i_dim: int, block_i: int, cluster: int | None,
-                 resident: bool) -> list[list[slice]]:
-    """The row blocks each CTA sums its share of s over, rank by rank: one
-    CTA's ``block_i`` blocks over the padded i axis (``cluster`` None), or
-    each cluster CTA's rows (``cluster_spans``) in ``block_i`` blocks, one
-    block when its votes are resident."""
-    if cluster is None:
-        n_blocks = -(-i_dim // block_i)
-        return [[slice(ib * block_i, (ib + 1) * block_i)
-                 for ib in range(n_blocks)]]
-    ranks = []
-    for lo, hi in cluster_spans(i_dim, cluster):
-        step = max(hi - lo, 1) if resident else block_i
-        ranks.append([slice(i, min(hi, i + step)) for i in range(lo, hi,
-                                                                 step)])
-    return ranks
-
-
-def _replay(uh_of, ranks, b: torch.Tensor, v_shape, *, iters: int,
-            two_pass: bool):
-    """The forward's ``iters + 1`` passes over the logits ``b`` (updated
-    in place; under ``streamed-2pass`` a b-pass before each s-pass after
-    the first): each rank sums its blocks' share of s, and the ranks'
-    partials are added in rank order.  Returns ``(b_prev, s_prev, s)``:
-    the logits before pass T's update, s_{T-1} and s_T."""
-    blocks = [rows for rk in ranks for rows in rk]
-    b_prev = s_prev = v = None
-    for t in range(iters + 1):
-        if t == iters:
-            b_prev = b.clone()
-        if two_pass and t > 0:                  # K13's separate b-pass
-            for rows in blocks:
-                b[:, rows] += torch.einsum("bijd,bjd->bij", uh_of(rows), v)
-        s = b.new_zeros(v_shape)
-        for rk in ranks:
-            part = b.new_zeros(v_shape)
-            for rows in rk:
-                uh4 = uh_of(rows)
-                if t > 0 and not two_pass:
-                    b[:, rows] += torch.einsum("bijd,bjd->bij", uh4, v)
-                c = torch.softmax(b[:, rows], dim=2)
-                part = part + torch.einsum("bij,bijd->bjd", c, uh4)
-            s = s + part
-        if t == iters - 1:
-            s_prev = s
-        v = ref.squash(s)
-    return b_prev, s_prev, s
 
 
 def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                           num_classes: int, mode: str, block_i: int,
-                          cluster: int) -> torch.Tensor:
+                          cluster: int,
+                          r: torch.Tensor | None = None) -> torch.Tensor:
     """The cluster schedule's forward (``csrc/routing_cluster.cuh``) in
-    plain PyTorch: u [B, I, C], w [I, J*D, C] -> v [B, J*D], each of the
-    ``cluster`` ranks summing s over its block of rows (``cluster_spans``;
-    ``block_i`` rows at a time unless ``mode`` is resident), the partials
-    added in rank order."""
+    plain PyTorch: u [B, I, C], w [I, J*D, C] -> v [B, J*D] (+ ``r [B,
+    J*D]`` when given), each of the ``cluster`` ranks summing s over its
+    block of rows (``cluster_spans``; ``block_i`` rows at a time unless
+    ``mode`` is resident), the partials added in rank order.  Every
+    placement of the logits (``streamed-global`` too) does the same
+    arithmetic."""
     bsz, i_dim, _ = u.shape
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
     votes = _votes_block(u, w).reshape(bsz, i_dim, j, d)
     b = u.new_zeros((bsz, i_dim, j))
-    _, _, s = _replay(lambda rows: votes[:, rows],
-                      _rank_blocks(i_dim, block_i, cluster,
-                                   mode == "resident"),
-                      b, (bsz, j, d), iters=iters, two_pass=False)
-    return ref.squash(s).reshape(bsz, jd)
+    _, _, s = replay(lambda rows: votes[:, rows],
+                     rank_blocks(i_dim, block_i, cluster, mode == "resident"),
+                     b, (bsz, j, d), iters=iters, two_pass=False)
+    v = ref.squash(s).reshape(bsz, jd)
+    return v if r is None else v + r
 
 
 @functools.lru_cache(maxsize=64)            # the batch is a key: bounded
@@ -424,7 +384,7 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
     u_p, w_p = (_padded(u, w, block_i)[:2] if cluster is None else (u, w))
-    ranks = _rank_blocks(i_dim, block_i, cluster, mode == "resident")
+    ranks = rank_blocks(i_dim, block_i, cluster, mode == "resident")
     if mode == "resident":
         votes = _votes_block(u_p, w_p).reshape(bsz, -1, j, d)
 
@@ -435,8 +395,8 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
             return _votes_block(u_p[:, rows], w_p[rows]).reshape(bsz, -1,
                                                                  j, d)
     b = torch.zeros((bsz, u_p.shape[1], j), dtype=u.dtype, device=u.device)
-    b_prev, s_prev, s = _replay(uh_of, ranks, b, (bsz, j, d), iters=iters,
-                                two_pass=mode == ORACLE_MODE)
+    b_prev, s_prev, s = replay(uh_of, ranks, b, (bsz, j, d), iters=iters,
+                               two_pass=mode == ORACLE_MODE)
     ds_last = ref.squash_vjp(s, g.reshape(bsz, j, d))
     dv = torch.zeros((bsz, j, d), dtype=u.dtype, device=u.device)
     for rk in ranks:                        # seed + reverse in one pass
@@ -528,18 +488,22 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
 
 
 def cluster_occupancy(i_dim: int, caps_dim: int, num_classes: int,
-                      out_dim: int, *, cluster: int) -> dict[str, int]:
-    """On the card: how many K3 clusters of ``cluster`` CTAs run at once,
-    and the kernel's attributes (``build.cluster_query``)."""
+                      out_dim: int, *, cluster: int, mode: str = "resident",
+                      block_i: int = 1) -> dict[str, int]:
+    """On the card: how many K3/K4 clusters of ``cluster`` CTAs with
+    ``mode``'s placement run at once, and the kernel's attributes
+    (``build.cluster_query``)."""
     return cluster_query("votes_routing", "votes_routing_cluster_occupancy",
-                         i_dim, caps_dim, num_classes, out_dim, cluster)
+                         i_dim, caps_dim, num_classes, out_dim, cluster,
+                         int(mode == "resident"), block_i,
+                         int(mode == STREAMED_GLOBAL))
 
 
 def empty_launch(bsz: int, cluster: int, smem: int,
                  device: torch.device) -> None:
     """On the card: an empty kernel on ``bsz`` clusters of ``cluster`` CTAs
     with ``smem`` bytes of shared memory each, on the current stream --
-    the floor under a K3 or K8 launch of that shape (a measurement aid,
+    the floor under a cluster launch of that shape (a measurement aid,
     on no model path and counted nowhere)."""
     build.call("votes_routing", "empty_cluster_launch", [_I] * 3 + [_P],
                bsz, cluster, smem,
@@ -573,8 +537,8 @@ def planned_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int,
 
 
 class RoutingStatics(NamedTuple):
-    """One votes+routing call: its forward schedule (``cluster`` None with
-    resident votes: the planner's K3 size at the call's batch), and the
+    """One votes+routing call: its forward schedule (``cluster`` None: the
+    planner's K3/K4 size at the call's batch), and the
     backward's when the caller fixed it (``bwd_mode`` None: planned in
     backward)."""
 
@@ -657,11 +621,12 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
                   bwd_block_i: int | None = None,
                   op_name: str = FUSED_NAME,
                   bwd_cluster: int | None = None) -> torch.Tensor:
-    """K3 (``mode="resident"``, each sample on a cluster of ``cluster``
-    CTAs; None: the planner's size at this batch), K4 (streamed, one CTA a
-    sample) or K13 (``mode="streamed-2pass"``): u [B, I, C], w [I, J*D,
-    C] -> v [B, J*D] (votes + routing, u_hat never leaves the chip on
-    CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
+    """K3 (``mode="resident"``) or K4 (``streamed``, ``streamed-global``),
+    each sample on a cluster of ``cluster`` CTAs (None: the planner's size
+    at this batch for the mode and ``block_i``), or K13
+    (``mode="streamed-2pass"``, one CTA a sample): u [B, I, C], w [I,
+    J*D, C] -> v [B, J*D] (votes + routing, u_hat never leaves the chip
+    on CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
     epilogue.  Differentiable: the backward runs ``votes_routing_bwd`` on
     ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
     forward's) and ``bwd_cluster`` when ``bwd_mode`` is given, else on

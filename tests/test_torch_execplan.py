@@ -14,7 +14,8 @@ from repro_torch.configs import capsnet_mnist, capsnet_svhn
 from repro_torch.core import capsnet, execplan, planner
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.core.execplan import (FUSED_NAME, PIPE_NAME, PlanError,
-                                       compile_plan, plan_votes_routing)
+                                       compile_plan, plan_votes_routing,
+                                       plan_votes_routing_cluster)
 from repro_torch.kernels import ops
 
 CONFIGS = {"mnist": capsnet_mnist.config(),
@@ -37,10 +38,12 @@ def test_full_width_mnist_streams_and_pipelines():
         ref_mnist.config(), batch=8, pipeline=True).op(PIPE_NAME).mode
     perop = compile_plan(cfg, batch=8, pipeline=False)
     vr = perop.op(FUSED_NAME)
-    assert (vr.kernel, vr.mode, vr.n_passes) == ("votes_routing",
-                                                 "streamed", 4)
-    # One sample's votes (1152 x 160 fp32) exceed a CTA's shared memory.
+    # One sample's votes (1152 x 160 fp32) exceed a CTA's shared memory,
+    # but a cluster CTA's rows' votes fit: K3 keeps them resident.
     assert 1152 * 160 * 4 > planner.SMEM_BYTES
+    assert (vr.kernel, vr.mode, vr.n_passes, vr.cluster) == (
+        "votes_routing", "resident", 1, 16)
+    assert vr.block.rows == vr.block_i == 72
 
 
 def test_smoke_config_keeps_the_votes_resident():
@@ -71,11 +74,18 @@ def test_op_names_match_the_reference_plan(name, pipeline):
 
 
 def test_routing_footprint_does_not_grow_with_the_batch():
+    """At each cluster size the schedule and its footprint are the same
+    at batch 1 and 512; only the chosen size (and its waves) follows the
+    batch."""
     cfg = capsnet_mnist.config()
     small = compile_plan(cfg, batch=1, pipeline=False).op(FUSED_NAME)
     big = compile_plan(cfg, batch=512, pipeline=False).op(FUSED_NAME)
-    assert small.smem_bytes == big.smem_bytes
-    assert (small.mode, small.block_i) == (big.mode, big.block_i)
+    for op in (small, big):
+        again = plan_votes_routing_cluster(1152, 8, 160, 10, batch=1,
+                                           cluster=op.cluster)
+        assert (op.mode, op.block_i, op.smem_bytes) == (
+            again.mode, again.block_i, again.smem_bytes)
+        assert op.smem_bytes <= planner.SMEM_BYTES
 
 
 def test_primary_caps_squash_always_fuses():
@@ -115,8 +125,9 @@ def test_primary_caps_gemm_fills_the_card_and_short_k_does_not_split(arch):
 
 
 def test_plan_error_names_the_op():
+    # Even streamed-global block_i=1 on a 16-CTA cluster needs 5548 B.
     with pytest.raises(PlanError, match=FUSED_NAME):
-        plan_votes_routing(1152, 8, 160, 10, smem_budget=10_000)
+        plan_votes_routing(1152, 8, 160, 10, smem_budget=5_000)
     with pytest.raises(PlanError, match="Conv1"):
         compile_plan(capsnet_mnist.config(), batch=8, smem_budget=1_000)
     # A capsule no GEMM tile width holds no longer refuses to plan: the

@@ -42,16 +42,15 @@ def _rand(seed, *shape, scale=1.0, uniform=False, device="cpu"):
 
 
 def _fwd_twin(u, w, r=None, *, cluster=None, **kw):
-    """The forward's plain twin on the schedule the wrapper runs: K3's
-    cluster order for resident votes (at the planner's size unless
-    ``cluster`` names one), else ``votes_routing_plain``."""
+    """The forward's plain twin on the schedule the wrapper runs: K3/K4's
+    cluster order (at the planner's size unless ``cluster`` names one),
+    else (the oracle K13) ``votes_routing_plain``."""
     cs = k34.fwd_cluster(u, w, iters=kw["iters"],
                          num_classes=kw["num_classes"], mode=kw["mode"],
-                         cluster=cluster)
+                         cluster=cluster, block_i=kw["block_i"])
     if cs is None:
         return k34.votes_routing_plain(u, w, r=r, **kw)
-    v = k34.cluster_routing_plain(u, w, cluster=cs, **kw)
-    return v if r is None else v + r
+    return k34.cluster_routing_plain(u, w, cluster=cs, r=r, **kw)
 
 
 def test_kernels_launch_and_match_twins_on_the_card(cuda):
@@ -83,16 +82,17 @@ def test_kernels_launch_and_match_twins_on_the_card(cuda):
             rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
-                "votes_routing_f32", "votes_routing_cluster_f32",
-                "primary_routing_f32"):
+                "votes_routing_streamed_cluster_f32",
+                "votes_routing_cluster_f32", "primary_routing_f32"):
         assert counts[sym] > 0, sym
 
 
 @pytest.mark.parametrize("cs", [1, 2, 4])
 def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
-    """K3, K5 and K8/K9 on clusters of cs CTAs against their twins (the
-    twins sum s and dv rank by rank, in rank order), and a second launch
-    of each repeats the bits (no float atomics)."""
+    """K3, K4 (both placements of the logits), K5, K8/K9 and K14b (u_hat
+    rows resident and streamed) on clusters of cs CTAs against their
+    twins (the twins sum s and dv rank by rank, in rank order), and a
+    second launch of each repeats the bits (no float atomics)."""
     build.reset_launch_counts()
     x = _rand(30, 3, 10, 10, 8, uniform=True, device=cuda)
     w_pc = _rand(31, 3, 3, 8, 16, scale=0.2, device=cuda)
@@ -112,12 +112,21 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
             got, k5.primary_routing_patches_plain(p, w2, b_pc, w_cc, **kw),
             rtol=1e-5, atol=1e-6)
         kw["num_classes"] = 5
-        if mode == "resident":              # K3, with the residual
-            r = _rand(37, 3, 40, scale=0.1, device=cuda)
-            got = k34.votes_routing(u, w, r=r, **kw)
-            assert torch.equal(got, k34.votes_routing(u, w, r=r, **kw))
-            torch.testing.assert_close(got, _fwd_twin(u, w, r, **kw),
+        r = _rand(37, 3, 40, scale=0.1, device=cuda)
+        # K3 (resident) or K4 and K4g (streamed), with the residual.
+        for m in ((mode,) if mode == "resident"
+                  else (mode, execplan.STREAMED_GLOBAL)):
+            kwm = dict(kw, mode=m)
+            got = k34.votes_routing(u, w, r=r, **kwm)
+            assert torch.equal(got, k34.votes_routing(u, w, r=r, **kwm))
+            torch.testing.assert_close(got, _fwd_twin(u, w, r, **kwm),
                                        rtol=1e-5, atol=1e-6)
+        uh = _rand(38, 3, 100, 40, scale=0.1, device=cuda)
+        kwr = dict(iters=3, num_classes=5, mode=mode, block_i=7, cluster=cs)
+        got = k14b.routing(uh, **kwr)                       # K14b
+        assert torch.equal(got, k14b.routing(uh, **kwr))
+        torch.testing.assert_close(got, k14b.routing_plain(uh, **kwr),
+                                   rtol=1e-5, atol=1e-6)
         got = k34.votes_routing_bwd(u, w, g, **kw)
         again = k34.votes_routing_bwd(u, w, g, **kw)
         want = k34.votes_routing_bwd_plain(u, w, g, **kw)
@@ -127,6 +136,9 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
     counts = build.launch_counts()
     assert counts["primary_routing_f32"] == 4
     assert counts["votes_routing_cluster_f32"] == 2
+    assert counts["votes_routing_streamed_cluster_f32"] == 2
+    assert counts["votes_routing_global_cluster_f32"] == 2
+    assert counts["routing_cluster_f32"] == 4
     assert counts["routing_bwd_cluster_f32"] == 4
 
 
@@ -181,13 +193,41 @@ def test_cluster_footprint_model_matches_the_kernels(cuda):
 
 
 def test_k3_k8_footprint_model_matches_the_kernels(cuda):
-    """K3's and K8's planned footprints (the SVHN ResCaps halves and
-    ClassCaps, the MNIST smoke ClassCaps) are the kernels' own layouts,
-    and the card holds their clusters."""
+    """K3's, K4's and K8's planned footprints (the SVHN ResCaps halves,
+    bottleneck and ClassCaps, the MNIST ClassCaps and its smoke config,
+    CIFAR-10's full-width halves in streamed-global) and K14b's at MNIST
+    are the kernels' own layouts, and the card holds their clusters."""
     import ctypes
     k3_bytes = build._library(
         "votes_routing").votes_routing_cluster_smem_bytes
-    k3_bytes.argtypes, k3_bytes.restype = [ctypes.c_int] * 5, ctypes.c_int
+    k3_bytes.argtypes, k3_bytes.restype = [ctypes.c_int] * 8, ctypes.c_int
+    for cfg in (capsnet_mnist.config(), capsnet_svhn.config(),
+                capsnet_cifar10.config()):
+        plan = execplan.compile_plan(cfg, batch=8, pipeline=False)
+        for lay in cfg.routing_stack():
+            fwd = plan.op(lay.name)
+            args = (lay.in_caps, lay.in_dim, lay.num_caps, lay.caps_dim,
+                    fwd.cluster)
+            assert k3_bytes(*args, int(fwd.mode == "resident"), fwd.block_i,
+                            int(fwd.mode == execplan.STREAMED_GLOBAL)) \
+                == fwd.smem_bytes
+            occ = k34.cluster_occupancy(*args[:4], cluster=fwd.cluster,
+                                        mode=fwd.mode, block_i=fwd.block_i)
+            assert (occ["static_smem"], occ["max_dynamic_smem"]) == (
+                0, fwd.smem_bytes)
+            assert occ["max_active_clusters"] >= 1
+    k14b_bytes = build._library("routing").routing_cluster_smem_bytes
+    k14b_bytes.argtypes = [ctypes.c_int] * 6
+    k14b_bytes.restype = ctypes.c_int
+    for batch in (1, 8, 16):
+        sched = execplan.plan_routing_split(1152, 10, 160, batch=batch)
+        cs = sched.cluster.cluster
+        assert k14b_bytes(1152, 10, 16, cs, int(sched.mode == "resident"),
+                          sched.block_i) == sched.smem_bytes
+        occ = k14b.cluster_occupancy(1152, 10, 16, mode=sched.mode,
+                                     block_i=sched.block_i, cluster=cs)
+        assert occ["max_dynamic_smem"] == sched.smem_bytes
+        assert occ["max_active_clusters"] >= 1
     k8_bytes = build._library(
         "votes_routing_bwd").routing_bwd_cluster_smem_bytes
     k8_bytes.argtypes, k8_bytes.restype = [ctypes.c_int] * 7, ctypes.c_int
@@ -202,7 +242,7 @@ def test_k3_k8_footprint_model_matches_the_kernels(cuda):
                 continue
             d = lay.caps_dim
             assert k3_bytes(lay.in_caps, lay.in_dim, lay.num_caps, d,
-                            fwd.cluster) == fwd.smem_bytes
+                            fwd.cluster, 1, fwd.block_i, 0) == fwd.smem_bytes
             occ = k34.cluster_occupancy(lay.in_caps, lay.in_dim,
                                         lay.num_caps, d, cluster=fwd.cluster)
             assert (occ["static_smem"], occ["max_dynamic_smem"]) == (
@@ -394,11 +434,13 @@ def test_split_path_and_squash_launch_and_match_twins_on_the_card(cuda):
                                    k14a.caps_votes_plain(u, w, block_i=bi),
                                    rtol=1e-5, atol=1e-5)
     uh = _rand(12, 3, 300, 40, scale=0.1, device=cuda)
-    for bi in (1, 64, 300):
-        kw = dict(iters=3, num_classes=4, block_i=bi)
-        torch.testing.assert_close(k14b.routing(uh, **kw),
-                                   k14b.routing_plain(uh, **kw),
-                                   rtol=1e-5, atol=1e-6)
+    for bi, cs in ((1, 16), (64, 2), (300, 1), (7, 4)):
+        for mode in ("resident", "streamed"):
+            kw = dict(iters=3, num_classes=4, mode=mode, block_i=bi,
+                      cluster=cs)
+            torch.testing.assert_close(k14b.routing(uh, **kw),
+                                       k14b.routing_plain(uh, **kw),
+                                       rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(
         ops.routing(ops.caps_votes(u, w), iters=3, num_classes=4),
         ops.votes_routing(u, w, iters=3, num_classes=4),
@@ -414,7 +456,7 @@ def test_split_path_and_squash_launch_and_match_twins_on_the_card(cuda):
                                    k10.squash_bwd_plain(x, g), rtol=1e-5,
                                    atol=1e-6)
     counts = build.launch_counts()
-    for sym in ("caps_votes_f32", "routing_f32", "squash_f32",
+    for sym in ("caps_votes_f32", "routing_cluster_f32", "squash_f32",
                 "squash_bwd_f32"):
         assert counts[sym] > 0, sym
 
@@ -475,7 +517,8 @@ def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
         k34.votes_routing(ub, wb, mode=execplan.STREAMED_GLOBAL, **kw),
         rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
-    for sym in ("votes_routing_f32", "votes_routing_global_f32",
+    for sym in ("votes_routing_streamed_cluster_f32",
+                "votes_routing_global_cluster_f32",
                 "votes_routing_2pass_f32", "routing_bwd_cluster_f32",
                 "routing_bwd_2pass_f32"):
         assert counts[sym] > 0, sym

@@ -144,7 +144,7 @@ def test_k12_segment_on_clusters_matches_reference(cs):
 def test_resident_without_a_cluster_takes_the_planners_size():
     """Resident votes always run on a cluster: without one named, K3 and
     K8 take the planner's size at the call's batch, the same one the
-    twins use; the forward refuses a cluster for streamed votes."""
+    twins use; only the one-CTA oracle refuses a cluster."""
     u, w, r, g, j = _inputs("svhn-half", seed=20)
     t = torch.from_numpy
     i_dim, c = u.shape[1:]
@@ -166,9 +166,9 @@ def test_resident_without_a_cluster_takes_the_planners_size():
                                        num_classes=j, mode="resident",
                                        block_i=8, cluster=bcs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="resident votes only"):
+    with pytest.raises(ValueError, match="one CTA a sample"):
         vr.votes_routing(t(u), t(w), iters=3, num_classes=j,
-                         mode="streamed", block_i=8, cluster=2)
+                         mode=execplan.ORACLE_MODE, block_i=8, cluster=2)
     with pytest.raises(ValueError, match="cluster of 3"):
         vr.votes_routing(t(u), t(w), iters=3, num_classes=j,
                          mode="resident", block_i=8, cluster=3)
@@ -197,19 +197,24 @@ def test_k3_footprint_is_the_kernels_layout(cs):
 
 def test_k3_plan_is_none_where_no_cluster_fits():
     assert execplan.plan_votes_routing_cluster(64, 8, 160, 10,
-                                               smem_budget=4_000) is None
+                                               smem_budget=4_000,
+                                               votes="resident") is None
     with pytest.raises(ValueError, match="no cluster"):
         vr.planned_cluster(100_000, 8, 160, 10, 3, 1)
 
 
-def test_streamed_forward_plans_are_not_clusters():
-    """K4 keeps one CTA a sample where one sample's votes fit no CTA: the
-    MNIST ClassCaps and the SVHN bottleneck (per-op plan)."""
-    for cfg, name in ((capsnet_mnist.config(), execplan.FUSED_NAME),
-                      (capsnet_svhn.config(), "ClassCaps-Routing[0]")):
+def test_streamed_forward_plans_are_clusters():
+    """Where one sample's votes fit no CTA the forward still runs on a
+    cluster: the MNIST ClassCaps with each CTA's rows' votes resident
+    (K3), the SVHN bottleneck (per-op plan) streaming them with its logits
+    on chip (K4)."""
+    for cfg, name, mode in (
+            (capsnet_mnist.config(), execplan.FUSED_NAME, "resident"),
+            (capsnet_svhn.config(), "ClassCaps-Routing[0]", "streamed")):
         op = compile_plan(cfg, batch=8, pipeline=False).op(name)
-        assert op.mode in ("streamed", execplan.STREAMED_GLOBAL)
-        assert op.block is None and op.cluster is None
+        assert op.mode == mode
+        assert isinstance(op.block, execplan.ClusterPlan)
+        assert op.cluster in CLUSTER_SIZES and op.cluster > 1
 
 
 def test_planless_ops_plan_k3_at_the_calls_batch():

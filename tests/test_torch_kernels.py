@@ -150,14 +150,15 @@ def test_every_kernel_has_a_launch_counter():
     from repro_torch.kernels import ops  # noqa: F401  (imports every module)
     assert set(build.REGISTRY) == {"im2col_patches_f32",
                                    "matmul_bias_act_f32",
-                                   "votes_routing_f32", "primary_routing_f32",
-                                   "votes_routing_global_f32",
+                                   "votes_routing_streamed_cluster_f32",
+                                   "primary_routing_f32",
+                                   "votes_routing_global_cluster_f32",
                                    "votes_routing_2pass_f32",
                                    "votes_routing_cluster_f32",
                                    "matmul_at_b_f32", "col2im_patches_f32",
                                    "routing_bwd_2pass_f32",
                                    "routing_bwd_cluster_f32",
-                                   "caps_votes_f32", "routing_f32",
+                                   "caps_votes_f32", "routing_cluster_f32",
                                    "squash_f32", "squash_bwd_f32",
                                    "rmsnorm", "flash_attention"}
     assert {k.library for k in build.REGISTRY.values()} == set(

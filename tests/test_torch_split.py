@@ -183,12 +183,20 @@ def test_plan_caps_votes_raises_naming_classcaps_fc():
 
 
 def test_plan_routing_split_fits_the_budget():
-    bi = execplan.plan_routing_split(1152, 10, 160)
-    assert execplan.routing_split_smem(1152, 10, 160, bi) \
-        <= planner.SMEM_BYTES
-    assert ops.planned_routing(1152, 10, 160) == bi
+    """K14b's cluster schedule at MNIST width: each CTA's rows of u_hat on
+    chip, its footprint the kernel's layout and within the budget; a
+    budget that not even 16 CTAs streaming one row each fit raises."""
+    sched = execplan.plan_routing_split(1152, 10, 160, batch=8)
+    cs = sched.cluster.cluster
+    assert sched.mode == "resident" and cs in execplan.CLUSTER_SIZES
+    rows = -(-1152 // cs)
+    assert sched.smem_bytes == execplan.routing_split_cluster_smem(
+        "resident", 1152, sched.block_i, 10, 160, cs) == 4 * (
+            rows * (161 + 10) + rows * 10 + 4 * 160) <= planner.SMEM_BYTES
+    assert ops.planned_routing(1152, 10, 160, 3, 8) == ("resident",
+                                                        sched.block_i, cs)
     with pytest.raises(PlanError, match="routing"):
-        execplan.plan_routing_split(1152, 10, 160, smem_budget=40_000)
+        execplan.plan_routing_split(1152, 10, 160, smem_budget=3_000)
 
 
 def test_split_global_bytes_match_the_reference():

@@ -31,8 +31,8 @@ from repro_torch.configs import (capsnet_cifar10, capsnet_mnist,
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import capsnet as T
 from repro_torch.core import execplan, faults, planner
-from repro_torch.core.execplan import (ALL_MODES, MODES, ORACLE_MODE,
-                                       PIPE_NAME,
+from repro_torch.core.execplan import (ALL_MODES, CLUSTER_SIZES, MODES,
+                                       ORACLE_MODE, PIPE_NAME,
                                        STREAMED_GLOBAL, PlanError,
                                        compile_plan)
 from repro_torch.kernels import ops
@@ -324,9 +324,14 @@ def test_full_width_svhn_plans_within_one_cta(train, batch, pipeline):
         assert (pr.mode, pr.n_passes) == ("streamed", 4)
         assert pr.cluster in (8, 16) and pr.block.rows * pr.cluster == 2048
     else:
+        # K4 streams the bottleneck's votes on a cluster whose CTAs hold
+        # their rows' logits (256 rows x 64 at 8 CTAs).
         neck = plan.op("ClassCaps-Routing[0]")
-        assert (neck.mode, neck.block_i, neck.n_passes,
-                neck.smem_bytes) == (STREAMED_GLOBAL, 64, 4, 217_344)
+        assert (neck.mode, neck.block_i, neck.n_passes) == ("streamed", 64,
+                                                            4)
+        assert neck.cluster in (4, 8, 16)
+        assert neck.smem_bytes == execplan.votes_routing_cluster_smem(
+            2048, 8, 64, 512, neck.cluster, mode="streamed", block_i=64)
     # The ResCaps halves (32 -> 32x8) and ClassCaps (64 -> 10x16): K3,
     # resident votes on a cluster (tests/test_torch_k3k8_cluster.py).
     for name, i_dim, j, jd in [(f"ClassCaps-Routing[{k}]", 32, 32, 256)
@@ -356,18 +361,32 @@ def test_streamed_global_drops_only_the_logits_and_adds_their_traffic():
     base = execplan.votes_routing_global_bytes(8, i, c, jd, 4)
     assert execplan.votes_routing_global_bytes(8, i, c, jd, 4, j) - base \
         == 8 * 2 * 4 * i * j * 4
-    # Where streamed fits, the plan keeps picking it.
-    assert execplan.plan_votes_routing(1152, 8, 160, 10).mode == "streamed"
+    # On K4's cluster only the CTA's rows' logits leave.
+    for cs in (1, 8, 16):
+        rows = -(-i // cs)
+        assert (execplan.votes_routing_cluster_smem(
+            i, c, j, jd, cs, mode="streamed", block_i=bi)
+            - execplan.votes_routing_cluster_smem(
+                i, c, j, jd, cs, mode=STREAMED_GLOBAL, block_i=bi)
+            == rows * j * 4)
+    # Where the logits fit a cluster CTA, the plan keeps them on chip.
+    assert execplan.plan_votes_routing(i, c, jd, j, batch=8).mode \
+        == "streamed"
     with pytest.raises(PlanError, match=STREAMED_GLOBAL):
-        execplan.plan_votes_routing(2048, 8, 512, 64, smem_budget=60_000)
+        execplan.plan_votes_routing(2048, 8, 512, 64, smem_budget=14_000)
 
 
 def test_full_width_cifar10_training_plan_names_the_bwd_op():
     """A half of 1024 capsules routed to 1024 x 8D: the forward plans in
-    streamed-global, but the backward's emit CTA (W[i] and dW[i], 2 x
-    256 KB) fits no CTA: the error names the ``-bwd`` op."""
+    streamed-global on a cluster (even 16 CTAs' rows' logits, 64 x 1024,
+    fit no CTA), but the backward's emit CTA (W[i] and dW[i], 2 x 256 KB)
+    fits no CTA: the error names the ``-bwd`` op."""
     plan = compile_plan(capsnet_cifar10.config(), batch=8)
-    assert plan.op("ClassCaps-Routing[0]").mode == STREAMED_GLOBAL
+    op = plan.op("ClassCaps-Routing[0]")
+    assert op.mode == STREAMED_GLOBAL and op.cluster in CLUSTER_SIZES
+    assert op.smem_bytes == execplan.votes_routing_cluster_smem(
+        1024, 8, 1024, 8192, op.cluster, mode=STREAMED_GLOBAL,
+        block_i=op.block_i) <= planner.SMEM_BYTES
     with pytest.raises(PlanError, match=r"ClassCaps-Routing\[5\]-bwd"):
         compile_plan(capsnet_cifar10.config(), batch=8, train=True)
 

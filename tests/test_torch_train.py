@@ -209,13 +209,15 @@ def test_forward_alone_plans_no_routing_backward():
 def test_infeasible_routing_backward_raises_naming_the_bwd_op():
     """No backward schedule fits 16000 capsules routed to 100 classes: in
     one CTA their u alone, 256,000 B, is over the budget, and even split
-    over a 16-CTA cluster each CTA's 1000 rows of logits take 400,000 B.  The forward runs (on its explicit schedule) and the
+    over a 16-CTA cluster each CTA's 1000 rows of logits take 400,000 B.
+    The forward runs (its logits in global memory on a cluster) and the
     backward raises the planner's PlanError for the ``-bwd`` op, with no
     fallback."""
     u = torch.zeros(1, 16000, 4)
     w = torch.zeros(16000, 200, 4, requires_grad=True)
-    v = k34.votes_routing(u, w, num_classes=100, mode="streamed",
-                          block_i=128, op_name="Hidden-Routing")
+    v = k34.votes_routing(u, w, num_classes=100,
+                          mode=execplan.STREAMED_GLOBAL, block_i=128,
+                          op_name="Hidden-Routing")
     with pytest.raises(PlanError, match="Hidden-Routing" + BWD_SUFFIX):
         v.sum().backward()
 
