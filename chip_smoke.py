@@ -19,7 +19,11 @@ against the best, K8's and K9's replay and emit timed apart, and K3, K4,
 K8 and K14b beside an empty launch of their grids), runs the
 full-width forward on the pipelined and the per-op plan against the plain
 forward, serves 32 seeded requests through ``CapsuleEngine`` on both
-plans, and times each kernel at the engine's batch.  Then it trains: the backward kernels (K6
+plans, and times each kernel at the engine's batch (K1, the im2col copy,
+at MNIST's and, in phase 12, SVHN's Conv1 and PrimaryCaps, and K7, the
+col2im gather, at both PrimaryCaps dx: each held to its twin's bits
+twice, then timed with the L2 warm and cold beside its byte bound and
+one PyTorch call, the unfold copy or ``F.fold``).  Then it trains: the backward kernels (K6
 dW, K7 col2im, K8/K9 routing backward on clusters) against their twins at the
 training shapes (batch 16; K6 and the dpatches GEMM twice each for
 identical bits, then timed, K6 also on 128 x 128 tiles only against its
@@ -89,8 +93,14 @@ SVHN_REQUESTS = 16
 PEAK_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
+# Cold-L2 times: a buffer this large is written before each timed launch,
+# over twice the H100's 50 MB L2.
+FLUSH_BYTES = 128 << 20
+CARD = ""                       # nvidia-smi's name and power limit, set in main
+
 # Tolerances of the kernel-vs-twin checks, with their reasons.
-EXACT = (0.0, 0.0, "a gather copies values: bit-identical")
+EXACT = (0.0, 0.0, "a gather copies values (K7: sums its taps in the "
+         "twin's order): bit-identical")
 SHORT_SUM = (1e-5, 1e-5, "81-term fp32 dot products summed in another "
              "order (the reference's conv tolerance)")
 LONG_SUM = (1e-4, 2e-5, "20,736-term fp32 dot products summed in another "
@@ -98,8 +108,6 @@ LONG_SUM = (1e-4, 2e-5, "20,736-term fp32 dot products summed in another "
 ROUTING = (1e-4, 1e-5, "fp32 sums over up to 1152 capsules (and the "
            "20,736-term producer) in another order, through 3 routing "
            "iterations")
-TAPS = (1e-6, 1e-7, "up to 25 window taps summed in the twin's order: "
-        "equal up to reassociation")
 # Backward checks: max |got - want| over max |want|.  Gradients are sums of
 # terms of both signs; an elementwise relative bound would fail on values
 # that cancel to near zero, so the error is normalised by the largest one.
@@ -289,6 +297,94 @@ def replay_emit_ms(fn) -> dict:
         return sum(times) if times else None
     return dict(replay_device_ms=of("routing_bwd_cluster_kernel"),
                 emit_device_ms=of("routing_bwd_emit_kernel"))
+
+
+def cold_device_ms(fn, kernel: str, reps: int = 10) -> float | None:
+    """Device ms per call of the kernels whose names hold ``kernel``, from
+    a ``torch.profiler`` trace of ``reps`` calls of ``fn``, each after
+    writing ``FLUSH_BYTES`` (so each call finds the L2 cold and its
+    inputs in device memory); only those kernels' records are counted.
+    None (not measured) where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        times = [ms for key, ms in kernel_ms(prof, reps).items()
+                 if kernel in key]
+    except (RuntimeError, AssertionError) as err:
+        print(f"cold_device_ms: not measured ({type(err).__name__}: {err})",
+              flush=True)
+        return None
+    return sum(times) if times else None
+
+
+def im2col_unfold(x, kh: int, kw: int, stride: int):
+    """K1's function in one PyTorch call, a strided copy: x [B, H, W, C]
+    -> [B, OH*OW, KH*KW*C] with (kh, kw, c)-major columns.  K1's library
+    yardstick: timed here, called nowhere in the port."""
+    b, c = x.shape[0], x.shape[3]
+    win = x.unfold(1, kh, stride).unfold(2, kw, stride)  # [B,OH,OW,C,kh,kw]
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(
+        b, win.shape[1] * win.shape[2], kh * kw * c)
+
+
+def fold_input(dp, kh: int, kw: int):
+    """K7's input dp [B, P, KH*KW*C] in ``F.fold``'s layout [B, C*KH*KW,
+    P] (its library yardstick's input, made before timing)."""
+    b, p, k = dp.shape
+    c = k // (kh * kw)
+    return dp.reshape(b, p, kh * kw, c).permute(0, 3, 2, 1).reshape(
+        b, c * kh * kw, p).contiguous()
+
+
+def gather_extras(row: dict, fn, lib, kernel: str) -> dict:
+    """A K1/K7 site's cold-L2 device time (``cold_device_ms``), its
+    library call's device time and both times' share of the byte bound;
+    printed beside the card's name and power limit."""
+    cold = cold_device_ms(fn, kernel)
+    extra = dict(cold_device_ms=cold, library_device_ms=device_ms(lib),
+                 warm_share=(row["bound_ms"] / row["device_ms"]
+                             if row["device_ms"] else None),
+                 cold_share=row["bound_ms"] / cold if cold else None)
+
+    def pct(x):
+        return "not measured" if x is None else f"{100 * x:.0f}%"
+    in_l2 = (extra["warm_share"] or 0) > 1
+    print(f"{kernel} {row['op']}: device {row['device_ms']} ms warm "
+          f"({pct(extra['warm_share'])} of the byte bound"
+          f"{': above 100%, the writes landed in L2' if in_l2 else ''}), "
+          f"{cold} ms cold ({pct(extra['cold_share'])}), bound "
+          f"{row['bound_ms']:.5f} ms; library "
+          f"{extra['library_device_ms']} ms device; plain "
+          f"{row['plain_ms']:.4f} ms; on {CARD}", flush=True)
+    return extra
+
+
+def k1_site(label: str, path: str, x, k: int, stride: int) -> tuple:
+    """A timed K1 site, ``(op, path, kernel, plain, library, bytes, flops,
+    extras)``: the image read once and the patches written once, the
+    unfold copy as the library call, and the cold-L2 extras."""
+    from repro_torch.kernels import conv_im2col as k12
+    oh, ow = ((n - k) // stride + 1 for n in x.shape[1:3])
+    nbytes = 4.0 * (x.numel() + x.shape[0] * oh * ow * k * k * x.shape[3])
+
+    def fn():
+        return k12.im2col_patches(x, kh=k, kw=k, stride=stride)
+
+    def lib():
+        return im2col_unfold(x, k, k, stride)
+    return (label, path, fn,
+            lambda: k12.im2col_patches_plain(x, kh=k, kw=k, stride=stride),
+            lib, nbytes, 0.0,
+            lambda row: gather_extras(row, fn, lib, "im2col_kernel"))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -650,8 +746,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
 
     # Each new kernel against its twin, and K13 against K4/K9, at the
     # path's shapes (activations from the plain path).
-    _, u0 = conv_inputs(cfg, params, images)                # [8, 2048, 8]
-    _, tu0 = conv_inputs(cfg, params, timages)              # [16, 2048, 8]
+    cx1, u0 = conv_inputs(cfg, params, images)              # [8, 2048, 8]
+    tcx1, tu0 = conv_inputs(cfg, params, timages)           # [16, 2048, 8]
     with torch.no_grad():
         h0 = capsnet.routing_by_agreement(capsnet.compute_votes(
             u0, params[lay0.param]), lay0.iters)            # [8, 64, 8]
@@ -994,6 +1090,8 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         device=dev))
     print(f"svhn gradient device ms by kernel (batch {tb}): "
           f"{json.dumps(step_split)}", flush=True)
+    svhn_gather_sites(cfg, rows, images, timages, cx1, tcx1, randn,
+                      serve_counts, train_counts)
     neck_bytes = 4.0 * (u0.numel() + w0.numel() + SLOTS * lay0.jd)
     neck_flops = routing_flops(SLOTS, lay0.in_caps, lay0.in_dim, lay0.jd, 3)
     mn = dict(bytes=4.0 * (u.numel() + wcc.numel() + SLOTS * wcc.shape[1]),
@@ -1328,6 +1426,60 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             serve=serve_counts.get(sym, 0),
             serve_per_op=served["per-op"].get(sym, 0),
             train=train_counts.get(sym, 0))
+
+
+def svhn_gather_sites(cfg, rows, images, timages, x1, tx1, randn,
+                      serve_counts, train_counts) -> None:
+    """K1 at capsnet-svhn's Conv1 and PrimaryCaps, at the engine's batch
+    (``images``, Conv1 output ``x1``) and the trainer's (``timages``,
+    ``tx1``), and K7 at its PrimaryCaps dx at the trainer's batch: each
+    twice for identical bits and against its twin, then timed warm and
+    cold beside its library call.  Sites of the K1 and K7 rows, outside
+    their MNIST totals."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_im2col as k12
+    k1c, kp, st = cfg.conv1_kernel, cfg.pc_kernel, cfg.pc_stride
+    sites = [k1_site(f"{label} (SVHN, {xx.shape[0]})", "svhn", xx, k, s_)
+             for imgs, xx1 in ((images, x1), (timages, tx1))
+             for label, xx, k, s_ in (("Conv1", imgs, k1c, 1),
+                                      ("PrimaryCaps", xx1, kp, st))]
+    for op, _, fn, plain, *_ in sites:
+        check(f"K1 im2col {op}", same_bits(f"K1 {op}", fn), plain(), EXACT)
+    k1_row = next(r for r in rows if r["name"] == "im2col_patches")
+    for site, row in zip(sites, timed_sites([(op, *rest[:5]) for op, _, *rest
+                                             in sites])):
+        row.update(path="svhn", **site[7](row))
+        k1_row["sites"].append(row)
+    bsz, hw = tx1.shape[0], cfg.conv1_out
+    dp = randn(bsz, cfg.pc_out ** 2, kp * kp * cfg.conv1_channels,
+               scale=1e-3)
+    col_kw = dict(kh=kp, kw=kp, stride=st, h=hw, w=hw)
+    op = f"PrimaryCaps-bwd (SVHN, {bsz})"
+
+    def fn():
+        return k12.col2im_patches(dp, **col_kw)
+    fin = fold_input(dp, kp, kp)
+
+    def lib():
+        return F.fold(fin, output_size=(hw, hw), kernel_size=kp, stride=st)
+    check(f"K7 col2im {op}", same_bits(f"K7 {op}", fn),
+          k12.col2im_patches_plain(dp, **col_kw), EXACT)
+    row = timed_sites([(op, fn, lambda: k12.col2im_patches_plain(
+        dp, **col_kw), lib, 4.0 * (dp.numel() + tx1.numel()),
+        float(dp.numel()))])[0]
+    row.update(path="svhn", **gather_extras(row, fn, lib, "col2im_kernel"))
+    next(r for r in rows if r["name"] == "col2im_patches")["sites"].append(
+        row)
+    # Launches: K1 runs at each site once a forward, and again in a
+    # training step's backward (the patches recomputed for dW); K7 once a
+    # step (PrimaryCaps' dx; Conv1's input needs none).
+    print(f"svhn launches: K1 {serve_counts['im2col_patches_f32']} in the "
+          f"{SVHN_REQUESTS}-request run (2 sites, once a forward), "
+          f"{train_counts['im2col_patches_f32']} in the {TRAIN_STEPS}-step "
+          f"run (2 sites, twice a step); K7 "
+          f"{train_counts['col2im_patches_f32']} in the {TRAIN_STEPS}-step "
+          f"run (once a step)", flush=True)
 
 
 def attention_work(lens, tq: int, h: int, kvh: int, d: int, causal: bool,
@@ -1919,6 +2071,7 @@ def lm_serving(dev, rows: list[dict]) -> None:
 
 
 def main() -> int:
+    global CARD
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1942,6 +2095,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2045,11 +2199,13 @@ def capsnet_phases(dev) -> list[dict]:
         r = check(name, got, want, tol)
         errs[kernel] = max(errs.get(kernel, 0.0), r["max_abs"])
 
+    # K1 at both sites, twice each for identical bits.
     held("im2col_patches", "K1 im2col Conv1",
-         k12.im2col_patches(images, kh=k1, kw=k1), p1, EXACT)
+         same_bits("K1 Conv1", lambda: k12.im2col_patches(
+             images, kh=k1, kw=k1)), p1, EXACT)
     held("im2col_patches", "K1 im2col PrimaryCaps",
-         k12.im2col_patches(x1, kh=kp, kw=kp, stride=cfg.pc_stride), ppc,
-         EXACT)
+         same_bits("K1 PrimaryCaps", lambda: k12.im2col_patches(
+             x1, kh=kp, kw=kp, stride=cfg.pc_stride)), ppc, EXACT)
     # K2 at each forward site (the SVHN PrimaryCaps shape on seeded
     # inputs), against its twin summed in the kernel's split order; each
     # twice, for identical bits.
@@ -2201,6 +2357,12 @@ def capsnet_phases(dev) -> list[dict]:
                                 ("kernels, per-op plan", perop, "kernels"),
                                 ("torch", None, "torch"))}
     print(f"forward ms at batch {SLOTS}: {json.dumps(fwd_ms)}", flush=True)
+    with torch.no_grad():
+        for label, p in (("pipelined", plan), ("per-op", perop)):
+            split_ = device_breakdown(lambda p=p: capsnet.forward(
+                params, images, cfg, backend="kernels", plan=p, device=dev))
+            print(f"forward {label} device ms by kernel (batch {SLOTS}): "
+                  f"{json.dumps(split_)}", flush=True)
     b_ = SLOTS
     i_, jd, c_, it = lay.in_caps, lay.jd, lay.in_dim, lay.iters
     x_nchw, x1_nchw = images.permute(0, 3, 1, 2), x1.permute(0, 3, 1, 2)
@@ -2222,21 +2384,15 @@ def capsnet_phases(dev) -> list[dict]:
                     pp, ww, bb, split_k=blk.split_k, block_k=blk.block_k,
                     **kw), lib,
                 4.0 * (m_ * k_ + k_ * n_ + n_ + m_ * n_), 2.0 * m_ * k_ * n_,
-                dict(split_k=blk.split_k, ctas=blk.ctas,
-                     addmm=lambda: torch.addmm(bb, pp, ww)))
+                lambda row: gemm_extras(
+                    row, lib, split_k=blk.split_k, ctas=blk.ctas,
+                    addmm=lambda: torch.addmm(bb, pp, ww)))
 
     sites = {
-        "im2col_patches": [
-            ("Conv1", "main",
-             lambda: k12.im2col_patches(images, kh=k1, kw=k1),
-             lambda: k12.im2col_patches_plain(images, kh=k1, kw=k1), None,
-             4.0 * (images.numel() + p1.numel()), 0.0),
-            ("PrimaryCaps", "main",
-             lambda: k12.im2col_patches(x1, kh=kp, kw=kp,
-                                        stride=cfg.pc_stride),
-             lambda: k12.im2col_patches_plain(x1, kh=kp, kw=kp,
-                                              stride=cfg.pc_stride), None,
-             4.0 * (x1.numel() + ppc.numel()), 0.0)],
+        "im2col_patches": [k1_site(label, "main", xx, kk, ss)
+                           for label, xx, kk, ss in (
+                               ("Conv1", images, k1, 1),
+                               ("PrimaryCaps", x1, kp, cfg.pc_stride))],
         "matmul_bias_act": [
             k2_site("Conv1", "main",
                     lambda: F.conv2d(x_nchw, w1_oihw, params["conv1_b"])),
@@ -2280,8 +2436,7 @@ def capsnet_phases(dev) -> list[dict]:
                 library_ms=time_ms(lib) if lib is not None else None,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
             if extra:
-                site_rows[-1].update(gemm_extras(site_rows[-1], lib,
-                                                 **extra[0]))
+                site_rows[-1].update(extra[0](site_rows[-1]))
         main = [s for s in site_rows if s["path"] == path]
         counts = serve_launches if path == "main" else launches["per-op"]
         libs = [s["library_ms"] for s in main]
@@ -2423,8 +2578,9 @@ def capsnet_phases(dev) -> list[dict]:
                                           split_k=dxb.split_k,
                                           block_k=dxb.block_k), DPATCHES)
     col_kw = dict(kh=kp, kw=kp, stride=cfg.pc_stride, h=h, w=w_)
-    r = check("K7 col2im PrimaryCaps", k12.col2im_patches(dpatch, **col_kw),
-              k12.col2im_patches_plain(dpatch, **col_kw), TAPS)
+    r = check("K7 col2im PrimaryCaps", same_bits(
+        "K7 PrimaryCaps", lambda: k12.col2im_patches(dpatch, **col_kw)),
+        k12.col2im_patches_plain(dpatch, **col_kw), EXACT)
     berrs["col2im_patches"] = r["max_abs"]
     print(f"K9 MNIST batch {tb}: {vbwd.mode} votes, clusters of "
           f"{vbwd.cluster} ({vbwd.block.ctas} CTAs), {vbwd.smem_bytes} B a "
@@ -2527,8 +2683,7 @@ def capsnet_phases(dev) -> list[dict]:
 
     # 10. The backward kernels' times at the training shapes.
     jd_, c_, i_ = lay.jd, lay.in_dim, lay.in_caps
-    fold_in = dpatch.reshape(tb, -1, kp * kp, cfg.conv1_channels).permute(
-        0, 3, 2, 1).reshape(tb, cfg.conv1_channels * kp * kp, -1).contiguous()
+    fold_in = fold_input(dpatch, kp, kp)
     bwd_sites = [
         ("matmul_at_b", "conv_bwd.cu", "src/repro/kernels/conv_im2col.py:226",
          [("PrimaryCaps-bwd",
@@ -2602,6 +2757,14 @@ def capsnet_phases(dev) -> list[dict]:
                         else None),
             path="train, MNIST full width, pipelined train plan",
             sites=site_rows))
+    # K7's cold-L2 time and F.fold's device time (F.fold's input is
+    # permuted to its layout before timing; the permute is not timed).
+    k7_site = next(r for r in rows if r["name"] == "col2im_patches")[
+        "sites"][0]
+    k7_site.update(gather_extras(
+        k7_site, lambda: k12.col2im_patches(dpatch, **col_kw),
+        lambda: F.fold(fold_in, output_size=(h, w_), kernel_size=kp,
+                       stride=cfg.pc_stride), "col2im_kernel"))
     # K9: its cluster, the replay and the emit apart, and every cluster
     # size at batch 16.
     k9_row = next(r for r in rows if r["name"] == "routing_bwd_cluster")

@@ -53,8 +53,9 @@ def im2col_patches_plain(x: torch.Tensor, *, kh: int, kw: int,
 
 def im2col_patches(x: torch.Tensor, *, kh: int, kw: int,
                    stride: int = 1) -> torch.Tensor:
-    """K1: ``im2col_patches_plain`` for CPU tensors, the CUDA gather
-    kernel for CUDA tensors."""
+    """K1: ``im2col_patches_plain`` for CPU tensors, the CUDA copy kernel
+    for CUDA tensors (float4 where C % 4 == 0 and both tensors are
+    16-byte aligned, floats otherwise: the same bits)."""
     if x.dim() != 4:
         raise ValueError(f"im2col_patches: x must be [B, H, W, C], got "
                          f"{tuple(x.shape)}")
@@ -67,7 +68,8 @@ def im2col_patches(x: torch.Tensor, *, kh: int, kw: int,
         return im2col_patches_plain(x, kh=kh, kw=kw, stride=stride)
     out = torch.empty((b, oh * ow, kh * kw * c), dtype=x.dtype,
                       device=x.device)
-    PATCHES(ptr(x), ptr(out), b, h, w, c, kh, kw, stride, stream_of(x))
+    if out.numel():               # an empty batch or no channels: no launch
+        PATCHES(ptr(x), ptr(out), b, h, w, c, kh, kw, stride, stream_of(x))
     return out
 
 
@@ -227,7 +229,9 @@ def col2im_patches(dp: torch.Tensor, *, kh: int, kw: int, stride: int,
         return col2im_patches_plain(dp, kh=kh, kw=kw, stride=stride, h=h,
                                     w=w)
     dx = torch.empty((bsz, h, w, c), dtype=dp.dtype, device=dp.device)
-    COL2IM(ptr(dp), ptr(dx), bsz, h, w, c, kh, kw, stride, stream_of(dp))
+    if dx.numel():
+        COL2IM(ptr(dp), ptr(dx), bsz, h, w, c, kh, kw, stride,
+               stream_of(dp))
     return dx
 
 

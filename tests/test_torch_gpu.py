@@ -394,6 +394,80 @@ def test_backward_kernels_launch_and_match_twins_on_the_card(cuda):
     assert counts["routing_bwd_cluster_f32"] == 2     # K8 and K9
 
 
+def _offset(t: torch.Tensor, floats: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``floats`` floats into its
+    buffer (with 1, 16-byte alignment is lost)."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _kernel_names(fn) -> set[str]:
+    """The CUDA kernels one call of ``fn`` launches, by profiler name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+# (b, h, w, c, kh, kw, stride): float4 copies (C = 8, 256), the scalar path
+# (C = 1, 3, 5), B = 1, H != W, kh != kw, strides 1-3, a stride equal to
+# the window (no overlap) and one wider than it (pixels no window covers).
+GATHER_CASES = [(2, 20, 20, 8, 9, 9, 2), (1, 11, 13, 256, 3, 3, 2),
+                (2, 12, 12, 1, 3, 3, 1), (1, 13, 9, 3, 3, 2, 2),
+                (2, 10, 7, 5, 3, 3, 3), (1, 9, 11, 8, 2, 2, 3),
+                (1, 8, 10, 4, 3, 3, 1)]
+
+
+@pytest.mark.parametrize("floats", [0, 1])
+@pytest.mark.parametrize("b,h,w,c,kh,kw,stride", GATHER_CASES)
+def test_im2col_col2im_paths_repeat_the_twins_bits(cuda, b, h, w, c, kh,
+                                                    kw, stride, floats):
+    """K1 and K7 on each of their paths give the plain twins' bits, on a
+    second launch too, and are adjoint: <K1(x), dp> = <x, K7(dp)>.  A
+    tensor that starts one float into its buffer takes the scalar path."""
+    x = _offset(_rand(b, b, h, w, c, device=cuda), floats)
+    oh, ow = k12.out_size(h, kh, stride), k12.out_size(w, kw, stride)
+    dp = _offset(_rand(c, b, oh * ow, kh * kw * c, device=cuda), floats)
+    kw_ = dict(kh=kh, kw=kw, stride=stride)
+    build.reset_launch_counts()
+    p = k12.im2col_patches(x, **kw_)
+    dx = k12.col2im_patches(dp, h=h, w=w, **kw_)
+    assert torch.equal(p, k12.im2col_patches_plain(x, **kw_))
+    assert torch.equal(dx, k12.col2im_patches_plain(dp, h=h, w=w, **kw_))
+    assert torch.equal(p, k12.im2col_patches(x, **kw_))
+    assert torch.equal(dx, k12.col2im_patches(dp, h=h, w=w, **kw_))
+    counts = build.launch_counts()
+    assert counts["im2col_patches_f32"] == counts["col2im_patches_f32"] == 2
+    # dx holds fp32 sums of at most ceil(kh/s) * ceil(kw/s) taps: each
+    # within a few ulps, so the two sides agree to ~1e-7 of sum |p dp|.
+    terms = p.double() * dp.double()
+    rhs = (x.double() * dx.double()).sum()
+    assert abs(terms.sum() - rhs) <= 1e-6 * terms.abs().sum()
+    vec = c % 4 == 0 and floats == 0
+    names = _kernel_names(lambda: (k12.im2col_patches(x, **kw_),
+                                   k12.col2im_patches(dp, h=h, w=w, **kw_)))
+    for kernel in ("im2col_kernel", "col2im_kernel"):
+        launched = [n for n in names if kernel in n]
+        assert len(launched) == 1, names
+        assert ("float4" in launched[0]) == vec, launched
+
+
+def test_im2col_col2im_empty_batch_launches_nothing(cuda):
+    build.reset_launch_counts()
+    x = torch.empty(0, 9, 9, 4, device=cuda)
+    assert k12.im2col_patches(x, kh=3, kw=3).shape == (0, 49, 36)
+    dp = torch.empty(0, 49, 36, device=cuda)
+    assert k12.col2im_patches(dp, kh=3, kw=3, stride=1, h=9,
+                              w=9).shape == (0, 9, 9, 4)
+    counts = build.launch_counts()
+    assert counts["im2col_patches_f32"] == counts["col2im_patches_f32"] == 0
+
+
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_total_loss_backward_on_the_card_matches_the_plain_backend(
         cuda, pipeline):

@@ -12,7 +12,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "cluster_bits.py",
+                             "conv_gather_times.py")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
