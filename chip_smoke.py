@@ -54,12 +54,20 @@ mixed lengths, the Tq > Tk rows, and head dims 64 and 128; K15's split-KV
 decode schedule at a 4608-key cache against its split twin at the planned
 splits, and both schedules twice for identical bits), one
 4608-token forward on the kernels backend against the plain one (logits
-and argmax), 8 requests through ``ServeEngine`` on both backends (tokens,
-finish order, K15/K16 launches equal to 42 and 169 per forward call,
+and argmax), 8 requests through ``ServeEngine`` three times: on the
+kernels backend with each decode tick replayed as one CUDA graph (the
+main path), on the kernels backend ticking eagerly, and on the plain
+backend (the graph engine's tokens and finish order equal the eager
+kernels engine's exactly, both equal the plain engine's up to ties; on
+both kernels engines K15/K16 launches equal 42 and 169 per forward call,
 every prefill on K15's prefill schedule and every decode tick on its
-decode schedule), the engine's times, and both kernels' times beside
-their bounds, twins and library calls, with K15's decode sites swept
-over split counts and its prefill tile over head dims.  The weights are random, made from a seed.
+decode schedule), the engines' times tick by tick, a profiled replayed
+tick (169 K16 and 42 K15 records, its device ms by kernel and the
+device's idle share) beside a profiled eager tick, and both kernels'
+times beside their bounds, twins and library calls, with K15's decode
+sites swept over split counts and its prefill tile over head dims, and
+K16's forms (row groups, the small-R form at each CTA size) over row
+counts beside an empty launch of its decode grid.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -80,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -135,6 +144,15 @@ LM_PROMPT_LENGTHS = (17, 300)   # the engine's shortest and longest prompt
 # past the 4096 window, one short, one nearly empty.
 LM_LONG_DECODE = (LM_PROMPT, LM_PROMPT - 508, 300, 17)
 SPLIT_SWEEP = (1, 2, 4, 8, 16, 32, 64)
+RMS_NARROW_D = 1024             # K16's widest warp-a-row row, for its sweep
+# Phase 2b wraps each profiled engine step in marker kernels (``traced``).
+# On the H100 a torch.profiler session can lose records at its start:
+# a few, more the older the process, and now and then the first ms or
+# more.  The lead markers and the spin take that loss; the guards show
+# whether it reached the step.
+TRACE_LEAD = 64                 # frac_ kernels that open a session
+TRACE_SPIN_CYCLES = 10_000_000  # then ~5 ms of device spin
+TRACE_GUARD = 8                 # trunc_ kernels before the step, floor_ after
 FLASH = (2e-5, 2e-5, "the reference's own (tests/test_kernels.py:173-174): "
          "fp32 logits over D <= 256 and sums over up to 4608 keys in "
          "another order")
@@ -1597,7 +1615,237 @@ def split_sweep(label: str, call, planned: int, splits_of) -> dict:
     return out
 
 
-def lm_serving(dev, rows: list[dict]) -> None:
+def rms_form(threads: int) -> str:
+    """K16's form by its ``threads`` argument."""
+    return "warp a row" if threads == 0 else f"CTA a row, {threads} threads"
+
+
+LM_RECORDS = (("rmsnorm", "rms::rmsnorm"),
+              ("flash prefill", "flash::prefill_kernel"),
+              ("flash decode", "flash::decode_kernel"),
+              ("flash combine", "flash::decode_combine_kernel"))
+
+
+def kernel_records(prof, parts) -> dict[str, int]:
+    """The trace's kernel records whose names hold each of ``parts``."""
+    from torch.autograd import DeviceType
+    records = dict.fromkeys(parts, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for part in parts:
+                if part in e.key:
+                    records[part] += e.count
+    return records
+
+
+def lm_records(prof) -> dict[str, int]:
+    """The trace's kernel records of K16 (every rmsnorm kernel) and of
+    K15's three kernels."""
+    rec = kernel_records(prof, [part for _, part in LM_RECORDS])
+    return {name: rec[part] for name, part in LM_RECORDS}
+
+
+def tick_profile(eng, reps: int) -> dict:
+    """``reps`` steady ticks of ``eng`` (no request admitted or finished
+    in them) under ``torch.profiler``: device ms a tick by kernel (the 8
+    largest and the total, ``kernel_ms``) and the trace's records a tick
+    of K16 and of K15's kernels (``lm_records``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng.step()
+        torch.cuda.synchronize()
+    times: dict[str, float] = {}
+    for key, ms in kernel_ms(prof, reps).items():
+        times[key[:72]] = times.get(key[:72], 0.0) + ms
+    records = lm_records(prof)
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return dict(device_ms=sum(times.values()), top=dict(ranked[:8]),
+                records_per_tick={k: v / reps for k, v in records.items()},
+                kernels_per_tick=sum(
+                    e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / reps)
+
+
+def lm_per_forward(cfg) -> dict[str, int]:
+    """K15's and K16's launches in one forward of ``cfg``."""
+    return {"flash_attention": cfg.num_layers,
+            "rmsnorm": 4 * cfg.num_layers + 1}
+
+
+def lm_params(cfg, dev):
+    """gemma2-9b's weights, drawn on the card from the seed."""
+    import torch
+    from repro_torch.models import transformer as T
+    return T.init_model(torch.Generator(device=dev).manual_seed(SEED + 5),
+                        cfg, device=dev)
+
+
+def lm_inputs(cfg):
+    """Phase 13's 4608-token prompt and the engine's request lengths and
+    prompts, drawn from the seed."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    tokens = rng.integers(0, cfg.vocab_size, (1, LM_PROMPT))
+    lo, hi = LM_PROMPT_LENGTHS
+    lengths = rng.integers(lo, hi + 1, LM_REQUESTS)
+    lengths[:2] = (lo, hi)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    return tokens, lengths, prompts
+
+
+def lm_engine(params, cfg, dev, prompts, backend, sampler=None,
+              cuda_graph=True):
+    """A ``ServeEngine`` of LM_SLOTS slots with the requests submitted."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      backend=backend, device=dev, sampler=sampler,
+                      cuda_graph=cuda_graph)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS))
+    return eng
+
+
+def lm_main_path_counted(dev) -> dict:
+    """Phase 2b, early in the process: the LM main path, the gemma2-9b
+    graph engine serving phase 13's requests, each step profiled
+    (``lm_counted_run``).  Frees its weights on return."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as k15
+    cfg = registry.get_config(LM_ARCH)
+    per_forward = lm_per_forward(cfg)
+    params = lm_params(cfg, dev)
+    eng = lm_engine(params, cfg, dev, lm_inputs(cfg)[2], "kernels")
+    build.reset_launch_counts()
+    k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
+    counted = lm_counted_run(eng, per_forward)
+    counts = build.launch_counts()
+    counted["outputs"] = [(r.rid, r.output) for r in counted.pop("done")]
+    n_fwd = len(eng.timings["prefill_s"]) + eng.ticks
+    seen = n_fwd - counted["replays_untraced"]
+    ran = {k: counts[k] + counted["records_on_replays"][k]
+           for k in per_forward}
+    print(f"LM main path, each step profiled: launches counted by the "
+          f"wrappers {json.dumps(counted['counted'])} (the prefills, the "
+          f"eager tick, the capture), kernel records "
+          f"{json.dumps(counted['records'])}, of them on the "
+          f"{counted['replays'] - 1 - counted['replays_untraced']} later "
+          f"replays traced whole {json.dumps(counted['records_on_replays'])}"
+          f"; counted + on replays {ran} over {seen} forwards "
+          f"({counted['replays_untraced']} replays whose trace lost records "
+          f"of the step left out: {json.dumps(counted['untraced'])}; steps "
+          f"by lead markers lost of {TRACE_LEAD}: "
+          f"{json.dumps(counted['lead_lost'])}); one replayed tick "
+          f"{json.dumps(counted['one_replay'])}", flush=True)
+    if ran != {k: n * seen for k, n in per_forward.items()}:
+        raise AssertionError(f"the main path ran {ran} launches over "
+                             f"{seen} forwards, not {per_forward} each")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def traced(fn):
+    """Runs ``fn`` once under ``torch.profiler`` (CUDA activity) between
+    marker kernels: TRACE_LEAD ``frac_``, a device spin of
+    TRACE_SPIN_CYCLES, TRACE_GUARD ``trunc_``, then ``fn``, then
+    TRACE_GUARD ``floor_``, each on a one-float tensor of its own.  The
+    trace loses records at the start of a session (TRACE_LEAD's
+    comment); the lead markers and the spin take that loss.  Returns the
+    profile, whether the trace holds every guard on both sides of
+    ``fn`` (so that ``fn``'s records are all there), and how many lead
+    markers it lost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    mark = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_LEAD):
+            mark.frac_()
+        torch.cuda._sleep(TRACE_SPIN_CYCLES)
+        for _ in range(TRACE_GUARD):
+            mark.trunc_()
+        fn()
+        for _ in range(TRACE_GUARD):
+            mark.floor_()
+        torch.cuda.synchronize()
+    rec = kernel_records(prof, ("frac_kernel", "trunc_kernel",
+                                "floor_kernel"))
+    return (prof, rec["trunc_kernel"] == rec["floor_kernel"] == TRACE_GUARD,
+            TRACE_LEAD - rec["frac_kernel"])
+
+
+def lm_counted_run(eng, per_forward: dict[str, int]) -> dict:
+    """Runs ``eng`` (a graph engine) to its end, each step profiled
+    (``traced``): the step's kernel records of K16 and K15 (a prefill or
+    decode kernel a launch) against the launches its wrappers counted.
+    A step never holds more records than launches: one forward beyond
+    the count if its tick replayed the graph, none beyond it otherwise
+    (prefills, the eager tick, the capture and its one replay).  A step
+    whose trace holds its guards holds exactly that many; a replay that
+    admits nobody, traced whole, holds 169 K16, 42 K15 decode and 42
+    combine records, no prefill.  Returns the wrappers' counts, the
+    records, those on the later replays traced whole, one such replay's
+    records, the steps whose trace lost records and the replays among
+    them, the steps by lead markers lost, and the finished requests."""
+    from repro_torch.kernels import build
+    totals = {part: dict.fromkeys(per_forward, 0)
+              for part in ("counted", "records", "records_on_replays")}
+    steps, one_replay, untraced, replays_untraced = 0, None, [], 0
+    lead_lost = []
+    while eng.queue or any(a is not None for a in eng.active):
+        before, replays = build.launch_counts(), eng.graph_replays
+        prof, whole, lost = traced(eng.step)
+        lead_lost.append(lost)
+        after, rec = build.launch_counts(), lm_records(prof)
+        ran = {"rmsnorm": rec["rmsnorm"],
+               "flash_attention": rec["flash prefill"] + rec["flash decode"]}
+        counted = {k: after[k] - before[k] for k in per_forward}
+        replayed = (eng.graph_replays - replays == 1
+                    and eng.last_tick == "replay")
+        extra = {k: ran[k] - counted[k] for k in per_forward}
+        want = {k: n if replayed else 0 for k, n in per_forward.items()}
+        if (extra != want if whole
+                else any(extra[k] > want[k] for k in per_forward)):
+            raise AssertionError(f"engine step {steps} ({eng.last_tick}, "
+                                 f"traced {'whole' if whole else 'in part'}"
+                                 f"): {ran} kernel records, {counted} "
+                                 f"launches counted")
+        if not whole:
+            untraced.append(f"{steps} ({eng.last_tick})")
+            replays_untraced += replayed
+        elif replayed and not any(counted.values()) and one_replay is None:
+            one_replay = rec
+            want = {"rmsnorm": per_forward["rmsnorm"], "flash prefill": 0,
+                    "flash decode": per_forward["flash_attention"],
+                    "flash combine": per_forward["flash_attention"]}
+            if rec != want:
+                raise AssertionError(f"a replayed tick holds {rec} kernel "
+                                     f"records, expected {want}")
+        for k in per_forward:
+            totals["counted"][k] += counted[k]
+            totals["records"][k] += ran[k]
+            if whole:
+                totals["records_on_replays"][k] += extra[k]
+        steps += 1
+    if one_replay is None:
+        raise AssertionError("no step replayed the tick without a prefill "
+                             "and kept its whole trace")
+    return dict(steps=steps, ticks=eng.ticks, replays=eng.graph_replays,
+                **totals, one_replay=one_replay, untraced=untraced,
+                replays_untraced=replays_untraced,
+                lead_lost=dict(sorted(Counter(lead_lost).items())),
+                done=eng.finished)
+
+
+def lm_serving(dev, rows: list[dict], counted: dict) -> None:
     """Phase 13, LM serving at the full width of ``gemma2-9b`` (42 layers,
     d_model 3584, 16 heads over 8 KV heads of 256, d_ff 14336, vocab
     256000, window 4096, softcaps 50/30): K16 and K15 against their twins
@@ -1605,7 +1853,9 @@ def lm_serving(dev, rows: list[dict]) -> None:
     4608-token forward on the kernels backend against the plain one, 8
     requests through ``ServeEngine`` on both backends, and the two
     kernels' times beside their bounds, their twins and the library
-    calls.  Appends the K15 and K16 rows to ``rows``."""
+    calls.  The engine's decode tick runs as a CUDA graph on the main
+    path, beside the eager tick.  ``counted`` is phase 2b's profiled run
+    of the main path.  Appends the K15 and K16 rows to ``rows``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1625,26 +1875,43 @@ def lm_serving(dev, rows: list[dict]) -> None:
     scale, cap, win = cfg.query_scale, cfg.attn_logit_softcap, \
         cfg.sliding_window
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    rng = np.random.default_rng(SEED + 13)
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
 
     def randn(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device=dev).mul_(s)
 
-    # 13a. K16 against its twin at gemma2's rows.
+    # 13a. K16 against its twin at gemma2's rows (D = 3584: a CTA a row,
+    # at each CTA size it offers) and at D = 1024 (the sweep's, in both
+    # forms).
     x = randn(LM_PROMPT, dm)
     x4 = randn(LM_SLOTS, dm)
     w = randn(dm, s=0.1)
     xb = x.bfloat16()
+    xn = randn(LM_PROMPT, RMS_NARROW_D)
+    wn = randn(RMS_NARROW_D, s=0.1)
     with torch.no_grad():
-        for label, xx, tol in (("[4608, 3584] fp32", x, RMS),
-                               ("[4, 3584] fp32", x4, RMS),
-                               ("[4608, 3584] bf16", xb, RMS_BF16)):
-            got = k16.rmsnorm(xx, w)
-            r = check(f"rmsnorm {label}", got.float(),
-                      k16.rmsnorm_plain(xx, w).float(), tol)
-            if xx.dtype == torch.float32:
-                errs["rmsnorm"] = max(errs["rmsnorm"], r["max_abs"])
+        for label, xx, ww, tol in (
+                ("[4608, 3584] fp32", x, w, RMS),
+                ("[4, 3584] fp32", x4, w, RMS),
+                ("[1, 3584] fp32", x4[:1], w, RMS),
+                ("[8, 3584] fp32", x[:8], w, RMS),
+                ("[4, 3584] bf16", x4.bfloat16(), w, RMS_BF16),
+                ("[4608, 3584] bf16", xb, w, RMS_BF16),
+                (f"[4608, {RMS_NARROW_D}] fp32", xn, wn, RMS),
+                (f"[4, {RMS_NARROW_D}] fp32", xn[:4], wn, RMS)):
+            d_ = xx.shape[-1]
+            forms = [k16.WARP_ROWS] if d_ <= k16.WARP_MAX_D else []
+            for threads in [None, *forms, *k16.CTA_THREADS]:
+                got = (k16.rmsnorm(xx, ww) if threads is None
+                       else k16.rmsnorm_form(xx, ww, threads))
+                form = k16.plan(d_, 16 // xx.element_size()) \
+                    if threads is None else threads
+                r = check(f"rmsnorm {label} ({rms_form(form)}"
+                          f"{', planned' if threads is None else ''})",
+                          got.float(), k16.rmsnorm_plain(xx, ww).float(),
+                          tol)
+                if xx.dtype == torch.float32 and d_ == dm:
+                    errs["rmsnorm"] = max(errs["rmsnorm"], r["max_abs"])
 
     # 13b. K15 against its twin at gemma2's heads (and two other dims).
     def qkv(b, tq, tk, hh=h, kk=kvh, dd=d):
@@ -1715,15 +1982,13 @@ def lm_serving(dev, rows: list[dict]) -> None:
 
     # 13c. The full-width model: one 4608-token forward, kernels vs plain.
     t0 = time.perf_counter()
-    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 5),
-                          cfg, device=dev)
+    params = lm_params(cfg, dev)
     torch.cuda.synchronize()
     print(f"{LM_ARCH}: {count_params(cfg)} parameters "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) "
           f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
-    tokens = rng.integers(0, cfg.vocab_size, (1, LM_PROMPT))
-    per_forward = {"flash_attention": cfg.num_layers,
-                   "rmsnorm": 4 * cfg.num_layers + 1}
+    tokens, lengths, prompts = lm_inputs(cfg)
+    per_forward = lm_per_forward(cfg)
     fwd_s = {}
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -1766,11 +2031,6 @@ def lm_serving(dev, rows: list[dict]) -> None:
     torch.cuda.empty_cache()
 
     # 13d. The engine: 8 requests through 4 slots, kernels vs plain.
-    lo, hi = LM_PROMPT_LENGTHS
-    lengths = rng.integers(lo, hi + 1, LM_REQUESTS)
-    lengths[:2] = (lo, hi)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lengths]
     gaps: dict[tuple[int, int], float] = {}
 
     def recording_sampler(lg):           # the plain engine's decode gaps
@@ -1781,55 +2041,88 @@ def lm_serving(dev, rows: list[dict]) -> None:
                     gaps[(req.rid, len(req.output))] = float(top[1] - top[0])
         return np.argmax(lg, -1)
 
-    def serve(backend, sampler=None):
-        eng = ServeEngine(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN,
-                          backend=backend, device=dev, sampler=sampler)
-        for i, p in enumerate(prompts):
-            eng.submit(Request(rid=i, prompt=p,
-                               max_new_tokens=LM_NEW_TOKENS))
-        return eng
+    def serve(backend, sampler=None, cuda_graph=True):
+        return lm_engine(params, cfg, dev, prompts, backend, sampler,
+                         cuda_graph)
 
-    # Both timed runs take the argmax on the device; the plain top-2 gaps
-    # come from a third, untimed plain run whose sampler records them on
-    # the host (its tokens must equal the timed plain run's).
+    # Three timed runs, each taking the argmax on the device: the kernels
+    # engine with its tick as a CUDA graph (the main path), the same engine
+    # ticking eagerly, and the plain engine (eager, as before the graph).
+    # The plain top-2 gaps come from a fourth, untimed plain run whose
+    # sampler records them on the host (its tokens must equal the timed
+    # plain run's).
     served = {}
-    for backend in ("kernels", "torch"):
-        eng = serve(backend)
+    for name, backend, graph in (("kernels", "kernels", True),
+                                 ("kernels eager", "kernels", False),
+                                 ("torch", "torch", False)):
+        eng = serve(backend, cuda_graph=graph)
         build.reset_launch_counts()
         k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
         t0 = time.perf_counter()
         done = eng.run()
         run_s = time.perf_counter() - t0
         counts = build.launch_counts()
-        served[backend] = dict(engine=eng, done=done, run_s=run_s,
-                               counts=counts,
-                               schedules=dict(k15.SCHEDULE_LAUNCHES))
-    eng_r = serve("torch", recording_sampler)
+        served[name] = dict(engine=eng, done=done, run_s=run_s,
+                            counts=counts,
+                            schedules=dict(k15.SCHEDULE_LAUNCHES))
+    eng_r = serve("torch", recording_sampler, cuda_graph=False)
     recorded = {r.rid: r.output for r in eng_r.run()}
     if recorded != {r.rid: r.output for r in served["torch"]["done"]}:
         raise AssertionError("the plain engine's tokens differ between its "
                              "timed run and its recording run")
     del eng_r
     eng_k = served["kernels"]["engine"]
-    n_fwd = len(eng_k.timings["prefill_s"]) + len(eng_k.timings["decode_s"])
-    engine_counts = {kk: served["kernels"]["counts"][kk]
-                     for kk in per_forward}
-    want_counts = {kk: n * n_fwd for kk, n in per_forward.items()}
-    print(f"engine launches over {n_fwd} forward calls: {engine_counts}, "
-          f"expected {want_counts}", flush=True)
-    if engine_counts != want_counts:
-        raise AssertionError("the engine did not run every attention on "
-                             "K15 and every norm on K16")
-    # Every prefill (B = 1, Tq = 17..300: 34+ query rows a KV head) on the
-    # prefill schedule, every decode tick (4 slots x Tq = 1) on decode.
-    schedules = served["kernels"]["schedules"]
-    want_sched = {"prefill": cfg.num_layers * len(eng_k.timings["prefill_s"]),
-                  "decode": cfg.num_layers * len(eng_k.timings["decode_s"])}
-    print(f"engine K15 launches by schedule: {schedules}, expected "
-          f"{want_sched}", flush=True)
-    if schedules != want_sched:
-        raise AssertionError("the engine's K15 calls did not take the "
-                             "planned schedules")
+    n_ticks = eng_k.ticks
+    kinds = dict(eng_k.tick_kinds)
+    print(f"graph engine ticks: {kinds}, {eng_k.graph_replays} graph "
+          f"replays", flush=True)
+    # Tick 1 warms up eagerly, tick 2 captures (and replays once), the
+    # rest replay.
+    if kinds != {"eager": 1, "capture": 1, "replay": n_ticks - 2} \
+            or eng_k.graph_replays != n_ticks - 1:
+        raise AssertionError(f"the graph engine's ticks ran as {kinds} "
+                             f"with {eng_k.graph_replays} replays")
+    eng_e = served["kernels eager"]["engine"]
+    if dict(eng_e.tick_kinds) != {"eager": eng_e.ticks} \
+            or eng_e.graph_replays:
+        raise AssertionError("the eager engine replayed a graph")
+    # The wrappers count on the host: every prefill and eager tick, and
+    # the capture (whose launches run at its one replay); a replay counts
+    # nothing.
+    for name, eager_fwd in (("kernels", 2), ("kernels eager", eng_e.ticks)):
+        eng = served[name]["engine"]
+        n_pre = len(eng.timings["prefill_s"])
+        got_counts = {kk: served[name]["counts"][kk] for kk in per_forward}
+        want_counts = {kk: n * (n_pre + eager_fwd)
+                       for kk, n in per_forward.items()}
+        print(f"engine ({name}) launches counted by the wrappers over "
+              f"{n_pre} prefills and {eager_fwd} ticks (eager or captured): "
+              f"{got_counts}, expected {want_counts}", flush=True)
+        if got_counts != want_counts:
+            raise AssertionError(f"the {name} engine did not run every "
+                                 f"attention on K15 and every norm on K16")
+        # Every prefill (B = 1, Tq = 17..300: 34+ query rows a KV head) on
+        # the prefill schedule, every decode tick (4 slots x Tq = 1) on
+        # decode.
+        schedules = served[name]["schedules"]
+        want_sched = {"prefill": cfg.num_layers * n_pre,
+                      "decode": cfg.num_layers * eager_fwd}
+        print(f"engine ({name}) K15 launches by schedule: {schedules}, "
+              f"expected {want_sched}", flush=True)
+        if schedules != want_sched:
+            raise AssertionError(f"the {name} engine's K15 calls did not "
+                                 f"take the planned schedules")
+    graph_out = [(r.rid, r.output) for r in served["kernels"]["done"]]
+    eager_out = [(r.rid, r.output) for r in served["kernels eager"]["done"]]
+    if graph_out != eager_out:
+        raise AssertionError("the graph engine's tokens or finish order "
+                             "differ from the eager kernels engine's")
+    print(f"check graph engine: tokens and finish order equal to the eager "
+          f"kernels engine's, all {LM_REQUESTS} requests", flush=True)
+    if counted["outputs"] != graph_out:
+        raise AssertionError("the profiled main path's tokens (phase 2b) "
+                             "differ from the timed graph engine's")
+    engine_counts = served["kernels"]["counts"]
     order = {b: [r.rid for r in served[b]["done"]] for b in served}
     if order["kernels"] != order["torch"]:
         raise AssertionError(f"finish order differs: {order}")
@@ -1859,16 +2152,21 @@ def lm_serving(dev, rows: list[dict]) -> None:
           f"equal to the plain engine's, {ties} diverge at a tie; finish "
           f"order {order['kernels']}", flush=True)
     stats = {}
-    for backend, sv in served.items():
+    for name, sv in served.items():
         tm = sv["engine"].timings
         n_tok = sum(len(r.output) for r in sv["done"])
-        stats[backend] = dict(
+        stats[name] = dict(
             prefill_ms_mean=1e3 * statistics.mean(tm["prefill_s"]),
             prefill_ms=[1e3 * t_ for t_ in tm["prefill_s"]],
             decode_ms_per_tick_median=1e3 * statistics.median(
                 tm["decode_s"]),
+            decode_ms_by_tick=[1e3 * t_ for t_ in tm["decode_s"]],
+            tick_kinds=dict(sv["engine"].tick_kinds),
             ticks=len(tm["decode_s"]), tokens=n_tok, run_s=sv["run_s"],
             tokens_per_s=n_tok / sv["run_s"])
+    # The graph engine's ticks after the eager one and the capture.
+    stats["kernels"]["replay_ms_median"] = statistics.median(
+        stats["kernels"]["decode_ms_by_tick"][2:])
     stats["prompt_lengths"] = lengths.tolist()
     print(f"lm_engine: {json.dumps(stats)}", flush=True)
 
@@ -1985,7 +2283,61 @@ def lm_serving(dev, rows: list[dict]) -> None:
         rms_sites = timed_sites([
             rms_site("prefill [4608, 3584] fp32 (main path)", x),
             rms_site("decode [4, 3584] fp32", xd),
-            rms_site("prefill [4608, 3584] bf16", xb)])
+            rms_site("prefill [4608, 3584] bf16", xb),
+            rms_site("decode [1, 3584] fp32", x4[:1]),
+            rms_site("decode [8, 3584] fp32", x[:8])])
+        # K16's forms by rows: at D = 3584 a CTA a row at each CTA size,
+        # at D = 1024 also a warp a row, the planned form marked; and the
+        # floor under the decode launch, an empty kernel of its grid.
+        form_sweep = {}
+        for xx, ww, rows_ in (
+                (x, w, (1, 4, 8, 33, 132, 264, 528, 1056, 4608)),
+                (xb, w, (4, 132, 264, 1056, 4608)),
+                (xn, wn, (4, 132, 4608))):
+            d_ = xx.shape[-1]
+            forms = [k16.WARP_ROWS] if d_ <= k16.WARP_MAX_D else []
+            for r_ in rows_:
+                xr_ = xx[:r_]
+                site = f"[{r_}, {d_}] {str(xx.dtype)[6:]}"
+                form_sweep[site] = {
+                    rms_form(t_): device_ms(
+                        lambda t_=t_, xr_=xr_, ww=ww: k16.rmsnorm_form(
+                            xr_, ww, t_), reps=10)
+                    for t_ in (*forms, *k16.CTA_THREADS)}
+                form_sweep[site]["planned"] = rms_form(
+                    k16.plan(d_, 16 // xx.element_size()))
+        print(f"rmsnorm device ms by form: {json.dumps(form_sweep)}",
+              flush=True)
+        # K16 against F.rms_norm, device time in turns (kernel, library,
+        # library, kernel), at the 4608-row and the decode sites.  The
+        # sites' event ms are host-paced at decode for both.
+        rms_vs_lib = {}
+        for xx in (x, xb, x4, x4[:1], x[:8]):
+            w1x = w1.to(xx.dtype)
+            turns = []
+            for fn in ("k16", "lib", "lib", "k16"):
+                turns.append(device_ms(
+                    (lambda xx=xx: k16.rmsnorm(xx, w)) if fn == "k16" else
+                    (lambda xx=xx, w1x=w1x: F.rms_norm(xx, (dm,), w1x,
+                                                       1e-6)), reps=20))
+            rms_vs_lib[f"[{xx.shape[0]}, {dm}] {str(xx.dtype)[6:]}"] = dict(
+                k16=[turns[0], turns[3]], f_rms_norm=[turns[1], turns[2]])
+        print(f"rmsnorm against F.rms_norm, device ms in turns: "
+              f"{json.dumps(rms_vs_lib)} ({CARD})", flush=True)
+        dec_key = f"[{LM_SLOTS}, {dm}] float32"
+        dec_threads = k16.plan(dm, 4)
+        rms_empty = dict(grid=[LM_SLOTS, dec_threads],
+                         ms=time_ms(lambda: k16.empty_launch(
+                             LM_SLOTS, dec_threads, dev)),
+                         device_ms=device_ms(lambda: k16.empty_launch(
+                             LM_SLOTS, dec_threads, dev)))
+        print(f"rmsnorm decode [4, 3584] fp32 ({rms_form(dec_threads)}): "
+              f"device {rms_sites[1]['device_ms']} ms, bound "
+              f"{rms_sites[1]['bound_ms']:.7f} ms, empty launch of its grid "
+              f"{json.dumps(rms_empty)}, F.rms_norm in turns "
+              f"{rms_vs_lib[dec_key]['f_rms_norm']} ms; [4608, 3584] bf16: "
+              f"device {rms_sites[2]['device_ms']} ms, F.rms_norm "
+              f"{rms_sites[2]['library_ms']} ms ({CARD})", flush=True)
         # K15's prefill KV tile at the three head dims (plan_tiles picks
         # 32, 64, 32 keys for D = 64, 128, 256), each timed with every tile
         # that fits a CTA (only 32 keys at D = 256).
@@ -2008,18 +2360,49 @@ def lm_serving(dev, rows: list[dict]) -> None:
             del qs, ks, vs
         print(f"flash_attention device ms by block_k: "
               f"{json.dumps(tile_sweep)}", flush=True)
-        tok4 = torch.zeros(LM_SLOTS, 1, dtype=torch.long, device=dev)
-        len4 = torch.tensor(lens_dec, device=dev)
-        decode_profile = device_breakdown(lambda: T.forward(
-            params, tok4, cfg=cfg, cache=eng_k.cache, cache_index=len4,
-            backend="kernels"), reps=3, top=8)
         prefill_profile = device_breakdown(lambda: T.forward(
             params, tokens, cfg=cfg, backend="kernels", last_only=True),
             reps=1, top=8)
-    print(f"lm profile, one decode tick (device ms by kernel): "
-          f"{json.dumps(decode_profile)}", flush=True)
     print(f"lm profile, one 4608-token forward (device ms by kernel): "
           f"{json.dumps(prefill_profile)}", flush=True)
+    # Steady decode ticks of the graph engine (replays) and of the eager
+    # kernels engine, profiled: LM_SLOTS fresh requests fill the slots, a
+    # tick admits them, then only ticks run.  The idle share sets each
+    # tick's device ms against its engine's median host ms in the timed
+    # run (the profiler slows the host).
+    tick_profiles = {}
+    for name in ("kernels", "kernels eager"):
+        eng = served[name]["engine"]
+        for i, p in enumerate(prompts[:LM_SLOTS]):
+            eng.submit(Request(rid=100 + i, prompt=p,
+                               max_new_tokens=LM_NEW_TOKENS))
+        eng.step()
+        eng.step()
+        replays = eng.graph_replays
+        one = tick_profile(eng, 1)
+        three = tick_profile(eng, 3)
+        host_ms = (stats[name]["replay_ms_median"] if name == "kernels"
+                   else stats[name]["decode_ms_per_tick_median"])
+        tick_profiles[name] = dict(
+            last_tick=eng.last_tick,
+            replays_profiled=eng.graph_replays - replays, one_tick=one,
+            device_ms=three["device_ms"], top=three["top"],
+            kernels_per_tick=three["kernels_per_tick"],
+            host_ms=host_ms, idle_share=1.0 - three["device_ms"] / host_ms)
+        print(f"lm decode tick ({name}, {eng.last_tick}): host "
+              f"{host_ms:.3f} ms, device {three['device_ms']:.3f} ms, idle "
+              f"share {tick_profiles[name]['idle_share']:.3f}, "
+              f"{three['kernels_per_tick']:.0f} kernels a tick; the trace "
+              f"kept {json.dumps(one['records_per_tick'])} records of one "
+              f"tick ({CARD})", flush=True)
+        print(f"lm profile, one decode tick ({name}; device ms by kernel): "
+              f"{json.dumps(three['top'])}", flush=True)
+    # Late in the process the trace keeps fewer records of a replay than
+    # it ran (phase 2b holds every step's records early); check only
+    # that the profiled ticks replayed.
+    if tick_profiles["kernels"]["replays_profiled"] != 4:
+        raise AssertionError("the graph engine's profiled ticks did not "
+                             "all replay")
     for name, source, replaces, site_rows, lib_note in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:29", fa_sites,
@@ -2052,6 +2435,14 @@ def lm_serving(dev, rows: list[dict]) -> None:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=replaces, launches=engine_counts[name],
+            launches_on_replays=counted["records_on_replays"][name],
+            launches_note="launches: what the wrappers counted over the "
+                          "timed main path (prefills, the eager tick, the "
+                          "capture); launches_on_replays: the kernel "
+                          "records of the later graph replays of phase "
+                          "2b's run of the main path, each step profiled, "
+                          "over the replays traced whole",
+            replays_untraced=counted["replays_untraced"],
             forward_launches=per_forward[name], max_abs_err=errs[name],
             ms=main_site["ms"], device_ms=main_site["device_ms"],
             plain_ms=main_site["plain_ms"], bound_ms=main_site["bound_ms"],
@@ -2064,7 +2455,19 @@ def lm_serving(dev, rows: list[dict]) -> None:
         if name == "flash_attention":
             row.update(schedules=schedules, split_sweep=sweeps,
                        engine_prompts=prompt_ms)
+        else:
+            dec = site_rows[1]
+            row.update(decode=dict(
+                site=dec["op"], form=rms_form(dec_threads),
+                device_ms=dec["device_ms"], ms=dec["ms"],
+                bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+                library_ms=dec["library_ms"],
+                library_device_ms=rms_vs_lib[dec_key]["f_rms_norm"],
+                device_ms_in_turns=rms_vs_lib[dec_key]["k16"],
+                empty_launch=rms_empty),
+                form_sweep=form_sweep, against_library=rms_vs_lib)
         rows.append(row)
+    print(f"lm decode ticks: {json.dumps(tick_profiles)}", flush=True)
     del params, eng_k, served
     gc.collect()
     torch.cuda.empty_cache()
@@ -2105,12 +2508,14 @@ def main() -> int:
     print(f"build: compiled {built or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 2b. The LM main path with each step profiled.
+    lm_counted = lm_main_path_counted(dev)
     # 3.-12. The CapsuleNet phases; their tensors are freed on return.
     rows = capsnet_phases(dev)
     gc.collect()
     torch.cuda.empty_cache()
     # 13. LM serving at the full width of gemma2-9b.
-    lm_serving(dev, rows)
+    lm_serving(dev, rows, lm_counted)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,18 +13,22 @@ in place and returns the same dict.
 ``grouped_attention``, the reference's masked softmax over the whole
 cache; ``backend="kernels"`` calls K15 (``ops.flash_attention``) on the
 cache in place -- strided views, no transpose and no expanded KV heads --
-with each row's key count ``kv_len = cache_index + T``.
+with each row's key count ``kv_len = cache_index + T``.  What every layer
+derives from the positions (rope tables, cache-write indices, ``kv_len``)
+is computed once a forward, in ``AttnInputs``.
 
 MLA (DeepSeek's latent attention) waits for its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_linear, rope
+from repro_torch.models.layers import apply_rope, init_linear, rope_tables
 
 NEG_INF = -1e30
 MLA_TODO = ("MLA attention is not ported yet (ROADMAP queue 1, item 11c)")
@@ -52,18 +56,16 @@ def init_attn_params(generator: torch.Generator, cfg: ModelConfig,
 # Cache plumbing
 # ---------------------------------------------------------------------------
 
-def _cache_write(buf: torch.Tensor, val: torch.Tensor, cache_index) -> None:
-    """Write ``val`` [B, T, ...] into ``buf`` [B, S, ...] at sequence
-    position ``cache_index``: an int (every row), or an int64 ``[B]``
-    tensor (one position per row)."""
-    t = val.shape[1]
-    if isinstance(cache_index, int):
-        buf[:, cache_index:cache_index + t] = val
+def _cache_write(buf: torch.Tensor, val: torch.Tensor,
+                 inputs: "AttnInputs") -> None:
+    """Write ``val`` [B, T, ...] into ``buf`` [B, S, ...] at the forward's
+    sequence position: an int (every row), or an int64 ``[B]`` tensor (one
+    position per row, through ``inputs.scatter_index``)."""
+    ci = inputs.cache_index
+    if isinstance(ci, int):
+        buf[:, ci:ci + val.shape[1]] = val
         return
-    b = val.shape[0]
-    rows = torch.arange(b, device=buf.device)[:, None]
-    cols = cache_index[:, None] + torch.arange(t, device=buf.device)[None]
-    buf[rows, cols] = val.to(buf.dtype)
+    buf[inputs.scatter_index] = val.to(buf.dtype)
 
 
 def _cache_positions(cache_index, b: int, s: int, t: int,
@@ -87,6 +89,57 @@ def kv_lengths(cache_index, b: int, t: int, device) -> torch.Tensor:
         return torch.full((b,), cache_index + t, dtype=torch.int32,
                           device=device)
     return (cache_index + t).to(torch.int32)
+
+
+class AttnInputs:
+    """What every attention layer of one forward derives from its
+    positions, computed once a forward (``transformer.forward``), not
+    once a layer: the rope tables (by dtype), the cache-write indices,
+    K15's ``kv_len`` and the plain path's key positions (by cache
+    length).  Each is computed when a layer first asks for it, by the
+    ops the per-layer code used, so every result keeps its bits.
+
+    ``cache_index`` is None (no cache), an int, or an int64 ``[B]``
+    tensor on the positions' device."""
+
+    def __init__(self, positions: torch.Tensor, cache_index, *,
+                 theta: float, head_dim: int):
+        self.positions = positions
+        self.cache_index = cache_index
+        self.theta = theta
+        self.head_dim = head_dim
+        self._rope: dict[torch.dtype, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._kv_pos: dict[int, torch.Tensor] = {}
+
+    def rope(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """``layers.rope_tables`` at the positions, in ``dtype``."""
+        if dtype not in self._rope:
+            self._rope[dtype] = rope_tables(self.positions, self.theta,
+                                            self.head_dim, dtype)
+        return self._rope[dtype]
+
+    @functools.cached_property
+    def scatter_index(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows [B, 1], cols [B, T]) of a per-row cache write."""
+        b, t = self.positions.shape
+        dev = self.positions.device
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = self.cache_index[:, None] + torch.arange(t, device=dev)[None]
+        return rows, cols
+
+    @functools.cached_property
+    def kv_len(self) -> torch.Tensor:
+        """Each row's key count after this forward's write (K15's)."""
+        b, t = self.positions.shape
+        return kv_lengths(self.cache_index, b, t, self.positions.device)
+
+    def kv_pos(self, s: int) -> torch.Tensor:
+        """The plain path's key positions over an ``s``-slot cache."""
+        if s not in self._kv_pos:
+            b, t = self.positions.shape
+            self._kv_pos[s] = _cache_positions(self.cache_index, b, s, t,
+                                               self.positions.device)
+        return self._kv_pos[s]
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +172,7 @@ def grouped_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
         logits = torch.tanh(logits / softcap) * softcap
     m = _mask(q_pos, kv_pos, causal, window)
     neg = NEG_INF if fp32_softmax else -3e38
-    logits = torch.where(m[:, None, None], logits,
-                         torch.tensor(neg, dtype=logits.dtype))
+    logits = torch.where(m[:, None, None], logits, neg)
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
     return out.reshape(b, t, h, dh)
@@ -130,13 +182,12 @@ def grouped_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
 # GQA block
 # ---------------------------------------------------------------------------
 
-def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+def gqa_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
                 cfg: ModelConfig, window: int | None, cache: dict | None,
-                cache_index, backend: str = "torch"
-                ) -> tuple[torch.Tensor, dict | None]:
+                backend: str = "torch") -> tuple[torch.Tensor, dict | None]:
     """x [B, T, D] -> (attention output [B, T, D], the cache written in
-    place or None).  ``cache_index`` is None without a cache, else an int
-    or an int64 ``[B]`` tensor on x's device."""
+    place or None).  ``inputs`` holds the forward's positions and cache
+    index (None without a cache) and what the layers derive from them."""
     b, t, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else dh ** -0.5
@@ -144,12 +195,12 @@ def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     q = (x @ params["q_proj"]).reshape(b, t, h, dh)
     k = (x @ params["k_proj"]).reshape(b, t, kvh, dh)
     v = (x @ params["v_proj"]).reshape(b, t, kvh, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, *inputs.rope(q.dtype))
+    k = apply_rope(k, *inputs.rope(k.dtype))
 
     if cache is not None:
-        _cache_write(cache["k"], k, cache_index)
-        _cache_write(cache["v"], v, cache_index)
+        _cache_write(cache["k"], k, inputs)
+        _cache_write(cache["v"], v, inputs)
         k, v = cache["k"], cache["v"]
 
     if backend == "kernels":
@@ -157,18 +208,17 @@ def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
             raise ValueError("attn_fp32_softmax=False (bf16 logits) has no "
                              "kernel: K15 computes fp32 statistics; use "
                              "backend='torch'")
-        kv_len = (None if cache is None
-                  else kv_lengths(cache_index, b, t, x.device))
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=cfg.causal, window=window,
             softcap=cfg.attn_logit_softcap, scale=scale,
-            kv_len=kv_len).transpose(1, 2)
+            kv_len=None if cache is None else inputs.kv_len).transpose(1, 2)
     else:
-        kv_pos = (positions if cache is None else _cache_positions(
-            cache_index, b, k.shape[1], t, x.device))
-        out = grouped_attention(q, k.to(q.dtype), v.to(q.dtype), positions,
-                                kv_pos, causal=cfg.causal, window=window,
+        kv_pos = (inputs.positions if cache is None
+                  else inputs.kv_pos(k.shape[1]))
+        out = grouped_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                inputs.positions, kv_pos, causal=cfg.causal,
+                                window=window,
                                 softcap=cfg.attn_logit_softcap, scale=scale,
                                 fp32_softmax=cfg.attn_fp32_softmax)
     return out.reshape(b, t, h * dh) @ params["o_proj"], cache

@@ -34,22 +34,39 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return x * scale * (1.0 + weight.to(x.dtype))
 
 
+def rope_tables(positions: torch.Tensor, theta: float, dim: int,
+                dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin ``[B, T, 1, dim // 2]`` of the rotary embedding at
+    ``positions`` [B, T] (absolute): computed in fp32 and cast to
+    ``dtype``, as the reference does.  A forward computes them once for
+    all its layers (``attention.AttnInputs``)."""
+    half = dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    angles = positions[..., None].float() * freqs            # [B, T, half]
+    return (torch.cos(angles)[:, :, None, :].to(dtype),
+            torch.sin(angles)[:, :, None, :].to(dtype))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Rotate-half rotary embedding of x [B, T, H, D] by ``rope_tables``'
+    cos/sin, over x's first ``2 * cos.shape[-1]`` features."""
+    half = cos.shape[-1]
+    d = 2 * half
+    rot, rest = x[..., :d], x[..., d:]
+    x1, x2 = rot[..., :half], rot[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated, rest], dim=-1) if rest.numel() else rotated
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
          rope_dim: int | None = None) -> torch.Tensor:
     """Rotary embedding, rotate-half layout.  x: [B, T, H, D], positions:
     [B, T] (absolute).  cos/sin are computed in fp32 and cast to x's type
     before the multiply, as the reference does."""
     d = x.shape[-1] if rope_dim is None else rope_dim
-    half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    angles = positions[..., None].float() * freqs            # [B, T, half]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
-    rot, rest = x[..., :d], x[..., d:]
-    x1, x2 = rot[..., :half], rot[..., half:]
-    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return torch.cat([rotated, rest], dim=-1) if rest.numel() else rotated
+    return apply_rope(x, *rope_tables(positions, theta, d, x.dtype))
 
 
 def gated_mlp(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,

@@ -10,7 +10,11 @@ over views of the stacked leaves; serving needs no remat.
 ``backend="kernels"`` runs every attention on K15 and every fp32 RMSNorm
 on K16 (``ops.flash_attention`` / ``ops.rmsnorm``); ``backend="torch"`` is
 the plain reference path.  Both compute the reference's jnp function.
-Caches are written in place (``models/attention.py``).
+Caches are written in place (``models/attention.py``).  ``forward``
+derives the rope tables, cache-write indices and K15's ``kv_len`` once
+for all its layers (``attention.AttnInputs``); it makes no host sync when
+its tokens and a per-row ``cache_index`` lie on the device, so the
+serving engine captures it into a CUDA graph.
 
 Ported so far: the dense attention blocks (``global``, ``local``,
 ``bidir``).  MoE, MLA, ``mamba`` and ``shared_attn`` blocks and the audio
@@ -151,8 +155,8 @@ def cache_slot(cache: dict, slot: int) -> dict:
 # Block application
 # ---------------------------------------------------------------------------
 
-def _apply_block(p: Params, kind: str, x, positions, *, cfg: ModelConfig,
-                 cache, cache_index, backend: str) -> torch.Tensor:
+def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
+                 cfg: ModelConfig, cache, backend: str) -> torch.Tensor:
     """One attention block: norms, attention, MLP, residuals.  The cache,
     if any, is written in place."""
     def norm(y, w):
@@ -160,9 +164,8 @@ def _apply_block(p: Params, kind: str, x, positions, *, cfg: ModelConfig,
 
     window = cfg.sliding_window if kind == "local" else None
     h = norm(x, p["input_norm"])
-    a_out, _ = attn.gqa_forward(p, h, positions, cfg=cfg, window=window,
-                                cache=cache, cache_index=cache_index,
-                                backend=backend)
+    a_out, _ = attn.gqa_forward(p, h, inputs, cfg=cfg, window=window,
+                                cache=cache, backend=backend)
     if cfg.use_post_norms:
         a_out = norm(a_out, p["post_attn_norm"])
     x = x + a_out
@@ -215,11 +218,14 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
         positions = attn.query_positions(ci, b, t, dev)
     if cache is not None and ci is None:
         raise ValueError("forward: a cache needs a cache_index")
-    kw = dict(cfg=cfg, cache_index=ci, backend=backend)
+    # The rope tables, cache-write indices and kv_len, once for every layer.
+    inputs = attn.AttnInputs(positions, ci, theta=cfg.rope_theta,
+                             head_dim=cfg.head_dim)
+    kw = dict(cfg=cfg, backend=backend)
 
     for i, kind in enumerate(cfg.prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x = _apply_block(params["prefix"][i], kind, x, positions, cache=c,
+        x = _apply_block(params["prefix"][i], kind, x, inputs, cache=c,
                          **kw)
     for r in range(cfg.repeats):
         for i, kind in enumerate(cfg.pattern):
@@ -227,10 +233,10 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
             c = (None if cache is None else
                  {k: v[r] for k, v in cache["blocks"][f"s{i}"].items()})
             x = _apply_block({k: v[r] for k, v in slot.items()}, kind, x,
-                             positions, cache=c, **kw)
+                             inputs, cache=c, **kw)
     for i, kind in enumerate(cfg.suffix):
         c = cache["suffix"][i] if cache is not None else None
-        x = _apply_block(params["suffix"][i], kind, x, positions, cache=c,
+        x = _apply_block(params["suffix"][i], kind, x, inputs, cache=c,
                          **kw)
 
     if last_only:

@@ -654,6 +654,40 @@ def test_rmsnorm_kernel_matches_twin_on_the_card(cuda, rows, d, dtype):
                                atol=tol)
 
 
+@pytest.mark.parametrize("threads", [None, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 8, 33, 4608])
+def test_rmsnorm_small_rows_form_matches_twin_on_the_card(cuda, rows, dtype,
+                                                          threads):
+    """K16's CTA-a-row form (every load before the sum) at gemma2's
+    D = 3584, decode's rows and prefill's: the planned CTA size and each
+    of the others, the 16-byte path and an unaligned row start (the
+    element-wise path); the warp-a-row form refuses the row."""
+    from repro_torch.kernels import rmsnorm as k16
+    d = 3584
+    x = _rand(3, rows, d, device=cuda).to(dtype)
+    w = _rand(4, d, scale=0.1, device=cuda)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+
+    def run(xx):
+        return (k16.rmsnorm(xx, w) if threads is None
+                else k16.rmsnorm_form(xx, w, threads))
+    run(x)
+    names: set[str] = set()
+    for _ in range(3):          # the trace can come back empty; look again
+        names |= _kernel_names(lambda: run(x))
+        if names:
+            break
+    assert any("rmsnorm_row_kernel" in n for n in names), names
+    assert k16.plan(d, 16 // x.element_size()) in k16.CTA_THREADS
+    for xx in (x, _offset(x, 1)):
+        torch.testing.assert_close(run(xx).float(),
+                                   k16.rmsnorm_plain(xx, w).float(),
+                                   rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="cannot hold"):
+        k16.rmsnorm_form(x, w, k16.WARP_ROWS)
+
+
 @pytest.mark.parametrize("block_k", [None, 32, 64])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("case", ["prefill", "ragged", "window", "decode",
@@ -824,3 +858,92 @@ def test_gemma2_smoke_forward_and_engine_on_the_card(cuda):
                                max_new_tokens=5))
         outs[backend] = [(r.rid, r.output) for r in eng.run()]
     assert outs["kernels"] == outs["torch"]
+
+
+def _gemma2_smoke(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config("gemma2-9b")
+    return cfg, T.init_model(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, device=cuda)
+
+
+def test_graph_engine_replays_the_eager_engines_ticks_on_the_card(cuda):
+    """The engine's decode tick as a CUDA graph: the same tokens, finish
+    order and logits, bit for bit, as the eager tick, with slots refilled
+    between replays.  The wrappers count 4 norms a layer and the final
+    one, one K15 a layer, in every eager forward and in the capture; a
+    replay counts nothing and the engine counts the replays."""
+    from repro_torch.kernels import flash_attention as k15
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _gemma2_smoke(cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 3, 20, 7, 15)]
+    runs = {}
+    for graph in (True, False):
+        seen = []
+
+        def sampler(lg, seen=seen):
+            seen.append(lg.copy())
+            return np.argmax(lg, -1)
+        eng = ServeEngine(params, cfg, slots=2, max_len=40, backend="kernels",
+                          device=cuda, sampler=sampler, cuda_graph=graph)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4 + i))
+        build.reset_launch_counts()
+        k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
+        done = [(r.rid, r.output) for r in eng.run()]
+        runs[graph] = dict(eng=eng, done=done, seen=seen,
+                           counts=build.launch_counts(),
+                           schedules=dict(k15.SCHEDULE_LAUNCHES))
+    g, e = runs[True], runs[False]
+    assert g["done"] == e["done"]
+    assert len(g["seen"]) == len(e["seen"])
+    for a, b in zip(g["seen"], e["seen"]):
+        np.testing.assert_array_equal(a, b)
+    ticks = g["eng"].ticks
+    assert g["eng"].tick_kinds == {"eager": 1, "capture": 1,
+                                   "replay": ticks - 2}
+    assert g["eng"].graph_replays == ticks - 1
+    assert e["eng"].tick_kinds == {"eager": e["eng"].ticks}
+    assert e["eng"].graph_replays == 0
+    for run, ticks_counted in ((g, 2), (e, e["eng"].ticks)):
+        n_fwd = len(run["eng"].timings["prefill_s"]) + ticks_counted
+        assert run["counts"]["rmsnorm"] == (4 * cfg.num_layers + 1) * n_fwd
+        assert run["counts"]["flash_attention"] == cfg.num_layers * n_fwd
+        assert sum(run["schedules"].values()) == cfg.num_layers * n_fwd
+    assert g["schedules"]["prefill"] == e["schedules"]["prefill"]
+    assert e["schedules"]["decode"] - g["schedules"]["decode"] == (
+        cfg.num_layers * (e["eng"].ticks - 2))   # the replays
+
+
+def test_graph_engine_ticks_eagerly_under_fault_injection(cuda):
+    """A tick under an injected fault runs eagerly, so the wrapper's site
+    fires and the fault reaches the logits; the next tick replays."""
+    from repro_torch.core import faults
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _gemma2_smoke(cuda)
+    eng = ServeEngine(params, cfg, slots=1, max_len=40, backend="kernels",
+                      device=cuda)
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 9)
+    eng.submit(Request(rid=0, prompt=prompt.astype(np.int32),
+                       max_new_tokens=10))
+    for _ in range(3):
+        eng.step()
+    assert eng.tick_kinds == {"eager": 1, "capture": 1, "replay": 1}
+    before = build.launch_counts()["rmsnorm"]
+    eng.step()
+    assert eng.last_tick == "replay" and eng.graph_replays == 3
+    assert build.launch_counts()["rmsnorm"] == before
+    assert torch.isfinite(eng._logits).all()
+    spec = faults.FaultSpec(site=faults.SITE_RMSNORM, kind="nan_output",
+                            times=10 ** 6)
+    with faults.inject(spec) as reg:
+        eng.step()
+    assert eng.last_tick == "eager" and reg.count() > 0
+    assert build.launch_counts()["rmsnorm"] - before == (
+        4 * cfg.num_layers + 1)
+    assert torch.isnan(eng._logits).all()
+    eng.step()
+    assert eng.last_tick == "replay" and eng.graph_replays == 4

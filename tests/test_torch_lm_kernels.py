@@ -45,7 +45,8 @@ def _f32(x) -> np.ndarray:
 # K16 rmsnorm
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rows,d", [(8, 64), (1024, 512), (7, 384)])
+@pytest.mark.parametrize("rows,d", [(8, 64), (1024, 512), (7, 384), (1, 3584),
+                                    (4, 3584), (8, 3584)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_matches_reference(rows, d, dtype):
     x, w = _rand(rows, rows, d), _rand(d, d, scale=0.1)
