@@ -34,9 +34,11 @@ SGD steps of ``CapsTrainLoop`` on the full-width network on each plan
 backward kernels' times.  Last, the split ClassCaps path (K14a caps_votes writing u_hat to
 device memory, K14b routing reading it back on a cluster) and the standalone squash
 (K10) with its backward: the path at full width (and one gradient of a
-network whose capsule cannot fuse), each kernel against its twin, the
-split v against the fused kernel's, and their times and modeled bytes
-side by side.  Phase 12, deep stacks, runs the full-width SVHN
+network whose capsule cannot fuse), each kernel against its twin (K14a
+bit for bit), the split v against the fused kernel's, their times and
+modeled bytes side by side, K14a and K10 also with the L2 cold beside an
+empty launch of their grids (K14a beside einsum's device time), and
+sweeps of K14a's rows a CTA and K10's lanes and rows a CTA.  Phase 12, deep stacks, runs the full-width SVHN
 CapsuleNet (a plain bottleneck -- K5 on the pipelined plan, K4 streaming
 its votes on a cluster on the per-op plan -- two reversible ResCaps
 blocks, ClassCaps): its forward on both plans against the plain forward,
@@ -110,6 +112,8 @@ CARD = ""                       # nvidia-smi's name and power limit, set in main
 # Tolerances of the kernel-vs-twin checks, with their reasons.
 EXACT = (0.0, 0.0, "a gather copies values (K7: sums its taps in the "
          "twin's order): bit-identical")
+FMA_CHAIN = (0.0, 0.0, "K14a sums c = 0..C-1 in fmaf from 0 and its twin "
+             "repeats that chain (kernels/caps_votes.fmaf): bit-identical")
 SHORT_SUM = (1e-5, 1e-5, "81-term fp32 dot products summed in another "
              "order (the reference's conv tolerance)")
 LONG_SUM = (1e-4, 2e-5, "20,736-term fp32 dot products summed in another "
@@ -317,12 +321,15 @@ def replay_emit_ms(fn) -> dict:
                 emit_device_ms=of("routing_bwd_emit_kernel"))
 
 
-def cold_device_ms(fn, kernel: str, reps: int = 10) -> float | None:
+def cold_device_ms(fn, kernel: str, reps: int = 10,
+                   clean: bool = False) -> float | None:
     """Device ms per call of the kernels whose names hold ``kernel``, from
     a ``torch.profiler`` trace of ``reps`` calls of ``fn``, each after
     writing ``FLUSH_BYTES`` (so each call finds the L2 cold and its
-    inputs in device memory); only those kernels' records are counted.
-    None (not measured) where the trace holds none."""
+    inputs in device memory; the L2 full of dirty lines, which the call's
+    own traffic writes back) or, with ``clean``, after reading them (the
+    L2 cold and clean); only those kernels' records are counted.  None
+    (not measured) where the trace holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
@@ -332,7 +339,10 @@ def cold_device_ms(fn, kernel: str, reps: int = 10) -> float | None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                flush.fill_(1.0)
+                if clean:
+                    flush.sum()
+                else:
+                    flush.fill_(1.0)
                 fn()
             torch.cuda.synchronize()
         times = [ms for key, ms in kernel_ms(prof, reps).items()
@@ -540,6 +550,42 @@ def empty_floor(bsz: int, cluster: int, smem: int) -> dict:
         k34.empty_launch(bsz, cluster, smem, dev)
     return dict(grid=[bsz, cluster, smem], ms=time_ms(go),
                 device_ms=device_ms(go))
+
+
+def grid_floor(ctas: int, threads: int) -> dict:
+    """Time of an empty launch of ``ctas`` CTAs of ``threads`` threads (no
+    shared memory, no cluster): CUDA events over back-to-back launches
+    and the profiler's device time, the floor under a kernel of that
+    grid."""
+    import torch
+    from repro_torch.kernels import rmsnorm as k16
+    dev = torch.device("cuda")
+
+    def go():
+        k16.empty_launch(ctas, threads, dev)
+    return dict(grid=[ctas, threads], ms=time_ms(go),
+                device_ms=device_ms(go))
+
+
+def print_site(kernel: str, row: dict) -> None:
+    """One line for a timed K14a/K10 site: device ms warm and cold, each
+    as a share of the byte bound, against an empty launch of its grid and
+    the library call's device ms, on the card."""
+    def share(t):
+        return "not measured" if not t else f"{100 * row['bound_ms'] / t:.0f}%"
+
+    def ratio(a, b):
+        return "not measured" if a is None or not b else f"{a / b:.2f}x"
+    empty = row["empty_launch"]
+    print(f"{kernel} {row['op']}: device {row['device_ms']} ms warm "
+          f"({share(row['device_ms'])} of the bound), "
+          f"{row['cold_device_ms']} ms cold "
+          f"({share(row['cold_device_ms'])}), bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}); empty launch of "
+          f"its grid {empty['grid']}: {empty['device_ms']} ms device "
+          f"(the kernel {ratio(row['device_ms'], empty['device_ms'])} of "
+          f"it); library {row['library_device_ms']} ms device; on {CARD}",
+          flush=True)
 
 
 def sweep_miss(label: str, sweep: dict, planned: int) -> dict:
@@ -3284,17 +3330,25 @@ def capsnet_phases(dev) -> list[dict]:
                                       train=True)
     assert not wide_plan.op("PrimaryCaps").fuses_squash
     cv_bi = ops.planned_block_i(i_, c_, jd, b_)
+    cv_grid = execplan.caps_votes_grid(i_, jd, cv_bi)
     rt_mode, rt_bi, rt_cs = ops.planned_routing(i_, lay.num_caps, jd, it, b_)
     rt_kw = dict(iters=it, num_classes=lay.num_caps, mode=rt_mode,
                  block_i=rt_bi, cluster=rt_cs)
     rt_smem = execplan.routing_split_cluster_smem(rt_mode, i_, rt_bi,
                                                   lay.num_caps, jd, rt_cs)
     sq_rows = perop.op("PrimaryCaps").block_rows
-    print(f"split plan: caps_votes block_i {cv_bi} "
-          f"({-(-i_ // cv_bi)} CTAs), routing {rt_mode} rows, block_i "
+    wide_rows = execplan.squash_block_rows(x_wide.shape[1], x_wide.shape[0])
+    sq_grid = execplan.squash_grid(rows_pc.shape[0], sq_rows,
+                                   execplan.squash_lanes(c_))
+    wide_grid = execplan.squash_grid(x_wide.shape[0], wide_rows,
+                                     execplan.squash_lanes(x_wide.shape[1]))
+    print(f"split plan: caps_votes block_i {cv_bi} ({cv_grid[0]} CTAs of "
+          f"{cv_grid[1]} threads), routing {rt_mode} rows, block_i "
           f"{rt_bi}, clusters of {rt_cs} ({b_ * rt_cs} CTAs, {rt_smem} B a "
-          f"CTA), squash block_rows {sq_rows} (D={c_}) / "
-          f"{execplan.squash_block_rows(256)} (D=256)", flush=True)
+          f"CTA), squash block_rows {sq_rows} (D={c_}, "
+          f"{execplan.squash_lanes(c_)} lanes a row: {sq_grid[0]} CTAs of "
+          f"{sq_grid[1]} threads) / {wide_rows} (D=256: {wide_grid[0]} CTAs "
+          f"of {wide_grid[1]})", flush=True)
 
     # The path, with the counts at 0: the split path at full width, the
     # standalone squash and its backward on the PrimaryCaps capsules, and
@@ -3321,10 +3375,10 @@ def capsnet_phases(dev) -> list[dict]:
     with torch.no_grad():
         v_fused = ops.votes_routing(u_pc, wcc, plan=perop)
         held("caps_votes", "K14a caps_votes MNIST", u_hat,
-             k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi), SPLIT)
+             k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi), FMA_CHAIN)
         held("caps_votes", "K14a caps_votes MNIST, block_i 7 (ragged)",
              k14a.caps_votes(u_pc, wcc, block_i=7),
-             k14a.caps_votes_plain(u_pc, wcc, block_i=7), SPLIT)
+             k14a.caps_votes_plain(u_pc, wcc, block_i=7), FMA_CHAIN)
         # K14b on the plan's cluster, and streamed in ragged tiles of 100
         # rows (on 2-CTA clusters: 576 rows a CTA), each twice for
         # identical bits.
@@ -3348,12 +3402,12 @@ def capsnet_phases(dev) -> list[dict]:
              k10.squash_rows(rows_pc, block_rows=sq_rows),
              k10.squash_plain(rows_pc), SQUASH)
         held("squash", "K10 squash [4096, 256]",
-             k10.squash_rows(x_wide, block_rows=8),
+             k10.squash_rows(x_wide, block_rows=wide_rows),
              k10.squash_plain(x_wide), SQUASH)
         held("squash_bwd", "K10 squash backward (autograd) [9216, 8]",
              xs.grad, k10.squash_bwd_plain(rows_pc, g_pc), SQUASH)
         held("squash_bwd", "K10 squash backward [4096, 256]",
-             k10.squash_bwd(x_wide, g_wide, block_rows=8),
+             k10.squash_bwd(x_wide, g_wide, block_rows=wide_rows),
              k10.squash_bwd_plain(x_wide, g_wide), SQUASH)
     wide_want, _ = capsnet.loss_and_grads(
         wide_params, wide_images, wide_labels, wide_cfg, backend="torch",
@@ -3362,9 +3416,11 @@ def capsnet_phases(dev) -> list[dict]:
         check_scaled(f"unfused-squash network d{k}", wide_got[k],
                      wide_want[k], GRAD)
 
-    # Times: each kernel against its twin, its bound and a library call;
-    # then the split path against the fused kernel, with the modeled
-    # global bytes of each.
+    # Times: each kernel against its twin, its bound and a library call
+    # (device time too), with the L2 warm and cold, beside an empty launch
+    # of its grid; then the split path against the fused kernel, with the
+    # modeled global bytes of each.  A site is (op, kernel, plain,
+    # library, bytes, flops, grid: (CTAs, threads) of a plain launch).
     n_uh = b_ * i_ * jd
     split_sites = [
         ("caps_votes", "caps_votes.cu", "src/repro/kernels/caps_votes.py:32",
@@ -3372,40 +3428,50 @@ def capsnet_phases(dev) -> list[dict]:
            lambda: k14a.caps_votes(u_pc, wcc, block_i=cv_bi),
            lambda: k14a.caps_votes_plain(u_pc, wcc, block_i=cv_bi),
            lambda: torch.einsum("bic,inc->bin", u_pc, wcc),
-           4.0 * (u_pc.numel() + wcc.numel() + n_uh), 2.0 * n_uh * c_)]),
+           4.0 * (u_pc.numel() + wcc.numel() + n_uh), 2.0 * n_uh * c_,
+           cv_grid)]),
         ("routing_cluster", "routing.cu", "src/repro/kernels/routing.py:34",
          [("Sum+Squash / Update+Sum (split)",
            lambda: k14b.routing(u_hat, **rt_kw),
            lambda: k14b.routing_plain(u_hat, **rt_kw), None,
-           4.0 * (n_uh + b_ * jd), 2.0 * n_uh * (2 * it + 1))]),
+           4.0 * (n_uh + b_ * jd), 2.0 * n_uh * (2 * it + 1), None)]),
         ("squash", "squash.cu", "src/repro/kernels/squash.py:24",
          [("PrimaryCaps capsules [9216, 8]",
            lambda: k10.squash_rows(rows_pc, block_rows=sq_rows),
            lambda: k10.squash_plain(rows_pc), None,
-           4.0 * 2 * rows_pc.numel(), 4.0 * rows_pc.numel()),
-          ("[4096, 256]", lambda: k10.squash_rows(x_wide, block_rows=8),
+           4.0 * 2 * rows_pc.numel(), 4.0 * rows_pc.numel(), sq_grid),
+          ("[4096, 256]",
+           lambda: k10.squash_rows(x_wide, block_rows=wide_rows),
            lambda: k10.squash_plain(x_wide), None,
-           4.0 * 2 * x_wide.numel(), 4.0 * x_wide.numel())]),
+           4.0 * 2 * x_wide.numel(), 4.0 * x_wide.numel(), wide_grid)]),
         ("squash_bwd", "squash.cu", "src/repro/kernels/squash.py:29",
          [("PrimaryCaps capsules [9216, 8]",
            lambda: k10.squash_bwd(rows_pc, g_pc, block_rows=sq_rows),
            lambda: k10.squash_bwd_plain(rows_pc, g_pc), None,
-           4.0 * 3 * rows_pc.numel(), 8.0 * rows_pc.numel()),
+           4.0 * 3 * rows_pc.numel(), 8.0 * rows_pc.numel(), sq_grid),
           ("[4096, 256]",
-           lambda: k10.squash_bwd(x_wide, g_wide, block_rows=8),
+           lambda: k10.squash_bwd(x_wide, g_wide, block_rows=wide_rows),
            lambda: k10.squash_bwd_plain(x_wide, g_wide), None,
-           4.0 * 3 * x_wide.numel(), 8.0 * x_wide.numel())]),
+           4.0 * 3 * x_wide.numel(), 8.0 * x_wide.numel(), wide_grid)]),
     ]
     with torch.no_grad():
         for kernel, source, replaces, kernel_sites in split_sites:
             site_rows = []
-            for (op, fn, plain, lib, nbytes, flops) in kernel_sites:
+            for (op, fn, plain, lib, nbytes, flops, grid) in kernel_sites:
                 bms, by = bound(nbytes, flops)
-                site_rows.append(dict(
+                row = dict(
                     op=op, ms=time_ms(fn), device_ms=device_ms(fn),
+                    cold_device_ms=cold_device_ms(
+                        fn, kernel.removesuffix("_bwd")),
                     plain_ms=time_ms(plain),
                     library_ms=time_ms(lib) if lib is not None else None,
-                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+                    library_device_ms=(device_ms(lib) if lib is not None
+                                       else None),
+                    bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+                if grid is not None:
+                    row["empty_launch"] = grid_floor(*grid)
+                    print_site(kernel, row)
+                site_rows.append(row)
             main = site_rows[:1]              # the MNIST path's shape
             bms, by = bound(main[0]["bytes"], main[0]["flops"])
             rows.append(dict(
@@ -3414,8 +3480,11 @@ def capsnet_phases(dev) -> list[dict]:
                 replaces=replaces, launches=split_launches[f"{kernel}_f32"],
                 max_abs_err=errs[kernel], ms=main[0]["ms"],
                 device_ms=main[0]["device_ms"],
+                cold_device_ms=main[0]["cold_device_ms"],
                 plain_ms=main[0]["plain_ms"], bound_ms=bms, bound_by=by,
                 library_ms=main[0]["library_ms"],
+                library_device_ms=main[0]["library_device_ms"],
+                empty_launch=main[0].get("empty_launch"),
                 path="split path (caps_votes -> routing) and standalone "
                      "squash, MNIST width, batch 8",
                 sites=site_rows))
@@ -3458,21 +3527,39 @@ def capsnet_phases(dev) -> list[dict]:
 
         split_ms, fused_ms = time_ms(split_path), time_ms(fused_path)
         split_dev, fused_dev = device_ms(split_path), device_ms(fused_path)
-        sweep = {bi: device_ms(lambda bi=bi: k14a.caps_votes(
-            u_pc, wcc, block_i=bi)) for bi in (1, 2, 4, 8, 16, 32)}
-        rows_sweep = {f"[9216, 8] block_rows {br}": device_ms(
-            lambda br=br: k10.squash_rows(rows_pc, block_rows=br))
-            for br in (256, 1024)}
-        rows_sweep.update({f"[4096, 256] block_rows {br}": device_ms(
-            lambda br=br: k10.squash_rows(x_wide, block_rows=br))
-            for br in (8, 64, 1024)})
+        # The knobs: K14a's rows a CTA (threads and columns a thread
+        # follow), K10's lanes a row and rows a CTA, forward and backward.
+        sweep = {bi: dict(grid=execplan.caps_votes_grid(i_, jd, bi),
+                          device_ms=device_ms(lambda bi=bi: k14a.caps_votes(
+                              u_pc, wcc, block_i=bi)))
+                 for bi in (1, 2, 4, 8, 16, 32)}
+        rows_sweep = {}
+        for label, x_, g_, knobs in (
+                ("[9216, 8]", rows_pc, g_pc,
+                 [(2, br) for br in (16, 32, 64, 128)]
+                 + [(1, br) for br in (32, 64, 128, 256)]),
+                ("[4096, 256]", x_wide, g_wide,
+                 [(32, br) for br in (1, 2, 4, 8)] + [(16, 8), (8, 8)])):
+            for lanes, br in knobs:
+                rows_sweep[f"{label} lanes {lanes} block_rows {br}"] = dict(
+                    grid=execplan.squash_grid(x_.shape[0], br, lanes),
+                    fwd_device_ms=device_ms(
+                        lambda x_=x_, br=br, lanes=lanes: k10.squash_rows(
+                            x_, block_rows=br, lanes=lanes)),
+                    bwd_device_ms=device_ms(
+                        lambda x_=x_, g_=g_, br=br, lanes=lanes:
+                        k10.squash_bwd(x_, g_, block_rows=br, lanes=lanes)))
+        next(r for r in rows if r["name"] == "caps_votes")[
+            "block_i_sweep"] = sweep
+        next(r for r in rows if r["name"] == "squash")[
+            "lanes_rows_sweep"] = rows_sweep
     split_bytes, uhat_bytes = execplan.split_votes_routing_global_bytes(
         b_, i_, c_, jd)
     fused_once = 4.0 * (u_pc.numel() + wcc.numel() + b_ * jd)
     print(f"caps_votes device ms by block_i: {json.dumps(sweep)}",
           flush=True)
-    print(f"squash device ms by block_rows: {json.dumps(rows_sweep)}",
-          flush=True)
+    print(f"squash device ms by lanes and block_rows: "
+          f"{json.dumps(rows_sweep)}", flush=True)
     print(f"split vs fused at batch {b_}: split (caps_votes -> routing) "
           f"{split_ms:.4f} ms (device {split_dev} ms), modeled global "
           f"bytes {split_bytes:.0f} of which u_hat {uhat_bytes:.0f} "

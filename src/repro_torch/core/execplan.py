@@ -157,9 +157,11 @@ L2_SM_BYTES_S = 12e9
 EMIT_CHUNK = 16
 # Op name of the split path's votes (the reference's ``ClassCaps-FC``).
 VOTES_NAME = "ClassCaps-FC"
-# Capsules up to this many floats take a thread per row in the standalone
-# squash (csrc/squash.cu), wider ones a warp per row.
-SQUASH_THREAD_ROW_DIM = 32
+WARP = 32
+# Samples of u one caps_votes CTA (csrc/caps_votes.cu) stages at a time.
+CAPS_VOTES_CHUNK = 64
+# CUDA's limit on a grid's x dimension.
+CUDA_MAX_GRID = 2**31 - 1
 
 
 class PlanError(ValueError):
@@ -528,35 +530,47 @@ def plan_votes_routing_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
 # The split path (K14a caps_votes -> K14b routing) and the standalone squash
 # ---------------------------------------------------------------------------
 
-def caps_votes_smem(batch: int, block_i: int, caps_dim: int,
-                    out_dim: int) -> int:
-    """Shared memory of one ``caps_votes`` CTA: its i-block's W rows,
-    each padded to ``caps_dim + 1`` floats so that neighbouring threads
-    read them without bank conflicts, and the block's u rows of every
-    sample."""
-    return (block_i * out_dim * (caps_dim + 1)
-            + batch * block_i * caps_dim) * ELEM_BYTES
+def caps_votes_grid(num_caps: int, out_dim: int,
+                    block_i: int) -> tuple[int, int]:
+    """(CTAs, threads a CTA) of ``caps_votes`` (``csrc/caps_votes.cu``):
+    a CTA takes ``block_i`` rows of I, their ``block_i * out_dim`` (i, n)
+    columns, a thread a column at a time: as many threads as columns,
+    rounded up to a warp, up to ``CTA_THREADS``."""
+    cols = block_i * out_dim
+    return -(-num_caps // block_i), min(CTA_THREADS, -(-cols // WARP) * WARP)
+
+
+def caps_votes_smem(batch: int, block_i: int, caps_dim: int) -> int:
+    """Shared memory of one ``caps_votes`` CTA: its rows of u for up to
+    ``CAPS_VOTES_CHUNK`` samples at a time (W streams through
+    registers)."""
+    return min(batch, CAPS_VOTES_CHUNK) * block_i * caps_dim * ELEM_BYTES
 
 
 def plan_caps_votes(num_caps: int, caps_dim: int, out_dim: int, batch: int,
                     smem_budget: int = SMEM_BYTES) -> int:
-    """``block_i`` of ``caps_votes``: the largest i-tile that fits the
-    budget at this batch and still gives every SM two CTAs.  W is
-    reuse-free (each element serves only the batch), so the I rows, not
-    the batch, are what spreads the work over the card; below
-    ``2 * NUM_SMS`` rows every CTA takes one.  Raises ``PlanError``
-    naming ``ClassCaps-FC`` when even ``block_i=1`` does not fit."""
-    need = caps_votes_smem(batch, 1, caps_dim, out_dim)
+    """``block_i`` of ``caps_votes``: the most rows a CTA whose columns
+    give each thread one (``block_i * out_dim <= CTA_THREADS``), whose
+    grid still covers every SM and whose u rows fit the budget at this
+    batch; else one row a CTA.  u is staged a chunk of samples at a
+    time, so no batch is too large; raises ``PlanError`` naming
+    ``ClassCaps-FC`` where even one row of ``caps_dim`` floats a sample
+    does not fit, or the grid would pass CUDA's limit."""
+    need = caps_votes_smem(batch, 1, caps_dim)
     if need > smem_budget:
         raise PlanError(
             f"{VOTES_NAME}: no feasible schedule at batch={batch}: even "
             f"block_i=1 needs {need} B of shared memory per CTA, over the "
             f"{smem_budget} B budget")
-    for bi in BLOCK_I_CANDIDATES:
-        if (-(-num_caps // bi) >= 2 * NUM_SMS and caps_votes_smem(
-                batch, bi, caps_dim, out_dim) <= smem_budget):
-            return bi
-    return 1
+    bi = next((bi for bi in BLOCK_I_CANDIDATES
+               if bi * out_dim <= CTA_THREADS
+               and -(-num_caps // bi) >= NUM_SMS
+               and caps_votes_smem(batch, bi, caps_dim) <= smem_budget), 1)
+    if -(-num_caps // bi) > CUDA_MAX_GRID:
+        raise PlanError(
+            f"{VOTES_NAME}: no feasible schedule: {num_caps} capsules in "
+            f"CTAs of {bi} need more than {CUDA_MAX_GRID} CTAs")
+    return bi
 
 
 def routing_split_cluster_smem(mode: str, num_caps: int, block_i: int,
@@ -632,11 +646,32 @@ def split_votes_routing_global_bytes(batch: int, num_caps: int,
     return float((u + w + v + uhat) * ELEM_BYTES), float(uhat * ELEM_BYTES)
 
 
-def squash_block_rows(d: int) -> int:
-    """Rows one standalone-squash CTA takes for capsules of ``d`` floats:
-    256 (a row per thread) up to ``SQUASH_THREAD_ROW_DIM``, else 8 (a row
-    per warp), so that the rows spread over the SMs."""
-    return 256 if d <= SQUASH_THREAD_ROW_DIM else 8
+def squash_lanes(d: int) -> int:
+    """Threads that share one row of ``d`` floats in the standalone squash
+    (``csrc/squash.cu``): a lane per four floats, a power of two, at most
+    a warp."""
+    return min(WARP, 1 << (-(-d // 4) - 1).bit_length())
+
+
+def squash_grid(rows: int, block_rows: int,
+                lanes: int) -> tuple[int, int]:
+    """(CTAs, threads a CTA) of the standalone squash: ``block_rows`` rows
+    a CTA of ``block_rows * lanes`` threads, rounded up to a warp, up to
+    ``CTA_THREADS`` (the CTA then takes its rows in passes)."""
+    return (-(-rows // block_rows),
+            min(CTA_THREADS, -(-block_rows * lanes // WARP) * WARP))
+
+
+def squash_block_rows(d: int, rows: int) -> int:
+    """Rows one standalone-squash CTA takes for ``rows`` capsules of ``d``
+    floats: the most whole warps of rows, up to ``CTA_THREADS`` threads,
+    whose grid still gives every SM a CTA; one warp's rows where even
+    that grid is smaller than the card; never more than ``rows``."""
+    per_warp = WARP // squash_lanes(d)
+    for warps in (8, 4, 2, 1):
+        if -(-rows // (warps * per_warp)) >= NUM_SMS:
+            return warps * per_warp
+    return max(1, min(per_warp, rows))
 
 
 def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
@@ -896,7 +931,7 @@ def _conv_op(name: str, wl: MatmulWorkload, in_elems: int,
     block_rows = None
     if squash_dim is not None:
         rows = wl.m * wl.n // squash_dim
-        block_rows = max(min(squash_block_rows(squash_dim), rows), 1)
+        block_rows = squash_block_rows(squash_dim, rows)
         if not fused:                  # K10 reads and writes u once
             nbytes += 2 * wl.m * wl.n * ELEM_BYTES
     return OpPlan(

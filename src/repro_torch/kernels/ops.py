@@ -235,7 +235,8 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
 def planned_block_i(num_caps: int, caps_dim: int, out_dim: int,
                     batch: int = 1, smem_budget: int = SMEM_BYTES) -> int:
     """Memoized ``execplan.plan_caps_votes`` pick of the split votes'
-    i-tile at the real batch (its footprint holds every sample's u)."""
+    i-tile at the real batch (its footprint holds a chunk of samples'
+    u)."""
     return execplan.plan_caps_votes(num_caps, caps_dim, out_dim, batch,
                                     smem_budget)
 

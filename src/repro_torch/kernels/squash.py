@@ -7,7 +7,9 @@ is a ``torch.autograd.Function`` that saves its input: forward
 for CUDA tensors; backward ``squash_bwd``, whose plain twin is
 ``ref.squash_vjp`` and whose kernel evaluates the same formula.  Rows are
 independent, so ``block_rows`` (the rows one CTA takes) changes only how
-the card spreads them, never the result.
+the card spreads them, never the result; ``lanes`` (the threads that
+share a row, ``execplan.squash_lanes`` unless given) changes the order of
+the row's sum of squares, within rounding.
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ import ctypes
 
 import torch
 
-from repro_torch.core.execplan import squash_block_rows
+from repro_torch.core.execplan import (squash_block_rows, squash_grid,
+                                      squash_lanes)
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import Kernel, on_cpu, ptr, stream_of
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-SQUASH = Kernel("squash", "squash_f32", [_P, _P, _L, _I, _I, _P])
-SQUASH_BWD = Kernel("squash", "squash_bwd_f32", [_P] * 3 + [_L, _I, _I, _P])
+SQUASH = Kernel("squash", "squash_f32", [_P, _P, _L] + [_I] * 4 + [_P])
+SQUASH_BWD = Kernel("squash", "squash_bwd_f32",
+                    [_P] * 3 + [_L] + [_I] * 4 + [_P])
 
 
 def squash_plain(x: torch.Tensor) -> torch.Tensor:
@@ -35,39 +39,50 @@ def squash_bwd_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return ref.squash_vjp(x, g)
 
 
-def _check(name: str, x: torch.Tensor, block_rows: int) -> None:
+def _lanes(name: str, x: torch.Tensor, block_rows: int,
+           lanes: int | None) -> int:
+    """Check x [R, D] and the knobs; the lanes a row (the plan's for D
+    unless given)."""
     if x.dim() != 2 or x.shape[1] < 1:
         raise ValueError(f"{name}: x must be [R, D] with D >= 1, got "
                          f"{tuple(x.shape)}")
     if block_rows < 1:
         raise ValueError(f"{name}: block_rows={block_rows} < 1")
+    lanes = squash_lanes(x.shape[1]) if lanes is None else lanes
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"{name}: lanes={lanes} is not a power of two "
+                         f"up to 32")
+    return lanes
 
 
-def squash_rows(x: torch.Tensor, *, block_rows: int) -> torch.Tensor:
+def squash_rows(x: torch.Tensor, *, block_rows: int,
+                lanes: int | None = None) -> torch.Tensor:
     """K10 forward, not differentiable: x [R, D] -> [R, D]."""
-    _check("squash", x, block_rows)
+    lanes = _lanes("squash", x, block_rows, lanes)
     if on_cpu("squash", x):
         return squash_plain(x)
     out = torch.empty_like(x)
-    if x.shape[0]:
-        SQUASH(ptr(x), ptr(out), x.shape[0], x.shape[1], block_rows,
-               stream_of(x))
+    rows, d = x.shape
+    if rows:
+        SQUASH(ptr(x), ptr(out), rows, d, block_rows, lanes,
+               squash_grid(rows, block_rows, lanes)[1], stream_of(x))
     return out
 
 
-def squash_bwd(x: torch.Tensor, g: torch.Tensor, *,
-               block_rows: int) -> torch.Tensor:
+def squash_bwd(x: torch.Tensor, g: torch.Tensor, *, block_rows: int,
+               lanes: int | None = None) -> torch.Tensor:
     """K10 backward: dx [R, D] of ``squash`` at x [R, D] for g [R, D]."""
-    _check("squash_bwd", x, block_rows)
+    lanes = _lanes("squash_bwd", x, block_rows, lanes)
     if g.shape != x.shape:
         raise ValueError(f"squash_bwd: cotangent {tuple(g.shape)}, "
                          f"expected {tuple(x.shape)}")
     if on_cpu("squash_bwd", x, g):
         return squash_bwd_plain(x, g)
     dx = torch.empty_like(x)
-    if x.shape[0]:
-        SQUASH_BWD(ptr(x), ptr(g), ptr(dx), x.shape[0], x.shape[1],
-                   block_rows, stream_of(x))
+    rows, d = x.shape
+    if rows:
+        SQUASH_BWD(ptr(x), ptr(g), ptr(dx), rows, d, block_rows, lanes,
+                   squash_grid(rows, block_rows, lanes)[1], stream_of(x))
     return dx
 
 
@@ -89,10 +104,10 @@ class SquashFunction(torch.autograd.Function):
 
 def squash(x: torch.Tensor, *, block_rows: int | None = None) -> torch.Tensor:
     """x [..., D] -> squash over the last axis (K10), differentiable.
-    ``block_rows`` defaults to the Hopper pick for D
+    ``block_rows`` defaults to the Hopper pick for D and the row count
     (``execplan.squash_block_rows``)."""
-    d = x.shape[-1]
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
     if block_rows is None:
-        block_rows = squash_block_rows(d)
-    out = SquashFunction.apply(x.reshape(-1, d).contiguous(), block_rows)
+        block_rows = squash_block_rows(rows.shape[1], rows.shape[0])
+    out = SquashFunction.apply(rows, block_rows)
     return out.reshape(x.shape)

@@ -495,18 +495,44 @@ def test_total_loss_backward_on_the_card_matches_the_plain_backend(
         assert ((got[k] - want[k]).abs().max() / scale).item() < 1e-4, k
 
 
+def _at_odd_offset(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary: the kernels' scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def test_split_path_and_squash_launch_and_match_twins_on_the_card(cuda):
-    """K14a with ragged i-blocks, K14b with ragged u_hat tiles, K10 forward
-    and backward a row per thread (D=8) and a row per warp (D=160, odd
-    D), each against its plain twin; the split path against the fused
+    """K14a at C = 8 (compiled for) and 16 and 5 (any C; each bit for bit
+    with its twin's fmaf chain), a ragged I, batches 1 to 130 (u staged in three chunks
+    of samples), i-blocks from 1 row to past I and inputs
+    off 16-byte alignment; K14b with ragged u_hat tiles; K10 forward and
+    backward at D = 5, 8, 160, 256 and past 1024 with ragged rows, every
+    lane count (the loop past eight chunks a lane) and misaligned rows,
+    each against its plain twin; the split path against the fused
     kernel."""
     build.reset_launch_counts()
+    for seed, (bsz, i, c, n) in enumerate(((3, 300, 8, 40),
+                                           (1, 1152, 8, 160),
+                                           (64, 131, 8, 160),
+                                           (130, 67, 8, 40),
+                                           (2, 50, 16, 40), (4, 77, 5, 24))):
+        u = _rand(10 + seed, bsz, i, c, scale=0.5, device=cuda)
+        w = _rand(20 + seed, i, n, c, scale=0.3, device=cuda)
+        for bi in sorted({1, 7, ops.planned_block_i(i, c, n, bsz), 128,
+                          i + 5}):
+            if execplan.caps_votes_smem(bsz, min(bi, i), c) \
+                    > planner.SMEM_BYTES:
+                continue
+            for uu, ww in ((u, w), (_at_odd_offset(u), _at_odd_offset(w))):
+                assert torch.equal(
+                    k14a.caps_votes(uu, ww, block_i=bi),
+                    k14a.caps_votes_plain(uu, ww, block_i=bi)), (bsz, i, c,
+                                                                 bi)
     u = _rand(10, 3, 300, 8, scale=0.5, device=cuda)
     w = _rand(11, 300, 40, 8, scale=0.3, device=cuda)
-    for bi in (1, 7, 128):
-        torch.testing.assert_close(k14a.caps_votes(u, w, block_i=bi),
-                                   k14a.caps_votes_plain(u, w, block_i=bi),
-                                   rtol=1e-5, atol=1e-5)
     uh = _rand(12, 3, 300, 40, scale=0.1, device=cuda)
     for bi, cs in ((1, 16), (64, 2), (300, 1), (7, 4)):
         for mode in ("resident", "streamed"):
@@ -519,16 +545,22 @@ def test_split_path_and_squash_launch_and_match_twins_on_the_card(cuda):
         ops.routing(ops.caps_votes(u, w), iters=3, num_classes=4),
         ops.votes_routing(u, w, iters=3, num_classes=4),
         rtol=1e-5, atol=1e-6)
-    for shape, br in (((37, 8), 16), ((9, 160), 2), ((5, 7), 3),
-                      ((4, 33), 8)):
+    for shape in ((37, 8), (1001, 8), (13, 5), (9, 160), (130, 160),
+                  (4, 33), (301, 256), (5, 1100)):
         x = _rand(13, *shape, device=cuda)
         g = _rand(14, *shape, device=cuda)
-        torch.testing.assert_close(k10.squash_rows(x, block_rows=br),
-                                   k10.squash_plain(x), rtol=1e-5,
-                                   atol=1e-6)
-        torch.testing.assert_close(k10.squash_bwd(x, g, block_rows=br),
-                                   k10.squash_bwd_plain(x, g), rtol=1e-5,
-                                   atol=1e-6)
+        planned = execplan.squash_block_rows(shape[1], shape[0])
+        for br in sorted({planned, 3, 16}):
+            for lanes in (None, 1, 4, 32):
+                for xx, gg in ((x, g), (_at_odd_offset(x),
+                                        _at_odd_offset(g))):
+                    kw = dict(block_rows=br, lanes=lanes)
+                    torch.testing.assert_close(
+                        k10.squash_rows(xx, **kw), k10.squash_plain(xx),
+                        rtol=1e-5, atol=1e-6)
+                    torch.testing.assert_close(
+                        k10.squash_bwd(xx, gg, **kw),
+                        k10.squash_bwd_plain(xx, gg), rtol=1e-5, atol=1e-6)
     counts = build.launch_counts()
     for sym in ("caps_votes_f32", "routing_cluster_f32", "squash_f32",
                 "squash_bwd_f32"):

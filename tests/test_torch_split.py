@@ -73,6 +73,36 @@ def test_caps_votes_planned_block_matches_reference():
                                atol=1e-5)
 
 
+def test_fmaf_twin_rounds_once():
+    """The twin's ``fmaf`` against the exact sum rounded once: random
+    operands at three scales, and a sum that fp64 rounds onto an fp32
+    midpoint (a plain fp64 sum then rounds the wrong way)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(5)
+    a, b = (rng.standard_normal(300).astype(np.float32) for _ in range(2))
+    c = np.concatenate([rng.standard_normal(100) * s
+                        for s in (1.0, 1e-12, 1e12)]).astype(np.float32)
+    a = np.append(a, np.float32(2**-12 * (1 + 2**-23)))
+    b = np.append(b, np.float32(2**-12 * (1 - 2**-23)))
+    c = np.append(c, np.float32(1 + 2**-23))
+    got = k14a.fmaf(*(torch.from_numpy(t) for t in (a, b, c))).numpy()
+    for k in range(len(a)):
+        exact = Fraction(float(a[k])) * Fraction(float(b[k])) \
+            + Fraction(float(c[k]))
+        lo = np.float32(float(exact))             # within an fp32 ulp
+        hi = np.nextafter(lo, np.float32(np.inf if exact > Fraction(
+            float(lo)) else -np.inf))
+        d_lo = abs(Fraction(float(lo)) - exact)
+        d_hi = abs(Fraction(float(hi)) - exact)
+        want = lo if d_lo < d_hi or (d_lo == d_hi and not
+                                     np.float32(lo).view(np.int32) & 1) \
+            else hi
+        assert got[k] == want, k
+    assert got[-1] == np.float32(1 + 2**-23)
+    assert np.float32(np.float64(c[-1]) + np.float64(a[-1])
+                      * np.float64(b[-1])) != got[-1]
+
+
 # ---------------------------------------------------------------------------
 # K14b routing
 # ---------------------------------------------------------------------------
@@ -167,19 +197,59 @@ def test_squash_backward_is_the_twin_of_the_vjp_formula():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("batch", [1, 8, 64, 512, 4096])
-def test_plan_caps_votes_fits_and_spreads_over_the_sms(batch):
-    bi = execplan.plan_caps_votes(1152, 8, 160, batch)
-    assert 1 <= bi <= 1152
-    assert execplan.caps_votes_smem(batch, bi, 8, 160) <= planner.SMEM_BYTES
-    assert -(-1152 // bi) >= 2 * planner.NUM_SMS
-    assert ops.planned_block_i(1152, 8, 160, batch) == bi
+@pytest.mark.parametrize("i,n", [(1152, 160), (300, 40), (7, 160)])
+def test_plan_caps_votes_fits_and_spreads_over_the_sms(batch, i, n):
+    """The pick gives every thread one (i, n) column of a CTA of at most
+    256 threads, a grid over every SM (every row where I is smaller) and
+    a footprint (u for a chunk of samples) within the budget."""
+    bi = execplan.plan_caps_votes(i, 8, n, batch)
+    ctas, threads = execplan.caps_votes_grid(i, n, bi)
+    assert 1 <= bi <= i and ctas == -(-i // bi)
+    assert ctas >= min(planner.NUM_SMS, i)
+    assert bi == 1 or bi * n <= threads <= execplan.CTA_THREADS
+    assert threads % 32 == 0 and threads >= min(bi * n, 32)
+    assert execplan.caps_votes_smem(batch, bi, 8) == 4 * min(
+        batch, execplan.CAPS_VOTES_CHUNK) * bi * 8 <= planner.SMEM_BYTES
+    assert ops.planned_block_i(i, 8, n, batch) == bi
 
 
 def test_plan_caps_votes_raises_naming_classcaps_fc():
+    """u is staged a chunk of samples at a time, so no batch is too large;
+    a budget or a capsule width that one row's chunk does not fit, and a
+    grid past CUDA's limit, raise naming the op."""
+    assert execplan.plan_caps_votes(1152, 8, 160, 10_000) == 1
+    assert execplan.plan_caps_votes(1152, 8, 160, 8, smem_budget=4_000) == 1
     with pytest.raises(PlanError, match="ClassCaps-FC"):
-        execplan.plan_caps_votes(1152, 8, 160, 8, smem_budget=4_000)
+        execplan.plan_caps_votes(1152, 8, 160, 8, smem_budget=200)
     with pytest.raises(PlanError, match="ClassCaps-FC"):
-        execplan.plan_caps_votes(1152, 8, 160, 10_000)
+        execplan.plan_caps_votes(1152, 1024, 160, 64)
+    bi = execplan.plan_caps_votes(2**34, 8, 16, 8)   # 16 rows a CTA
+    assert -(-2**34 // bi) <= execplan.CUDA_MAX_GRID
+    with pytest.raises(PlanError, match="ClassCaps-FC"):
+        execplan.plan_caps_votes(2**34, 8, 160, 8)    # one row a CTA
+    with pytest.raises(PlanError, match="ClassCaps-FC"):
+        ops.planned_block_i(2**35, 8, 40, 8)
+
+
+@pytest.mark.parametrize("rows,d,want_lanes", [
+    (9216, 8, 2), (128, 8, 2), (7, 8, 2), (7, 5, 2), (64, 4, 1),
+    (4096, 256, 32), (9216, 160, 32), (32, 160, 32), (500, 1100, 32)])
+def test_squash_plan_spreads_rows_over_the_sms(rows, d, want_lanes):
+    """K10's lanes hold the row in registers (up to 1024 floats), its CTA
+    takes whole warps of rows in at most 256 threads, and its grid gives
+    every SM a CTA unless the rows fill fewer warps than the card has
+    SMs; no shared memory."""
+    lanes = execplan.squash_lanes(d)
+    assert lanes == want_lanes
+    br = execplan.squash_block_rows(d, rows)
+    ctas, threads = execplan.squash_grid(rows, br, lanes)
+    per_warp = 32 // lanes
+    assert 1 <= br <= rows and ctas == -(-rows // br)
+    assert ctas >= min(planner.NUM_SMS, -(-rows // per_warp))
+    assert threads % 32 == 0 and threads <= execplan.CTA_THREADS
+    assert br * lanes <= threads or threads == execplan.CTA_THREADS
+    with pytest.raises(ValueError, match="lanes"):
+        k10.squash_rows(torch.zeros(rows, d), block_rows=br, lanes=3)
 
 
 def test_plan_routing_split_fits_the_budget():
@@ -221,10 +291,13 @@ def test_unfusable_capsule_plans_the_standalone_squash():
     plan = execplan.compile_plan(T.CapsNetConfig(**WIDE), batch=2)
     pc = plan.op("PrimaryCaps")
     assert (pc.kernel, pc.fuses_squash) == ("conv_im2col", False)
-    assert pc.block_rows == execplan.squash_block_rows(160) == 8
+    # 2 * 16 capsules, a warp a row: one row a CTA spreads them widest.
+    assert pc.block_rows == execplan.squash_block_rows(160, 32) == 1
     fused = execplan.compile_plan(T.CapsNetConfig(), batch=8).op(
         "PrimaryCaps")
-    assert fused.fuses_squash and fused.block_rows == 256
+    # 8 * 1152 capsules of 8 floats, two lanes a row: 64 rows a CTA give
+    # 144 CTAs, the most rows whose grid covers the 132 SMs.
+    assert fused.fuses_squash and fused.block_rows == 64
     assert pc.global_bytes > 0
 
 
