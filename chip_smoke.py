@@ -44,8 +44,9 @@ its votes on a cluster on the per-op plan -- two reversible ResCaps
 blocks, ClassCaps): its forward on both plans against the plain forward,
 16 requests through the engine on both plans, the residual epilogue,
 K3, K4, K5, K8 and K9 on their clusters, K4 with its logits in device
-memory (K4g) and K13 (the unfused oracle) against their twins and the
-fused kernels, one training
+memory (K4g) and K13/K13b (the unfused oracle, on K4's and K9's
+clusters) against their twins and, bit for bit, the fused kernels, one
+training
 gradient through the reversible segment K12 (and on the CIFAR-10 smoke
 config), the SVHN smoke config's pipelined plan, 20 full-width training
 steps on each plan, and the new kernels' times.  Phase 13, LM serving, frees the CapsuleNet's tensors and serves
@@ -485,18 +486,22 @@ def gemm_extras(row: dict, lib, *, split_k: int, ctas: int,
     return extra
 
 
+def equal_bits(name: str, got, want) -> None:
+    """Fail unless ``got`` and ``want`` (a tensor or a tuple of them) hold
+    the same bits."""
+    import torch
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name}: different bits")
+    print(f"check {name}: identical bits -> ok", flush=True)
+
+
 def same_bits(name: str, fn):
     """Call ``fn`` twice; fail unless both results (a tensor or a tuple of
     them) hold the same bits.  Returns the first."""
-    import torch
-    first, second = fn(), fn()
-    torch.cuda.synchronize()
-    pairs = zip(first, second) if isinstance(first, tuple) else [(first,
-                                                                  second)]
-    if not all(torch.equal(a, b) for a, b in pairs):
-        raise AssertionError(f"{name}: two launches on the same inputs "
-                             f"gave different bits")
-    print(f"check {name}: two launches, identical bits -> ok", flush=True)
+    first = fn()
+    equal_bits(f"{name}: two launches", first, fn())
     return first
 
 
@@ -666,9 +671,10 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     residual epilogue on clusters, inside the K12 segment; K8 in its
     backward) -> ClassCaps (K3).  The forward at the engine's batch
     against the plain forward, 16 requests through the engine, each new
-    kernel (K4 also with streamed-global named, and K13, the unfused
-    oracle, at the MNIST and the bottleneck shapes) against its twin and
-    the fused kernel, one training gradient through K12 (and on the CIFAR-10 smoke
+    kernel (K4 also with streamed-global named, and K13/K13b, the unfused
+    oracle on K4's and K9's clusters, at the MNIST and the bottleneck
+    shapes) against its twin and, bit for bit, the fused kernel, one
+    training gradient through K12 (and on the CIFAR-10 smoke
     config's all-residual segment), the SVHN smoke config's pipelined plan
     (K5 with J = 16), 20 training steps, and the new kernels' times.
     Appends the new kernels' rows to ``rows``; ``mnist`` holds the MNIST
@@ -808,7 +814,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             plain_len, ROUTING[1])
     serve_counts = served["pipelined"]
 
-    # Each new kernel against its twin, and K13 against K4/K9, at the
+    # Each new kernel against its twin, and K13/K13b against K4/K9, at the
     # path's shapes (activations from the plain path).
     cx1, u0 = conv_inputs(cfg, params, images)              # [8, 2048, 8]
     tcx1, tu0 = conv_inputs(cfg, params, timages)           # [16, 2048, 8]
@@ -820,7 +826,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     r1 = x1.reshape(SLOTS, -1)
     g0 = randn(tb, lay0.jd, scale=1e-2)
     u, wcc, tu, g = mnist["u"], mnist["wcc"], mnist["tu"], mnist["g"]
-    mbwd, mvr, mst = mnist["bwd"], mnist["vr"], mnist["mst"]
+    mvr, mst = mnist["vr"], mnist["mst"]
     mb_i = 128                    # K13's i-tile at MNIST width
     kw0 = dict(iters=lay0.iters, num_classes=lay0.num_caps)
     kwh = dict(iters=half.iters, num_classes=half.num_caps)
@@ -919,35 +925,40 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
              f"{tb}", same_bits("K8 SVHN half", lambda: k34.votes_routing_bwd(
                  tx2, wf, gh, **kw8, **kwh)),
              k34.votes_routing_bwd_plain(tx2, wf, gh, **kw8, **kwh))
-    # K13 against K4 on its cluster: within ROUTING, no longer bit for bit
-    # (the cluster sums s rank by rank).
+    # K13 against K4 and K13b against K9 on the same cluster and i-tile:
+    # the same bits (the unfused schedule makes the fused pass's sums in
+    # its order), twice each, and within ROUTING / GRAD of the twins.
     build.reset_launch_counts()
     with torch.no_grad():
-        for label, uu, ww, bi, kw, fused in (
-                ("MNIST ClassCaps", u, wcc, mb_i, kwm,
-                 k34.votes_routing(u, wcc, mode="streamed",
-                                   block_i=mst.block_i, **kwm)),
-                ("SVHN bottleneck", u0, w0, neck.block_i, kw0, v_neck)):
-            got = k34.votes_routing(uu, ww, mode=ORACLE, block_i=bi, **kw)
-            held("votes_routing_2pass", f"K13 forward, {label}", got,
-                 k34.votes_routing_plain(uu, ww, mode=ORACLE, block_i=bi,
-                                         **kw), ROUTING)
-            held("votes_routing_2pass", f"K13 forward against the fused "
-                 f"kernel, {label}", got, fused, ROUTING)
-    # K13b against the fused K9 (on its cluster): within GRAD, no longer
-    # bit for bit -- the cluster sums s and dv rank by rank.
-    for label, uu, ww, gg, bi, fsched, kw in (
-            ("MNIST ClassCaps", tu, wcc, g, 128, mbwd, kwm),
-            ("SVHN bottleneck", tu0, w0, g0, 64, nbwd, kw0)):
-        got = k34.votes_routing_bwd(uu, ww, gg, mode=ORACLE, block_i=bi, **kw)
-        held_bwd("routing_bwd_2pass", f"K13 backward, {label}", got,
-                 k34.votes_routing_bwd_plain(uu, ww, gg, mode=ORACLE,
-                                             block_i=bi, **kw))
-        held_bwd("routing_bwd_2pass", f"K13 backward against the fused "
-                 f"kernel (K9, {fsched.cluster}-CTA clusters), {label}", got,
-                 k34.votes_routing_bwd(uu, ww, gg, mode=fsched.mode,
-                                       block_i=fsched.block_i,
-                                       cluster=fsched.cluster, **kw))
+        for label, uu, ww, bi, kw in (
+                ("MNIST ClassCaps", u, wcc, mb_i, kwm),
+                ("SVHN bottleneck", u0, w0, neck.block_i, kw0)):
+            cs13 = k34.fwd_cluster(uu, ww, mode=ORACLE, cluster=None,
+                                   block_i=bi, **kw)
+            got = same_bits(f"K13 {label}", lambda: k34.votes_routing(
+                uu, ww, mode=ORACLE, block_i=bi, **kw))
+            held("votes_routing_2pass", f"K13 forward, {label}, {cs13}-CTA "
+                 f"clusters", got, k34.cluster_routing_plain(
+                     uu, ww, mode=ORACLE, block_i=bi, cluster=cs13, **kw),
+                 ROUTING)
+            equal_bits(f"K13 forward against K4, {label}, {cs13}-CTA "
+                       f"clusters, block_i {bi}", got, k34.votes_routing(
+                           uu, ww, mode="streamed", block_i=bi,
+                           cluster=cs13, **kw))
+    for label, uu, ww, gg, bi, kw in (
+            ("MNIST ClassCaps", tu, wcc, g, 128, kwm),
+            ("SVHN bottleneck", tu0, w0, g0, 64, kw0)):
+        _, cs13 = k34.bwd_schedule(uu, ww, mode=ORACLE, cluster=None, **kw)
+        got = same_bits(f"K13b {label}", lambda: k34.votes_routing_bwd(
+            uu, ww, gg, mode=ORACLE, block_i=bi, **kw))
+        held_bwd("routing_bwd_2pass", f"K13 backward, {label}, {cs13}-CTA "
+                 f"clusters", got, k34.votes_routing_bwd_plain(
+                     uu, ww, gg, mode=ORACLE, block_i=bi, cluster=cs13,
+                     **kw))
+        equal_bits(f"K13 backward (du, dW) against K9, {label}, {cs13}-CTA "
+                   f"clusters, block_i {bi}", got, k34.votes_routing_bwd(
+                       uu, ww, gg, mode="streamed", block_i=bi,
+                       cluster=cs13, **kw))
     torch.cuda.synchronize()
     oracle_counts = build.launch_counts()
 
@@ -1071,6 +1082,13 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
         if got < want:
             raise AssertionError(f"svhn: {what}: {got} launches, fewer "
                                  f"than {want}")
+    # The oracle runs on no main path.
+    for what, counts in (("the 16-request run", serve_counts),
+                         ("the 20-step run", train_counts)):
+        for sym in ("votes_routing_2pass_f32", "routing_bwd_2pass_f32"):
+            if counts[sym]:
+                raise AssertionError(f"svhn: {what} launched the oracle "
+                                     f"{sym} {counts[sym]} times")
 
     # Times: the forward and the K12 segment, then each new kernel against
     # its twin and its bound (K13 also against the fused kernel).
@@ -1161,56 +1179,83 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     mn = dict(bytes=4.0 * (u.numel() + wcc.numel() + SLOTS * wcc.shape[1]),
               flops=routing_flops(SLOTS, u.shape[1], u.shape[2],
                                   wcc.shape[1], 3))
-    new = [
-        ("votes_routing_2pass", "votes_routing.cu",
-         "src/repro/kernels/votes_routing.py:189",
-         "oracle only: 0 launches on the SVHN serving path", serve_counts, [
-             ("ClassCaps-Routing (MNIST, 8)",
-              lambda: k34.votes_routing(u, wcc, mode=ORACLE, block_i=mb_i,
-                                        **kwm),
-              lambda: k34.votes_routing_plain(u, wcc, mode=ORACLE,
-                                              block_i=mb_i, **kwm),
-              None, mn["bytes"], mn["flops"]),
-             (lay0.name + " (SVHN, 8)",
-              lambda: k34.votes_routing(u0, w0, mode=ORACLE,
-                                        block_i=neck.block_i, **kw0),
-              lambda: k34.votes_routing_plain(u0, w0, mode=ORACLE,
-                                              block_i=neck.block_i, **kw0),
-              None, neck_bytes, neck_flops)]),
-        ("routing_bwd_2pass", "votes_routing_bwd.cu",
-         "src/repro/kernels/votes_routing.py:426",
-         "oracle only: 0 launches on the SVHN training path", train_counts, [
-             ("ClassCaps-Routing-bwd (MNIST, 16)",
-              lambda: k34.votes_routing_bwd(tu, wcc, g, mode=ORACLE,
-                                            block_i=128, **kwm),
-              lambda: k34.votes_routing_bwd_plain(tu, wcc, g, mode=ORACLE,
-                                                  block_i=128, **kwm),
-              None, routing_bwd_bytes(tu, wcc),
-              routing_bwd_flops(tb, tu.shape[1], tu.shape[2], wcc.shape[1],
-                                3)),
-             (lay0.name + "-bwd (SVHN, 16)",
-              lambda: k34.votes_routing_bwd(tu0, w0, g0, mode=ORACLE,
-                                            block_i=64, **kw0),
-              lambda: k34.votes_routing_bwd_plain(
-                  tu0, w0, g0, mode=ORACLE, block_i=64, **kw0),
-              None, routing_bwd_bytes(tu0, w0),
-              routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim, lay0.jd,
-                                3))]),
-    ]
-    fused = {"votes_routing_2pass": [
-        lambda: k34.votes_routing(u, wcc, mode="streamed",
-                                  block_i=mst.block_i, **kwm),
-        lambda: k34.votes_routing(u0, w0, cluster=neck.cluster, **kwn)],
-        "routing_bwd_2pass": [
-        lambda: k34.votes_routing_bwd(tu, wcc, g, mode=mbwd.mode,
-                                      block_i=mbwd.block_i,
-                                      cluster=mbwd.cluster, **kwm),
-        lambda: k34.votes_routing_bwd(tu0, w0, g0, **kw9, **kw0)]}
+    # K13 and K13b on their clusters (K4's and K9's at the site's batch and
+    # i-tile), each site beside the fused kernel on the same cluster and
+    # i-tile and an empty launch of its grid (K13b: of the replay's grid,
+    # its replay and emit apart).
+    def oracle_site(op, bsz, uu, ww, gg, bi, kw, nbytes, flops):
+        i_dim, c_dim, j, jd = (uu.shape[1], uu.shape[2], kw["num_classes"],
+                               ww.shape[1])
+        if gg is None:
+            cs13 = k34.fwd_cluster(uu, ww, mode=ORACLE, cluster=None,
+                                   block_i=bi, **kw)
+            place = k34.logits_placement(ORACLE, i_dim, c_dim, j, jd, cs13,
+                                         bi)
+            smem = execplan.votes_routing_cluster_smem(
+                i_dim, c_dim, j, jd, cs13, mode=place, block_i=bi)
+
+            def run(mode):
+                return k34.votes_routing(uu, ww, mode=mode, block_i=bi,
+                                         cluster=cs13, **kw)
+
+            def plain():
+                return k34.cluster_routing_plain(uu, ww, mode=ORACLE,
+                                                 block_i=bi, cluster=cs13,
+                                                 **kw)
+        else:
+            _, cs13 = k34.bwd_schedule(uu, ww, mode=ORACLE, cluster=None,
+                                       **kw)
+            place = "streamed"
+            smem = execplan.routing_bwd_cluster_smem(
+                "streamed", i_dim, bi, c_dim, j, jd, cs13)
+
+            def run(mode):
+                return k34.votes_routing_bwd(uu, ww, gg, mode=mode,
+                                             block_i=bi, cluster=cs13, **kw)
+
+            def plain():
+                return k34.votes_routing_bwd_plain(uu, ww, gg, mode=ORACLE,
+                                                   block_i=bi, cluster=cs13,
+                                                   **kw)
+        site = timed_sites([(op, lambda: run(ORACLE), plain, None, nbytes,
+                             flops)])[0]
+        site.update(cluster=cs13, ctas=bsz * cs13, block_i=bi, logits=place,
+                    smem_bytes=smem,
+                    fused_device_ms=device_ms(lambda: run("streamed")),
+                    empty_launch=empty_floor(bsz, cs13, smem))
+        if gg is not None:
+            site.update(replay_emit_ms(lambda: run(ORACLE)))
+        print(f"K13 {op}: clusters of {cs13} ({bsz * cs13} CTAs), block_i "
+              f"{bi}, logits {place}, {smem} B a CTA: device "
+              f"{site['device_ms']} ms, the fused kernel on the same "
+              f"cluster {site['fused_device_ms']} ms, bound "
+              f"{site['bound_ms']:.6f} ms ({site['bound_by']}), empty launch "
+              f"{json.dumps(site['empty_launch'])}; on {CARD}", flush=True)
+        return site
+
     with torch.no_grad():
-        for kernel, source, replaces, path, counts, sites in new:
-            site_rows = timed_sites(sites)
-            for site, fn in zip(site_rows, fused.get(kernel, ())):
-                site["fused_device_ms"] = device_ms(fn)
+        oracle_rows = (
+            ("votes_routing_2pass", "votes_routing.cu",
+             "src/repro/kernels/votes_routing.py:189",
+             "oracle only: 0 launches on the SVHN serving path",
+             serve_counts, [
+                 oracle_site("ClassCaps-Routing (MNIST, 8)", SLOTS, u, wcc,
+                             None, mb_i, kwm, mn["bytes"], mn["flops"]),
+                 oracle_site(lay0.name + " (SVHN, 8)", SLOTS, u0, w0, None,
+                             neck.block_i, kw0, neck_bytes, neck_flops)]),
+            ("routing_bwd_2pass", "votes_routing_bwd.cu",
+             "src/repro/kernels/votes_routing.py:426",
+             "oracle only: 0 launches on the SVHN training path",
+             train_counts, [
+                 oracle_site("ClassCaps-Routing-bwd (MNIST, 16)", tb, tu,
+                             wcc, g, 128, kwm, routing_bwd_bytes(tu, wcc),
+                             routing_bwd_flops(tb, tu.shape[1], tu.shape[2],
+                                               wcc.shape[1], 3)),
+                 oracle_site(lay0.name + "-bwd (SVHN, 16)", tb, tu0, w0, g0,
+                             64, kw0, routing_bwd_bytes(tu0, w0),
+                             routing_bwd_flops(tb, lay0.in_caps, lay0.in_dim,
+                                               lay0.jd, 3))]))
+        for kernel, source, replaces, path, counts, site_rows in oracle_rows:
             main = site_rows[0]
             rows.append(dict(
                 name=kernel, route="cuda",
@@ -1220,7 +1265,9 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                 max_abs_err=errs[kernel], ms=main["ms"],
                 device_ms=main["device_ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=None, path=path, sites=site_rows))
+                library_ms=None, path=path, cluster=main["cluster"],
+                ctas=main["ctas"], fused_device_ms=main["fused_device_ms"],
+                sites=site_rows))
         # K4 on its clusters: the per-op plan's bottleneck (the row's main
         # site), MNIST with streamed votes named and the smoke config's
         # ragged tile; K4g (streamed-global named) at the bottleneck; each
@@ -3571,7 +3618,7 @@ def capsnet_phases(dev) -> list[dict]:
 
     # 12. Deep stacks at the full width of capsnet-svhn.
     deep_stacks(dev, rng, rows, dict(
-        u=u, wcc=wcc, tu=tu, g=g, vr=vr, mst=mst, bwd=vbwd, su=su,
+        u=u, wcc=wcc, tu=tu, g=g, vr=vr, mst=mst, su=su,
         swcc=swcc, svr=svr, lay=lay, k3_err=errs["votes_routing_cluster"],
         k4_err=errs["votes_routing_streamed_cluster"]))
     return rows

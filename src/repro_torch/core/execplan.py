@@ -41,8 +41,8 @@ streamed with the CTA's rows' logits in a per-sample scratch in global
 memory (B*I*J floats, which stay in the 50 MB L2), only where even a
 16-CTA cluster's share of them fits no CTA (CIFAR-10's full-width halves,
 64 rows x 1024 logits).  It does the same arithmetic in the same order
-as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule: an
-s-pass and a b-pass per iteration, one CTA a sample) is the oracle of the
+as ``streamed``.  ``streamed-2pass`` (K13, the unfused schedule: a
+b-pass and an s-pass per iteration, on K4's cluster) is the oracle of the
 fused pass and never a plan mode; ``ExecutionPlan.validate`` rejects it.
 
 Cluster schedules (K3/K4, K5, K14b and K8/K9 below): one sample runs on
@@ -323,27 +323,6 @@ def activation_residency_bytes(cfg: CapsNetConfig, *, batch: int = 1,
 # ---------------------------------------------------------------------------
 # Routing schedules (votes_routing and the consume phase of primary_routing)
 # ---------------------------------------------------------------------------
-
-def routing_smem_floats(mode: str, num_caps: int, block_i: int, j: int,
-                        jd: int) -> int:
-    """Routing scratch beyond u of one K13 CTA (the single-CTA oracle; the
-    fused schedules run on clusters, ``votes_routing_cluster_smem``), in
-    floats: the logits ``[I, J]`` (in global memory, so no term, under
-    ``streamed-global``), s and v ``[J*D]``, and ``block_i`` votes rows
-    with their couplings.  Votes rows are padded to ``J*D + 1`` floats so
-    that the per-row logits update reads shared memory without bank
-    conflicts."""
-    logits = 0 if mode == STREAMED_GLOBAL else num_caps * j
-    return logits + 2 * jd + block_i * (jd + 1 + j)
-
-
-def votes_routing_smem(mode: str, num_caps: int, block_i: int, caps_dim: int,
-                       j: int, jd: int) -> int:
-    """Shared memory of one K13 CTA: u of its sample plus the routing
-    scratch."""
-    return (num_caps * caps_dim
-            + routing_smem_floats(mode, num_caps, block_i, j, jd)) * ELEM_BYTES
-
 
 @dataclasses.dataclass(frozen=True)
 class VotesRoutingSchedule:
@@ -674,20 +653,6 @@ def squash_block_rows(d: int, rows: int) -> int:
     return max(1, min(per_warp, rows))
 
 
-def votes_routing_bwd_smem(mode: str, num_caps: int, block_i: int,
-                           caps_dim: int, j: int, jd: int) -> int:
-    """Shared memory of one single-CTA replay of the routing backward (K13,
-    by the placement of its logits, ``streamed`` or ``streamed-global``):
-    the forward's layout (u, ONE
-    logits slab, the votes rows and their couplings -- reused for ``db``)
-    plus s_{T-1}, ds_T and the dv accumulator.  ``b_{T-1}`` goes to global
-    memory row by row before pass T overwrites it, so no second slab is
-    held; under ``streamed-global`` the slab itself is the ``b_T`` output
-    in global memory, so it takes no shared memory."""
-    return votes_routing_smem(mode, num_caps, block_i, caps_dim, j,
-                              jd) + 3 * jd * ELEM_BYTES
-
-
 def routing_bwd_cluster_smem(mode: str, num_caps: int, block_i: int,
                              caps_dim: int, j: int, jd: int,
                              cluster: int) -> int:
@@ -779,20 +744,17 @@ def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
 
 
 def votes_routing_bwd_global_bytes(batch: int, num_caps: int, caps_dim: int,
-                                   jd: int, j: int, n_passes: int,
-                                   global_slab: bool = False) -> float:
+                                   jd: int, j: int, n_passes: int) -> float:
     """Bytes the routing backward requests from global memory per step.
     Replay, per sample: u once, W ``n_passes`` times, the cotangent, and
-    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written;
-    with ``global_slab`` (``streamed-global``) the logits slab is also
-    read and written once per pass.  Emit: those read back with u and W
-    once, du and dW written.  No u_hat or d u_hat term: neither reaches
-    device memory."""
+    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written
+    (each cluster CTA keeps its rows' logits on chip).  Emit: those read
+    back with u and W once, du and dW written.  No u_hat or d u_hat term:
+    neither reaches device memory."""
     u = num_caps * caps_dim
     w = num_caps * jd * caps_dim
     state = 2 * num_caps * j + 2 * jd
-    slab = 2 * n_passes * num_caps * j if global_slab else 0
-    replay = batch * (u + n_passes * w + jd + state + slab)
+    replay = batch * (u + n_passes * w + jd + state)
     emit = batch * (state + 2 * u) + 2 * w
     return float((replay + emit) * ELEM_BYTES)
 
@@ -1044,7 +1006,7 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                 block=sched.cluster, smem_bytes=sched.smem_bytes,
                 global_bytes=votes_routing_bwd_global_bytes(
                     batch, lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
-                    sched.n_passes, sched.mode == STREAMED_GLOBAL),
+                    sched.n_passes),
                 block_i=sched.block_i, mode=sched.mode,
                 n_passes=sched.n_passes))
         ops.append(_conv_bwd_op(pc_op, pc_wl, pc_in, smem_budget, True))

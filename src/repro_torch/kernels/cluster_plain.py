@@ -5,7 +5,7 @@ cluster: each rank owns a block of the sample's capsule rows and sums its
 share of s over them (one block when its votes are resident, ``block_i``
 rows at a time when they are streamed), and the ranks' partials are added
 in rank order.  ``replay`` is that schedule over any votes source, so the
-twins of K3/K4, K5 and K8/K9 (``votes_routing``, ``primary_routing``:
+twins of K3/K4, K13, K5 and K8/K9 (``votes_routing``, ``primary_routing``:
 votes from W and u) and of K14b (``routing``: votes read from u_hat) share
 one definition of the order of every sum.
 """
@@ -25,16 +25,11 @@ def cluster_spans(i_dim: int, cluster: int) -> list[tuple[int, int]]:
             for r in range(cluster)]
 
 
-def rank_blocks(i_dim: int, block_i: int, cluster: int | None,
+def rank_blocks(i_dim: int, block_i: int, cluster: int,
                 resident: bool) -> list[list[slice]]:
-    """The row blocks each CTA sums its share of s over, rank by rank: one
-    CTA's ``block_i`` blocks over the padded i axis (``cluster`` None: the
-    oracle K13), or each cluster CTA's rows (``cluster_spans``) in
-    ``block_i`` blocks, one block when its votes are resident."""
-    if cluster is None:
-        n_blocks = -(-i_dim // block_i)
-        return [[slice(ib * block_i, (ib + 1) * block_i)
-                 for ib in range(n_blocks)]]
+    """The row blocks each CTA sums its share of s over, rank by rank:
+    each cluster CTA's rows (``cluster_spans``) in ``block_i`` blocks, one
+    block when its votes are resident."""
     ranks = []
     for lo, hi in cluster_spans(i_dim, cluster):
         step = max(hi - lo, 1) if resident else block_i
@@ -46,11 +41,13 @@ def rank_blocks(i_dim: int, block_i: int, cluster: int | None,
 def replay(uh_of, ranks, b: torch.Tensor, v_shape, *, iters: int,
            two_pass: bool):
     """The forward's ``iters + 1`` passes over the logits ``b`` (updated
-    in place; under ``streamed-2pass`` a b-pass before each s-pass after
-    the first), the votes of a block of rows from ``uh_of(rows)`` ([B,
-    rows, J, D]): each rank sums its blocks' share of s, and the ranks'
-    partials are added in rank order.  Returns ``(b_prev, s_prev, s)``:
-    the logits before pass T's update, s_{T-1} and s_T."""
+    in place; with ``two_pass``, the oracle K13's schedule, a b-pass
+    before each s-pass after the first), the votes of a block of rows from
+    ``uh_of(rows)`` ([B, rows, J, D]): each rank sums its blocks' share of
+    s, and the ranks' partials are added in rank order.  A row's update
+    reads only its votes and v_{t-1}, so both schedules give the same
+    logits and sums, bit for bit.  Returns ``(b_prev, s_prev, s)``: the
+    logits before pass T's update, s_{T-1} and s_T."""
     blocks = [rows for rk in ranks for rows in rk]
     b_prev = s_prev = v = None
     for t in range(iters + 1):

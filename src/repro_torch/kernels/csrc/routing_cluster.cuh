@@ -1,15 +1,16 @@
 // Routing-by-agreement of ONE sample over a thread-block cluster: the
 // forward of K3 and K4 (votes_routing.cu), the consume schedule of K5
-// (primary_routing.cu), the replay of K8/K9 (votes_routing_bwd.cu) and the
-// split path's K14b (routing.cu), all on one pass loop (route_cluster).
+// (primary_routing.cu), the replay of K8/K9 (votes_routing_bwd.cu), the
+// split path's K14b (routing.cu) and the unfused oracle K13/K13b, all on
+// one pass loop (route_cluster).
 //
-// One CTA a sample (routing.cuh, now only K13's oracle) keeps a batch of
-// 8-16 samples on 8-16 of the H100's 132 SMs, and one sample's votes (737
-// KB at MNIST) or logits (524 KB at the SVHN bottleneck) do not fit it.
-// Here a cluster of cs CTAs (1, 2, 4, 8 or 16; 16 is a non-portable size)
-// shares the sample.  CTA rank r owns a fixed set of capsule rows and keeps
-// their u, their logits and -- where they fit -- their votes in its own
-// shared memory; nothing of them reaches device memory.
+// One CTA a sample keeps a batch of 8-16 samples on 8-16 of the H100's
+// 132 SMs, and one sample's votes (737 KB at MNIST) or logits (524 KB at
+// the SVHN bottleneck) do not fit it.  Here a cluster of cs CTAs (1, 2, 4,
+// 8 or 16; 16 is a non-portable size) shares the sample.  CTA rank r owns
+// a fixed set of capsule rows and keeps their u, their logits and -- where
+// they fit -- their votes in its own shared memory; nothing of them
+// reaches device memory.
 //
 // Each pass t = 0 .. iters folds the logits update b_t = b_{t-1} +
 // <u_hat, v_{t-1}> (t > 0) into the accumulation of the CTA's share of
@@ -24,6 +25,15 @@
 // cluster.sync(), which the writer of pass t+2 has passed.  So one barrier
 // a pass suffices, and the caller's last cluster.sync() keeps every CTA
 // alive until its peers have read its last partial.
+//
+// The oracle (two_pass: the reference's unfused _streamed_2pass_kernel)
+// splits each pass t > 0 in two: a b-pass over the CTA's rows that makes
+// the logits update alone, then the s-pass with no update.  A row's update
+// and a block's share of s are the same operations in the same order as in
+// the fused pass, and the update of a row reads only v_{t-1} and its own
+// votes, so the oracle's output equals the fused pass's bit for bit at the
+// same cluster size and i-tile; with streamed votes it reads W twice a
+// pass instead of once.
 //
 // Votes: "resident" brings the CTA's rows' votes into shared memory once;
 // "streamed" brings them block by block on every pass, keeping only the
@@ -43,8 +53,10 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <math.h>
+#include <stdint.h>
 
-#include "routing.cuh"
+#include "common.cuh"
 
 namespace repro {
 
@@ -70,9 +82,36 @@ struct ClusterScratch {
   float* s;     // [J*D] s_t, reduced over the cluster
   float* v;     // [J*D] squash(s_t)
   float* part;  // [2][J*D] this CTA's partial s, by the parity of t
-  float* uh;    // [vrows][J*D + 1] votes rows, routing.cuh's padded layout
+  float* uh;    // [vrows][J*D + 1] votes rows (padded against bank conflicts)
   float* c;     // [vrows][J] couplings
 };
+
+// uh[r][n] = sum_c W[r][n][c] u[r][c] for the `rows` consecutive rows at
+// u_s / W, each dot summed over c in order.
+__device__ inline void votes_rows(const float* __restrict__ u_s,
+                                  const float* __restrict__ W, int rows,
+                                  int jd, int C, float* uh, int ld) {
+  const bool vec4 = (C % 4 == 0) && ((uintptr_t)W % 16 == 0);
+  const int total = rows * jd;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / jd, n = e - r * jd;
+    const float* w = W + ((size_t)r * jd + n) * C;
+    const float* uu = u_s + r * C;
+    float a = 0.f;
+    if (vec4) {
+      for (int c = 0; c < C; c += 4) {
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(w + c));
+        a = fmaf(wv.x, uu[c], a);
+        a = fmaf(wv.y, uu[c + 1], a);
+        a = fmaf(wv.z, uu[c + 2], a);
+        a = fmaf(wv.w, uu[c + 3], a);
+      }
+    } else {
+      for (int c = 0; c < C; ++c) a = fmaf(__ldg(w + c), uu[c], a);
+    }
+    uh[r * ld + n] = a;
+  }
+}
 
 // uh[r][n] = <W[global(l0 + r)][n][:], u[l0 + r][:]> for the owned local
 // rows [l0, l0 + rows) with capsules of C floats known at compile time, each
@@ -216,14 +255,30 @@ __device__ inline void softmax_warp(const float* br, float* cr, int J,
   for (int j = lane; j < J; j += 32) cr[j] = cr[j] / sum;
 }
 
+// One row's logits update by its warp (lane l takes the classes l, l + 32,
+// ...): br[j] += <u_hat[r, j, :], v[j, :]> over d in order (if `update`).
+// With bp / bl (the replay's pass T) the row's logits go to row gi of
+// those [I][J] slabs just before (bp) and just after (bl) the update.
+__device__ inline void update_warp(const float* ur, float* br, const float* v,
+                                   bool update, int J, int D, int lane,
+                                   size_t gi, float* bp, float* bl) {
+  for (int j = lane; j < J; j += 32) {
+    if (bp) bp[gi + j] = br[j];
+    if (update) {
+      float a = 0.f;
+      for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
+      br[j] += a;
+    }
+    if (bl) bl[gi + j] = br[j];
+  }
+}
+
 // The fused s+b step over the owned local rows [l0, l0 + rows), whose
 // votes are at uh: the logits update (if `update`), the couplings, and the
 // rows' share of s added to s.  One warp takes a row, its lanes the classes:
 // one thread walking a row's J*D products and J exponentials serially set
 // the pace of every block at SVHN's J = 64 (and its stride of J floats hit
-// one bank).  With bp / bl (the replay's pass T) each row's logits go to the
-// sample's rows of those [I][J] slabs just before (bp) and just after (bl)
-// the update.
+// one bank).  bp / bl: see update_warp.
 __device__ inline void route_owned(const float* uh, int ld, int l0, int rows,
                                    float* b, float* c, float* s,
                                    const float* v, bool update, int J, int D,
@@ -231,18 +286,9 @@ __device__ inline void route_owned(const float* uh, int ld, int l0, int rows,
                                    float* bl) {
   const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
   for (int r = threadIdx.x / 32; r < rows; r += nwarps) {
-    const float* ur = uh + r * ld;
     float* br = b + (l0 + r) * J;
-    const size_t gi = (size_t)own.global(l0 + r) * J;
-    for (int j = lane; j < J; j += 32) {
-      if (bp) bp[gi + j] = br[j];
-      if (update) {
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(ur[j * D + d], v[j * D + d], a);
-        br[j] += a;
-      }
-      if (bl) bl[gi + j] = br[j];
-    }
+    update_warp(uh + r * ld, br, v, update, J, D, lane,
+                (size_t)own.global(l0 + r) * J, bp, bl);
     __syncwarp();
     softmax_warp(br, c + r * J, J, lane);
   }
@@ -254,6 +300,20 @@ __device__ inline void route_owned(const float* uh, int ld, int l0, int rows,
     for (int r = 0; r < rows; ++r) a = fmaf(c[r * J + j], uh[r * ld + n], a);
     s[n] = a;
   }
+  __syncthreads();
+}
+
+// The oracle's b-pass step over the owned local rows [l0, l0 + rows),
+// whose votes are at uh: the logits update alone, each row by
+// route_owned's update (a warp a row).
+__device__ inline void update_owned(const float* uh, int ld, int l0,
+                                    int rows, float* b, const float* v,
+                                    int J, int D, const OwnedRows& own,
+                                    float* bp, float* bl) {
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < rows; r += nwarps)
+    update_warp(uh + r * ld, b + (l0 + r) * J, v, true, J, D, lane,
+                (size_t)own.global(l0 + r) * J, bp, bl);
   __syncthreads();
 }
 
@@ -310,16 +370,20 @@ __device__ inline void cluster_sum(cg::cluster_group& cl, float* mine,
 
 // Every routing pass of the cluster's sample, its votes from `votes` (a
 // votes source above): on return sc.s holds s_T and sc.v holds v_T (T =
-// iters) in every CTA, and s_prev (if given) s_{T-1}.
-// bp / bl: see route_owned (pass T only).  The caller's last cluster.sync()
-// must follow the last read of sc.part by a peer (see the note above).
+// iters) in every CTA, and s_prev (if given) s_{T-1}.  With two_pass (the
+// oracle K13/K13b) each pass t > 0 first runs a b-pass (update_owned,
+// the votes brought again where they are streamed), then the s-pass with
+// no update.  bp / bl: see update_warp (pass T only).  The caller's last
+// cluster.sync() must follow the last read of sc.part by a peer (see the
+// note above).
 template <class Votes>
 __device__ inline void route_cluster(cg::cluster_group& cl,
                                      const ClusterScratch& sc,
                                      const Votes& votes,
                                      const OwnedRows& own, int J, int D,
                                      int iters, bool resident, int block_i,
-                                     float* s_prev, float* bp, float* bl) {
+                                     float* s_prev, float* bp, float* bl,
+                                     bool two_pass = false) {
   const int jd = J * D, ld = jd + 1;
   for (int e = threadIdx.x; e < own.n * J; e += blockDim.x) sc.b[e] = 0.f;
   if (resident) votes(0, own.n, jd, sc.uh, ld);
@@ -330,6 +394,20 @@ __device__ inline void route_cluster(cg::cluster_group& cl,
     for (int n = threadIdx.x; n < jd; n += blockDim.x) part[n] = 0.f;
     __syncthreads();
     const bool last = t == iters;
+    float* bpt = last ? bp : nullptr;
+    float* blt = last ? bl : nullptr;
+    if (two_pass && t > 0) {
+      for (int l0 = 0; l0 < own.n; l0 += step) {
+        const int rows = min(step, own.n - l0);
+        if (!resident) {
+          votes(l0, rows, jd, sc.uh, ld);
+          __syncthreads();
+        }
+        update_owned(resident ? sc.uh + l0 * ld : sc.uh, ld, l0, rows, sc.b,
+                     sc.v, J, D, own, bpt, blt);
+      }
+      bpt = blt = nullptr;
+    }
     for (int l0 = 0; l0 < own.n; l0 += step) {
       const int rows = min(step, own.n - l0);
       if (!resident) {
@@ -337,8 +415,7 @@ __device__ inline void route_cluster(cg::cluster_group& cl,
         __syncthreads();
       }
       route_owned(resident ? sc.uh + l0 * ld : sc.uh, ld, l0, rows, sc.b,
-                  sc.c, part, sc.v, t > 0, J, D, own, last ? bp : nullptr,
-                  last ? bl : nullptr);
+                  sc.c, part, sc.v, t > 0 && !two_pass, J, D, own, bpt, blt);
     }
     cluster_sum(cl, part, sc.s, jd);
     if (s_prev && t == iters - 1)

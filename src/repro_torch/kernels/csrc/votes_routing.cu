@@ -1,6 +1,6 @@
 // K3/K4 votes_routing: ClassCaps votes + every routing iteration, u_hat
 // never written to global memory; and K13, the unfused streamed schedule
-// that is the fused pass's oracle.
+// that is the fused pass's oracle, on the same cluster kernel.
 //
 // Replaces src/repro/kernels/votes_routing.py: _resident_kernel (K3, with
 // _votes_block and _routing_iterations), _streamed_kernel (K4) and
@@ -12,12 +12,12 @@
 // On the TPU the whole batch shares one sequential grid.  On Hopper
 // routing is independent per sample.
 //
-// K3 and K4 (votes_routing_cluster_kernel) route each sample on a
+// K3, K4 and K13 (votes_routing_cluster_kernel) route each sample on a
 // thread-block cluster of cs CTAs (routing_cluster.cuh), each owning a
 // block of ceil(I / cs) rows with their u and logits in its shared memory;
 // s is summed in rank order through distributed shared memory once a pass,
 // so a second launch repeats the bits.  The placement of the votes is the
-// kernel's template argument:
+// kernel's first template argument:
 //
 //   resident  (K3, the SVHN ResCaps halves and ClassCaps, MNIST's ClassCaps
 //             at cs >= 4) the CTA's rows' votes are computed once and kept.
@@ -49,36 +49,17 @@
 // the mapping is kept because it is the cluster core's (the same sums in
 // the same order as K5's, K8/K9's and K14b's).  Rank 0 writes v (+ r).
 //
-// K13 (votes_routing_2pass_kernel) keeps one CTA a sample and a thread a
-// row (routing.cuh): it is the oracle, on no plan.
+// K13 (kTwoPass) is K4 with each pass after the first split into a b-pass
+// (the logits update alone) and an s-pass (route_cluster's two_pass): the
+// reference's unfused schedule, on no plan.  It reads W 2 * iters + 1
+// times a sample, keeps its logits where K4 would at the same cluster
+// size and i-tile, and gives K4's output bit for bit.
 
 #include "routing_cluster.cuh"
 
 namespace repro {
 
-// K13: one sample per CTA; u, and the logits unless given in global memory,
-// in its shared memory (execplan.votes_routing_smem).
-__global__ void __launch_bounds__(kThreads)
-votes_routing_2pass_kernel(const float* __restrict__ u,
-                           const float* __restrict__ W,
-                           const float* __restrict__ r, float* logits,
-                           float* __restrict__ out, int I, int C, int J,
-                           int D, int iters, int block_i) {
-  extern __shared__ float smem[];
-  const int jd = J * D;
-  float* u_s = smem;                                   // [I][C]
-  const float* ub = u + (size_t)blockIdx.x * I * C;
-  for (int e = threadIdx.x; e < I * C; e += blockDim.x) u_s[e] = ub[e];
-  RouteScratch sc = carve_route(
-      u_s + I * C, I, J, jd,
-      logits ? logits + (size_t)blockIdx.x * I * J : nullptr);
-  __syncthreads();
-  route_2pass(u_s, W, I, C, J, D, iters, block_i, sc,
-              r ? r + (size_t)blockIdx.x * jd : nullptr,
-              out + (size_t)blockIdx.x * jd);
-}
-
-// The shared memory of one K3/K4 cluster CTA, in floats
+// The shared memory of one K3/K4/K13 cluster CTA, in floats
 // (execplan.votes_routing_cluster_smem models the same sum): the votes rows
 // -- all of its ceil(I / cs) rows when resident, block_i of them when
 // streamed -- with their couplings, then the rows' u and (unless they are
@@ -99,12 +80,12 @@ __host__ __device__ inline ClusterFwdLayout cluster_fwd_layout(
   return L;
 }
 
-// K3 (kResident) and K4: one sample per cluster of cs CTAs, rank r owning
-// the sample's rows [r * rows, (r + 1) * rows) (the last block ragged or
-// empty).  logits is null (the rows' logits in shared memory) or the
-// [B, I, J] scratch.  Held to 128 registers a thread, so that two CTAs
-// share an SM where their shared memory allows.
-template <bool kResident>
+// K3 (kResident), K4 and K13 (kTwoPass): one sample per cluster of cs
+// CTAs, rank r owning the sample's rows [r * rows, (r + 1) * rows) (the
+// last block ragged or empty).  logits is null (the rows' logits in shared
+// memory) or the [B, I, J] scratch.  Held to 128 registers a thread, so
+// that two CTAs share an SM where their shared memory allows.
+template <bool kResident, bool kTwoPass>
 __global__ void __launch_bounds__(kThreads, 2)
 votes_routing_cluster_kernel(const float* __restrict__ u,
                              const float* __restrict__ W,
@@ -142,7 +123,7 @@ votes_routing_cluster_kernel(const float* __restrict__ u,
   __syncthreads();
   route_cluster(cl, sc, VotesOfW{u_s, W, own, C}, own, J, D, iters,
                 kResident, kResident ? max(n, 1) : block_i, nullptr, nullptr,
-                nullptr);
+                nullptr, kTwoPass);
   if (rank == 0) {
     const float* rb = r ? r + (size_t)smp * jd : nullptr;
     float* ob = out + (size_t)smp * jd;
@@ -152,28 +133,30 @@ votes_routing_cluster_kernel(const float* __restrict__ u,
   cl.sync();                      // no CTA leaves while a peer reads it
 }
 
-inline void (*cluster_kernel_for(int resident))(const float*, const float*,
-                                                const float*, float*, float*,
-                                                int, int, int, int, int,
-                                                int) {
-  return resident ? votes_routing_cluster_kernel<true>
-                  : votes_routing_cluster_kernel<false>;
+// K3 (resident), K4, or K13 (two_pass, streamed votes only).
+inline void (*cluster_kernel_for(int resident, int two_pass))(
+    const float*, const float*, const float*, float*, float*, int, int, int,
+    int, int, int) {
+  if (two_pass) return votes_routing_cluster_kernel<false, true>;
+  return resident ? votes_routing_cluster_kernel<true, false>
+                  : votes_routing_cluster_kernel<false, false>;
 }
 
-// Checks and launches K3/K4 on B clusters of cs CTAs.
+// Checks and launches K3/K4/K13 on B clusters of cs CTAs.
 cudaError_t launch_cluster_fwd(const float* u, const float* W, const float* r,
                                float* logits, float* out, int B, int I, int C,
                                int J, int D, int iters, int resident,
                                int block_i, int cs, int smem_bytes,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int two_pass = 0) {
   if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
+      (two_pass && resident) ||
       cluster_fwd_layout(I, C, J, D, cs, resident, block_i,
                          logits != nullptr).total *
               (int)sizeof(float) != smem_bytes)
     return cudaErrorInvalidValue;
-  return launch_clusters(cluster_kernel_for(resident), B, cs, smem_bytes,
-                         stream, u, W, r, logits, out, I, C, J, D, iters,
-                         block_i);
+  return launch_clusters(cluster_kernel_for(resident, two_pass), B, cs,
+                         smem_bytes, stream, u, W, r, logits, out, I, C, J,
+                         D, iters, block_i);
 }
 
 // Does nothing: launched on a kernel's grid, cluster and shared memory, its
@@ -185,29 +168,22 @@ __global__ void __launch_bounds__(kThreads) empty_cluster_kernel() {}
 
 // u [B, I, C], W [I, J*D, C] -> out [B, J*D] = v (+ r [B, J*D] when r is
 // not null).  smem_bytes is the plan's footprint, which must equal the
-// kernel's layout (execplan.votes_routing_cluster_smem; for K13
-// execplan.votes_routing_smem).  A refused launch returns the runtime's
-// error, never another schedule.
+// kernel's layout (execplan.votes_routing_cluster_smem).  A refused launch
+// returns the runtime's error, never another schedule.
 
-// K13, the unfused oracle, one CTA a sample: logits [B, I, J] in global
-// memory, or null to keep them in shared memory (the placement of the
-// schedule it checks).
+// K13, the unfused oracle: K4's streamed votes (block_i rows at a time) on
+// B clusters of cs CTAs, each pass after the first a b-pass and an s-pass;
+// logits is null (the rows' logits in shared memory) or a [B, I, J]
+// scratch, where K4 keeps them at this cluster size and i-tile.
 REPRO_EXPORT int votes_routing_2pass_f32(const float* u, const float* W,
                                          const float* r, float* logits,
                                          float* out, int B, int I, int C,
                                          int J, int D, int iters, int block_i,
-                                         int smem_bytes, void* stream) {
-  using namespace repro;
-  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      votes_routing_2pass_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  votes_routing_2pass_kernel<<<B, kThreads, smem_bytes,
-                               (cudaStream_t)stream>>>(
-      u, W, r, logits, out, I, C, J, D, iters, block_i);
-  return cudaGetLastError();
+                                         int cs, int smem_bytes,
+                                         void* stream) {
+  return repro::launch_cluster_fwd(u, W, r, logits, out, B, I, C, J, D,
+                                   iters, 0, block_i, cs, smem_bytes,
+                                   (cudaStream_t)stream, 1);
 }
 
 // K3/K4's shared-memory layout in bytes (execplan models it).
@@ -264,7 +240,7 @@ REPRO_EXPORT int votes_routing_cluster_occupancy(int I, int C, int J, int D,
                                                  int* out) {
   using namespace repro;
   return cluster_occupancy(
-      cluster_kernel_for(resident), cs,
+      cluster_kernel_for(resident, 0), cs,
       cluster_fwd_layout(I, C, J, D, cs, resident, block_i, logits_global)
               .total *
           (int)sizeof(float),

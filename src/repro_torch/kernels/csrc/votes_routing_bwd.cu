@@ -17,30 +17,26 @@
 // the batch accumulates in place.  On Hopper routing runs per sample, and
 // dW[i] crosses samples, so the backward is two launches:
 //
-//   replay  one CLUSTER of cs CTAs per sample (K8 and K9,
-//           routing_bwd_cluster_kernel below), or one CTA per sample (K13,
-//           the oracle).  It replays the forward's iters + 1 fused s+b
-//           passes (route_cluster's schedule) on ONE logits slab; in pass T
-//           each row's b_{T-1} goes to global memory just before the
-//           update overwrites it, and b_T right after.  Then ONE pass
-//           merges the seed and the reverse step: per votes block, db_T of
-//           its rows is formed and used at once for dv_{T-1}, so no db_T
-//           slab is held.  It writes only the logits b_{T-1}, b_T ([B, I,
-//           J] each) and ds_{T-1}, ds_T.  On routing_cluster.cuh's core
-//           each CTA of the cluster owns a block of I/cs rows and keeps
-//           their u and logits, and their votes computed once (K8,
-//           "resident", where they fit: the SVHN ResCaps halves and
-//           ClassCaps, MNIST's ClassCaps at cs >= 8) or recomputed block by
-//           block from W on every pass (K9, "streamed", iters + 2 passes);
-//           a row takes a warp; s_t and the reverse pass's dv are reduced
-//           through distributed shared memory in rank order.
-//           K13 (two-pass, the oracle) replays the unfused schedule in
-//           one CTA a sample, recomputing the votes block by block: a
-//           b-pass and an s-pass per iteration (2 * iters + 2 passes).
-//           Where one sample's logits do not fit a CTA (524 KB at the
-//           SVHN bottleneck) the slab is the b_T output itself, in global
-//           memory: the replay updates it in place row by row, so b_T
-//           needs no copy.
+//   replay  one CLUSTER of cs CTAs per sample (routing_bwd_cluster_kernel
+//           below).  It replays the forward's iters + 1 fused s+b passes
+//           (route_cluster's schedule) on ONE logits slab; in pass T each
+//           row's b_{T-1} goes to global memory just before the update
+//           overwrites it, and b_T right after.  Then ONE pass merges the
+//           seed and the reverse step: per votes block, db_T of its rows is
+//           formed and used at once for dv_{T-1}, so no db_T slab is held.
+//           It writes only the logits b_{T-1}, b_T ([B, I, J] each) and
+//           ds_{T-1}, ds_T.  On routing_cluster.cuh's core each CTA of the
+//           cluster owns a block of I/cs rows and keeps their u and logits,
+//           and their votes computed once (K8, "resident", where they fit:
+//           the SVHN ResCaps halves and ClassCaps, MNIST's ClassCaps at
+//           cs >= 8) or recomputed block by block from W on every pass
+//           (K9, "streamed", iters + 2 passes); a row takes a warp; s_t and
+//           the reverse pass's dv are reduced through distributed shared
+//           memory in rank order.  K13 (kTwoPass, the oracle) is K9 on the
+//           unfused schedule: each pass after the first a b-pass and an
+//           s-pass (2 * iters + 2 votes passes), the same sums in the same
+//           order, so its du and dW equal K9's bit for bit at the same
+//           cluster size and i-tile.
 //   emit    one CTA per capsule i, all samples: it rebuilds the couplings
 //           c_T, c_{T-1} from the logits and d u_hat[b, i, :] in shared
 //           memory, chunk by chunk of samples, then writes du[b, i, :] and
@@ -55,10 +51,11 @@
 // ~0.006 ms of fp32 at 67 TFLOP/s), the price of not holding the votes.
 // At the SVHN halves (u [16, 32, 8], W [32, 256, 8]) K8's byte bound is
 // 0.17 us, below any launch: there it is bound by latency, the replay's
-// chain of passes and barriers.  One CTA per sample kept only 16 SMs busy
-// at batch 16, with a thread a row (32 of 256 threads at work at the
-// halves, each through J*D serial FMAs); the cluster spreads a sample over
-// up to 16 SMs with a warp a row, and the emit over I CTAs.
+// chain of passes and barriers.  One CTA per sample (the earlier K8, K9 and
+// K13) kept only 16 SMs busy at batch 16, with a thread a row (32 of 256
+// threads at work at the halves, each through J*D serial FMAs); the
+// cluster spreads a sample over up to 16 SMs with a warp a row, and the
+// emit over I CTAs.
 
 #include "routing_cluster.cuh"
 
@@ -96,129 +93,6 @@ __device__ inline void softmax_row(const float* b, float* c, int J) {
   for (int j = 0; j < J; ++j) c[j] = c[j] / sum;
 }
 
-// K13's replay: one CTA a sample, the votes recomputed block by block.
-__global__ void __launch_bounds__(kThreads)
-routing_bwd_replay_kernel(const float* __restrict__ u,
-                          const float* __restrict__ W,
-                          const float* __restrict__ g,
-                          float* __restrict__ b_prev_out, float* b_last_out,
-                          float* __restrict__ ds_out, int B, int I, int C,
-                          int J, int D, int iters, int global_slab,
-                          int block_i) {
-  extern __shared__ float smem[];
-  const int jd = J * D, ld = jd + 1;
-  const int smp = blockIdx.x;
-  float* bp = b_prev_out + (size_t)smp * I * J;
-  float* bl = b_last_out + (size_t)smp * I * J;
-  float* u_s = smem;               // [I][C]
-  // [I][J] logits, one slab: in shared memory, or b_T's own rows.
-  float* b = global_slab ? bl : u_s + I * C;
-  float* s = global_slab ? u_s + I * C : b + I * J;  // [J*D] s_t accumulator
-  float* v = s + jd;               // [J*D] squash(s_t)
-  float* s_prev = v + jd;          // [J*D] s_{T-1}
-  float* ds = s_prev + jd;         // [J*D] ds_T
-  float* dv = ds + jd;             // [J*D] dv_{T-1} accumulator
-  float* uh = dv + jd;             // [block_i][J*D + 1] votes rows
-  float* c = uh + block_i * ld;    // [block_i][J] couplings, then db_T
-
-  const float* ub = u + (size_t)smp * I * C;
-  for (int e = threadIdx.x; e < I * C; e += blockDim.x) u_s[e] = ub[e];
-  for (int e = threadIdx.x; e < I * J; e += blockDim.x) b[e] = 0.f;
-  __syncthreads();
-
-  // Replay: passes t = 0 .. T, the forward's schedule.  b_{T-1} goes to
-  // global memory just before iteration T's update overwrites it.
-  for (int t = 0; t <= iters; ++t) {
-    if (t > 0) {                         // the b-pass of iteration t
-      for (int i0 = 0; i0 < I; i0 += block_i) {
-        const int rows = min(block_i, I - i0);
-        votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh,
-                   ld);
-        __syncthreads();
-        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-          float* br = b + (i0 + r) * J;
-          if (t == iters)
-            for (int j = 0; j < J; ++j) bp[(i0 + r) * J + j] = br[j];
-          update_row(uh + r * ld, br, v, J, D);
-        }
-        __syncthreads();
-      }
-    }
-    for (int n = threadIdx.x; n < jd; n += blockDim.x) s[n] = 0.f;
-    __syncthreads();
-    for (int i0 = 0; i0 < I; i0 += block_i) {
-      const int rows = min(block_i, I - i0);
-      votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh, ld);
-      __syncthreads();
-      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-        float* br = b + (i0 + r) * J;
-        if (t == iters && !global_slab)
-          for (int j = 0; j < J; ++j) bl[(i0 + r) * J + j] = br[j];
-        softmax_row(br, c + r * J, J);
-      }
-      __syncthreads();
-      for (int n = threadIdx.x; n < jd; n += blockDim.x) {
-        const int j = n / D;
-        float a = s[n];
-        for (int r = 0; r < rows; ++r)
-          a = fmaf(c[r * J + j], uh[r * ld + n], a);
-        s[n] = a;
-      }
-      __syncthreads();
-    }
-    for (int n = threadIdx.x; n < jd; n += blockDim.x)
-      if (t == iters - 1) s_prev[n] = s[n];
-    for (int j = threadIdx.x; j < J; j += blockDim.x)
-      squash_into(s + j * D, v + j * D, D);
-    __syncthreads();
-  }
-
-  // Seed: ds_T from the output cotangent (s now holds s_T).
-  const float* gb = g + (size_t)smp * jd;
-  for (int j = threadIdx.x; j < J; j += blockDim.x)
-    squash_vjp_into(s + j * D, gb + j * D, ds + j * D, D);
-  for (int n = threadIdx.x; n < jd; n += blockDim.x) dv[n] = 0.f;
-  __syncthreads();
-  float* ds_last = ds_out + ((size_t)B + smp) * jd;
-  float* ds_prev = ds_out + (size_t)smp * jd;
-  for (int n = threadIdx.x; n < jd; n += blockDim.x) ds_last[n] = ds[n];
-
-  // Seed + reverse in one pass: db_T of each block's rows, used at once.
-  for (int i0 = 0; i0 < I; i0 += block_i) {
-    const int rows = min(block_i, I - i0);
-    votes_rows(u_s + i0 * C, W + (size_t)i0 * jd * C, rows, jd, C, uh, ld);
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float* ur = uh + r * ld;
-      float* cr = c + r * J;
-      softmax_row(b + (i0 + r) * J, cr, J);
-      // db_j = c_j (dc_j - sum_k c_k dc_k),  dc_j = <u_hat[r, j], ds_T[j]>;
-      // dc is formed twice rather than held in a second slab.
-      float cdc = 0.f;
-      for (int j = 0; j < J; ++j) {
-        float dc = 0.f;
-        for (int d = 0; d < D; ++d) dc = fmaf(ur[j * D + d], ds[j * D + d], dc);
-        cdc = fmaf(cr[j], dc, cdc);
-      }
-      for (int j = 0; j < J; ++j) {
-        float dc = 0.f;
-        for (int d = 0; d < D; ++d) dc = fmaf(ur[j * D + d], ds[j * D + d], dc);
-        cr[j] = cr[j] * (dc - cdc);
-      }
-    }
-    __syncthreads();
-    for (int n = threadIdx.x; n < jd; n += blockDim.x) {
-      const int j = n / D;
-      float a = dv[n];
-      for (int r = 0; r < rows; ++r) a = fmaf(uh[r * ld + n], c[r * J + j], a);
-      dv[n] = a;
-    }
-    __syncthreads();
-  }
-  for (int j = threadIdx.x; j < J; j += blockDim.x)
-    squash_vjp_into(s_prev + j * D, dv + j * D, ds_prev + j * D, D);
-}
-
 // The shared memory of one K8/K9 cluster CTA, in floats
 // (execplan.routing_bwd_cluster_smem models the same sum): the votes rows
 // with their couplings, then u and the logits of the CTA's rows, and s, v,
@@ -243,8 +117,10 @@ __host__ __device__ inline ClusterBwdLayout cluster_bwd_layout(
 // b_T in pass T; then every CTA forms ds_T = squash_vjp(s_T, g) (the same
 // in each), its rows' db_T and its partial of dv, which is reduced in rank
 // order like s; rank 0 writes ds_{T-1} = squash_vjp(s_{T-1}, dv) and ds_T.
-// Held to 128 registers a thread, so that two CTAs of 113 KB (MNIST's
-// resident rows at cs = 8) share an SM.
+// K13's replay (kTwoPass) runs the passes on the unfused schedule.  Held
+// to 128 registers a thread, so that two CTAs of 113 KB (MNIST's resident
+// rows at cs = 8) share an SM.
+template <bool kTwoPass>
 __global__ void __launch_bounds__(kThreads, 2)
 routing_bwd_cluster_kernel(const float* __restrict__ u,
                            const float* __restrict__ W,
@@ -281,7 +157,7 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   route_cluster(cl, sc, VotesOfW{u_s, W, own, C}, own, J, D, iters,
                 resident != 0, block_i, s_prev,
                 b_prev_out + (size_t)smp * I * J,
-                b_last_out + (size_t)smp * I * J);
+                b_last_out + (size_t)smp * I * J, kTwoPass);
 
   // Seed + reverse: the partial of dv goes to the half of the partials that
   // pass T did not use (see routing_cluster.cuh).
@@ -389,13 +265,37 @@ cudaError_t launch_emit(const float* u, const float* W, const float* b_prev,
   return cudaGetLastError();
 }
 
+// Checks and launches the replay on B clusters of cs CTAs (K8, K9, or
+// K13 with two_pass and streamed votes), then the emit.
+cudaError_t launch_cluster_bwd(const float* u, const float* W, const float* g,
+                               float* b_prev, float* b_last, float* ds,
+                               float* du, float* dW, int B, int I, int C,
+                               int J, int D, int iters, int resident,
+                               int block_i, int cs, int smem_bytes,
+                               int emit_smem, int two_pass,
+                               cudaStream_t s) {
+  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
+      (two_pass && resident) ||
+      cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
+              (int)sizeof(float) != smem_bytes)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_clusters(
+      two_pass ? routing_bwd_cluster_kernel<true>
+               : routing_bwd_cluster_kernel<false>,
+      B, cs, smem_bytes, s, u, W, g, b_prev, b_last, ds, B, I, C, J, D,
+      iters, resident, block_i);
+  if (err != cudaSuccess) return err;
+  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
+                     emit_smem, s);
+}
+
 }  // namespace repro
 
 // Every entry: u [B, I, C], W [I, J*D, C], g [B, J*D] -> du [B, I, C],
 // dW [I, J*D, C].  Scratch in global memory: b_prev, b_last [B, I, J] (the
 // logits b_{T-1}, b_T) and ds [2, B, J*D] (ds_{T-1}, ds_T).  smem_bytes /
-// emit_smem are the plan's footprints (execplan.routing_bwd_cluster_smem
-// or votes_routing_bwd_smem / routing_bwd_emit_smem).
+// emit_smem are the plan's footprints (execplan.routing_bwd_cluster_smem /
+// routing_bwd_emit_smem).
 
 // The kernel's own shared-memory layout in bytes (execplan models it).
 REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
@@ -416,19 +316,10 @@ REPRO_EXPORT int routing_bwd_cluster_f32(const float* u, const float* W,
                                          int resident, int block_i, int cs,
                                          int smem_bytes, int emit_smem,
                                          void* stream) {
-  using namespace repro;
-  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
-      cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
-              (int)sizeof(float) != smem_bytes)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_clusters(routing_bwd_cluster_kernel, B, cs,
-                                    smem_bytes, s, u, W, g, b_prev, b_last,
-                                    ds, B, I, C, J, D, iters, resident,
-                                    block_i);
-  if (err != cudaSuccess) return err;
-  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
-                     emit_smem, s);
+  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du, dW, B, I,
+                                   C, J, D, iters, resident, block_i, cs,
+                                   smem_bytes, emit_smem, 0,
+                                   (cudaStream_t)stream);
 }
 
 // out = {max active clusters, static shared bytes, max dynamic shared
@@ -438,34 +329,24 @@ REPRO_EXPORT int routing_bwd_cluster_occupancy(int I, int C, int J, int D,
                                                int block_i, int* out) {
   using namespace repro;
   return cluster_occupancy(
-      routing_bwd_cluster_kernel, cs,
+      routing_bwd_cluster_kernel<false>, cs,
       cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
           (int)sizeof(float),
       out);
 }
 
-// K13, the unfused oracle, with the slab where the streamed schedule it
-// checks keeps it: global_slab != 0 for "streamed-global".
+// K13, the unfused oracle: K9's streamed replay (block_i rows at a time) on
+// B clusters of cs CTAs with each pass after the first a b-pass and an
+// s-pass, then the emit.
 REPRO_EXPORT int routing_bwd_2pass_f32(const float* u, const float* W,
                                        const float* g, float* b_prev,
                                        float* b_last, float* ds, float* du,
                                        float* dW, int B, int I, int C, int J,
-                                       int D, int iters, int block_i,
-                                       int global_slab, int smem_bytes,
-                                       int emit_smem, void* stream) {
-  using namespace repro;
-  if (B < 1 || I < 1 || iters < 1 || block_i < 1 || block_i > I)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      routing_bwd_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return err;
-  routing_bwd_replay_kernel<<<B, kThreads, smem_bytes, s>>>(
-      u, W, g, b_prev, b_last, ds, B, I, C, J, D, iters, global_slab != 0,
-      block_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
-                     emit_smem, s);
+                                       int D, int iters, int block_i, int cs,
+                                       int smem_bytes, int emit_smem,
+                                       void* stream) {
+  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du, dW, B, I,
+                                   C, J, D, iters, 0, block_i, cs,
+                                   smem_bytes, emit_smem, 1,
+                                   (cudaStream_t)stream);
 }

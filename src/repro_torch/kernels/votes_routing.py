@@ -6,31 +6,30 @@ The counterpart of ``repro/kernels/votes_routing.py``: the forward
 (``_resident_kernel`` / ``_streamed_kernel`` / ``_streamed_2pass_kernel``
 through ``_vr_apply``, with the optional residual-add epilogue), the
 custom VJP's backward (``_resident_bwd_kernel`` / ``_streamed_bwd_kernel``
-/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``; K3 and the K8/K9
-backward route each sample on a thread-block cluster), and
+/ ``_streamed_2pass_bwd_kernel`` through ``_vr_grad``), and
 ``res_caps_segment`` (``_res_segment``).  ``votes_routing`` is a
 ``torch.autograd.Function``: forward the plain twins for CPU tensors and
-the CUDA kernels (``csrc/votes_routing.cu``: K3 and K4 a cluster a
-sample, K13 one CTA a sample) for CUDA tensors; backward
+the CUDA kernels (``csrc/votes_routing.cu``) for CUDA tensors; backward
 ``votes_routing_bwd``, whose plain twin and CUDA kernels
 (``csrc/votes_routing_bwd.cu``) compute the reference's stop-gradient
-routing VJP by one explicit formula.  The cluster schedules (K3 and K4,
-K8/K9 here, K5's consume, K14b) sum s rank by rank over each CTA's rows
-and add the partials in rank order (``cluster_routing_plain``,
-``votes_routing_bwd_plain``, over ``cluster_plain.replay``): ``resident``
-computes each CTA's rows' votes once, ``streamed`` folds the logits update
-of iteration ``t`` into the same pass as the accumulation of ``s_t``,
-``block_i`` rows at a time (the kernel recomputes each votes block on
-every pass; its twin computes them once, which gives the same values),
-and ``streamed-global`` is ``streamed`` with the logits in device memory
-(the same twin).  Every forward but K13's and every backward but K13's
-runs only on a cluster, at the planner's size where the caller names none.
-``streamed-2pass`` (K13, the oracle) runs a b-pass and then an s-pass per
-iteration in one CTA a sample, the i axis zero-padded to a multiple of
-``block_i``, and keeps its logits where ``streamed`` would on one CTA, in
-device memory where that does not fit.  ``votes_routing_plain`` keeps the
-one-CTA orders: the reference's for ``resident``, one CTA's fused passes
-(``routing.routing_plain`` at one rank) for the streamed modes, K13's.
+routing VJP by one explicit formula.  Every kernel routes each sample on
+a thread-block cluster, at the planner's size where the caller names
+none: it sums s rank by rank over each CTA's rows and adds the partials
+in rank order (``cluster_routing_plain``, ``votes_routing_bwd_plain``,
+over ``cluster_plain.replay``).  ``resident`` computes each CTA's rows'
+votes once, ``streamed`` folds the logits update of iteration ``t`` into
+the same pass as the accumulation of ``s_t``, ``block_i`` rows at a time
+(the kernel recomputes each votes block on every pass; its twin computes
+them once, which gives the same values), and ``streamed-global`` is
+``streamed`` with the logits in device memory (the same twin).
+``streamed-2pass`` (K13, the oracle) is ``streamed`` with a b-pass and
+then an s-pass per iteration, on K4's (K9's) cluster and with its logits
+where K4 keeps them: the same sums in the same order, so its output and
+gradients equal the fused kernels' bit for bit.  ``votes_routing_plain``
+keeps the one-CTA orders: the reference's for ``resident``, one CTA's
+fused passes (``routing.routing_plain`` at one rank) for the streamed
+modes, and the reference's two-pass order (the i axis zero-padded to a
+multiple of ``block_i``) for ``streamed-2pass``.
 """
 
 from __future__ import annotations
@@ -47,9 +46,7 @@ from repro_torch.core.execplan import (ALL_MODES, CLUSTER_SIZES, FUSED_NAME,
                                        ORACLE_MODE, STREAMED_GLOBAL,
                                        routing_bwd_cluster_smem,
                                        routing_bwd_emit_smem,
-                                       votes_routing_bwd_smem,
-                                       votes_routing_cluster_smem,
-                                       votes_routing_smem)
+                                       votes_routing_cluster_smem)
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import (Kernel, cluster_query, on_cpu, ptr,
@@ -59,10 +56,11 @@ from repro_torch.kernels.cluster_plain import rank_blocks, replay
 from repro_torch.kernels.routing import routing_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# Each sample on a thread-block cluster: K3 (resident votes), K4 (streamed),
+# K4g (streamed, the logits in global memory) and K13 (K4 on the unfused
+# schedule, its logits in shared or global memory), one kernel.
 VOTES_ROUTING_2PASS = Kernel("votes_routing", "votes_routing_2pass_f32",
-                             [_P] * 5 + [_I] * 8 + [_P])              # K13
-# Each sample on a thread-block cluster: K3 (resident votes), K4 (streamed)
-# and K4g (streamed, the logits in global memory), one kernel.
+                             [_P] * 5 + [_I] * 9 + [_P])              # K13
 VOTES_ROUTING_CLUSTER = Kernel("votes_routing", "votes_routing_cluster_f32",
                                [_P] * 4 + [_I] * 8 + [_P])
 VOTES_ROUTING_STREAMED = Kernel("votes_routing",
@@ -73,8 +71,8 @@ VOTES_ROUTING_GLOBAL = Kernel("votes_routing",
                               [_P] * 5 + [_I] * 9 + [_P])
 ROUTING_BWD_2PASS = Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
                            [_P] * 8 + [_I] * 10 + [_P])               # K13
-# K8 (resident votes) and K9 (streamed): the replay on a thread-block
-# cluster per sample, then the emit.
+# K8 (resident votes), K9 (streamed) and K13 (K9 on the unfused schedule):
+# the replay on a thread-block cluster per sample, then the emit.
 ROUTING_BWD_CLUSTER = Kernel("votes_routing_bwd", "routing_bwd_cluster_f32",
                              [_P] * 8 + [_I] * 11 + [_P])
 
@@ -177,44 +175,31 @@ def _check_smem(name: str, mode: str, smem: int) -> None:
                          f"shared memory per CTA, over {SMEM_BYTES} B")
 
 
-def oracle_placement(smem_of) -> str:
-    """Where K13 keeps its logits: ``"streamed"`` (shared memory) when
-    that footprint, ``smem_of(mode)``, fits a CTA, else
-    ``"streamed-global"`` -- the placement of the schedule it checks."""
-    return "streamed" if smem_of("streamed") <= SMEM_BYTES \
-        else STREAMED_GLOBAL
-
-
 @functools.lru_cache(maxsize=64)            # the batch is a key: bounded
 def planned_cluster(num_caps: int, caps_dim: int, jd: int, num_classes: int,
                     iters: int, batch: int, mode: str = "resident",
                     block_i: int | None = None) -> int:
     """The planner's K3/K4 cluster size at ``batch`` for ``mode``'s
     placement of the votes and logits (at the i-tile ``block_i`` when
-    given)."""
-    sched = execplan.plan_votes_routing_cluster(
-        num_caps, caps_dim, jd, num_classes, iters=iters, batch=batch,
-        votes=mode, block_i=block_i)
-    if sched is None:
-        raise ValueError(f"votes_routing: no cluster of {CLUSTER_SIZES} "
-                         f"CTAs holds the {mode} votes of {num_caps} "
-                         f"capsules of {caps_dim}D -> {jd}")
-    return sched.cluster.cluster
+    given); the oracle K13 takes K4's: streamed, else streamed-global."""
+    for votes in (("streamed", STREAMED_GLOBAL) if mode == ORACLE_MODE
+                  else (mode,)):
+        sched = execplan.plan_votes_routing_cluster(
+            num_caps, caps_dim, jd, num_classes, iters=iters, batch=batch,
+            votes=votes, block_i=block_i)
+        if sched is not None:
+            return sched.cluster.cluster
+    raise ValueError(f"votes_routing: no cluster of {CLUSTER_SIZES} CTAs "
+                     f"holds the {mode} votes of {num_caps} capsules of "
+                     f"{caps_dim}D -> {jd}")
 
 
 def fwd_cluster(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                 num_classes: int, mode: str, cluster: int | None,
-                block_i: int | None = None) -> int | None:
-    """The forward's cluster size: every plan mode runs on K3/K4's cluster
-    (the planner's size at this batch for the mode and i-tile unless
-    ``cluster`` names one); only the oracle K13 (``streamed-2pass``) runs
-    one CTA a sample (None)."""
-    if mode == ORACLE_MODE:
-        if cluster is not None:
-            raise ValueError(f"votes_routing: a cluster of {cluster} CTAs "
-                             f"with {mode!r} votes; the oracle runs one "
-                             f"CTA a sample")
-        return None
+                block_i: int | None = None) -> int:
+    """The forward's cluster size: every mode runs on K3/K4's cluster (the
+    planner's size at this batch for the mode and i-tile unless
+    ``cluster`` names one; the oracle K13 K4's, ``planned_cluster``)."""
     if cluster is None:
         return planned_cluster(u.shape[1], u.shape[2], w.shape[1],
                                num_classes, iters, u.shape[0], mode,
@@ -225,20 +210,34 @@ def fwd_cluster(u: torch.Tensor, w: torch.Tensor, *, iters: int,
     return cluster
 
 
-# The cluster kernel's C entry for each placement of the votes and logits.
+# The cluster kernel's C entry for each mode.
 _CLUSTER_ENTRY = {"resident": VOTES_ROUTING_CLUSTER,
                   "streamed": VOTES_ROUTING_STREAMED,
-                  STREAMED_GLOBAL: VOTES_ROUTING_GLOBAL}
+                  STREAMED_GLOBAL: VOTES_ROUTING_GLOBAL,
+                  ORACLE_MODE: VOTES_ROUTING_2PASS}
+
+
+def logits_placement(mode: str, i_dim: int, caps_dim: int, num_classes: int,
+                     jd: int, cluster: int, block_i: int) -> str:
+    """Where a forward CTA keeps its rows' logits: ``mode``'s placement,
+    and for the oracle K13 K4's at this cluster size and i-tile (shared
+    memory where ``streamed`` fits a CTA, else ``streamed-global``)."""
+    if mode != ORACLE_MODE:
+        return mode
+    smem = votes_routing_cluster_smem(i_dim, caps_dim, num_classes, jd,
+                                      cluster, mode="streamed",
+                                      block_i=block_i)
+    return "streamed" if smem <= SMEM_BYTES else STREAMED_GLOBAL
 
 
 def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
              iters: int, num_classes: int, mode: str, block_i: int,
              cluster: int | None = None) -> torch.Tensor:
-    """K3/K4 (each sample on a cluster of ``cluster`` CTAs, its votes
-    placed by ``mode``), K13 (one CTA a sample), or the plain twin on the
-    CPU; not differentiable; adds ``r [B, J*D]`` to the output when
-    given.  A refused cluster launch raises, naming its grid and shared
-    memory; nothing falls back."""
+    """K3/K4/K13, each sample on a cluster of ``cluster`` CTAs (its votes
+    and logits placed by ``mode``), or the plain twin on the CPU; not
+    differentiable; adds ``r [B, J*D]`` to the output when given.  A
+    refused cluster launch raises, naming its grid and shared memory;
+    nothing falls back."""
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
     if r is not None and r.shape != (bsz, jd):
@@ -248,51 +247,33 @@ def _forward(u: torch.Tensor, w: torch.Tensor, r: torch.Tensor | None, *,
                           mode=mode, cluster=cluster, block_i=block_i)
     extra = () if r is None else (r,)
     if on_cpu("votes_routing", u, w, *extra):
-        if cluster is not None:
-            return cluster_routing_plain(u, w, iters=iters,
-                                         num_classes=num_classes, mode=mode,
-                                         block_i=block_i, cluster=cluster,
-                                         r=r)
-        return votes_routing_plain(u, w, iters=iters,
-                                   num_classes=num_classes, mode=mode,
-                                   block_i=block_i, r=r)
+        return cluster_routing_plain(u, w, iters=iters,
+                                     num_classes=num_classes, mode=mode,
+                                     block_i=block_i, cluster=cluster, r=r)
     j = num_classes
-    rp = ptr(r) if r is not None else None
     f32 = dict(dtype=u.dtype, device=u.device)
     out = torch.empty((bsz, jd), **f32)
-    if cluster is not None:
-        smem = votes_routing_cluster_smem(i_dim, c, j, jd, cluster,
-                                          mode=mode, block_i=block_i)
-        _check_smem("votes_routing", f"{mode} {cluster}-CTA cluster", smem)
-        # streamed-global's logits scratch [B, I, J]: written and read by
-        # the kernel alone.
-        logits = ([torch.empty((bsz, i_dim, j), **f32)]
-                  if mode == STREAMED_GLOBAL else [])
-        tile = [] if mode == "resident" else [block_i]
-        try:
-            _CLUSTER_ENTRY[mode](ptr(u), ptr(w), rp, *map(ptr, logits),
-                                 ptr(out), bsz, i_dim, c, j, jd // j, iters,
-                                 *tile, cluster, smem, stream_of(u))
-        except RuntimeError as err:
-            raise RuntimeError(
-                f"votes_routing: the launch of {bsz} clusters of {cluster} "
-                f"CTAs ({smem} B of shared memory each) was refused: "
-                f"{err}") from err
-        return out
-
-    def smem_of(m):
-        return votes_routing_smem(m, i_dim, block_i, c, j, jd)
-
-    place = oracle_placement(smem_of)
-    smem = smem_of(place)
-    _check_smem("votes_routing", mode, smem)
-    # K13's logits scratch where they do not fit its CTA, [B, I, J].
+    place = logits_placement(mode, i_dim, c, j, jd, cluster, block_i)
+    smem = votes_routing_cluster_smem(i_dim, c, j, jd, cluster, mode=place,
+                                      block_i=block_i)
+    _check_smem("votes_routing", f"{mode} {cluster}-CTA cluster", smem)
+    # The logits scratch [B, I, J] where they are in global memory (null
+    # for K13 where they are not): written and read by the kernel alone.
     logits = (torch.empty((bsz, i_dim, j), **f32)
               if place == STREAMED_GLOBAL else None)
-    VOTES_ROUTING_2PASS(ptr(u), ptr(w), rp,
-                        ptr(logits) if logits is not None else None,
-                        ptr(out), bsz, i_dim, c, j, jd // j, iters, block_i,
-                        smem, stream_of(u))
+    scratch = ([] if mode in ("resident", "streamed")
+               else [None if logits is None else ptr(logits)])
+    tile = [] if mode == "resident" else [block_i]
+    try:
+        _CLUSTER_ENTRY[mode](ptr(u), ptr(w),
+                             ptr(r) if r is not None else None, *scratch,
+                             ptr(out), bsz, i_dim, c, j, jd // j, iters,
+                             *tile, cluster, smem, stream_of(u))
+    except RuntimeError as err:
+        raise RuntimeError(
+            f"votes_routing: the launch of {bsz} clusters of {cluster} "
+            f"CTAs ({smem} B of shared memory each) was refused: "
+            f"{err}") from err
     return out
 
 
@@ -304,9 +285,10 @@ def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
     plain PyTorch: u [B, I, C], w [I, J*D, C] -> v [B, J*D] (+ ``r [B,
     J*D]`` when given), each of the ``cluster`` ranks summing s over its
     block of rows (``cluster_spans``; ``block_i`` rows at a time unless
-    ``mode`` is resident), the partials added in rank order.  Every
-    placement of the logits (``streamed-global`` too) does the same
-    arithmetic."""
+    ``mode`` is resident), the partials added in rank order; under
+    ``streamed-2pass`` (K13) each pass after the first a b-pass and an
+    s-pass.  Every placement of the logits (``streamed-global`` too) does
+    the same arithmetic."""
     bsz, i_dim, _ = u.shape
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
@@ -314,7 +296,8 @@ def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
     b = u.new_zeros((bsz, i_dim, j))
     _, _, s = replay(lambda rows: votes[:, rows],
                      rank_blocks(i_dim, block_i, cluster, mode == "resident"),
-                     b, (bsz, j, d), iters=iters, two_pass=False)
+                     b, (bsz, j, d), iters=iters,
+                     two_pass=mode == ORACLE_MODE)
     v = ref.squash(s).reshape(bsz, jd)
     return v if r is None else v + r
 
@@ -324,10 +307,11 @@ def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
                         num_classes: int, iters: int, batch: int,
                         votes: str) -> int:
     """The planner's K8/K9 cluster size at ``batch`` for ``votes``
-    (``resident`` or ``streamed``)."""
-    sched = execplan.plan_routing_bwd_cluster(num_caps, caps_dim, jd,
-                                              num_classes, iters=iters,
-                                              batch=batch, votes=votes)
+    (``resident`` or ``streamed``; the oracle K13 takes K9's,
+    ``streamed``)."""
+    sched = execplan.plan_routing_bwd_cluster(
+        num_caps, caps_dim, jd, num_classes, iters=iters, batch=batch,
+        votes="streamed" if votes == ORACLE_MODE else votes)
     if sched is None:
         raise ValueError(f"votes_routing_bwd: no cluster of "
                          f"{CLUSTER_SIZES} CTAs fits {num_caps} capsules of "
@@ -337,15 +321,15 @@ def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
 
 def bwd_schedule(u: torch.Tensor, w: torch.Tensor, *, iters: int,
                  num_classes: int, mode: str,
-                 cluster: int | None) -> tuple[str, int | None]:
-    """The backward's ``(mode, cluster)``: resident (K8) and streamed (K9)
-    votes run on a cluster, whose CTAs keep their rows' logits on chip, so
+                 cluster: int | None) -> tuple[str, int]:
+    """The backward's ``(mode, cluster)``: resident (K8), streamed (K9)
+    and the oracle (K13, K9's streamed votes on the unfused schedule) run
+    on a cluster, whose CTAs keep their rows' logits on chip, so
     ``streamed-global`` is ``streamed`` there, and without ``cluster``
-    they take the planner's size at this batch.  Only the oracle (K13)
-    replays in one CTA a sample (``cluster`` None)."""
+    they take the planner's size at this batch."""
     if mode == STREAMED_GLOBAL:
         mode = "streamed"
-    if mode != ORACLE_MODE and cluster is None:
+    if cluster is None:
         cluster = planned_bwd_cluster(u.shape[1], u.shape[2], w.shape[1],
                                       num_classes, iters, u.shape[0], mode)
     return mode, cluster
@@ -358,8 +342,8 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du, dW) of ``votes_routing`` at output cotangent ``g [B, J*D]``,
     in the reference's stop-gradient convention, by the kernels' schedule
-    (``bwd_schedule``): a cluster of ``cluster`` CTAs (K8 and K9, whose
-    ``mode`` places each CTA's votes) or one CTA a sample (K13).
+    (``bwd_schedule``): a cluster of ``cluster`` CTAs, whose ``mode``
+    places each CTA's votes (K8 resident, K9 and K13 streamed).
 
     Replay the forward (``iters + 1`` passes; under ``streamed-2pass`` a
     b-pass before each s-pass after the first), keeping ``b_{T-1}``,
@@ -383,18 +367,16 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     bsz, i_dim, _ = u.shape
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
-    u_p, w_p = (_padded(u, w, block_i)[:2] if cluster is None else (u, w))
     ranks = rank_blocks(i_dim, block_i, cluster, mode == "resident")
     if mode == "resident":
-        votes = _votes_block(u_p, w_p).reshape(bsz, -1, j, d)
+        votes = _votes_block(u, w).reshape(bsz, -1, j, d)
 
         def uh_of(rows):
             return votes[:, rows]
     else:
         def uh_of(rows):
-            return _votes_block(u_p[:, rows], w_p[rows]).reshape(bsz, -1,
-                                                                 j, d)
-    b = torch.zeros((bsz, u_p.shape[1], j), dtype=u.dtype, device=u.device)
+            return _votes_block(u[:, rows], w[rows]).reshape(bsz, -1, j, d)
+    b = torch.zeros((bsz, i_dim, j), dtype=u.dtype, device=u.device)
     b_prev, s_prev, s = replay(uh_of, ranks, b, (bsz, j, d), iters=iters,
                                two_pass=mode == ORACLE_MODE)
     ds_last = ref.squash_vjp(s, g.reshape(bsz, j, d))
@@ -412,8 +394,8 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     duh = (torch.softmax(b, dim=2)[..., None] * ds_last[:, None]
            + torch.softmax(b_prev, dim=2)[..., None] * ds_prev[:, None]
            ).reshape(bsz, -1, jd)
-    du = torch.einsum("bin,inc->bic", duh, w_p)[:, :i_dim]
-    dw = torch.einsum("bin,bic->inc", duh, u_p)[:i_dim]
+    du = torch.einsum("bin,inc->bic", duh, w)
+    dw = torch.einsum("bin,bic->inc", duh, u)
     return du, dw
 
 
@@ -427,23 +409,21 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     ``cluster`` CTAs, their votes ``resident`` (K8) or ``streamed`` (K9,
     also for ``streamed-global``) as ``mode`` says; without ``cluster``
     the planner's size at this batch (``bwd_schedule``).
-    ``streamed-2pass`` is K13: one replay CTA a sample.  On CUDA neither
-    u_hat nor d u_hat reaches device memory: the replay writes only the
-    logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``, ``ds_T`` (K13 where its
-    logits do not fit a CTA: its slab is ``b_T`` itself); a per-capsule
-    emit rebuilds d u_hat on chip and sums dW over the batch inside the
-    CTA.  A refused cluster launch raises; nothing falls back."""
+    ``streamed-2pass`` is K13: K9's replay on the unfused schedule.  On
+    CUDA neither u_hat nor d u_hat reaches device memory: the replay
+    writes only the logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``,
+    ``ds_T``; a per-capsule emit rebuilds d u_hat on chip and sums dW
+    over the batch inside the CTA.  A refused cluster launch raises;
+    nothing falls back."""
     _check_shapes(u, w)
     bsz, i_dim, c = u.shape
     jd = w.shape[1]
     block_i = min(block_i, i_dim)
     check_schedule(i_dim, jd, iters=iters, num_classes=num_classes,
                    mode=mode, block_i=block_i)
-    if cluster is not None and (cluster not in CLUSTER_SIZES
-                                or mode == ORACLE_MODE):
-        raise ValueError(f"votes_routing_bwd: a cluster of {cluster} CTAs "
-                         f"with {mode!r} votes; clusters are "
-                         f"{CLUSTER_SIZES} CTAs, votes resident or streamed")
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"votes_routing_bwd: a cluster of {cluster} CTAs; "
+                         f"clusters are {CLUSTER_SIZES} CTAs")
     mode, cluster = bwd_schedule(u, w, iters=iters, num_classes=num_classes,
                                  mode=mode, cluster=cluster)
     if g.shape != (bsz, jd):
@@ -454,15 +434,9 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                                        num_classes=num_classes, mode=mode,
                                        block_i=block_i, cluster=cluster)
     j = num_classes
-    if cluster is not None:
-        place = mode
-        smem = routing_bwd_cluster_smem(mode, i_dim, block_i, c, j, jd,
-                                        cluster)
-    else:
-        def smem_of(m):
-            return votes_routing_bwd_smem(m, i_dim, block_i, c, j, jd)
-        place = oracle_placement(smem_of)
-        smem = smem_of(place)
+    resident = mode == "resident"
+    smem = routing_bwd_cluster_smem("resident" if resident else "streamed",
+                                    i_dim, block_i, c, j, jd, cluster)
     emit = routing_bwd_emit_smem(c, j, jd)
     _check_smem("votes_routing_bwd", mode, max(smem, emit))
     f32 = dict(dtype=u.dtype, device=u.device)
@@ -470,20 +444,17 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     ds = torch.empty((2, bsz, jd), **f32)                # ds_{T-1}, ds_T
     du = torch.empty((bsz, i_dim, c), **f32)
     dw = torch.empty((i_dim, jd, c), **f32)
-    args = [ptr(u), ptr(w), ptr(g), ptr(logits[0]), ptr(logits[1]), ptr(ds),
-            ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters]
-    if cluster is not None:
-        try:
-            ROUTING_BWD_CLUSTER(*args, int(mode == "resident"), block_i,
-                                cluster, smem, emit, stream_of(u))
-        except RuntimeError as err:
-            raise RuntimeError(
-                f"votes_routing_bwd: the launch of {bsz} clusters of "
-                f"{cluster} CTAs ({smem} B of shared memory each) was "
-                f"refused: {err}") from err
-        return du, dw
-    ROUTING_BWD_2PASS(*args, block_i, int(place == STREAMED_GLOBAL), smem,
-                      emit, stream_of(u))
+    entry, votes = ((ROUTING_BWD_2PASS, []) if mode == ORACLE_MODE
+                    else (ROUTING_BWD_CLUSTER, [int(resident)]))
+    try:
+        entry(ptr(u), ptr(w), ptr(g), ptr(logits[0]), ptr(logits[1]),
+              ptr(ds), ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters,
+              *votes, block_i, cluster, smem, emit, stream_of(u))
+    except RuntimeError as err:
+        raise RuntimeError(
+            f"votes_routing_bwd: the launch of {bsz} clusters of "
+            f"{cluster} CTAs ({smem} B of shared memory each) was "
+            f"refused: {err}") from err
     return du, dw
 
 
@@ -621,13 +592,13 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
                   bwd_block_i: int | None = None,
                   op_name: str = FUSED_NAME,
                   bwd_cluster: int | None = None) -> torch.Tensor:
-    """K3 (``mode="resident"``) or K4 (``streamed``, ``streamed-global``),
-    each sample on a cluster of ``cluster`` CTAs (None: the planner's size
-    at this batch for the mode and ``block_i``), or K13
-    (``mode="streamed-2pass"``, one CTA a sample): u [B, I, C], w [I,
-    J*D, C] -> v [B, J*D] (votes + routing, u_hat never leaves the chip
-    on CUDA), plus ``r [B, J*D]`` when given, added in the kernel's
-    epilogue.  Differentiable: the backward runs ``votes_routing_bwd`` on
+    """K3 (``mode="resident"``), K4 (``streamed``, ``streamed-global``) or
+    K13 (``mode="streamed-2pass"``, K4 on the unfused schedule), each
+    sample on a cluster of ``cluster`` CTAs (None: the planner's size at
+    this batch for the mode and ``block_i``): u [B, I, C], w [I, J*D, C]
+    -> v [B, J*D] (votes + routing, u_hat never leaves the chip on CUDA),
+    plus ``r [B, J*D]`` when given, added in the kernel's epilogue.
+    Differentiable: the backward runs ``votes_routing_bwd`` on
     ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
     forward's) and ``bwd_cluster`` when ``bwd_mode`` is given, else on
     the planner's backward schedule for ``op_name``."""

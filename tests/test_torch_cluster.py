@@ -130,8 +130,9 @@ def test_primary_routing_cluster_grads_match_reference():
 
 def test_one_rank_is_the_single_cta_order():
     """With cs = 1 the twins reduce to the single-CTA sums, bit for bit:
-    the split routing's forward, and the backward of the one-CTA oracle
-    K13, whose separate b-pass leaves the same logits."""
+    the split routing's forward, the oracle K13's forward (the
+    reference's two-pass order, ``votes_routing_plain``), and its
+    backward, whose separate b-pass leaves the fused replay's logits."""
     u = torch.from_numpy(_rand(30, 2, 64, 4, scale=0.5))
     w = torch.from_numpy(_rand(31, 64, 40, 4, scale=0.3))
     g = torch.from_numpy(_rand(32, 2, 40))
@@ -140,11 +141,16 @@ def test_one_rank_is_the_single_cta_order():
     torch.testing.assert_close(
         vr.cluster_routing_plain(u, w, mode="streamed", cluster=1, **kw),
         k14b.routing_plain(votes, **kw), rtol=0, atol=0)
+    torch.testing.assert_close(
+        vr.cluster_routing_plain(u, w, mode=execplan.ORACLE_MODE, cluster=1,
+                                 **kw),
+        vr.votes_routing_plain(u, w, mode=execplan.ORACLE_MODE, **kw),
+        rtol=0, atol=0)
     for got, want in zip(
             vr.votes_routing_bwd_plain(u, w, g, mode="streamed", cluster=1,
                                        **kw),
             vr.votes_routing_bwd_plain(u, w, g, mode=execplan.ORACLE_MODE,
-                                       **kw)):
+                                       cluster=1, **kw)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -182,8 +188,8 @@ def test_cluster_arguments_are_checked():
                                                                          20)
     with pytest.raises(ValueError, match="cluster of 3"):
         vr.votes_routing_bwd(u, w, g, num_classes=5, cluster=3)
-    with pytest.raises(ValueError, match="cluster of 2"):
-        vr.votes_routing_bwd(u, w, g, num_classes=5, cluster=2,
+    with pytest.raises(ValueError, match="cluster of 3"):
+        vr.votes_routing_bwd(u, w, g, num_classes=5, cluster=3,
                              mode=execplan.ORACLE_MODE)
     x = torch.zeros(1, 7, 7, 3)
     with pytest.raises(ValueError, match="cluster of 4"):
@@ -252,7 +258,7 @@ def test_k3_k8_and_k13_plans_are_unchanged():
     """K3 and K8 keep their resident votes, now each sample on a cluster:
     at every batch the SVHN ResCaps halves' and ClassCaps' forward and
     ``-bwd`` ops are cluster plans of ceil(I / cs) rows a CTA whose
-    footprint fits; K13 keeps its logits placement."""
+    footprint fits; K13b replays on K9's cluster, in K9's footprint."""
     cfg = capsnet_svhn.config()
     for batch in (1, 2, 3, 8, 16, 33, 64):
         plan = compile_plan(cfg, batch=batch, train=True)
@@ -271,8 +277,15 @@ def test_k3_k8_and_k13_plans_are_unchanged():
                                                lay.jd))
     smoke = compile_plan(capsnet_mnist.smoke_config(), batch=16, train=True)
     assert smoke.op(execplan.FUSED_NAME + BWD_SUFFIX).cluster in CLUSTER_SIZES
-    for (i, c, j, d, bi), want in (((1152, 8, 10, 16, 128), "streamed"),
-                                   ((2048, 8, 64, 8, 64),
-                                    execplan.STREAMED_GLOBAL)):
-        assert vr.oracle_placement(lambda m: execplan.votes_routing_bwd_smem(
-            m, i, bi, c, j, j * d)) == want
+    for i, c, j, d in ((1152, 8, 10, 16), (2048, 8, 64, 8)):
+        u = torch.empty(16, i, c, device="meta")
+        w = torch.empty(i, j * d, c, device="meta")
+        sched = execplan.plan_routing_bwd_cluster(i, c, j * d, j, batch=16,
+                                                  votes="streamed")
+        mode, cs = vr.bwd_schedule(u, w, iters=3, num_classes=j,
+                                   mode=execplan.ORACLE_MODE, cluster=None)
+        assert (mode, cs) == (execplan.ORACLE_MODE, sched.cluster.cluster)
+        assert sched.smem_bytes == max(
+            execplan.routing_bwd_cluster_smem("streamed", i, sched.block_i,
+                                              c, j, j * d, cs),
+            execplan.routing_bwd_emit_smem(c, j, j * d))

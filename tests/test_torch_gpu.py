@@ -42,14 +42,12 @@ def _rand(seed, *shape, scale=1.0, uniform=False, device="cpu"):
 
 
 def _fwd_twin(u, w, r=None, *, cluster=None, **kw):
-    """The forward's plain twin on the schedule the wrapper runs: K3/K4's
-    cluster order (at the planner's size unless ``cluster`` names one),
-    else (the oracle K13) ``votes_routing_plain``."""
+    """The forward's plain twin on the schedule the wrapper runs: the
+    cluster order of K3/K4/K13 (at the planner's size unless ``cluster``
+    names one)."""
     cs = k34.fwd_cluster(u, w, iters=kw["iters"],
                          num_classes=kw["num_classes"], mode=kw["mode"],
                          cluster=cluster, block_i=kw["block_i"])
-    if cs is None:
-        return k34.votes_routing_plain(u, w, r=r, **kw)
     return k34.cluster_routing_plain(u, w, cluster=cs, r=r, **kw)
 
 
@@ -92,7 +90,9 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
     """K3, K4 (both placements of the logits), K5, K8/K9 and K14b (u_hat
     rows resident and streamed) on clusters of cs CTAs against their
     twins (the twins sum s and dv rank by rank, in rank order), and a
-    second launch of each repeats the bits (no float atomics)."""
+    second launch of each repeats the bits (no float atomics); the
+    oracle K13 (forward and backward) equals K4 and K9 on the same
+    cluster bit for bit."""
     build.reset_launch_counts()
     x = _rand(30, 3, 10, 10, 8, uniform=True, device=cuda)
     w_pc = _rand(31, 3, 3, 8, 16, scale=0.2, device=cuda)
@@ -114,12 +114,13 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
         kw["num_classes"] = 5
         r = _rand(37, 3, 40, scale=0.1, device=cuda)
         # K3 (resident) or K4 and K4g (streamed), with the residual.
+        v = {}
         for m in ((mode,) if mode == "resident"
                   else (mode, execplan.STREAMED_GLOBAL)):
             kwm = dict(kw, mode=m)
-            got = k34.votes_routing(u, w, r=r, **kwm)
-            assert torch.equal(got, k34.votes_routing(u, w, r=r, **kwm))
-            torch.testing.assert_close(got, _fwd_twin(u, w, r, **kwm),
+            v[m] = k34.votes_routing(u, w, r=r, **kwm)
+            assert torch.equal(v[m], k34.votes_routing(u, w, r=r, **kwm))
+            torch.testing.assert_close(v[m], _fwd_twin(u, w, r, **kwm),
                                        rtol=1e-5, atol=1e-6)
         uh = _rand(38, 3, 100, 40, scale=0.1, device=cuda)
         kwr = dict(iters=3, num_classes=5, mode=mode, block_i=7, cluster=cs)
@@ -133,6 +134,11 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
         for x_, y_, z_ in zip(got, again, want):
             assert torch.equal(x_, y_)
             torch.testing.assert_close(x_, z_, rtol=1e-4, atol=1e-6)
+        if mode == "streamed":
+            kwo = dict(kw, mode=execplan.ORACLE_MODE)
+            assert torch.equal(k34.votes_routing(u, w, r=r, **kwo), v[mode])
+            for x_, y_ in zip(k34.votes_routing_bwd(u, w, g, **kwo), got):
+                assert torch.equal(x_, y_)
     counts = build.launch_counts()
     assert counts["primary_routing_f32"] == 4
     assert counts["votes_routing_cluster_f32"] == 2
@@ -140,6 +146,8 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
     assert counts["votes_routing_global_cluster_f32"] == 2
     assert counts["routing_cluster_f32"] == 4
     assert counts["routing_bwd_cluster_f32"] == 4
+    assert counts["votes_routing_2pass_f32"] == 1
+    assert counts["routing_bwd_2pass_f32"] == 1
 
 
 def test_cluster_footprint_model_matches_the_kernels(cuda):
@@ -597,8 +605,9 @@ def test_unfusable_capsule_forward_and_backward_on_the_card(cuda):
 def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
     """The residual epilogue on every schedule, the streamed-global mode
     (logits in device memory; its backward is K9's streamed cluster) and
-    K13 (both logits placements), forward and backward, each against its
-    plain twin."""
+    K13, forward and backward, each against its plain twin; K13 equals K4
+    and K9 on the same cluster bit for bit, with its logits in shared
+    memory and, where K4's share of them fits no CTA, in device memory."""
     build.reset_launch_counts()
     u = _rand(16, 3, 70, 4, scale=0.5, device=cuda)
     w = _rand(17, 70, 32, 4, scale=0.3, device=cuda)
@@ -614,14 +623,29 @@ def test_deep_stack_kernels_launch_and_match_twins_on_the_card(cuda):
         want = k34.votes_routing_bwd_plain(u, w, g, **kw)
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
-    # K13 where streamed does not fit a CTA: its logits go to device memory.
+    oracle = execplan.ORACLE_MODE
+    kw = dict(iters=3, num_classes=4, block_i=24)
+    cs = k34.fwd_cluster(u, w, mode=oracle, cluster=None, **kw)
+    assert torch.equal(
+        k34.votes_routing(u, w, r=r, mode=oracle, cluster=cs, **kw),
+        k34.votes_routing(u, w, r=r, mode="streamed", cluster=cs, **kw))
+    _, bcs = k34.bwd_schedule(u, w, iters=3, num_classes=4, mode=oracle,
+                              cluster=None)
+    for x, y in zip(
+            k34.votes_routing_bwd(u, w, g, mode=oracle, cluster=bcs, **kw),
+            k34.votes_routing_bwd(u, w, g, mode="streamed", cluster=bcs,
+                                  **kw)):
+        assert torch.equal(x, y)
+    # On one CTA a sample the bottleneck's logits (2048 x 64) fit no CTA:
+    # K13 keeps them in device memory there, as K4g does.
     ub = _rand(20, 2, 2048, 8, scale=0.5, device=cuda)
     wb = _rand(21, 2048, 512, 8, scale=0.1, device=cuda)
-    kw = dict(iters=3, num_classes=64, block_i=64)
-    torch.testing.assert_close(
-        k34.votes_routing(ub, wb, mode=execplan.ORACLE_MODE, **kw),
-        k34.votes_routing(ub, wb, mode=execplan.STREAMED_GLOBAL, **kw),
-        rtol=1e-5, atol=1e-6)
+    kw = dict(iters=3, num_classes=64, block_i=64, cluster=1)
+    assert k34.logits_placement(oracle, 2048, 8, 64, 512, 1, 64) \
+        == execplan.STREAMED_GLOBAL
+    assert torch.equal(
+        k34.votes_routing(ub, wb, mode=oracle, **kw),
+        k34.votes_routing(ub, wb, mode=execplan.STREAMED_GLOBAL, **kw))
     counts = build.launch_counts()
     for sym in ("votes_routing_streamed_cluster_f32",
                 "votes_routing_global_cluster_f32",

@@ -144,7 +144,7 @@ def test_k12_segment_on_clusters_matches_reference(cs):
 def test_resident_without_a_cluster_takes_the_planners_size():
     """Resident votes always run on a cluster: without one named, K3 and
     K8 take the planner's size at the call's batch, the same one the
-    twins use; only the one-CTA oracle refuses a cluster."""
+    twins use; the oracle runs on a named cluster too."""
     u, w, r, g, j = _inputs("svhn-half", seed=20)
     t = torch.from_numpy
     i_dim, c = u.shape[1:]
@@ -166,9 +166,13 @@ def test_resident_without_a_cluster_takes_the_planners_size():
                                        num_classes=j, mode="resident",
                                        block_i=8, cluster=bcs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="one CTA a sample"):
-        vr.votes_routing(t(u), t(w), iters=3, num_classes=j,
-                         mode=execplan.ORACLE_MODE, block_i=8, cluster=2)
+    # The oracle K13 on a named cluster: K4's streamed votes on the unfused
+    # schedule, equal to K4 on that cluster bit for bit.
+    kw13 = dict(iters=3, num_classes=j, block_i=8, cluster=2)
+    torch.testing.assert_close(
+        vr.votes_routing(t(u), t(w), mode=execplan.ORACLE_MODE, **kw13),
+        vr.votes_routing(t(u), t(w), mode="streamed", **kw13), rtol=0,
+        atol=0)
     with pytest.raises(ValueError, match="cluster of 3"):
         vr.votes_routing(t(u), t(w), iters=3, num_classes=j,
                          mode="resident", block_i=8, cluster=3)

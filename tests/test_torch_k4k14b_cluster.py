@@ -140,7 +140,7 @@ def test_k4_placements_share_one_order_and_cs1_is_one_ctas():
 def test_forward_without_a_cluster_takes_the_planners_size():
     """Streamed votes without a cluster named take the planner's size for
     that placement and i-tile at the call's batch; the split routing
-    likewise; the oracle alone refuses a cluster."""
+    likewise; the oracle on a named cluster equals K4 on it."""
     u, w, r, j, iters, bi = _inputs("svhn-smoke", seed=40)
     t = torch.from_numpy
     i_dim, c = u.shape[1:]
@@ -162,9 +162,12 @@ def test_forward_without_a_cluster_takes_the_planners_size():
         ops.routing(uh, iters=3, num_classes=10),
         k14b.routing_plain(uh, iters=3, num_classes=10, mode=mode,
                            block_i=block_i, cluster=cs), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="one CTA a sample"):
-        vr.votes_routing(t(u), t(w), iters=iters, num_classes=j,
-                         mode=execplan.ORACLE_MODE, block_i=bi, cluster=4)
+    # The oracle K13 on a named cluster equals K4 on it bit for bit.
+    kw13 = dict(iters=iters, num_classes=j, block_i=bi, cluster=4)
+    torch.testing.assert_close(
+        vr.votes_routing(t(u), t(w), mode=execplan.ORACLE_MODE, **kw13),
+        vr.votes_routing(t(u), t(w), mode="streamed", **kw13), rtol=0,
+        atol=0)
     with pytest.raises(ValueError, match="cluster of 3"):
         k14b.routing(uh, cluster=3)
 

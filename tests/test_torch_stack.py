@@ -4,7 +4,7 @@ The SVHN and CIFAR-10 configs and the registry; the kernels backend on
 ResCaps stacks (the reversible segment K12) in forward and in every
 gradient against the reference's jnp path; the residual-add epilogue of
 K3/K4; the unfused oracle schedule K13 (``streamed-2pass``) against the
-fused ``streamed`` one; the Hopper plan's ``streamed-global`` mode (the
+fused ``streamed`` one, bit for bit; the Hopper plan's ``streamed-global`` mode (the
 routing logits in device memory) at full SVHN width, with every MNIST
 plan unchanged; and the flat-in-depth activation residency.  Kernel
 wrappers run their plain twins on CPU tensors; the card-side checks are
@@ -244,7 +244,9 @@ def test_residual_epilogue_matches_reference_pallas(mode):
     (2, 96, 8, 5, 8, 32, 5),         # deeper iteration count
 ])
 def test_k13_forward_matches_fused_streamed(b, i, c, j, d, bi, iters):
-    """The reference's own cases and tolerances
+    """The oracle equals the fused kernel bit for bit (both on K4's planned
+    cluster), as the reference's two schedules agree; against the jnp
+    reference the reference's own cases and tolerances
     (tests/test_votes_routing.py)."""
     u, w = _rand(i + iters, b, i, c, scale=0.5), _rand(i, i, j * d, c,
                                                        scale=0.3)
@@ -254,9 +256,8 @@ def test_k13_forward_matches_fused_streamed(b, i, c, j, d, bi, iters):
     oracle = vr.votes_routing(t(u), t(w), mode=ORACLE_MODE, **kw)
     want = ref_k.routing(ref_k.caps_votes(jnp.asarray(u), jnp.asarray(w))
                          .reshape(b, i, j, d), iters).reshape(b, j * d)
-    np.testing.assert_allclose(fused.numpy(), oracle.numpy(), rtol=1e-6,
-                               atol=1e-7)
-    np.testing.assert_allclose(fused.numpy(), np.asarray(want), rtol=1e-5,
+    torch.testing.assert_close(oracle, fused, rtol=0, atol=0)
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
 
 
@@ -266,9 +267,9 @@ def test_k13_forward_matches_fused_streamed(b, i, c, j, d, bi, iters):
     (2, 27, 4, 4, 8, 8, 1),          # odd non-power-of-two capsule count
 ], ids=["even", "ragged", "nonpow2"])
 def test_k13_backward_matches_fused_streamed(b, i, c, j, d, bi, iters):
-    """The reference's cases and tolerances (tests/test_grads.py): the
-    oracle's gradients equal the fused replay's, and both the jnp
-    reference's."""
+    """The reference's cases (tests/test_grads.py): the oracle's gradients
+    equal the fused replay's bit for bit (both on K9's planned cluster),
+    and the jnp reference's within its tolerance."""
     u, w = _rand(50 + i, b, i, c, scale=0.5), _rand(i, i, j * d, c, scale=0.3)
     dv = _rand(iters, b, j, d)
 
@@ -287,22 +288,38 @@ def test_k13_backward_matches_fused_streamed(b, i, c, j, d, bi, iters):
     want = jax.jit(jax.grad(loss_ref, argnums=(0, 1)))(jnp.asarray(u),
                                                        jnp.asarray(w))
     for g_f, g_o, g_r in zip(grads("streamed"), grads(ORACLE_MODE), want):
-        np.testing.assert_allclose(g_f, g_o, rtol=1e-5, atol=1e-7)
-        assert _normalised_err(g_f, g_r) <= TOL
+        np.testing.assert_array_equal(g_o, g_f)
+        assert _normalised_err(g_o, g_r) <= TOL
 
 
 def test_k13_keeps_its_logits_where_streamed_would():
-    """K13 keeps the logits in shared memory where ``streamed`` fits (the
-    MNIST ClassCaps shape), in device memory where it does not (the SVHN
-    bottleneck)."""
+    """K13 takes K4's cluster, placement and footprint at its batch and
+    i-tile (the MNIST ClassCaps and the SVHN bottleneck: streamed, the
+    logits on chip; a CIFAR-10 full-width half: streamed-global), and
+    K13b K9's cluster and footprint."""
     for (i, c, j, d, bi), want in (((1152, 8, 10, 16, 128), "streamed"),
-                                   ((2048, 8, 64, 8, 64), STREAMED_GLOBAL)):
-        def fwd(m):
-            return execplan.votes_routing_smem(m, i, bi, c, j, j * d)
-
-        def bwd(m):
-            return execplan.votes_routing_bwd_smem(m, i, bi, c, j, j * d)
-        assert vr.oracle_placement(fwd) == vr.oracle_placement(bwd) == want
+                                   ((2048, 8, 64, 8, 64), "streamed"),
+                                   ((1024, 8, 1024, 8, 2),
+                                    STREAMED_GLOBAL)):
+        u = torch.empty(8, i, c, device="meta")
+        w = torch.empty(i, j * d, c, device="meta")
+        sched = execplan.plan_votes_routing_cluster(i, c, j * d, j, batch=8,
+                                                    votes=want, block_i=bi)
+        cs = vr.fwd_cluster(u, w, iters=3, num_classes=j, mode=ORACLE_MODE,
+                            cluster=None, block_i=bi)
+        assert cs == sched.cluster.cluster
+        place = vr.logits_placement(ORACLE_MODE, i, c, j, j * d, cs, bi)
+        assert place == want
+        assert execplan.votes_routing_cluster_smem(
+            i, c, j, j * d, cs, mode=place, block_i=bi) == sched.smem_bytes
+    for i, c, j, d, bi in ((1152, 8, 10, 16, 128), (2048, 8, 64, 8, 64)):
+        u = torch.empty(16, i, c, device="meta")
+        w = torch.empty(i, j * d, c, device="meta")
+        sched = execplan.plan_routing_bwd_cluster(i, c, j * d, j, batch=16,
+                                                  votes="streamed")
+        assert vr.bwd_schedule(u, w, iters=3, num_classes=j,
+                               mode=ORACLE_MODE, cluster=None) == (
+            ORACLE_MODE, sched.cluster.cluster)
 
 
 # ---------------------------------------------------------------------------
@@ -352,12 +369,11 @@ def test_full_width_svhn_plans_within_one_cta(train, batch, pipeline):
 
 def test_streamed_global_drops_only_the_logits_and_adds_their_traffic():
     i, c, j, jd, bi = 2048, 8, 64, 512, 64
-    assert (execplan.votes_routing_smem("streamed", i, bi, c, j, jd)
-            - execplan.votes_routing_smem(STREAMED_GLOBAL, i, bi, c, j, jd)
-            == i * j * 4)
-    assert (execplan.votes_routing_bwd_smem("streamed", i, bi, c, j, jd)
-            - execplan.votes_routing_bwd_smem(STREAMED_GLOBAL, i, bi, c, j,
-                                              jd) == i * j * 4)
+    # K13 keeps its logits in device memory only on a cluster whose CTAs'
+    # share of them does not fit (one CTA: 2048 rows x 64), as K4g does.
+    assert [vr.logits_placement(ORACLE_MODE, i, c, j, jd, cs, bi)
+            for cs in (1, 2, 8, 16)] == [STREAMED_GLOBAL, STREAMED_GLOBAL,
+                                         "streamed", "streamed"]
     base = execplan.votes_routing_global_bytes(8, i, c, jd, 4)
     assert execplan.votes_routing_global_bytes(8, i, c, jd, 4, j) - base \
         == 8 * 2 * 4 * i * j * 4
