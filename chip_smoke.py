@@ -19,7 +19,14 @@ against the best, K8's and K9's replay and emit timed apart, and K3, K4,
 K8 and K14b beside an empty launch of their grids), runs the
 full-width forward on the pipelined and the per-op plan against the plain
 forward, serves 32 seeded requests through ``CapsuleEngine`` on both
-plans, and times each kernel at the engine's batch (K1, the im2col copy,
+plans (no fault: no failure, trip or replan) and again under faults
+(phase 5b: a ``vmem_shrink`` at tick 1 to 1/4, 1/8 and 1/16 of the
+shared-memory budget replans onto K3, then K4, then trips the breaker
+onto the plain forward; a NaN storm with a corrupted slot; a
+``plan_error`` storm; each run's requests held to the plain forward,
+its launches and ``check_engine_stats``), serves the full, 1/4 and 1/8
+plans run by run in turns (req/s) beside their forwards' device time, and
+times each kernel at the engine's batch (K1, the im2col copy,
 at MNIST's and, in phase 12, SVHN's Conv1 and PrimaryCaps, and K7, the
 col2im gather, at both PrimaryCaps dx: each held to its twin's bits
 twice, then timed with the L2 warm and cold beside its byte bound and
@@ -84,7 +91,9 @@ of one PyTorch library call computing the same function where one exists.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -101,6 +110,19 @@ N_REQUESTS = 32
 TRAIN_BATCH = 16                # the trainer's batch: the backward's shapes
 TRAIN_STEPS = 20
 SVHN_REQUESTS = 16
+# Phase 5b: the vmem_shrink factors the engine replans under at tick 1,
+# the kernels it serves with, the requests of a timed run (this many
+# times the seeded ones), the wall-clock seconds a timed round gives
+# each plan (its runs interleaved with the other plans' one by one: a
+# run of 256 takes ~40 ms, and the host's speed drifts by up to ~1.6x
+# over seconds) and the rounds.
+SHRINKS = (0.25, 0.125, 0.0625)
+ENGINE_KERNELS = ("im2col_patches_f32", "matmul_bias_act_f32",
+                  "primary_routing_f32", "votes_routing_cluster_f32",
+                  "votes_routing_streamed_cluster_f32")
+SERVE_REPEATS = 8
+SERVE_WINDOW_S = 1.5
+SERVE_ROUNDS = 4
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit.
 PEAK_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
@@ -662,6 +684,241 @@ def same_predictions(name: str, lengths_k, lengths_t, atol: float) -> None:
           f"{ties} ties within {atol:g}", flush=True)
 
 
+def fault_free(label: str, stats: dict) -> None:
+    """A run with no fault injected: no forward failed, nothing replanned,
+    the breaker never tripped (so it hid no kernel that failed to
+    launch), and the counters add up."""
+    from repro_torch.verify import check_engine_stats
+    bad = {k: stats[k] for k in ("forward_failures", "breaker_trips",
+                                 "replans", "degraded") if stats[k]}
+    problems = check_engine_stats(stats)
+    if bad or problems:
+        raise AssertionError(f"{label}: a fault-free run shows {bad} "
+                             f"{problems}")
+
+
+def serve_checked(label: str, engine, reqs, plain_len, specs=(),
+                  first_ticks: int = 0) -> tuple[dict, list[dict]]:
+    """Serve ``reqs`` through ``engine`` with the fault ``specs`` injected:
+    every request must end ``ok`` with the plain forward's prediction
+    (``plain_len``, at ``ROUTING``'s tolerance), and ``stats()`` must pass
+    ``check_engine_stats``.  Returns the stats and the kernels' launches
+    in the first ``first_ticks`` ticks and in the rest of the run, each
+    counted from 0."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faults
+    from repro_torch.kernels import build
+    from repro_torch.serve.capsule import CapsRequest
+    from repro_torch.verify import check_engine_stats
+
+    for i, r in enumerate(reqs):
+        engine.submit(CapsRequest(rid=i, image=r.image))
+    counts = []
+    with faults.inject(*specs) as reg:
+        build.reset_launch_counts()
+        for _ in range(first_ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        counts.append(build.launch_counts())
+        build.reset_launch_counts()
+        done = engine.run()
+        torch.cuda.synchronize()
+        counts.append(build.launch_counts())
+    stats = engine.stats()
+    print(f"serve {label}: fired {reg.fired}", flush=True)
+    print(f"serve {label}: {json.dumps(stats)}", flush=True)
+    problems = check_engine_stats(stats)
+    if problems:
+        raise AssertionError(f"serve {label}: {problems}")
+    if len(done) != len(reqs) or any(r.status != "ok" for r in done):
+        raise AssertionError(f"serve {label}: statuses "
+                             f"{[(r.rid, r.status) for r in done]}")
+    got = torch.tensor(np.stack([r.lengths for r in sorted(
+        done, key=lambda r: r.rid)]))
+    check(f"serve {label} lengths", got, plain_len, ROUTING)
+    same_predictions(f"serve {label}", got, plain_len, ROUTING[1])
+    print(f"serve {label}: {len(done)} requests ok, "
+          f"{stats['requests_per_s']:.1f} req/s, mean latency "
+          f"{stats['mean_latency_ms']:.2f} ms; launches in the first "
+          f"{first_ticks} ticks {json.dumps(counts[0])}, then "
+          f"{json.dumps(counts[1])}", flush=True)
+    return stats, counts
+
+
+def degraded_serving(dev, params, cfg, reqs, plain_len, images) -> dict:
+    """Phase 5b: the hardened engine at MNIST's full width.  A
+    ``vmem_shrink`` at tick 1 by each of ``SHRINKS`` replans under the
+    reduced shared-memory budget -- K3 serves after 1/4, K4 (and no K3)
+    after 1/8, and 1/16 trips the breaker onto the plain forward, after
+    which no hand-written kernel launches -- with each routing op's
+    planned footprint held to the budget and to the kernel's own layout;
+    a NaN storm over ticks 0-1 with a corrupted slot at tick 2 ends every
+    request ``ok`` through retries; a ``plan_error`` storm of
+    ``breaker_after`` ticks trips the breaker.  Then the full, 1/4 and 1/8
+    plans serve in ``SERVE_ROUNDS`` rounds after a warm-up run of each:
+    a round serves runs of ``SERVE_REPEATS`` times the requests, each on
+    a new engine and each held to the plain forward, one run of each
+    plan a cycle in an order rotated each cycle, until ``SERVE_WINDOW_S``
+    a plan have passed; a plan's req/s in a round is its requests over
+    its engines' summed elapsed time.  Their forwards are
+    profiled (device ms).
+    Whether the 1/4 plan serves faster than the full one is resolved when
+    it is on the same side in every round (its req/s over the full
+    plan's of that round).  Returns each shrink run's launches after the shrink,
+    by run."""
+    import ctypes
+    import dataclasses
+
+    import torch
+    from repro_torch.core import capsnet, execplan, faults
+    from repro_torch.core.planner import SMEM_BYTES
+    from repro_torch.kernels import build
+    from repro_torch.kernels import votes_routing as k34
+    from repro_torch.serve.capsule import CapsuleEngine
+
+    k3_bytes = build._library(
+        "votes_routing").votes_routing_cluster_smem_bytes
+    k3_bytes.argtypes, k3_bytes.restype = [ctypes.c_int] * 8, ctypes.c_int
+    layers = {lay.name: lay for lay in cfg.routing_stack()}
+
+    def engine(**kw):
+        return CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
+                             device=dev, **kw)
+
+    after = {}
+    for factor in SHRINKS:
+        label = f"vmem_shrink {factor}"
+        eng = engine()
+        budget = int(eng._orig_budget * factor)
+        stats, (first, rest) = serve_checked(
+            label, eng, reqs, plain_len, [faults.FaultSpec(
+                site=faults.SITE_ENGINE_TICK, kind="vmem_shrink", at=1,
+                times=1, factor=factor)], first_ticks=1)
+        after[label] = rest
+        forwards = eng.ticks - 1
+        if first["primary_routing_f32"] != 1 or stats["smem_budget"] \
+                != budget:
+            raise AssertionError(f"{label}: tick 0 ran {first}, budget "
+                                 f"{stats['smem_budget']} != {budget}")
+        if eng.plan is None:             # nothing fits: the breaker
+            if (stats["breaker_trips"], stats["replans"]) != (1, 0) or \
+                    eng._backend != "torch" or any(rest.values()):
+                raise AssertionError(f"{label}: expected the breaker and "
+                                     f"no kernel after it: {stats}, {rest}")
+            print(f"serve {label}: {budget} B fits no plan, the breaker "
+                  f"serves {forwards} ticks on the plain forward, no "
+                  f"kernel launched after tick 0", flush=True)
+            continue
+        report = eng.degrade_report
+        print(f"serve {label}: DegradeReport "
+              f"{json.dumps(dataclasses.asdict(report))}; plan "
+              f"{json.dumps(eng.plan.summary())}", flush=True)
+        routing = eng.plan.op(execplan.FUSED_NAME)
+        want_k3 = forwards if routing.mode == "resident" else 0
+        want_k4 = forwards if routing.mode == "streamed" else 0
+        if (stats["replans"], stats["breaker_trips"]) != (1, 0) \
+                or eng.plan.pipelined or rest["primary_routing_f32"] \
+                or rest["votes_routing_cluster_f32"] != want_k3 \
+                or rest["votes_routing_streamed_cluster_f32"] != want_k4 \
+                or rest["matmul_bias_act_f32"] != 2 * forwards \
+                or rest["im2col_patches_f32"] != 2 * forwards:
+            raise AssertionError(f"{label}: {stats}, launches {rest}")
+        for op in eng.plan.ops:
+            if op.kernel != "votes_routing":
+                continue
+            lay = layers[op.name]
+            layout = k3_bytes(lay.in_caps, lay.in_dim, lay.num_caps,
+                              lay.caps_dim, op.cluster,
+                              int(op.mode == "resident"), op.block_i,
+                              int(op.mode == execplan.STREAMED_GLOBAL))
+            occ = k34.cluster_occupancy(
+                lay.in_caps, lay.in_dim, lay.num_caps, lay.caps_dim,
+                cluster=op.cluster, mode=op.mode, block_i=op.block_i)
+            print(f"serve {label}: {op.name} {op.mode}, block_i "
+                  f"{op.block_i}, clusters of {op.cluster}: planned "
+                  f"{op.smem_bytes} B, the kernel's layout {layout} B, "
+                  f"budget {budget} B, occupancy {json.dumps(occ)}",
+                  flush=True)
+            if not (op.smem_bytes == layout == occ["max_dynamic_smem"]
+                    <= budget) or occ["max_active_clusters"] < 1:
+                raise AssertionError(f"{label}: {op.name}'s footprint")
+    eng = engine()
+    stats, (_, counts) = serve_checked(
+        "nan_output storm + slot_corrupt", eng, reqs, plain_len, [
+            faults.FaultSpec(site=faults.SITE_ENGINE_FORWARD,
+                             kind="nan_output", at=0, times=2),
+            faults.FaultSpec(site=faults.SITE_ENGINE_TICK,
+                             kind="slot_corrupt", at=2, times=1,
+                             seed=SEED)])
+    if stats["retries"] < SLOTS + 1 or stats["forward_failures"] \
+            or stats["poisoned"] < SLOTS + 1 \
+            or counts["primary_routing_f32"] < 1:
+        raise AssertionError(f"nan_output storm: {stats}, {counts}")
+    eng = engine()
+    stats, (_, counts) = serve_checked(
+        "plan_error storm", eng, reqs, plain_len, [faults.FaultSpec(
+            site=faults.SITE_ENGINE_FORWARD, kind="plan_error", at=0,
+            times=eng.breaker_after)])
+    if (stats["forward_failures"], stats["breaker_trips"]) != (
+            eng.breaker_after, 1) or not stats["degraded"] \
+            or any(counts.values()):
+        raise AssertionError(f"plan_error storm: {stats}, {counts}")
+
+    # The full, 1/4 and 1/8 plans serving in turns, and their forwards'
+    # device time.
+    plans = {f"{f} budget": execplan.compile_plan(
+        cfg, batch=SLOTS, smem_budget=int(SMEM_BYTES * f), pipeline=True)
+        for f in (1.0, 0.25, 0.125)}
+    serving = {label: [] for label in plans}
+    for label, p in plans.items():       # warm: each plan's first launches
+        serve_checked(f"{label} plan, warm-up", engine(plan=p), reqs,
+                      plain_len)
+    labels = list(plans)
+    timed_len = torch.cat([plain_len] * SERVE_REPEATS)
+    for k in range(SERVE_ROUNDS):
+        tally = {label: [0, 0.0, 0] for label in labels}
+        start, cycle = time.perf_counter(), 0
+        while time.perf_counter() - start < SERVE_WINDOW_S * len(labels):
+            # One run of each plan a cycle, the order rotated each cycle.
+            for label in labels[cycle % 3:] + labels[:cycle % 3]:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    stats, _ = serve_checked(
+                        f"{label} plan, timed", engine(plan=plans[label]),
+                        reqs * SERVE_REPEATS, timed_len)
+                fault_free(f"{label} plan", stats)
+                tally[label][0] += stats["requests"]
+                tally[label][1] += stats["elapsed_s"]
+                tally[label][2] += 1
+            cycle += 1
+        for label, (served, secs, runs) in tally.items():
+            serving[label].append(served / secs)
+            print(f"serve {label} plan, timed round {k}: {runs} runs, "
+                  f"{served} requests ok in {secs:.4f} s of serving: "
+                  f"{served / secs:.1f} req/s", flush=True)
+    with torch.no_grad():
+        for label, p in plans.items():
+            fwd = (lambda p=p: capsnet.forward(
+                params, images, cfg, backend="kernels", plan=p, device=dev))
+            kind = "pipelined" if p.pipelined else "per-op"
+            runs = serving[label]
+            print(f"degraded plans: {label} ({kind}): serving median "
+                  f"{statistics.median(runs):.1f} req/s of "
+                  f"{json.dumps(runs)} (spread "
+                  f"{(max(runs) - min(runs)) / statistics.median(runs):.4f}"
+                  f" of the median), forward device ms {device_ms(fwd)}, "
+                  f"by kernel {json.dumps(device_breakdown(fwd))}; "
+                  f"on {CARD}", flush=True)
+    gain = [q / f for q, f in zip(serving["0.25 budget"],
+                                  serving["1.0 budget"])]
+    verdict = ("resolved: the 1/4 plan serves faster" if min(gain) > 1
+               else "resolved: the 1/4 plan serves slower" if max(gain) < 1
+               else "unresolved: the rounds disagree")
+    print(f"degraded plans: the 1/4 plan's req/s over the full plan's, by "
+          f"round {json.dumps(gain)}: {verdict}", flush=True)
+    return after
+
+
 def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
     """Phase 12, deep stacks, at the full width of ``capsnet-svhn``: 32x32x3
     -> Conv1 -> PrimaryCaps (2048 capsules of 8D) -> the plain bottleneck
@@ -792,8 +1049,7 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
                               ("per-op", pplan,
                                "votes_routing_streamed_cluster_f32")):
         engine = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
-                               device=dev)
-        engine.plan = plan_
+                               device=dev, plan=plan_)
         build.reset_launch_counts()
         for r in reqs:
             engine.submit(CapsRequest(rid=r.rid, image=r.image))
@@ -2810,6 +3066,7 @@ def capsnet_phases(dev) -> list[dict]:
     if len(done) != N_REQUESTS or any(r.status != "ok" for r in done):
         raise AssertionError(f"serve: statuses "
                              f"{[r.status for r in done]}")
+    fault_free("serve", stats)
     for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
                 "primary_routing_f32"):
         if serve_launches[sym] < 1:
@@ -2830,8 +3087,7 @@ def capsnet_phases(dev) -> list[dict]:
           f"{stats['mean_latency_ms']:.2f} ms", flush=True)
     # The same requests through the engine on the per-op plan.
     engine_po = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
-                              device=dev)
-    engine_po.plan = perop
+                              device=dev, plan=perop)
     for r in reqs:
         engine_po.submit(CapsRequest(rid=r.rid, image=r.image))
     done_po = engine_po.run()
@@ -2842,9 +3098,12 @@ def capsnet_phases(dev) -> list[dict]:
         [r.lengths for r in sorted(done_po, key=lambda r: r.rid)])),
         plain_len, ROUTING[1])
     stats_po = engine_po.stats()
+    fault_free("serve per-op plan", stats_po)
     print(f"serve per-op plan: {N_REQUESTS} requests ok, "
           f"{stats_po['requests_per_s']:.1f} req/s, mean latency "
           f"{stats_po['mean_latency_ms']:.2f} ms", flush=True)
+    # 5b. The hardened engine: shrink replans and faults on the card.
+    degraded = degraded_serving(dev, params, cfg, reqs, plain_len, images)
 
     # 6. Each kernel's time at the engine's batch against its bound, after
     # the whole forward's on each plan.
@@ -3621,6 +3880,12 @@ def capsnet_phases(dev) -> list[dict]:
         u=u, wcc=wcc, tu=tu, g=g, vr=vr, mst=mst, su=su,
         swcc=swcc, svr=svr, lay=lay, k3_err=errs["votes_routing_cluster"],
         k4_err=errs["votes_routing_streamed_cluster"]))
+    # Phase 5b's launches after each shrink, on the rows of its kernels.
+    for row in rows:
+        if f"{row['name']}_f32" in ENGINE_KERNELS:
+            row["degraded_serve_launches"] = {
+                label: counts[f"{row['name']}_f32"]
+                for label, counts in degraded.items()}
     return rows
 
 

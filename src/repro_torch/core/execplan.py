@@ -933,15 +933,21 @@ def _conv_bwd_op(fwd: OpPlan, wl: MatmulWorkload, in_elems: int,
         global_bytes=float(nbytes))
 
 
-@functools.lru_cache(maxsize=64)
 def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                  smem_budget: int = SMEM_BYTES, pipeline: bool = False,
                  train: bool = False) -> ExecutionPlan:
     """Compile ``cfg`` into the per-operation ExecutionPlan (memoized:
-    plans are immutable).  ``pipeline=True`` replaces PrimaryCaps and the
+    plans are immutable, and equal arguments give the same object however
+    they are spelled).  ``pipeline=True`` replaces PrimaryCaps and the
     first routing layer with ONE ``primary_routing`` op when its schedule
     fits, and keeps the per-op pair otherwise.  ``train=True`` appends the
     backward ops (see the module note)."""
+    return _compile_plan(cfg, batch, smem_budget, pipeline, train)
+
+
+@functools.lru_cache(maxsize=64)         # keyed by value, not by spelling
+def _compile_plan(cfg: CapsNetConfig, batch: int, smem_budget: int,
+                  pipeline: bool, train: bool) -> ExecutionPlan:
     c1_hw, pc_hw = cfg.conv1_out, cfg.pc_out
     conv1 = _conv_op(
         "Conv1", MatmulWorkload(m=batch * c1_hw ** 2,
@@ -1021,3 +1027,111 @@ def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                          ops=tuple(ops), train=train)
     plan.validate()
     return plan
+
+
+compile_plan.cache_info = _compile_plan.cache_info
+
+
+# ---------------------------------------------------------------------------
+# Graceful degradation: replanning under a reduced shared-memory budget
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DegradeReport:
+    """What ``degrade_plan`` gave up to fit the reduced budget.
+
+    ``concessions`` is human-readable, one entry per rung taken relative
+    to the full-budget plan: the pipelined pair dissolving to per-op, a
+    layer going resident -> streamed (-> streamed-global), a shrunk
+    ``block_i`` / ``block_k`` / conv tile, a changed cluster size.  Empty
+    means the reduced budget still admits the full-budget schedule.
+    ``batch`` always equals ``requested_batch``: on Hopper no footprint
+    depends on the batch, so there is no batch rung."""
+
+    smem_budget: int
+    requested_batch: int
+    batch: int
+    concessions: tuple[str, ...]
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.concessions)
+
+
+def _plan_concessions(baseline: ExecutionPlan, plan: ExecutionPlan,
+                      perop: ExecutionPlan | None = None
+                      ) -> tuple[str, ...]:
+    """Human-readable diff of what ``plan`` gave up against ``baseline``,
+    in the reference's order.  Once the pipelined pair has dissolved, the
+    ops that replace it are diffed against ``perop``, the full-budget
+    per-op plan, which has them."""
+    notes: list[str] = []
+    base_ops = {}
+    if baseline.pipelined and not plan.pipelined:
+        notes.append(f"pipelined {PIPE_NAME} pair -> per-op "
+                     f"(inter-layer u round-trips device memory again)")
+        if perop is not None:
+            base_ops.update((op.name, op) for op in perop.ops)
+    base_ops.update((op.name, op) for op in baseline.ops)
+    for op in plan.ops:
+        base = base_ops.get(op.name)
+        if base is None:
+            continue
+        if base.mode != op.mode and op.mode is not None:
+            notes.append(f"{op.name}: {base.mode} -> {op.mode}")
+        if (base.block_i is not None and op.block_i is not None
+                and op.block_i < base.block_i):
+            notes.append(f"{op.name}: block_i {base.block_i} "
+                         f"-> {op.block_i}")
+        if (base.block_k is not None and op.block_k is not None
+                and op.block_k < base.block_k):
+            notes.append(f"{op.name}: block_k {base.block_k} "
+                         f"-> {op.block_k}")
+        if isinstance(base.block, BlockPlan) \
+                and isinstance(op.block, BlockPlan):
+            was, now = (",".join(str(t) for t in (b.block_m, b.block_k,
+                                                   b.block_n))
+                        for b in (base.block, op.block))
+            if now != was:
+                notes.append(f"{op.name}: conv tiles ({was}) -> ({now})")
+        if (base.cluster is not None and op.cluster is not None
+                and op.cluster != base.cluster):
+            notes.append(f"{op.name}: cluster {base.cluster} -> {op.cluster}")
+    return tuple(notes)
+
+
+def degrade_plan(cfg: CapsNetConfig = CapsNetConfig(),
+                 smem_budget: int = SMEM_BYTES, *, batch: int = 1,
+                 train: bool = False, pipeline: bool = False
+                 ) -> tuple[ExecutionPlan, DegradeReport]:
+    """Replan ``cfg`` under a (possibly reduced) ``smem_budget``, reporting
+    what was given up relative to the full-budget plan.
+
+    ``compile_plan`` already walks the ladder (pipelined pair -> per-op,
+    resident -> streamed -> streamed-global over the cluster sizes,
+    smaller GEMM tiles), so this recompiles at the reduced budget.  At the
+    full budget the plan is the memoized ``compile_plan`` object itself,
+    with no concessions.
+
+    One designed difference from the reference: it has no batch rung.
+    Every footprint here is one CTA's, and none grows with the batch, so
+    a smaller batch never makes a plan fit, and the reference's
+    ``min_batch`` has nothing to bound.  A budget with no plan raises the
+    ``PlanError`` that names the budget and the op that did not fit
+    (callers with a fixed slot batch treat it as "fall back to the plain
+    backend")."""
+    baseline = compile_plan(cfg, batch=batch, train=train, pipeline=pipeline)
+    try:
+        plan = compile_plan(cfg, batch=batch, smem_budget=smem_budget,
+                            train=train, pipeline=pipeline)
+    except PlanError as err:
+        raise PlanError(
+            f"degrade_plan: no feasible plan for batch {batch} under the "
+            f"degraded {smem_budget} B shared-memory budget: {err}"
+            ) from None
+    perop = (compile_plan(cfg, batch=batch, train=train, pipeline=False)
+             if baseline.pipelined and not plan.pipelined else None)
+    return plan, DegradeReport(
+        smem_budget=smem_budget, requested_batch=batch, batch=batch,
+        concessions=_plan_concessions(baseline, plan, perop))
+

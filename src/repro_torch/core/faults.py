@@ -16,8 +16,13 @@ kernel wrappers' outputs in ``kernels/ops.py`` (``ops.conv2d``,
 ``ops.votes_routing``, ``ops.primary_routing``, ``ops.caps_votes``,
 ``ops.routing``, ``ops.res_caps_segment``, ``ops.squash``, and the LM
 kernels' ``ops.rmsnorm`` and ``ops.flash_attention``, through
-``corrupt_array``).  The ``engine.*`` names are kept for the sites still
-to be wired (the engine's ticks).
+``corrupt_array``), and the two sites of ``serve/capsule.py``'s
+``CapsuleEngine``, indexed by its tick: ``engine.tick`` (after admission,
+before dispatch: ``vmem_shrink`` replans under the scaled shared-memory
+budget, ``slot_corrupt`` NaN-fills one seeded active slot's device row,
+``stall`` passes the tick with no dispatch) and ``engine.forward``
+(``plan_error`` raises before the forward, ``nan_output`` /
+``inf_output`` poison its lengths after it).
 """
 
 from __future__ import annotations

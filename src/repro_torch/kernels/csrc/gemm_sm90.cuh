@@ -54,6 +54,12 @@ constexpr int kSumRows = 16;         // planner.AT_B_STEP: K6's M block
 constexpr int kMaxSmem = 232448;     // planner.SMEM_BYTES: a CTA's opt-in
 
 enum Epilogue { kNone = 0, kRelu = 1, kSquash = 2 };
+
+// ReLU as torch.relu and jnp.maximum compute it: a NaN stays NaN (fmaxf
+// would return 0 and hide a poisoned input), and -0 becomes +0.
+__device__ __forceinline__ float relu(float x) {
+  return (x > 0.f || x != x) ? x : 0.f;
+}
 // Layouts of A (see the note): K-major (as in memory) or M-major.
 enum ALayout { kAKMem = 0, kAMMajor = 1 };
 
@@ -334,7 +340,7 @@ gemm_kernel(Problem p, const float* __restrict__ bias,
           if (!raw) {
             if (bias != nullptr && c + q < p.tile_n && n + q < p.N)
               v[q] += bias[n + q];
-            if (epilogue == kRelu) v[q] = fmaxf(v[q], 0.f);
+            if (epilogue == kRelu) v[q] = relu(v[q]);
           }
         }
         if (vec_out && c < p.tile_n && n < p.N) {
@@ -391,7 +397,7 @@ splitk_reduce_kernel(const float* __restrict__ part,
       float s = 0.f;
       for (int z = 0; z < split; ++z) s += part[z * mn + e];
       if (bias != nullptr) s += bias[e % N];
-      if (epilogue == kRelu) s = fmaxf(s, 0.f);
+      if (epilogue == kRelu) s = relu(s);
       out[e] = s;
     }
     return;

@@ -200,6 +200,80 @@ def test_cluster_footprint_model_matches_the_kernels(cuda):
         assert occ["max_active_clusters"] >= 1
 
 
+@pytest.mark.parametrize("split_k", [1, 4])
+def test_k2_relu_epilogue_keeps_nan_as_torch_relu_does(cuda, split_k):
+    """A poisoned input row stays NaN through K2's ReLU epilogue (direct
+    and after the split-K sum), as through ``torch.relu`` and the
+    reference's ``jnp.maximum``; fmaxf would turn it into zeros and let
+    a corrupted slot pass as a finite result."""
+    p = _rand(11, 96, 1024, device=cuda)
+    p[5] = float("nan")
+    w = _rand(12, 1024, 128, scale=0.05, device=cuda)
+    b = _rand(13, 128, device=cuda)
+    got = k12.matmul_bias_act(p, w, b, block_m=64, block_k=16, block_n=64,
+                              epilogue="relu", split_k=split_k)
+    want = k12.matmul_bias_act_plain(p, w, b, epilogue="relu",
+                                     split_k=split_k, block_k=16)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[5]).all())
+    assert not bool(torch.isnan(got[:5]).any())
+    assert bool((got[~torch.isnan(want)] >= 0).all())
+    torch.testing.assert_close(got[:5], want[:5], rtol=1e-5, atol=1e-5)
+
+
+def test_degraded_ladder_footprints_match_the_kernels(cuda):
+    """Every plan of the degrade ladder that fits (``degrade_plan`` at
+    1, 1/2, 1/4 and 1/8 of the budget, batch 8, the three CapsuleNet
+    archs): each routing op's planned shared memory is its kernel's own
+    layout, within the reduced budget, and the card holds its cluster."""
+    import ctypes
+    k3_bytes = build._library(
+        "votes_routing").votes_routing_cluster_smem_bytes
+    k3_bytes.argtypes, k3_bytes.restype = [ctypes.c_int] * 8, ctypes.c_int
+    k5_bytes = build._library("primary_routing").primary_routing_smem_bytes
+    k5_bytes.argtypes, k5_bytes.restype = [ctypes.c_int] * 8, ctypes.c_int
+    seen = 0
+    for cfg in (capsnet_mnist.config(), capsnet_svhn.config(),
+                capsnet_cifar10.config()):
+        layers = {lay.name: lay for lay in cfg.routing_stack()}
+        for share in (1.0, 0.5, 0.25, 0.125):
+            budget = int(planner.SMEM_BYTES * share)
+            try:
+                plan, _ = execplan.degrade_plan(cfg, budget, batch=8,
+                                                pipeline=True)
+            except execplan.PlanError:
+                continue
+            for op in plan.ops:
+                if op.kernel == "votes_routing":
+                    lay = layers[op.name]
+                    args = (lay.in_caps, lay.in_dim, lay.num_caps,
+                            lay.caps_dim)
+                    assert k3_bytes(
+                        *args, op.cluster, int(op.mode == "resident"),
+                        op.block_i,
+                        int(op.mode == execplan.STREAMED_GLOBAL)) \
+                        == op.smem_bytes <= budget, (op.name, share)
+                    occ = k34.cluster_occupancy(
+                        *args, cluster=op.cluster, mode=op.mode,
+                        block_i=op.block_i)
+                elif op.kernel == "primary_routing":
+                    lay = cfg.routing_stack()[0]
+                    args = (cfg.pc_out ** 2, cfg.pc_channels,
+                            cfg.primary_dim, lay.num_caps, lay.caps_dim)
+                    assert k5_bytes(*args, op.cluster,
+                                    int(op.mode == "resident"),
+                                    op.block_i) == op.smem_bytes <= budget
+                    occ = k5.occupancy(*args, mode=op.mode,
+                                       block_i=op.block_i,
+                                       cluster=op.cluster)
+                else:
+                    continue
+                assert occ["max_dynamic_smem"] == op.smem_bytes
+                assert occ["max_active_clusters"] >= 1, (op.name, share)
+                seen += 1
+    assert seen >= 20
+
+
 def test_k3_k8_footprint_model_matches_the_kernels(cuda):
     """K3's, K4's and K8's planned footprints (the SVHN ResCaps halves,
     bottleneck and ClassCaps, the MNIST ClassCaps and its smoke config,
@@ -369,6 +443,26 @@ def test_engine_serves_on_the_card(cuda):
                                    atol=1e-5)
 
 
+def test_engine_raises_a_refused_launch_on_the_card(cuda, monkeypatch):
+    """A kernel launch the CUDA runtime refuses raises out of step(): the
+    breaker takes only a PlanError, so it never serves around a broken
+    kernel on the plain path."""
+    cfg = capsnet_mnist.smoke_config()
+    params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=cuda)
+    img = np.random.default_rng(7).random(
+        (cfg.image_hw, cfg.image_hw, 1), np.float32)
+    engine = CapsuleEngine(params, cfg, slots=2, device=cuda,
+                           breaker_after=1)
+    engine.submit(CapsRequest(rid=0, image=img))
+    monkeypatch.setattr(k12.PATCHES, "_fn", lambda *args: 1)
+    with pytest.raises(RuntimeError, match="im2col_patches_f32: CUDA error"):
+        engine.step()
+    stats = engine.stats()
+    assert (stats["forward_failures"], stats["breaker_trips"]) == (0, 0)
+    assert engine._backend == "kernels" and not engine.degraded
+
+
 def test_backward_kernels_launch_and_match_twins_on_the_card(cuda):
     """K6 with one split and with several (ragged M), K7 at two strides,
     K8 and K9 with a ragged i-block, each against its plain twin."""
@@ -411,15 +505,43 @@ def _offset(t: torch.Tensor, floats: int) -> torch.Tensor:
     return view
 
 
-def _kernel_names(fn) -> set[str]:
-    """The CUDA kernels one call of ``fn`` launches, by profiler name."""
+# A profiler session can lose the kernel records at its start (an empty
+# trace of a short call, most often in a process that has just built the
+# kernels), so a traced call runs between marker kernels: TRACE_LEAD
+# ``frac_`` and a device spin of TRACE_SPIN_CYCLES take that loss, then
+# TRACE_GUARD ``trunc_`` before the call and ``floor_`` after it show
+# whether its records are all there.
+TRACE_LEAD, TRACE_SPIN_CYCLES, TRACE_GUARD = 64, 10_000_000, 8
+TRACE_MARKERS = ("frac_kernel", "trunc_kernel", "floor_kernel")
+
+
+def _kernel_names(fn, tries: int = 3) -> set[str]:
+    """The CUDA kernels one call of ``fn`` launches, by profiler name,
+    from the first of ``tries`` traces that holds every guard on both
+    sides of the call (the last trace's if none does)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    mark = torch.ones(1, device="cuda")
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_LEAD):
+                mark.frac_()
+            torch.cuda._sleep(TRACE_SPIN_CYCLES)
+            for _ in range(TRACE_GUARD):
+                mark.trunc_()
+            fn()
+            for _ in range(TRACE_GUARD):
+                mark.floor_()
+            torch.cuda.synchronize()
+        records = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        guards = [sum(n for k, n in records.items() if part in k)
+                  for part in TRACE_MARKERS[1:]]
+        if guards == [TRACE_GUARD, TRACE_GUARD]:
+            break
+    return {k for k in records
+            if not any(part in k for part in TRACE_MARKERS)}
 
 
 # (b, h, w, c, kh, kw, stride): float4 copies (C = 8, 256), the scalar path
