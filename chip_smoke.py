@@ -95,6 +95,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -331,17 +332,20 @@ def device_breakdown(fn, reps: int = 3, top: int = 10) -> dict | None:
     return dict(ranked[:top], total=sum(times.values()))
 
 
-def replay_emit_ms(fn) -> dict:
-    """Device ms per call of the cluster backward's two kernels (K8/K9),
-    the replay and the per-capsule emit, from one profile of ``fn``; None
-    (not measured) for a kernel of which the trace kept no record."""
-    split_ = device_breakdown(fn, reps=20) or {}
+def replay_emit_ms(fn, reps: int = 20) -> dict:
+    """Device ms per call of the cluster backward's kernels (K8/K9/K9g),
+    the replay and the per-capsule emit (whole rows, or split over column
+    blocks, whose partials of du a third kernel sums), from one profile
+    of ``fn``; None (not measured) for a kernel of which the trace kept
+    no record."""
+    split_ = device_breakdown(fn, reps=reps) or {}
 
     def of(name):
         times = [v for k, v in split_.items() if name in k]
         return sum(times) if times else None
     return dict(replay_device_ms=of("routing_bwd_cluster_kernel"),
-                emit_device_ms=of("routing_bwd_emit_kernel"))
+                emit_device_ms=of("routing_bwd_emit"),
+                du_sum_device_ms=of("du_blocks_sum_kernel"))
 
 
 def cold_device_ms(fn, kernel: str, reps: int = 10,
@@ -1795,6 +1799,284 @@ def deep_stacks(dev, rng, rows: list[dict], mnist: dict) -> None:
             train=train_counts.get(sym, 0))
 
 
+def cifar10_full_width(dev, rng, rows: list[dict]) -> None:
+    """Phase 12b, ``capsnet-cifar10`` at its full width (not cut): 32x32x3
+    -> Conv1 -> PrimaryCaps (2048 capsules of 8D) -> three reversible
+    ResCaps blocks, whose six halves each route 1024 capsules to 1024 x 8D
+    over a 268 MB W (K4g forward: the logits in device memory, 16-CTA
+    clusters; K9g backward: the logits in device memory, five [J*D]
+    vectors a CTA, the emit split over column blocks) -> ClassCaps (K3,
+    K8).  The main path, each run with the counts set to 0 just before:
+    the forward at batch 1 against the plain forward, twice for identical
+    bits; the gradient at batch 1 (the reference's only feasible training
+    batch) against the plain autograd gradient, twice for identical bits;
+    one SGD step (``capsnet.train_step``, what ``CapsTrainLoop`` calls).
+    Then K4g and K9g at a half's shape against their twins, twice each,
+    timed (K9g's replay and emit apart) beside the function's byte bound
+    and the plan's modeled traffic; and the batch-8 training plan's
+    footprints against the built kernels' layouts and attributes.  Fills
+    K4g's row and appends K9g's to ``rows``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import capsnet_cifar10
+    from repro_torch.core import capsnet, execplan
+    from repro_torch.kernels import build
+    from repro_torch.kernels import votes_routing as k34
+
+    GLOBAL = execplan.STREAMED_GLOBAL
+    cfg = capsnet_cifar10.config()
+    params = capsnet.init_params(torch.Generator().manual_seed(SEED + 6),
+                                 cfg, device=dev)
+    hw, ch = cfg.image_hw, cfg.in_channels
+    images = torch.tensor(rng.random((1, hw, hw, ch), np.float32),
+                          device=dev)
+    labels = torch.tensor(rng.integers(0, cfg.num_classes, 1), device=dev)
+    fplan = execplan.compile_plan(cfg, batch=1)
+    tplan = execplan.compile_plan(cfg, batch=1, train=True)
+    for name, p in (("CIFAR-10 serving, 1", fplan),
+                    ("CIFAR-10 train, 1", tplan)):
+        print(f"plan {name}: ops " + json.dumps(
+            [(o.name, o.kernel, o.mode, o.block_i, o.smem_bytes, o.cluster,
+              o.global_bytes) for o in p.ops]), flush=True)
+    stack = cfg.routing_stack()
+    halves = [lay for lay in stack if lay.residual]
+    half = halves[0]
+    cols = execplan.emit_columns(half.in_dim, half.num_caps, half.jd)
+    hop, hbwd = tplan.op(half.name), tplan.bwd_op(half.name)
+    if len(halves) != 6 or any(
+            tplan.op(h.name).mode != GLOBAL
+            or tplan.bwd_op(h.name).mode != GLOBAL for h in halves) \
+            or cols >= half.jd:
+        raise AssertionError("CIFAR-10 plans: expected K4g and K9g at the "
+                             "six halves, the emit split")
+
+    # The forward at batch 1 against the plain forward, twice.
+    with torch.no_grad():
+        ref_out = capsnet.forward(params, images, cfg, backend="torch",
+                                  device=dev)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = capsnet.forward(params, images, cfg, backend="kernels",
+                              plan=fplan, device=dev)
+        torch.cuda.synchronize()
+        fwd_host_ms = 1e3 * (time.perf_counter() - t0)
+        fwd_counts = build.launch_counts()
+        again = capsnet.forward(params, images, cfg, backend="kernels",
+                                plan=fplan, device=dev)
+    print(f"cifar10 forward (batch 1): launches {fwd_counts}, host "
+          f"{fwd_host_ms:.2f} ms", flush=True)
+    for key in ("class_caps", "lengths", "reconstruction"):
+        check(f"cifar10 forward {key}", out[key], ref_out[key], ROUTING)
+        equal_bits(f"cifar10 forward {key}: two runs", out[key], again[key])
+    for sym, n in (("votes_routing_global_cluster_f32", 6),
+                   ("votes_routing_cluster_f32", 1)):
+        if fwd_counts[sym] != n:
+            raise AssertionError(f"cifar10 forward: {sym} launched "
+                                 f"{fwd_counts[sym]} times, not {n}")
+
+    # The gradient at batch 1 against plain autograd, twice; then one SGD
+    # step on the training plan.
+    want, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                     backend="torch", device=dev)
+    build.reset_launch_counts()
+    got, metrics = capsnet.loss_and_grads(params, images, labels, cfg,
+                                          backend="kernels", plan=tplan,
+                                          device=dev)
+    torch.cuda.synchronize()
+    grad_counts = build.launch_counts()
+    got2, _ = capsnet.loss_and_grads(params, images, labels, cfg,
+                                     backend="kernels", plan=tplan,
+                                     device=dev)
+    print(f"cifar10 gradient (batch 1): launches {grad_counts}, loss "
+          f"{float(metrics['loss']):.6f}", flush=True)
+    for k in params:
+        check_scaled(f"cifar10 backward d{k}", got[k], want[k], GRAD)
+        equal_bits(f"cifar10 backward d{k}: two runs", got[k], got2[k])
+    # Each half: K4g forward and again in the K12 backward's recompute,
+    # K9g once; ClassCaps: K3 and K8 once.
+    for sym, n in (("votes_routing_global_cluster_f32", 12),
+                   ("routing_bwd_global_cluster_f32", 6),
+                   ("votes_routing_cluster_f32", 1),
+                   ("routing_bwd_cluster_f32", 1)):
+        if grad_counts[sym] != n:
+            raise AssertionError(f"cifar10 gradient: {sym} launched "
+                                 f"{grad_counts[sym]} times, not {n}")
+    lr = 1e-2
+    stepped = {k: v.clone() for k, v in params.items()}
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepped, step_metrics = capsnet.train_step(
+        stepped, images, labels, cfg, lr, backend="kernels", plan=tplan,
+        device=dev)
+    torch.cuda.synchronize()
+    step_host_ms = 1e3 * (time.perf_counter() - t0)
+    step_counts = build.launch_counts()
+    for k in params:
+        equal_bits(f"cifar10 SGD step {k}", stepped[k],
+                   params[k] - lr * got[k])
+    if not math.isfinite(float(step_metrics["loss"])):
+        raise AssertionError("cifar10 SGD step: a non-finite loss")
+    step_dev = device_breakdown(lambda: capsnet.loss_and_grads(
+        params, images, labels, cfg, backend="kernels", plan=tplan,
+        device=dev), reps=2, top=12)
+    print(f"cifar10 SGD step (batch 1, lr {lr:g}): host {step_host_ms:.2f} "
+          f"ms, launches {step_counts}; the gradient's device ms by kernel "
+          f"{json.dumps(step_dev)}; on {CARD}", flush=True)
+    del want, got, got2, stepped
+
+    # K4g and K9g at a half's shape, batch 1, against their twins.
+    w = params[half.param].reshape(half.in_caps, half.jd, half.in_dim)
+    u = torch.tensor(0.5 * rng.standard_normal(
+        (1, half.in_caps, half.in_dim), np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((1, half.jd), np.float32),
+                     device=dev)
+    iters, j = half.iters, half.num_caps
+    kwf = dict(iters=iters, num_classes=j, mode=GLOBAL,
+               block_i=hop.block_i, cluster=hop.cluster)
+    kwb = dict(iters=iters, num_classes=j, mode=GLOBAL,
+               block_i=hbwd.block_i, cluster=hbwd.cluster)
+
+    def k4g():
+        return k34.votes_routing(u, w, **kwf)
+
+    def k4g_plain():
+        return k34.cluster_routing_plain(u, w, **kwf)
+
+    def k9g():
+        return k34.votes_routing_bwd(u, w, g, **kwb)
+
+    def k9g_plain():
+        return k34.votes_routing_bwd_plain(u, w, g, **kwb)
+    with torch.no_grad():
+        v = same_bits("K4g CIFAR-10 half", k4g)
+        k4_err = check("K4g CIFAR-10 half (1)", v, k4g_plain(),
+                       ROUTING)["max_abs"]
+        du, dw = same_bits("K9g CIFAR-10 half", k9g)
+        du_p, dw_p = k9g_plain()
+        k9_err = max(check_scaled("K9g CIFAR-10 half du (1)", du, du_p,
+                                  GRAD),
+                     check_scaled("K9g CIFAR-10 half dW (1)", dw, dw_p,
+                                  GRAD))
+    w_bytes = 4.0 * w.numel()
+    sites = {}
+    for kernel, op, fn, plain, nbytes, flops, sched_bytes in (
+            ("votes_routing_global_cluster", half.name + " (CIFAR-10, 1)",
+             k4g, k4g_plain, w_bytes + 4.0 * (u.numel() + half.jd),
+             routing_flops(1, half.in_caps, half.in_dim, half.jd, iters),
+             hop.global_bytes),
+            ("routing_bwd_global_cluster",
+             half.name + "-bwd (CIFAR-10, 1)", k9g, k9g_plain,
+             routing_bwd_bytes(u, w),
+             routing_bwd_flops(1, half.in_caps, half.in_dim, half.jd,
+                               iters), hbwd.global_bytes)):
+        bms, by = bound(nbytes, flops)
+        site = dict(op=op, ms=time_ms(fn, reps=5),
+                    device_ms=device_ms(fn, reps=5),
+                    plain_ms=time_ms(plain, reps=2), bound_ms=bms,
+                    bound_by=by, bytes=nbytes, flops=flops,
+                    schedule_bytes=sched_bytes,
+                    schedule_bound_ms=sched_bytes / PEAK_HBM_BYTES * 1e3)
+        sites[kernel] = site
+    sf, sb = sites["votes_routing_global_cluster"], \
+        sites["routing_bwd_global_cluster"]
+    sf.update(cluster=hop.cluster, ctas=hop.block.ctas, block_i=hop.block_i,
+              smem_bytes=hop.smem_bytes)
+    sb.update(cluster=hbwd.cluster, ctas=hbwd.block.ctas,
+              block_i=hbwd.block_i, smem_bytes=hbwd.smem_bytes,
+              emit_cols=cols, **replay_emit_ms(k9g, reps=5))
+    print(f"K4g {sf['op']}: clusters of {hop.cluster}, block_i "
+          f"{hop.block_i}, {hop.smem_bytes} B a CTA: device "
+          f"{sf['device_ms']} ms; byte bound {sf['bound_ms']:.4f} ms (each "
+          f"tensor once, {sf['bytes']:.0f} B), the plan's traffic "
+          f"{sf['schedule_bytes'] / 1e6:.1f} MB "
+          f"({sf['schedule_bound_ms']:.4f} ms at 3.35 TB/s); plain "
+          f"{sf['plain_ms']:.2f} ms; on {CARD}", flush=True)
+    print(f"K9g {sb['op']}: clusters of {hbwd.cluster}, block_i "
+          f"{hbwd.block_i}, {hbwd.smem_bytes} B a CTA, emit {cols} columns "
+          f"a CTA: device {sb['device_ms']} ms = replay "
+          f"{sb['replay_device_ms']} + emit {sb['emit_device_ms']} + du sum "
+          f"{sb['du_sum_device_ms']} ms; byte bound {sb['bound_ms']:.4f} ms "
+          f"({sb['bytes']:.0f} B), the plan's traffic "
+          f"{sb['schedule_bytes'] / 1e6:.1f} MB "
+          f"({sb['schedule_bound_ms']:.4f} ms); plain {sb['plain_ms']:.2f} "
+          f"ms; on {CARD}", flush=True)
+
+    # The batch-8 training plan: every footprint the built kernel's own.
+    import ctypes
+    lib_f = build._library("votes_routing")
+    lib_b = build._library("votes_routing_bwd")
+    for fn_, n in ((lib_f.votes_routing_cluster_smem_bytes, 8),
+                   (lib_b.routing_bwd_global_smem_bytes, 6),
+                   (lib_b.routing_bwd_emit_smem_bytes, 4)):
+        fn_.argtypes, fn_.restype = [ctypes.c_int] * n, ctypes.c_int
+    plan8 = execplan.compile_plan(cfg, batch=8, train=True)
+    for h in halves:
+        fwd, bwd = plan8.op(h.name), plan8.bwd_op(h.name)
+        dims = (h.in_caps, h.in_dim, h.num_caps, h.caps_dim)
+        c8 = execplan.emit_columns(h.in_dim, h.num_caps, h.jd,
+                                   plan8.smem_budget)
+        replay = execplan.routing_bwd_cluster_smem(
+            GLOBAL, h.in_caps, bwd.block_i, h.in_dim, h.num_caps, h.jd,
+            bwd.cluster)
+        emit = execplan.routing_bwd_emit_smem(h.in_dim, h.num_caps, h.jd,
+                                              c8)
+        occ_f = k34.cluster_occupancy(*dims, cluster=fwd.cluster,
+                                      mode=fwd.mode, block_i=fwd.block_i)
+        occ_r = k34.bwd_cluster_occupancy(*dims, mode=bwd.mode,
+                                          block_i=bwd.block_i,
+                                          cluster=bwd.cluster)
+        occ_e = k34.emit_occupancy(h.in_dim, h.num_caps, h.caps_dim, c8)
+        equal = (lib_f.votes_routing_cluster_smem_bytes(
+                     *dims, fwd.cluster, 0, fwd.block_i, 1)
+                 == fwd.smem_bytes == occ_f["max_dynamic_smem"]
+                 and lib_b.routing_bwd_global_smem_bytes(
+                     *dims, bwd.cluster, bwd.block_i)
+                 == replay == occ_r["max_dynamic_smem"]
+                 and lib_b.routing_bwd_emit_smem_bytes(
+                     h.in_dim, h.num_caps, h.caps_dim, c8)
+                 == emit == occ_e["max_dynamic_smem"]
+                 and bwd.smem_bytes == max(replay, emit)
+                 <= plan8.smem_budget)
+        print(f"cifar10 train plan, batch 8, {h.name}: K4g {fwd.smem_bytes} "
+              f"B on clusters of {fwd.cluster} ({occ_f['max_active_clusters']}"
+              f" at once), K9g replay {replay} B on clusters of "
+              f"{bwd.cluster} ({occ_r['max_active_clusters']} at once), emit "
+              f"{emit} B at {c8} columns ({occ_e['max_active_clusters']} "
+              f"CTAs an SM): the built kernels' layouts and attributes "
+              f"{'equal' if equal else 'DIFFER'}", flush=True)
+        if not equal:
+            raise AssertionError(f"cifar10 batch-8 plan {h.name}: a "
+                                 f"footprint differs from its kernel's")
+
+    by_name = {r["name"]: r for r in rows}
+    k4g_row = by_name["votes_routing_global_cluster"]
+    k4g_row.update(
+        launches=step_counts["votes_routing_global_cluster_f32"],
+        forward_launches=fwd_counts["votes_routing_global_cluster_f32"],
+        max_abs_err=max(k4g_row["max_abs_err"], k4_err), ms=sf["ms"],
+        device_ms=sf["device_ms"], plain_ms=sf["plain_ms"],
+        bound_ms=sf["bound_ms"], bound_by=sf["bound_by"],
+        path="train and serve, CIFAR-10 full width (the six ResCaps "
+             "halves): an SGD step at batch 1 (6 forward + 6 recomputed in "
+             "the K12 backward); the forward alone 6",
+        cluster=sf["cluster"], ctas=sf["ctas"],
+        sites=[sf] + k4g_row["sites"])
+    rows.append(dict(
+        name="routing_bwd_global_cluster", route="cuda",
+        source="src/repro_torch/kernels/csrc/votes_routing_bwd.cu",
+        replaces="src/repro/kernels/votes_routing.py:367",
+        launches=step_counts["routing_bwd_global_cluster_f32"],
+        max_abs_err=k9_err, ms=sb["ms"], device_ms=sb["device_ms"],
+        plain_ms=sb["plain_ms"], bound_ms=sb["bound_ms"],
+        bound_by=sb["bound_by"], library_ms=None,
+        path="train, CIFAR-10 full width: an SGD step at batch 1 (the six "
+             "halves' backward)", cluster=sb["cluster"], ctas=sb["ctas"],
+        forward_host_ms=fwd_host_ms, step_host_ms=step_host_ms,
+        step_device=step_dev, sites=[sb]))
+
+
 def svhn_gather_sites(cfg, rows, images, timages, x1, tx1, randn,
                       serve_counts, train_counts) -> None:
     """K1 at capsnet-svhn's Conv1 and PrimaryCaps, at the engine's batch
@@ -2857,6 +3139,8 @@ def main() -> int:
     print(f"build: compiled {built or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 2a. CapStore's own models on the port's MNIST pipelined plans.
+    capstore_line()
     # 2b. The LM main path with each step profiled.
     lm_counted = lm_main_path_counted(dev)
     # 3.-12. The CapsuleNet phases; their tensors are freed on return.
@@ -2870,6 +3154,27 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def capstore_line() -> None:
+    """The paper's memory DSE (``dse.best_design``) over the port's MNIST
+    pipelined plans at the engine's batch, forward and training: the
+    best on-chip organisation of the paper's 32 nm accelerator, gated
+    over the phases the port's kernels execute, and its energy."""
+    from repro_torch.configs import capsnet_mnist
+    from repro_torch.core import dse, execplan
+    cfg = capsnet_mnist.config()
+    parts = []
+    for label, train in (("forward", False), ("train", True)):
+        plan = execplan.compile_plan(cfg, batch=SLOTS, pipeline=True,
+                                     train=train)
+        best = dse.best_design(plan=plan)
+        parts.append(f"{label} ({len(plan.ops)} phases) best "
+                     f"{best.org_name} S={best.sectors} "
+                     f"{best.total_mj:.4f} mJ")
+    print(f"capstore MNIST pipelined plan, batch {SLOTS}: "
+          + "; ".join(parts) + " (the paper's 32 nm accelerator model, "
+          "not the card)", flush=True)
 
 
 def capsnet_phases(dev) -> list[dict]:
@@ -3880,6 +4185,8 @@ def capsnet_phases(dev) -> list[dict]:
         u=u, wcc=wcc, tu=tu, g=g, vr=vr, mst=mst, su=su,
         swcc=swcc, svr=svr, lay=lay, k3_err=errs["votes_routing_cluster"],
         k4_err=errs["votes_routing_streamed_cluster"]))
+    # 12b. capsnet-cifar10 at full width: K4g and K9g on the main path.
+    cifar10_full_width(dev, rng, rows)
     # Phase 5b's launches after each shrink, on the rows of its kernels.
     for row in rows:
         if f"{row['name']}_f32" in ENGINE_KERNELS:

@@ -80,16 +80,47 @@ backward runs), as the reference's training plans do:
                      cluster (a ``ClusterPlan`` block; rows in contiguous
                      blocks of ceil(I / cs), votes ``resident`` -- K8 --
                      or ``streamed`` -- K9 -- in each CTA; s and dv summed
-                     over the cluster), then a per-capsule emit CTA.  Each
-                     cluster CTA keeps its rows' logits on chip, so the
-                     backward has no ``streamed-global`` schedule of its
-                     own: that name runs K9's ``streamed``.
+                     over the cluster), then a per-capsule emit.  Where no
+                     cluster CTA holds its rows' logits beside the
+                     replay's seven [J*D] vectors, the replay is
+                     ``streamed-global`` (K9g): the logits live in the
+                     sample's rows of the b_T slab in device memory, and
+                     ds_T and dv take the places of s_T and v once those
+                     are spent, so five vectors remain (CIFAR-10's
+                     full-width halves).  The emit CTA holds W[i], dW[i]
+                     and a chunk of d u_hat rows; where they fit no CTA,
+                     it splits over column blocks of J*D
+                     (``emit_columns``), whose partials of du are summed in
+                     column order by a second launch.
   PrimaryCaps-bwd,   ``conv_im2col_bwd``: the forward tiles for the
   Conv1-bwd          recompute, K6 for dW, ``dx_block`` tiles for the
                      dpatches GEMM (K2) and K7 for dx.
 
 A pipelined training plan runs the same backward ops: the pipelined
 op's backward is the per-op backward (``kernels/primary_routing.py``).
+
+The plan also carries the paper's own accounting, as the reference's
+does: each op covers dataflow-model operations (``analysis``; a fused
+routing op covers ClassCaps-FC, Sum+Squash and Update+Sum, the pipelined
+op PrimaryCaps too, a ``-bwd`` op the backward profiles of its forward's
+in reverse) and is ONE PMU phase (``pmu.PhaseRequirement``), so the
+energy model and the DSE (``dse.explore(plan=...)``,
+``pmu.schedule_from_plan``) score the schedule the kernels execute.
+``ExecutionPlan.profiles``, ``phase_requirements()``, ``phase_groups()``
+and ``phase_durations()`` are computed from ``cfg``, ``dataflow`` and
+each op's name, mode and ``n_passes`` (no ``OpPlan`` field), by the
+reference's builders (``_requirement``, ``_fused_requirement``,
+``_pipe_requirement``, ``_backward_profile``,
+``_fused_bwd_requirement``), with two decisions of the port's own:
+
+  * ``streamed-global`` (K4g, K9g) is ``streamed`` less the logits'
+    bytes, which live in device memory: the forward's [I, J] logits, and
+    the backward's logits trajectory b_0 .. b_T ((iters + 1) [I, J]).
+  * The port's backward ``n_passes`` counts votes computations (1
+    resident, ``iters + 2`` streamed), the reference's W streams (2,
+    ``iters + 4``); so the backward's votes-recompute cycles scale by the
+    port's own count (the reference's count over 2 where resident, where
+    both agree).
 """
 
 from __future__ import annotations
@@ -98,13 +129,19 @@ import dataclasses
 import functools
 import math
 
+from repro_torch.core import analysis
+from repro_torch.core.analysis import OperationProfile
 from repro_torch.core.capsnet import ROUTING_NAME, CapsNetConfig
 from repro_torch.core.planner import (AT_B_SMEM_BYTES, CTA_FIXED_S,
                                       ELEM_BYTES, GEMM_EFFICIENCY, NUM_SMS,
                                       PEAK_FP32_FLOPS, SMEM_BYTES, BlockPlan,
                                       MatmulWorkload, at_b_plan, plan_matmul)
+from repro_torch.core.pmu import PhaseRequirement
 
 FUSED_NAME = ROUTING_NAME
+# The dataflow-model operations one fused routing op covers (the
+# pipelined op covers PrimaryCaps and those of the first routing layer).
+FUSED_COVERS = ("ClassCaps-FC", "Sum+Squash", "Update+Sum")
 PIPE_NAME = "PrimaryCaps-Routing"
 BWD_SUFFIX = "-bwd"
 STREAMED_GLOBAL = "streamed-global"
@@ -231,6 +268,7 @@ class ExecutionPlan:
     smem_budget: int
     ops: tuple[OpPlan, ...]
     train: bool = False
+    dataflow: str = "resident"   # the dataflow model its phases score
 
     def op(self, name: str) -> OpPlan:
         for op in self.ops:
@@ -247,6 +285,46 @@ class ExecutionPlan:
     def pipelined(self) -> bool:
         return any(op.kernel == "primary_routing" for op in self.ops)
 
+    @property
+    def profiles(self) -> tuple[OperationProfile, ...]:
+        """The dataflow profiles the plan's ops cover, in execution order
+        (feeds ``dse``): every one of the model's operations, however the
+        ops fuse them, and on a training plan their backward profiles."""
+        return tuple(p for op in self.ops for p in self.op_profiles(op))
+
+    def op_profiles(self, op: OpPlan) -> tuple[OperationProfile, ...]:
+        """The dataflow profiles ``op`` covers, from its name."""
+        return _op_profiles(self.cfg, self.dataflow, op.name)
+
+    def requirement(self, op: OpPlan) -> PhaseRequirement:
+        """``op``'s PMU phase (see the module note)."""
+        return _op_requirement(self.cfg, self.dataflow, op)
+
+    def phase_requirements(self) -> tuple[PhaseRequirement, ...]:
+        """Per-operation PMU phases, in execution order: one phase per
+        EXECUTED op, so a fused kernel is gated as the phase it runs."""
+        return tuple(self.requirement(op) for op in self.ops)
+
+    def phase_groups(self) -> tuple[tuple[str, tuple[str, ...]], ...]:
+        """(phase_name, covered profile names) per executed op: the phases
+        ``dse.evaluate_plan`` gates over."""
+        return tuple((op.name, tuple(p.name for p in self.op_profiles(op)))
+                     for op in self.ops)
+
+    def phase_durations(self) -> dict[str, float]:
+        """Per-phase cycle estimate keyed by executed-op name, pass-count
+        aware: a streamed routing op recomputes the votes on each of its
+        ``n_passes``, so its leakage window is longer than the one-pass
+        profile sum."""
+        return {r.name: r.duration_cycles for r in self.phase_requirements()}
+
+    def forward_hbm_bytes(self) -> float:
+        """Modeled device-memory traffic of one forward: the forward ops'
+        ``global_bytes`` summed (a pipelined plan skips the PrimaryCaps ->
+        routing round trip of u)."""
+        return sum(op.global_bytes for op in self.ops
+                   if not op.name.endswith(BWD_SUFFIX))
+
     def validate(self) -> None:
         """Check the plan invariants; raises ``PlanError`` on violation."""
         if self.batch < 1:
@@ -260,6 +338,20 @@ class ExecutionPlan:
                          list(reversed(layers)) + ["PrimaryCaps", "Conv1"]]
         if names != expected:
             raise PlanError(f"plan ops {names}, expected {expected}")
+        # The ops cover the dataflow model's operations, each once (the
+        # backward's in reverse), and each op is one phase of its name.
+        model = [p.name for p in _stack_profiles(self.cfg, self.dataflow)]
+        if self.train:
+            model += [n + BWD_SUFFIX for n in reversed(model)]
+        covered = [p.name for p in self.profiles]
+        if covered != model:
+            raise PlanError(f"phases {names} cover {covered}, not "
+                            f"operations {model}")
+        for op, req in zip(self.ops, self.phase_requirements()):
+            if req.name != op.name:
+                raise PlanError(f"{op.name}: phase named {req.name!r}")
+            if req.duration_cycles <= 0:
+                raise PlanError(f"{op.name}: non-positive phase duration")
         for op in self.ops:
             if op.mode == ORACLE_MODE:
                 raise PlanError(f"{op.name}: {ORACLE_MODE!r} is the "
@@ -287,6 +379,185 @@ class ExecutionPlan:
                      n_passes=op.n_passes, smem_kib=op.smem_bytes / 1024,
                      global_bytes=op.global_bytes)
                 for op in self.ops]
+
+
+def plan_table(plans) -> list[dict]:
+    """Flat summary rows of ``(tag, plan)`` pairs, for examples and
+    benchmarks."""
+    return [dict(plan=tag, **row) for tag, plan in plans
+            for row in plan.summary()]
+
+
+# ---------------------------------------------------------------------------
+# The paper's accounting: dataflow profiles and PMU phases of each op
+# ---------------------------------------------------------------------------
+
+def _layer_descs(stack) -> tuple:
+    """``analysis.capsnet_stack_profiles`` layer descriptors of a routing
+    stack (the profile-name suffix is the op name past ``FUSED_NAME``)."""
+    return tuple((lay.name[len(FUSED_NAME):], lay.in_caps, lay.in_dim,
+                  lay.num_caps, lay.caps_dim, lay.iters) for lay in stack)
+
+
+@functools.lru_cache(maxsize=64)         # configs x dataflows: bounded
+def _stack_profiles(cfg: CapsNetConfig,
+                    dataflow: str) -> tuple[OperationProfile, ...]:
+    return tuple(analysis.capsnet_stack_profiles(
+        dataflow, analysis.dims_from_config(cfg),
+        _layer_descs(cfg.routing_stack())))
+
+
+def _requirement(profile: OperationProfile) -> PhaseRequirement:
+    return PhaseRequirement(name=profile.name,
+                            required_bytes=profile.total_mem,
+                            duration_cycles=profile.total_cycles)
+
+
+def _backward_profile(p: OperationProfile) -> OperationProfile:
+    """Dataflow profile of one operation's backward pass.
+
+    Reverse-mode doubles the MAC work (the d-input and d-weight products
+    are each a forward-sized contraction) and the on-chip access counts
+    with it; the per-component footprints stay the forward's -- the
+    backward kernels reuse the same residencies, swapping ``u_hat`` /
+    activations for their cotangents.
+    """
+    return dataclasses.replace(
+        p, name=p.name + BWD_SUFFIX, macs=2 * p.macs, cycles=2 * p.cycles,
+        data_reads=2 * p.data_reads, data_writes=2 * p.data_writes,
+        weight_reads=2 * p.weight_reads,
+        accum_reads=2 * p.accum_reads, accum_writes=2 * p.accum_writes,
+        offchip_reads=2 * p.offchip_reads,
+        offchip_writes=2 * p.offchip_writes)
+
+
+def _fused_requirement(in_caps: int, j: int, jd: int, profs, sched,
+                       name: str = FUSED_NAME) -> PhaseRequirement:
+    """ONE PMU phase for one fused routing op, honest per mode.
+
+    Resident keeps the layer's votes in the accumulator memory across
+    routing, so the phase demand is the peak of the three covered
+    dataflow operations.  Streamed never materializes the votes: the
+    demand is u + logits/couplings + the W prefetch buffer + the s/v
+    candidates (dataflow-model byte widths); streamed-global less the
+    logits.  The streamed duration scales the votes computation by the
+    schedule's ``n_passes``; the resident duration is the plain
+    three-operation sum (one pass).  ``in_caps``/``j``/``jd`` are THIS
+    layer's dimensions, ``name`` its plan-op name; ``sched`` gives
+    ``mode`` and ``n_passes`` (an ``OpPlan``).
+    """
+    cc, ss, us = profs
+    duration = (cc.total_cycles * sched.n_passes
+                + ss.total_cycles + us.total_cycles)
+    if sched.mode == "resident":
+        req = max(cc.total_mem, ss.total_mem, us.total_mem)
+    else:
+        bij = in_caps * j
+        req = (cc.data_mem                                    # u resident
+               + bij * (analysis.ACC_BYTES + analysis.ACT_BYTES)  # b + c
+               + cc.weight_mem                                # W prefetch
+               + 4 * jd * analysis.ACC_BYTES)                 # s/v temps
+        if sched.mode == STREAMED_GLOBAL:
+            req -= bij * analysis.ACC_BYTES                   # b off chip
+    return PhaseRequirement(name=name, required_bytes=req,
+                            duration_cycles=duration)
+
+
+def _pipe_requirement(in_caps: int, j: int, jd: int, profs,
+                      sched) -> PhaseRequirement:
+    """ONE PMU phase for the pipelined pair, honest per mode: the produce
+    phase's demand is the PrimaryCaps profile's; the consumer phases match
+    ``_fused_requirement`` (with u's residency already counted -- it IS
+    the produce scratch).  Duration is the four covered operations' sum
+    with the votes computation scaled by ``n_passes``.
+    ``in_caps``/``j``/``jd`` are the consumed routing layer's dimensions
+    (the FIRST layer of a deep stack)."""
+    pc, cc, ss, us = profs
+    duration = (pc.total_cycles + cc.total_cycles * sched.n_passes
+                + ss.total_cycles + us.total_cycles)
+    if sched.mode == "resident":
+        req = max(p.total_mem for p in profs)
+    else:
+        bij = in_caps * j
+        req = max(pc.total_mem,
+                  cc.data_mem
+                  + bij * (analysis.ACC_BYTES + analysis.ACT_BYTES)
+                  + cc.weight_mem
+                  + 4 * jd * analysis.ACC_BYTES)
+    return PhaseRequirement(name=PIPE_NAME, required_bytes=req,
+                            duration_cycles=duration)
+
+
+def _fused_bwd_requirement(in_caps: int, j: int, jd: int, iters: int,
+                           profs_bwd, sched,
+                           name: str = FUSED_NAME) -> PhaseRequirement:
+    """ONE PMU phase for one fused backward op, honest per mode (mirrors
+    ``_fused_requirement``: resident holds votes-sized state across the
+    replay, streamed holds u + the logits trajectory + small temps,
+    streamed-global the same less the trajectory's (iters + 1) logits).
+    The votes-recompute cycles (the ClassCaps-FC-bwd profile, whose
+    2x-forward work is one resident replay's) scale with the port's
+    ``n_passes``, its votes computations: 1 resident, ``iters + 2``
+    streamed."""
+    duration = (sum(p.total_cycles for p in profs_bwd[:-1])
+                + profs_bwd[-1].total_cycles * sched.n_passes)
+    if sched.mode == "resident":
+        req = max(p.total_mem for p in profs_bwd)
+    else:
+        cc = profs_bwd[-1]                       # ClassCaps-FC-bwd
+        bij = in_caps * j
+        logits = (iters + 2 if sched.mode != STREAMED_GLOBAL else 1)
+        req = (cc.data_mem                                   # u resident
+               + logits * bij * analysis.ACC_BYTES           # b_t, db
+               + cc.weight_mem                               # W prefetch
+               + 8 * jd * analysis.ACC_BYTES)                # s/ds/dv temps
+    return PhaseRequirement(name=name + BWD_SUFFIX,
+                            required_bytes=req, duration_cycles=duration)
+
+
+def _layer_of(cfg: CapsNetConfig, name: str):
+    return next((lay for lay in cfg.routing_stack() if lay.name == name),
+                None)
+
+
+def _op_profiles(cfg: CapsNetConfig, dataflow: str,
+                 name: str) -> tuple[OperationProfile, ...]:
+    """The dataflow profiles the op ``name`` covers: a conv its own, a
+    routing layer its three (the layer's profile-name suffix), the
+    pipelined op PrimaryCaps and the first layer's, a ``-bwd`` op the
+    backward profiles of its forward's in reverse."""
+    if name.endswith(BWD_SUFFIX):
+        fwd = _op_profiles(cfg, dataflow, name[:-len(BWD_SUFFIX)])
+        return tuple(_backward_profile(p) for p in reversed(fwd))
+    by_name = {p.name: p for p in _stack_profiles(cfg, dataflow)}
+    if name == PIPE_NAME:
+        first = cfg.routing_stack()[0]
+        return (by_name["PrimaryCaps"],) + _op_profiles(cfg, dataflow,
+                                                        first.name)
+    lay = _layer_of(cfg, name)
+    if lay is not None:
+        suffix = lay.name[len(FUSED_NAME):]
+        return tuple(by_name[n + suffix] for n in FUSED_COVERS)
+    return (by_name[name],)
+
+
+def _op_requirement(cfg: CapsNetConfig, dataflow: str,
+                    op: OpPlan) -> PhaseRequirement:
+    """The PMU phase of ``op`` (see the module note)."""
+    profs = _op_profiles(cfg, dataflow, op.name)
+    if op.kernel == "votes_routing":
+        lay = _layer_of(cfg, op.name)
+        return _fused_requirement(lay.in_caps, lay.num_caps, lay.jd, profs,
+                                  op, name=op.name)
+    if op.kernel == "primary_routing":
+        first = cfg.routing_stack()[0]
+        return _pipe_requirement(first.in_caps, first.num_caps, first.jd,
+                                 profs, op)
+    if op.kernel == "votes_routing_bwd":
+        lay = _layer_of(cfg, op.name[:-len(BWD_SUFFIX)])
+        return _fused_bwd_requirement(lay.in_caps, lay.num_caps, lay.jd,
+                                      lay.iters, profs, op, name=lay.name)
+    return _requirement(profs[0])
 
 
 def activation_residency_bytes(cfg: CapsNetConfig, *, batch: int = 1,
@@ -657,22 +928,46 @@ def routing_bwd_cluster_smem(mode: str, num_caps: int, block_i: int,
                              caps_dim: int, j: int, jd: int,
                              cluster: int) -> int:
     """Shared memory of one CTA of K9's cluster replay
-    (``csrc/votes_routing_bwd.cu``): the votes rows of its ``ceil(I /
-    cluster)`` rows (all when resident, ``block_i`` when streamed) with
-    their couplings, the rows' u and logits, and seven [J*D] vectors (s,
-    v, s_{T-1}, ds_T, dv and the two partials)."""
+    (``csrc/votes_routing_bwd.cu``, ``cluster_bwd_layout``): the votes
+    rows of its ``ceil(I / cluster)`` rows (all when resident,
+    ``block_i`` when streamed) with their couplings, the rows' u and
+    logits, and seven [J*D] vectors (s, v, s_{T-1}, ds_T, dv and the two
+    partials).  ``streamed-global`` (K9g) keeps no logits, and ds_T and
+    dv reuse s_T's and v's space: five vectors."""
     rows = -(-num_caps // cluster)
     vrows = rows if mode == "resident" else min(block_i, rows)
+    if mode == STREAMED_GLOBAL:
+        return (vrows * (jd + 1 + j) + rows * caps_dim
+                + 5 * jd) * ELEM_BYTES
     return (vrows * (jd + 1 + j) + rows * (caps_dim + j)
             + 7 * jd) * ELEM_BYTES
 
 
-def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int) -> int:
-    """Shared memory of one emit CTA (one capsule i): W[i] and the dW[i]
-    accumulator, then per chunk of ``EMIT_CHUNK`` samples their u[i],
-    couplings c_T / c_{T-1} and the d u_hat rows."""
-    return (2 * jd * caps_dim
-            + EMIT_CHUNK * (caps_dim + 2 * j + jd)) * ELEM_BYTES
+def routing_bwd_emit_smem(caps_dim: int, j: int, jd: int,
+                          cols: int | None = None) -> int:
+    """Shared memory of one emit CTA (one capsule i, ``cols`` of its J*D
+    columns, all by default): W[i] and the dW[i] accumulator over those
+    columns, then per chunk of ``EMIT_CHUNK`` samples their u[i], the
+    couplings c_T / c_{T-1} of the columns' classes and the columns' d
+    u_hat."""
+    cols = jd if cols is None else cols
+    return (2 * cols * caps_dim + EMIT_CHUNK * (
+        caps_dim + 2 * (cols // (jd // j)) + cols)) * ELEM_BYTES
+
+
+def emit_columns(caps_dim: int, j: int, jd: int,
+                 smem_budget: int = SMEM_BYTES) -> int | None:
+    """The J*D columns one emit CTA takes: all of them where W[i], dW[i]
+    and a chunk fit the budget (the emit as it always ran, the same bits);
+    else the widest block of whole classes dividing J*D that fits (a
+    column split sums du in another order, so it is taken only where it
+    is needed); None where even one class does not fit.  The wrapper and
+    its twin both derive the split here, from shapes and budget alone."""
+    d = jd // j
+    for per in (m for m in range(j, 0, -1) if j % m == 0):
+        if routing_bwd_emit_smem(caps_dim, j, jd, per * d) <= smem_budget:
+            return per * d
+    return None
 
 
 def plan_routing_bwd_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
@@ -683,13 +978,19 @@ def plan_routing_bwd_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
                              ) -> VotesRoutingSchedule | None:
     """K9's cluster schedule: for each cluster size (only ``cluster`` when
     given), resident votes in each CTA where they fit, else streamed at
-    the largest i-tile that fits (next to the emit CTA's footprint; only
-    the placement ``votes`` when given); of those, the least
-    ``cluster_seconds`` at ``batch``, the smaller cluster on a tie.  None
-    where no size fits."""
-    emit = routing_bwd_emit_smem(caps_dim, j, jd)
+    the largest i-tile that fits, else streamed-global (K9g: the logits
+    in device memory, five [J*D] vectors) likewise -- each next to the
+    emit's footprint at its ``emit_columns``; only the placement
+    ``votes`` when given.  Of those, the least ``cluster_seconds`` at
+    ``batch`` (streamed-global also reads and writes the logits once a
+    pass), the smaller cluster on a tie.  None where no size fits."""
+    cols = emit_columns(caps_dim, j, jd, smem_budget)
+    if cols is None:
+        return None
+    emit = routing_bwd_emit_smem(caps_dim, j, jd, cols)
     placements = tuple((m, n) for m, n in (("resident", 1),
-                                           ("streamed", iters + 2))
+                                           ("streamed", iters + 2),
+                                           (STREAMED_GLOBAL, iters + 2))
                        if votes in (None, m))
     best = None
     for cs in (CLUSTER_SIZES if cluster is None else (cluster,)):
@@ -704,6 +1005,8 @@ def plan_routing_bwd_cluster(num_caps: int, caps_dim: int, jd: int, j: int,
                 continue
             flops, w_bytes = routing_work(num_caps, caps_dim, jd, n_passes,
                                           iters + 2)
+            if mode == STREAMED_GLOBAL:
+                w_bytes += 2.0 * n_passes * num_caps * j * ELEM_BYTES
             per_sm = ctas_per_sm(fit[1], ROUTING_CLUSTER_REGISTERS)
             t = cluster_seconds(batch, cs, flops, w_bytes, iters + 2, rows,
                                 per_sm)
@@ -723,39 +1026,50 @@ def plan_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int, j: int,
                            name: str = FUSED_NAME) -> VotesRoutingSchedule:
     """Schedule of the routing BACKWARD, made on its own footprint: the
     replay on a cluster (``plan_routing_bwd_cluster``), each CTA's rows'
-    votes resident where they fit (K8) and streamed otherwise (K9).
+    votes resident where they fit (K8), streamed otherwise (K9), with
+    the logits in device memory where even that does not fit (K9g).
     ``n_passes`` counts votes computations per sample: 1 with resident
     votes, ``iters + 2`` streamed (``iters + 1`` replay passes, then one
     merged seed+reverse pass).  Raises ``PlanError`` naming the ``-bwd``
     op when nothing fits."""
-    emit = routing_bwd_emit_smem(caps_dim, j, jd)
     sched = plan_routing_bwd_cluster(num_caps, caps_dim, jd, j, iters=iters,
                                      batch=batch, smem_budget=smem_budget)
     if sched is not None:
         return sched
+    cols = emit_columns(caps_dim, j, jd, smem_budget)
+    emit = routing_bwd_emit_smem(caps_dim, j, jd, cols or jd // j)
     need = max(routing_bwd_cluster_smem(
-        "streamed", num_caps, 1, caps_dim, j, jd, CLUSTER_SIZES[-1]), emit)
+        STREAMED_GLOBAL, num_caps, 1, caps_dim, j, jd, CLUSTER_SIZES[-1]),
+        emit)
     raise PlanError(
         f"{name}{BWD_SUFFIX}: no feasible backward schedule: even a "
-        f"{CLUSTER_SIZES[-1]}-CTA cluster streaming block_i=1 needs {need} "
-        f"B of shared memory per CTA (with the emit's {emit} B), over the "
-        f"{smem_budget} B budget ({num_caps} capsules of {caps_dim}D -> "
-        f"{jd})")
+        f"{CLUSTER_SIZES[-1]}-CTA cluster streaming block_i=1 with its "
+        f"logits in device memory needs {need} B of shared memory per CTA "
+        f"(with the emit's {emit} B), over the {smem_budget} B budget "
+        f"({num_caps} capsules of {caps_dim}D -> {jd})")
 
 
 def votes_routing_bwd_global_bytes(batch: int, num_caps: int, caps_dim: int,
-                                   jd: int, j: int, n_passes: int) -> float:
+                                   jd: int, j: int, n_passes: int,
+                                   logits_j: int = 0,
+                                   emit_blocks: int = 1) -> float:
     """Bytes the routing backward requests from global memory per step.
     Replay, per sample: u once, W ``n_passes`` times, the cotangent, and
-    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written
-    (each cluster CTA keeps its rows' logits on chip).  Emit: those read
-    back with u and W once, du and dW written.  No u_hat or d u_hat term:
+    the logits ``b_{T-1}``, ``b_T`` plus ``ds_{T-1}``, ``ds_T`` written;
+    with ``logits_j`` (J of a ``streamed-global`` replay, whose working
+    logits are the b_T slab) the logits ``[I, J]`` also read and written
+    once a pass.  Emit: those read back with u and W once, du and dW
+    written; split over ``emit_blocks`` column blocks, each block's
+    partial of du written and read back.  No u_hat or d u_hat term:
     neither reaches device memory."""
     u = num_caps * caps_dim
     w = num_caps * jd * caps_dim
     state = 2 * num_caps * j + 2 * jd
-    replay = batch * (u + n_passes * w + jd + state)
+    replay = batch * (u + n_passes * w + jd + state
+                      + 2 * n_passes * num_caps * logits_j)
     emit = batch * (state + 2 * u) + 2 * w
+    if emit_blocks > 1:
+        emit += 2 * batch * emit_blocks * u
     return float((replay + emit) * ELEM_BYTES)
 
 
@@ -935,19 +1249,23 @@ def _conv_bwd_op(fwd: OpPlan, wl: MatmulWorkload, in_elems: int,
 
 def compile_plan(cfg: CapsNetConfig = CapsNetConfig(), *, batch: int = 1,
                  smem_budget: int = SMEM_BYTES, pipeline: bool = False,
-                 train: bool = False) -> ExecutionPlan:
+                 train: bool = False,
+                 dataflow: str = "resident") -> ExecutionPlan:
     """Compile ``cfg`` into the per-operation ExecutionPlan (memoized:
     plans are immutable, and equal arguments give the same object however
     they are spelled).  ``pipeline=True`` replaces PrimaryCaps and the
     first routing layer with ONE ``primary_routing`` op when its schedule
     fits, and keeps the per-op pair otherwise.  ``train=True`` appends the
-    backward ops (see the module note)."""
-    return _compile_plan(cfg, batch, smem_budget, pipeline, train)
+    backward ops (see the module note).  ``dataflow`` ("resident" or
+    "linebuf") picks the dataflow model whose profiles and phases the plan
+    reports; it changes no kernel schedule."""
+    return _compile_plan(cfg, batch, smem_budget, pipeline, train, dataflow)
 
 
 @functools.lru_cache(maxsize=64)         # keyed by value, not by spelling
 def _compile_plan(cfg: CapsNetConfig, batch: int, smem_budget: int,
-                  pipeline: bool, train: bool) -> ExecutionPlan:
+                  pipeline: bool, train: bool,
+                  dataflow: str) -> ExecutionPlan:
     c1_hw, pc_hw = cfg.conv1_out, cfg.pc_out
     conv1 = _conv_op(
         "Conv1", MatmulWorkload(m=batch * c1_hw ** 2,
@@ -1007,12 +1325,16 @@ def _compile_plan(cfg: CapsNetConfig, batch: int, smem_budget: int,
                 lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
                 iters=lay.iters, batch=batch, smem_budget=smem_budget,
                 name=lay.name)
+            cols = emit_columns(lay.in_dim, lay.num_caps, lay.jd,
+                                smem_budget)
             ops.append(OpPlan(
                 name=lay.name + BWD_SUFFIX, kernel="votes_routing_bwd",
                 block=sched.cluster, smem_bytes=sched.smem_bytes,
                 global_bytes=votes_routing_bwd_global_bytes(
                     batch, lay.in_caps, lay.in_dim, lay.jd, lay.num_caps,
-                    sched.n_passes),
+                    sched.n_passes,
+                    lay.num_caps if sched.mode == STREAMED_GLOBAL else 0,
+                    lay.jd // cols),
                 block_i=sched.block_i, mode=sched.mode,
                 n_passes=sched.n_passes))
         ops.append(_conv_bwd_op(pc_op, pc_wl, pc_in, smem_budget, True))
@@ -1023,8 +1345,10 @@ def _compile_plan(cfg: CapsNetConfig, batch: int, smem_budget: int,
             batch * cfg.image_hw ** 2 * cfg.in_channels, smem_budget,
             False))
 
+    if dataflow not in ("resident", "linebuf"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
     plan = ExecutionPlan(cfg=cfg, batch=batch, smem_budget=smem_budget,
-                         ops=tuple(ops), train=train)
+                         ops=tuple(ops), train=train, dataflow=dataflow)
     plan.validate()
     return plan
 

@@ -43,6 +43,26 @@
 //           dW[i], summing the batch inside the CTA in sample order
 //           (deterministic, no atomics).  d u_hat needs no votes at all.
 //
+// CIFAR-10's full-width halves (1024 capsules of 8D routed to 1024 x 8D,
+// J*D = 8192) fit neither launch in a CTA.  K9g, the replay's
+// "streamed-global" placement, keeps the rows' logits in device memory --
+// the sample's rows of the b_T slab it writes anyway, so pass T's update
+// leaves b_T in place -- and, since s_T and v_T are spent once ds_T is
+// formed, puts ds_T where s_T was and dv where v_T was: five [J*D]
+// vectors instead of seven (202,756 B at 16 CTAs a sample, block_i 1).
+// The arithmetic and its order are K9's, so every rank holds the same v
+// and ds bits, and the output equals K9's bit for bit where both run.
+// The emit, whose W[i] and dW[i] alone take 512 KB there, splits over
+// blocks of whole classes of the J*D columns (execplan.emit_columns):
+// CTA (i, k) rebuilds its classes' couplings from the row's whole logits
+// (the same max and sum as softmax_row, so the same bits), writes dW[i]
+// over its columns (each element the same sum as the unsplit emit's) and
+// its partial of du[b, i, :] over them, a warp a (sample, c) pair; a
+// second launch adds the partials in column-block order.  No atomics, so
+// a second launch repeats the bits; du's order differs from the unsplit
+// emit's, which is why the split is taken only where the row does not
+// fit.
+//
 // What bounds it: at MNIST width (u [16, 1152, 8], W [1152, 160, 8]) the
 // function needs the votes once plus the routing and emit arithmetic,
 // about 0.22 GFLOP, against 13 MB that it must move (u, W and g read, du
@@ -93,22 +113,45 @@ __device__ inline void softmax_row(const float* b, float* c, int J) {
   for (int j = 0; j < J; ++j) c[j] = c[j] / sum;
 }
 
+// The logits of one row, softmax_row's arithmetic, only the nj classes
+// from j0 written: the same max and the same sum in the same order, so
+// the same bits for those classes.
+__device__ inline void softmax_cols(const float* b, float* c, int J, int j0,
+                                    int nj) {
+  float m = -INFINITY;
+  for (int j = 0; j < J; ++j) m = fmaxf(m, b[j]);
+  float sum = 0.f;
+  for (int j = 0; j < J; ++j) sum += expf(b[j] - m);
+  for (int j = 0; j < nj; ++j) c[j] = expf(b[j0 + j] - m) / sum;
+}
+
 // The shared memory of one K8/K9 cluster CTA, in floats
 // (execplan.routing_bwd_cluster_smem models the same sum): the votes rows
 // with their couplings, then u and the logits of the CTA's rows, and s, v,
-// s_{T-1}, ds_T, dv and the two partials.
+// s_{T-1}, ds_T, dv and the two partials.  K9g (logits_global) keeps no
+// logits and five vectors: s_T / ds_T, v_T / dv, s_{T-1} and the partials.
 struct ClusterBwdLayout {
   int rows, vrows, total;
 };
 
 __host__ __device__ inline ClusterBwdLayout cluster_bwd_layout(
-    int I, int C, int J, int D, int cs, int resident, int block_i) {
+    int I, int C, int J, int D, int cs, int resident, int block_i,
+    int logits_global = 0) {
   ClusterBwdLayout L;
   L.rows = (I + cs - 1) / cs;
   L.vrows = resident ? L.rows : min(block_i, L.rows);
   const int jd = J * D;
-  L.total = L.vrows * (jd + 1 + J) + L.rows * (C + J) + 7 * jd;
+  L.total = logits_global
+                ? L.vrows * (jd + 1 + J) + L.rows * C + 5 * jd
+                : L.vrows * (jd + 1 + J) + L.rows * (C + J) + 7 * jd;
   return L;
+}
+
+// One emit CTA's shared memory in floats (execplan.routing_bwd_emit_smem):
+// W[i] and dW[i] over `cols` columns, then per chunk of samples u[i], the
+// couplings of the columns' classes and the columns' d u_hat.
+__host__ __device__ inline int emit_layout(int C, int J, int D, int cols) {
+  return 2 * cols * C + kEmitChunk * (C + 2 * (cols / D) + cols);
 }
 
 // K8's and K9's replay on the cluster core: the sample's rows split into
@@ -117,10 +160,12 @@ __host__ __device__ inline ClusterBwdLayout cluster_bwd_layout(
 // b_T in pass T; then every CTA forms ds_T = squash_vjp(s_T, g) (the same
 // in each), its rows' db_T and its partial of dv, which is reduced in rank
 // order like s; rank 0 writes ds_{T-1} = squash_vjp(s_{T-1}, dv) and ds_T.
-// K13's replay (kTwoPass) runs the passes on the unfused schedule.  Held
-// to 128 registers a thread, so that two CTAs of 113 KB (MNIST's resident
-// rows at cs = 8) share an SM.
-template <bool kTwoPass>
+// K13's replay (kTwoPass) runs the passes on the unfused schedule; K9g's
+// (kGlobal) keeps the rows' logits in their rows of b_last_out, the b_T
+// slab, and ds_T / dv in s_T's / v_T's place.  Held to 128 registers a
+// thread, so that two CTAs of 113 KB (MNIST's resident rows at cs = 8)
+// share an SM.
+template <bool kTwoPass, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 2)
 routing_bwd_cluster_kernel(const float* __restrict__ u,
                            const float* __restrict__ W,
@@ -135,7 +180,7 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   const int smp = blockIdx.x / cs;
   const int jd = J * D, ld = jd + 1;
   const ClusterBwdLayout L = cluster_bwd_layout(I, C, J, D, cs, resident,
-                                                block_i);
+                                                block_i, kGlobal);
   const int i0 = min(I, rank * L.rows);
   const int n = min(I, i0 + L.rows) - i0;
   const OwnedRows own{n, i0, max(n, 1), 0};
@@ -143,21 +188,28 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   sc.uh = smem;                                 // [vrows][J*D + 1]
   sc.c = sc.uh + L.vrows * ld;                  // [vrows][J]
   float* u_s = sc.c + L.vrows * J;              // [rows][C]
-  sc.b = u_s + L.rows * C;                      // [rows][J]
-  sc.s = sc.b + L.rows * J;
+  float* b_last = b_last_out + (size_t)smp * I * J;
+  if (kGlobal) {
+    sc.b = b_last + (size_t)i0 * J;             // the rows of the b_T slab
+    sc.s = u_s + L.rows * C;
+  } else {
+    sc.b = u_s + L.rows * C;                    // [rows][J]
+    sc.s = sc.b + L.rows * J;
+  }
   sc.v = sc.s + jd;
   float* s_prev = sc.v + jd;
-  float* ds = s_prev + jd;
-  float* dv = ds + jd;
-  sc.part = dv + jd;                            // [2][J*D]
+  float* ds = kGlobal ? sc.s : s_prev + jd;     // s_T is spent once ds_T is
+  float* dv = kGlobal ? sc.v : ds + jd;         // formed, v_T before dv
+  sc.part = kGlobal ? s_prev + jd : dv + jd;    // [2][J*D]
 
   const float* ub = u + ((size_t)smp * I + i0) * C;
   for (int e = threadIdx.x; e < n * C; e += blockDim.x) u_s[e] = ub[e];
   __syncthreads();
+  // Under kGlobal pass T's update leaves b_T in the slab itself.
   route_cluster(cl, sc, VotesOfW{u_s, W, own, C}, own, J, D, iters,
                 resident != 0, block_i, s_prev,
-                b_prev_out + (size_t)smp * I * J,
-                b_last_out + (size_t)smp * I * J, kTwoPass);
+                b_prev_out + (size_t)smp * I * J, kGlobal ? nullptr : b_last,
+                kTwoPass);
 
   // Seed + reverse: the partial of dv goes to the half of the partials that
   // pass T did not use (see routing_cluster.cuh).
@@ -252,50 +304,162 @@ routing_bwd_emit_kernel(const float* __restrict__ u,
   for (int e = threadIdx.x; e < jd * C; e += blockDim.x) dWi[e] = dw_s[e];
 }
 
+// The emit split over column blocks of `cols` (whole classes) of J*D: CTA
+// (i = blockIdx.x, k = blockIdx.y) takes the columns [k cols, (k+1) cols)
+// of capsule i for every sample, kEmitChunk samples at a time: dW[i] over
+// them, and du_part[k][b, i, :] = sum over them of d u_hat . W[i], a warp a
+// (sample, c) pair, its lanes striding the columns, then a shuffle sum.
+__global__ void __launch_bounds__(kThreads)
+routing_bwd_emit_cols_kernel(const float* __restrict__ u,
+                             const float* __restrict__ W,
+                             const float* __restrict__ b_prev,
+                             const float* __restrict__ b_last,
+                             const float* __restrict__ ds_all,
+                             float* __restrict__ du_part,
+                             float* __restrict__ dW, int B, int I, int C,
+                             int J, int D, int cols) {
+  extern __shared__ float smem[];
+  const int jd = J * D, i = blockIdx.x, k = blockIdx.y;
+  const int n0 = k * cols, nj = cols / D, j0 = n0 / D;
+  float* w_s = smem;                      // [cols][C] W[i, n0:n0+cols]
+  float* dw_s = w_s + cols * C;           // [cols][C] dW accumulator
+  float* u_c = dw_s + cols * C;           // [chunk][C]
+  float* c_c = u_c + kEmitChunk * C;      // [chunk][2][nj]: c_T, c_{T-1}
+  float* duh = c_c + kEmitChunk * 2 * nj; // [chunk][cols]
+  const float* Wi = W + ((size_t)i * jd + n0) * C;
+  for (int e = threadIdx.x; e < cols * C; e += blockDim.x) {
+    w_s[e] = Wi[e];
+    dw_s[e] = 0.f;
+  }
+  const float* ds_prev = ds_all;
+  const float* ds_last = ds_all + (size_t)B * jd;
+  float* part = du_part + (size_t)k * B * I * C;
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int b0 = 0; b0 < B; b0 += kEmitChunk) {
+    const int nb = min(kEmitChunk, B - b0);
+    __syncthreads();                      // the previous chunk is consumed
+    for (int e = threadIdx.x; e < nb * C; e += blockDim.x)
+      u_c[e] = u[((size_t)(b0 + e / C) * I + i) * C + e % C];
+    for (int e = threadIdx.x; e < 2 * nb; e += blockDim.x) {
+      const int bb = e / 2, last = e % 2 == 0;
+      const float* logits = last ? b_last : b_prev;
+      softmax_cols(logits + ((size_t)(b0 + bb) * I + i) * J, c_c + e * nj, J,
+                   j0, nj);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nb * cols; e += blockDim.x) {
+      const int bb = e / cols, n = e % cols, j = n / D;
+      const size_t row = (size_t)(b0 + bb) * jd + n0 + n;
+      duh[e] = fmaf(c_c[(2 * bb) * nj + j], ds_last[row],
+                    c_c[(2 * bb + 1) * nj + j] * ds_prev[row]);
+    }
+    __syncthreads();
+    for (int p = threadIdx.x / 32; p < nb * C; p += nwarps) {
+      const int bb = p / C, cc = p % C;
+      float a = 0.f;
+      for (int n = lane; n < cols; n += 32)
+        a = fmaf(duh[bb * cols + n], w_s[n * C + cc], a);
+      a = warp_sum(a);
+      if (lane == 0) part[((size_t)(b0 + bb) * I + i) * C + cc] = a;
+    }
+    for (int e = threadIdx.x; e < cols * C; e += blockDim.x) {
+      const int n = e / C, cc = e % C;
+      float a = dw_s[e];
+      for (int bb = 0; bb < nb; ++bb)
+        a = fmaf(duh[bb * cols + n], u_c[bb * C + cc], a);
+      dw_s[e] = a;
+    }
+  }
+  __syncthreads();
+  float* dWi = dW + ((size_t)i * jd + n0) * C;
+  for (int e = threadIdx.x; e < cols * C; e += blockDim.x) dWi[e] = dw_s[e];
+}
+
+// du[e] = the nk column blocks' partials of element e, added in block
+// order.
+__global__ void __launch_bounds__(kThreads)
+du_blocks_sum_kernel(const float* __restrict__ du_part,
+                     float* __restrict__ du, int nk, size_t total) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  float a = 0.f;
+  for (int k = 0; k < nk; ++k) a += du_part[(size_t)k * total + e];
+  du[e] = a;
+}
+
+// The emit of whole rows where emit_cols is J*D (the kernel as it always
+// ran), else the column-split emit into du_part and the sum of its
+// partials.  emit_smem must equal the layout at emit_cols.
 cudaError_t launch_emit(const float* u, const float* W, const float* b_prev,
-                        const float* b_last, const float* ds, float* du,
-                        float* dW, int B, int I, int C, int J, int D,
-                        int emit_smem, cudaStream_t s) {
+                        const float* b_last, const float* ds, float* du_part,
+                        float* du, float* dW, int B, int I, int C, int J,
+                        int D, int emit_cols, int emit_smem, cudaStream_t s) {
+  const int jd = J * D;
+  if (emit_cols < D || emit_cols % D || jd % emit_cols ||
+      emit_layout(C, J, D, emit_cols) * (int)sizeof(float) != emit_smem ||
+      (emit_cols < jd && !du_part))
+    return cudaErrorInvalidValue;
+  if (emit_cols == jd) {
+    cudaError_t err = cudaFuncSetAttribute(
+        routing_bwd_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        emit_smem);
+    if (err != cudaSuccess) return err;
+    routing_bwd_emit_kernel<<<I, kThreads, emit_smem, s>>>(
+        u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      routing_bwd_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      emit_smem);
+      routing_bwd_emit_cols_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, emit_smem);
   if (err != cudaSuccess) return err;
-  routing_bwd_emit_kernel<<<I, kThreads, emit_smem, s>>>(
-      u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D);
+  const int nk = jd / emit_cols;
+  routing_bwd_emit_cols_kernel<<<dim3(I, nk), kThreads, emit_smem, s>>>(
+      u, W, b_prev, b_last, ds, du_part, dW, B, I, C, J, D, emit_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)B * I * C;
+  du_blocks_sum_kernel<<<(unsigned)((total + kThreads - 1) / kThreads),
+                         kThreads, 0, s>>>(du_part, du, nk, total);
   return cudaGetLastError();
 }
 
-// Checks and launches the replay on B clusters of cs CTAs (K8, K9, or
-// K13 with two_pass and streamed votes), then the emit.
+// Checks and launches the replay on B clusters of cs CTAs (K8, K9, K13
+// with two_pass and streamed votes, or K9g with logits_global and
+// streamed votes), then the emit.
 cudaError_t launch_cluster_bwd(const float* u, const float* W, const float* g,
                                float* b_prev, float* b_last, float* ds,
-                               float* du, float* dW, int B, int I, int C,
-                               int J, int D, int iters, int resident,
-                               int block_i, int cs, int smem_bytes,
-                               int emit_smem, int two_pass,
+                               float* du_part, float* du, float* dW, int B,
+                               int I, int C, int J, int D, int iters,
+                               int resident, int block_i, int cs,
+                               int smem_bytes, int emit_cols, int emit_smem,
+                               int two_pass, int logits_global,
                                cudaStream_t s) {
   if (B < 1 || I < 1 || iters < 1 || block_i < 1 || cs < 1 || cs > 16 ||
-      (two_pass && resident) ||
-      cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
+      (two_pass && resident) || (logits_global && (resident || two_pass)) ||
+      cluster_bwd_layout(I, C, J, D, cs, resident, block_i, logits_global)
+                  .total *
               (int)sizeof(float) != smem_bytes)
     return cudaErrorInvalidValue;
   cudaError_t err = launch_clusters(
-      two_pass ? routing_bwd_cluster_kernel<true>
-               : routing_bwd_cluster_kernel<false>,
+      logits_global ? routing_bwd_cluster_kernel<false, true>
+      : two_pass    ? routing_bwd_cluster_kernel<true, false>
+                    : routing_bwd_cluster_kernel<false, false>,
       B, cs, smem_bytes, s, u, W, g, b_prev, b_last, ds, B, I, C, J, D,
       iters, resident, block_i);
   if (err != cudaSuccess) return err;
-  return launch_emit(u, W, b_prev, b_last, ds, du, dW, B, I, C, J, D,
-                     emit_smem, s);
+  return launch_emit(u, W, b_prev, b_last, ds, du_part, du, dW, B, I, C, J,
+                     D, emit_cols, emit_smem, s);
 }
 
 }  // namespace repro
 
 // Every entry: u [B, I, C], W [I, J*D, C], g [B, J*D] -> du [B, I, C],
 // dW [I, J*D, C].  Scratch in global memory: b_prev, b_last [B, I, J] (the
-// logits b_{T-1}, b_T) and ds [2, B, J*D] (ds_{T-1}, ds_T).  smem_bytes /
-// emit_smem are the plan's footprints (execplan.routing_bwd_cluster_smem /
-// routing_bwd_emit_smem).
+// logits b_{T-1}, b_T), ds [2, B, J*D] (ds_{T-1}, ds_T) and, where the
+// emit splits over column blocks, du_part [J*D / emit_cols, B, I, C]
+// (null otherwise).  smem_bytes / emit_smem are the plan's footprints
+// (execplan.routing_bwd_cluster_smem / routing_bwd_emit_smem at
+// emit_cols, execplan.emit_columns).
 
 // The kernel's own shared-memory layout in bytes (execplan models it).
 REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
@@ -305,20 +469,49 @@ REPRO_EXPORT int routing_bwd_cluster_smem_bytes(int I, int C, int J, int D,
          (int)sizeof(float);
 }
 
+// K9g's replay layout (streamed votes, logits in device memory) in bytes.
+REPRO_EXPORT int routing_bwd_global_smem_bytes(int I, int C, int J, int D,
+                                               int cs, int block_i) {
+  return repro::cluster_bwd_layout(I, C, J, D, cs, 0, block_i, 1).total *
+         (int)sizeof(float);
+}
+
+// The emit's layout in bytes at emit_cols columns a CTA.
+REPRO_EXPORT int routing_bwd_emit_smem_bytes(int C, int J, int D,
+                                             int emit_cols) {
+  return repro::emit_layout(C, J, D, emit_cols) * (int)sizeof(float);
+}
+
 // K8 (resident != 0: the CTAs' votes in shared memory) and K9: the replay
-// on B clusters of cs CTAs, then the emit; smem_bytes must equal the
-// kernel's layout.
+// on B clusters of cs CTAs, then the emit (split over emit_cols columns a
+// CTA where emit_cols < J*D); smem_bytes and emit_smem must equal the
+// kernels' layouts.
 REPRO_EXPORT int routing_bwd_cluster_f32(const float* u, const float* W,
                                          const float* g, float* b_prev,
-                                         float* b_last, float* ds, float* du,
+                                         float* b_last, float* ds,
+                                         float* du_part, float* du,
                                          float* dW, int B, int I, int C,
                                          int J, int D, int iters,
                                          int resident, int block_i, int cs,
-                                         int smem_bytes, int emit_smem,
-                                         void* stream) {
-  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du, dW, B, I,
-                                   C, J, D, iters, resident, block_i, cs,
-                                   smem_bytes, emit_smem, 0,
+                                         int smem_bytes, int emit_cols,
+                                         int emit_smem, void* stream) {
+  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du_part, du,
+                                   dW, B, I, C, J, D, iters, resident,
+                                   block_i, cs, smem_bytes, emit_cols,
+                                   emit_smem, 0, 0, (cudaStream_t)stream);
+}
+
+// K9g, the plan's "streamed-global" backward: K9's streamed replay with
+// the rows' logits in b_last (which ends holding b_T) and five [J*D]
+// vectors a CTA, then the emit as routing_bwd_cluster_f32's.
+REPRO_EXPORT int routing_bwd_global_cluster_f32(
+    const float* u, const float* W, const float* g, float* b_prev,
+    float* b_last, float* ds, float* du_part, float* du, float* dW, int B,
+    int I, int C, int J, int D, int iters, int block_i, int cs,
+    int smem_bytes, int emit_cols, int emit_smem, void* stream) {
+  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du_part, du,
+                                   dW, B, I, C, J, D, iters, 0, block_i, cs,
+                                   smem_bytes, emit_cols, emit_smem, 0, 1,
                                    (cudaStream_t)stream);
 }
 
@@ -329,15 +522,52 @@ REPRO_EXPORT int routing_bwd_cluster_occupancy(int I, int C, int J, int D,
                                                int block_i, int* out) {
   using namespace repro;
   return cluster_occupancy(
-      routing_bwd_cluster_kernel<false>, cs,
+      routing_bwd_cluster_kernel<false, false>, cs,
       cluster_bwd_layout(I, C, J, D, cs, resident, block_i).total *
           (int)sizeof(float),
       out);
 }
 
+// The same of K9g's replay.
+REPRO_EXPORT int routing_bwd_global_occupancy(int I, int C, int J, int D,
+                                              int cs, int block_i,
+                                              int* out) {
+  using namespace repro;
+  return cluster_occupancy(
+      routing_bwd_cluster_kernel<false, true>, cs,
+      cluster_bwd_layout(I, C, J, D, cs, 0, block_i, 1).total *
+          (int)sizeof(float),
+      out);
+}
+
+// out = {CTAs of the emit an SM holds at once, static shared bytes, max
+// dynamic shared bytes, registers a thread} of the emit at emit_cols
+// columns a CTA (the split kernel where emit_cols < J*D).
+REPRO_EXPORT int routing_bwd_emit_occupancy(int C, int J, int D,
+                                            int emit_cols, int* out) {
+  using namespace repro;
+  const void* kernel = emit_cols < J * D
+                           ? (const void*)routing_bwd_emit_cols_kernel
+                           : (const void*)routing_bwd_emit_kernel;
+  const int smem = emit_layout(C, J, D, emit_cols) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = fa.maxDynamicSharedSizeBytes;
+  out[3] = fa.numRegs;
+  return cudaSuccess;
+}
+
 // K13, the unfused oracle: K9's streamed replay (block_i rows at a time) on
 // B clusters of cs CTAs with each pass after the first a b-pass and an
-// s-pass, then the emit.
+// s-pass, then the emit of whole rows.
 REPRO_EXPORT int routing_bwd_2pass_f32(const float* u, const float* W,
                                        const float* g, float* b_prev,
                                        float* b_last, float* ds, float* du,
@@ -345,8 +575,8 @@ REPRO_EXPORT int routing_bwd_2pass_f32(const float* u, const float* W,
                                        int D, int iters, int block_i, int cs,
                                        int smem_bytes, int emit_smem,
                                        void* stream) {
-  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, du, dW, B, I,
-                                   C, J, D, iters, 0, block_i, cs,
-                                   smem_bytes, emit_smem, 1,
+  return repro::launch_cluster_bwd(u, W, g, b_prev, b_last, ds, nullptr, du,
+                                   dW, B, I, C, J, D, iters, 0, block_i, cs,
+                                   smem_bytes, J * D, emit_smem, 1, 0,
                                    (cudaStream_t)stream);
 }

@@ -99,13 +99,16 @@ def planned_votes_routing(num_caps: int, caps_dim: int, jd: int,
             sched.cluster.cluster if sched.cluster else None)
 
 
-def _bwd_schedule(plan, op_name: str
-                  ) -> tuple[str | None, int | None, int | None]:
-    """The plan's ``<op_name>-bwd`` routing schedule ``(mode, block_i,
-    cluster)``, or all None for the backward to plan."""
+def _bwd_schedule(plan, op_name: str) -> dict:
+    """The plan's ``<op_name>-bwd`` routing schedule as ``bwd_mode``,
+    ``bwd_block_i`` and ``bwd_cluster`` (all None for the backward to
+    plan), with the plan's budget, under which its emit splits."""
     bwd = plan.bwd_op(op_name) if plan is not None else None
-    return ((bwd.mode, bwd.block_i, bwd.cluster) if bwd is not None
-            else (None, None, None))
+    return dict(
+        bwd_mode=bwd.mode if bwd else None,
+        bwd_block_i=bwd.block_i if bwd else None,
+        bwd_cluster=bwd.cluster if bwd else None,
+        bwd_smem_budget=plan.smem_budget if plan is not None else SMEM_BYTES)
 
 
 def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
@@ -127,11 +130,9 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *, plan=None,
         mode, block_i, cluster = planned_votes_routing(
             u.shape[1], u.shape[2], w.shape[1], num_classes, iters,
             u.shape[0])
-    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, op_name)
     out = _votes_routing(u, w, iters=iters, num_classes=num_classes,
                          mode=mode, block_i=block_i, cluster=cluster,
-                         bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                         op_name=op_name, bwd_cluster=bwd_cluster)
+                         op_name=op_name, **_bwd_schedule(plan, op_name))
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_VOTES_ROUTING, out)
     return out
@@ -148,11 +149,9 @@ def _layer_schedule(lay, plan, batch: int) -> RoutingStatics:
     else:
         mode, block_i, cluster = planned_votes_routing(
             lay.in_caps, lay.in_dim, lay.jd, lay.num_caps, lay.iters, batch)
-    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, lay.name)
     return RoutingStatics(iters=lay.iters, num_classes=lay.num_caps,
-                          mode=mode, block_i=block_i, bwd_mode=bwd_mode,
-                          bwd_block_i=bwd_block_i, op_name=lay.name,
-                          bwd_cluster=bwd_cluster, cluster=cluster)
+                          mode=mode, block_i=block_i, op_name=lay.name,
+                          cluster=cluster, **_bwd_schedule(plan, lay.name))
 
 
 def res_caps_segment(x: torch.Tensor, ws, pairs, *,
@@ -212,7 +211,6 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
             oh * ow, k, n_ch, num_caps, caps_dim, jd, num_classes, iters,
             x.shape[0])
     routing_op_name = routing_op_name or execplan.FUSED_NAME
-    bwd_mode, bwd_block_i, bwd_cluster = _bwd_schedule(plan, routing_op_name)
     pc_bwd = plan.bwd_op("PrimaryCaps") if plan is not None else None
     if pc_bwd is not None:
         conv_block, dx_block = pc_bwd.block.tiles, pc_bwd.dx_block.tiles
@@ -222,8 +220,7 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     out = _primary_routing(x, w_pc, b_pc, w_cc, stride=stride, iters=iters,
                            num_classes=num_classes, mode=mode,
                            block_i=block_i, cluster=cluster,
-                           bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                           bwd_cluster=bwd_cluster,
+                           **_bwd_schedule(plan, routing_op_name),
                            routing_op_name=routing_op_name,
                            conv_block=conv_block, dx_block=dx_block)
     if faults.enabled():                 # chaos-test site; zero cost when off

@@ -209,6 +209,7 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
                     bwd_mode: str | None = None,
                     bwd_block_i: int | None = None,
                     bwd_cluster: int | None = None,
+                    bwd_smem_budget: int = SMEM_BYTES,
                     routing_op_name: str = FUSED_NAME,
                     conv_block: tuple[int, ...] = (64, 16, 64),
                     dx_block: tuple[int, ...] = (64, 16, 64)
@@ -221,9 +222,9 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     sample on ``cluster`` CTAs (see ``primary_routing_patches``).
     Differentiable (see the module note): the routing backward runs as
     ``votes_routing``'s does for ``bwd_mode`` / ``bwd_block_i`` /
-    ``bwd_cluster`` / ``routing_op_name``, the conv backward on
-    ``conv_block`` (pre-activation recompute) and ``dx_block`` (dpatches)
-    tiles."""
+    ``bwd_cluster`` / ``bwd_smem_budget`` / ``routing_op_name``, the conv
+    backward on ``conv_block`` (pre-activation recompute) and
+    ``dx_block`` (dpatches) tiles."""
     if x.dim() != 4 or w_pc.dim() != 4 or w_pc.shape[2] != x.shape[3]:
         raise ValueError(f"primary_routing: x {tuple(x.shape)} and W_pc "
                          f"{tuple(w_pc.shape)} must be NHWC and HWIO with "
@@ -231,7 +232,8 @@ def primary_routing(x: torch.Tensor, w_pc: torch.Tensor, b_pc: torch.Tensor,
     rt = routing_statics(w_cc.shape[0], w_cc.shape[1], iters=iters,
                          num_classes=num_classes, mode=mode, block_i=block_i,
                          bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
-                         op_name=routing_op_name, bwd_cluster=bwd_cluster)
+                         op_name=routing_op_name, bwd_cluster=bwd_cluster,
+                         bwd_smem_budget=bwd_smem_budget)
     st = PrimaryStatics(stride=stride, routing=rt, cluster=cluster, conv_block=tuple(conv_block),
                         dx_block=tuple(dx_block))
     return _PrimaryRouting.apply(x, w_pc, b_pc, w_cc, st)

@@ -72,9 +72,14 @@ VOTES_ROUTING_GLOBAL = Kernel("votes_routing",
 ROUTING_BWD_2PASS = Kernel("votes_routing_bwd", "routing_bwd_2pass_f32",
                            [_P] * 8 + [_I] * 10 + [_P])               # K13
 # K8 (resident votes), K9 (streamed) and K13 (K9 on the unfused schedule):
-# the replay on a thread-block cluster per sample, then the emit.
+# the replay on a thread-block cluster per sample, then the emit (split
+# over column blocks where a whole row fits no CTA).
 ROUTING_BWD_CLUSTER = Kernel("votes_routing_bwd", "routing_bwd_cluster_f32",
-                             [_P] * 8 + [_I] * 11 + [_P])
+                             [_P] * 9 + [_I] * 12 + [_P])
+# K9g: K9's streamed replay with the logits in device memory, then the emit.
+ROUTING_BWD_GLOBAL = Kernel("votes_routing_bwd",
+                            "routing_bwd_global_cluster_f32",
+                            [_P] * 9 + [_I] * 11 + [_P])
 
 
 def _votes_block(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -305,12 +310,13 @@ def cluster_routing_plain(u: torch.Tensor, w: torch.Tensor, *, iters: int,
 @functools.lru_cache(maxsize=64)            # the batch is a key: bounded
 def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
                         num_classes: int, iters: int, batch: int,
-                        votes: str) -> int:
-    """The planner's K8/K9 cluster size at ``batch`` for ``votes``
-    (``resident`` or ``streamed``; the oracle K13 takes K9's,
-    ``streamed``)."""
+                        votes: str, smem_budget: int = SMEM_BYTES) -> int:
+    """The planner's K8/K9/K9g cluster size at ``batch`` for ``votes``
+    (``resident``, ``streamed`` or ``streamed-global``; the oracle K13
+    takes K9's, ``streamed``)."""
     sched = execplan.plan_routing_bwd_cluster(
         num_caps, caps_dim, jd, num_classes, iters=iters, batch=batch,
+        smem_budget=smem_budget,
         votes="streamed" if votes == ORACLE_MODE else votes)
     if sched is None:
         raise ValueError(f"votes_routing_bwd: no cluster of "
@@ -320,30 +326,51 @@ def planned_bwd_cluster(num_caps: int, caps_dim: int, jd: int,
 
 
 def bwd_schedule(u: torch.Tensor, w: torch.Tensor, *, iters: int,
-                 num_classes: int, mode: str,
-                 cluster: int | None) -> tuple[str, int]:
-    """The backward's ``(mode, cluster)``: resident (K8), streamed (K9)
-    and the oracle (K13, K9's streamed votes on the unfused schedule) run
-    on a cluster, whose CTAs keep their rows' logits on chip, so
-    ``streamed-global`` is ``streamed`` there, and without ``cluster``
-    they take the planner's size at this batch."""
-    if mode == STREAMED_GLOBAL:
-        mode = "streamed"
+                 num_classes: int, mode: str, cluster: int | None,
+                 smem_budget: int = SMEM_BYTES) -> tuple[str, int]:
+    """The backward's ``(mode, cluster)``: resident (K8), streamed (K9),
+    streamed-global (K9g: K9 with the logits in device memory) and the
+    oracle (K13, K9's streamed votes on the unfused schedule) run on a
+    cluster, and without ``cluster`` they take the planner's size at this
+    batch and budget."""
     if cluster is None:
         cluster = planned_bwd_cluster(u.shape[1], u.shape[2], w.shape[1],
-                                      num_classes, iters, u.shape[0], mode)
+                                      num_classes, iters, u.shape[0], mode,
+                                      smem_budget)
     return mode, cluster
+
+
+def emit_blocks(duh: torch.Tensor, w: torch.Tensor,
+                cols: int) -> torch.Tensor:
+    """The emit's du from d u_hat [B, I, J*D] and w [I, J*D, C]: each
+    block of ``cols`` columns' partial, summed in block order as the split
+    emit sums them (one block, the whole row, where ``cols`` is J*D)."""
+    return sum(torch.einsum("bin,inc->bic", duh[..., n0:n0 + cols],
+                            w[:, n0:n0 + cols])
+               for n0 in range(0, w.shape[1], cols))
+
+
+def _emit_columns(c: int, j: int, jd: int, smem_budget: int) -> int:
+    cols = execplan.emit_columns(c, j, jd, smem_budget)
+    if cols is None:
+        raise ValueError(f"votes_routing_bwd: even one class of the emit "
+                         f"({routing_bwd_emit_smem(c, j, jd, jd // j)} B) "
+                         f"is over the {smem_budget} B budget")
+    return cols
 
 
 def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
                             g: torch.Tensor, *, iters: int, num_classes: int,
                             mode: str, block_i: int,
-                            cluster: int | None = None
+                            cluster: int | None = None,
+                            smem_budget: int = SMEM_BYTES
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du, dW) of ``votes_routing`` at output cotangent ``g [B, J*D]``,
     in the reference's stop-gradient convention, by the kernels' schedule
     (``bwd_schedule``): a cluster of ``cluster`` CTAs, whose ``mode``
-    places each CTA's votes (K8 resident, K9 and K13 streamed).
+    places each CTA's votes (K8 resident, K9, K9g and K13 streamed; K9g's
+    logits in device memory, the same arithmetic), and the emit's column
+    blocks at ``smem_budget`` (``execplan.emit_columns``).
 
     Replay the forward (``iters + 1`` passes; under ``streamed-2pass`` a
     b-pass before each s-pass after the first), keeping ``b_{T-1}``,
@@ -359,11 +386,13 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     logits updates are u_hat-constant, so nothing reaches further back
     than iteration T-1 (the reference's ``_streamed_bwd_tail``).  Sums
     over rows (s, and the reverse pass's dv) are taken rank by rank and
-    the partials added in rank order, as the cluster reduces them."""
+    the partials added in rank order, as the cluster reduces them; du
+    over the emit's column blocks in block order (``emit_blocks``)."""
     check_schedule(u.shape[1], w.shape[1], iters=iters,
                    num_classes=num_classes, mode=mode, block_i=block_i)
     mode, cluster = bwd_schedule(u, w, iters=iters, num_classes=num_classes,
-                                 mode=mode, cluster=cluster)
+                                 mode=mode, cluster=cluster,
+                                 smem_budget=smem_budget)
     bsz, i_dim, _ = u.shape
     jd = w.shape[1]
     j, d = num_classes, jd // num_classes
@@ -394,7 +423,7 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
     duh = (torch.softmax(b, dim=2)[..., None] * ds_last[:, None]
            + torch.softmax(b_prev, dim=2)[..., None] * ds_prev[:, None]
            ).reshape(bsz, -1, jd)
-    du = torch.einsum("bin,inc->bic", duh, w)
+    du = emit_blocks(duh, w, _emit_columns(u.shape[2], j, jd, smem_budget))
     dw = torch.einsum("bin,bic->inc", duh, u)
     return du, dw
 
@@ -402,18 +431,21 @@ def votes_routing_bwd_plain(u: torch.Tensor, w: torch.Tensor,
 def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                       iters: int = 3, num_classes: int = 10,
                       mode: str = "streamed", block_i: int = 128,
-                      cluster: int | None = None
+                      cluster: int | None = None,
+                      smem_budget: int = SMEM_BYTES
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """(du [B, I, C], dW [I, J*D, C]) of ``votes_routing`` at cotangent
     ``g [B, J*D]``.  K8 and K9 replay each sample on a cluster of
-    ``cluster`` CTAs, their votes ``resident`` (K8) or ``streamed`` (K9,
-    also for ``streamed-global``) as ``mode`` says; without ``cluster``
-    the planner's size at this batch (``bwd_schedule``).
-    ``streamed-2pass`` is K13: K9's replay on the unfused schedule.  On
-    CUDA neither u_hat nor d u_hat reaches device memory: the replay
-    writes only the logits ``b_{T-1}``, ``b_T`` and ``ds_{T-1}``,
-    ``ds_T``; a per-capsule emit rebuilds d u_hat on chip and sums dW
-    over the batch inside the CTA.  A refused cluster launch raises;
+    ``cluster`` CTAs, their votes ``resident`` (K8) or ``streamed`` (K9)
+    as ``mode`` says, and ``streamed-global`` is K9g (K9 with the logits
+    in device memory); without ``cluster`` the planner's size at this
+    batch (``bwd_schedule``).  ``streamed-2pass`` is K13: K9's replay on
+    the unfused schedule.  On CUDA neither u_hat nor d u_hat reaches
+    device memory: the replay writes only the logits ``b_{T-1}``,
+    ``b_T`` and ``ds_{T-1}``, ``ds_T``; a per-capsule emit rebuilds d
+    u_hat on chip and sums dW over the batch inside the CTA, split over
+    column blocks of J*D where a row fits no CTA at ``smem_budget``
+    (``execplan.emit_columns``).  A refused cluster launch raises;
     nothing falls back."""
     _check_shapes(u, w)
     bsz, i_dim, c = u.shape
@@ -425,31 +457,48 @@ def votes_routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
         raise ValueError(f"votes_routing_bwd: a cluster of {cluster} CTAs; "
                          f"clusters are {CLUSTER_SIZES} CTAs")
     mode, cluster = bwd_schedule(u, w, iters=iters, num_classes=num_classes,
-                                 mode=mode, cluster=cluster)
+                                 mode=mode, cluster=cluster,
+                                 smem_budget=smem_budget)
     if g.shape != (bsz, jd):
         raise ValueError(f"votes_routing_bwd: cotangent {tuple(g.shape)}, "
                          f"expected {(bsz, jd)}")
     if on_cpu("votes_routing_bwd", u, w, g):
         return votes_routing_bwd_plain(u, w, g, iters=iters,
                                        num_classes=num_classes, mode=mode,
-                                       block_i=block_i, cluster=cluster)
+                                       block_i=block_i, cluster=cluster,
+                                       smem_budget=smem_budget)
     j = num_classes
     resident = mode == "resident"
-    smem = routing_bwd_cluster_smem("resident" if resident else "streamed",
-                                    i_dim, block_i, c, j, jd, cluster)
-    emit = routing_bwd_emit_smem(c, j, jd)
+    smem = routing_bwd_cluster_smem(
+        mode if mode in ("resident", STREAMED_GLOBAL) else "streamed",
+        i_dim, block_i, c, j, jd, cluster)
+    cols = _emit_columns(c, j, jd, smem_budget)
+    if mode == ORACLE_MODE and cols < jd:
+        raise ValueError(f"votes_routing_bwd: the oracle K13 emits whole "
+                         f"rows, and a row of {jd} columns fits no CTA")
+    emit = routing_bwd_emit_smem(c, j, jd, cols)
     _check_smem("votes_routing_bwd", mode, max(smem, emit))
     f32 = dict(dtype=u.dtype, device=u.device)
     logits = torch.empty((2, bsz, i_dim, j), **f32)      # b_{T-1}, b_T
     ds = torch.empty((2, bsz, jd), **f32)                # ds_{T-1}, ds_T
     du = torch.empty((bsz, i_dim, c), **f32)
     dw = torch.empty((i_dim, jd, c), **f32)
-    entry, votes = ((ROUTING_BWD_2PASS, []) if mode == ORACLE_MODE
-                    else (ROUTING_BWD_CLUSTER, [int(resident)]))
+    # The split emit's partials of du, one [B, I, C] a column block.
+    part = (torch.empty((jd // cols, bsz, i_dim, c), **f32) if cols < jd
+            else None)
+    if mode == ORACLE_MODE:
+        entry, args = ROUTING_BWD_2PASS, [ptr(du)]
+    else:
+        entry = ROUTING_BWD_GLOBAL if mode == STREAMED_GLOBAL \
+            else ROUTING_BWD_CLUSTER
+        args = [None if part is None else ptr(part), ptr(du)]
+    votes = ([] if mode in (ORACLE_MODE, STREAMED_GLOBAL)
+             else [int(resident)])
+    tile = [cols] if mode != ORACLE_MODE else []
     try:
         entry(ptr(u), ptr(w), ptr(g), ptr(logits[0]), ptr(logits[1]),
-              ptr(ds), ptr(du), ptr(dw), bsz, i_dim, c, j, jd // j, iters,
-              *votes, block_i, cluster, smem, emit, stream_of(u))
+              ptr(ds), *args, ptr(dw), bsz, i_dim, c, j, jd // j, iters,
+              *votes, block_i, cluster, smem, *tile, emit, stream_of(u))
     except RuntimeError as err:
         raise RuntimeError(
             f"votes_routing_bwd: the launch of {bsz} clusters of "
@@ -484,25 +533,42 @@ def empty_launch(bsz: int, cluster: int, smem: int,
 def bwd_cluster_occupancy(i_dim: int, caps_dim: int, num_classes: int,
                           out_dim: int, *, mode: str, block_i: int,
                           cluster: int) -> dict[str, int]:
-    """On the card: how many K8/K9 replay clusters of this schedule run at
-    once, and the kernel's attributes (``build.cluster_query``)."""
+    """On the card: how many K8/K9/K9g replay clusters of this schedule
+    run at once, and the kernel's attributes (``build.cluster_query``)."""
+    if mode == STREAMED_GLOBAL:
+        return cluster_query("votes_routing_bwd",
+                             "routing_bwd_global_occupancy", i_dim, caps_dim,
+                             num_classes, out_dim, cluster, block_i)
     return cluster_query("votes_routing_bwd",
                          "routing_bwd_cluster_occupancy", i_dim, caps_dim,
                          num_classes, out_dim, cluster,
                          int(mode == "resident"), block_i)
 
 
+def emit_occupancy(caps_dim: int, num_classes: int, out_dim: int,
+                   cols: int) -> dict[str, int]:
+    """On the card: the emit at ``cols`` columns a CTA (the split kernel
+    below J*D) -- its CTAs an SM holds at once (under
+    ``max_active_clusters``) and ``cudaFuncGetAttributes``'s shared
+    memory and registers."""
+    return cluster_query("votes_routing_bwd", "routing_bwd_emit_occupancy",
+                         caps_dim, num_classes, out_dim, cols)
+
+
 @functools.lru_cache(maxsize=64)            # bounded like the plan caches
 def planned_votes_routing_bwd(num_caps: int, caps_dim: int, jd: int,
                               num_classes: int, iters: int,
-                              name: str = FUSED_NAME, batch: int = 1
+                              name: str = FUSED_NAME, batch: int = 1,
+                              smem_budget: int = SMEM_BYTES
                               ) -> tuple[str, int, int | None]:
     """Memoized (mode, block_i, cluster) decision for the routing
-    backward at ``batch``; the planner's ``PlanError`` names the
-    ``<name>-bwd`` op."""
+    backward at ``batch`` and ``smem_budget``; the planner's
+    ``PlanError`` names the ``<name>-bwd`` op."""
     sched = execplan.plan_votes_routing_bwd(num_caps, caps_dim, jd,
                                             num_classes, iters=iters,
-                                            batch=batch, name=name)
+                                            batch=batch,
+                                            smem_budget=smem_budget,
+                                            name=name)
     return (sched.mode, sched.block_i,
             sched.cluster.cluster if sched.cluster else None)
 
@@ -511,7 +577,8 @@ class RoutingStatics(NamedTuple):
     """One votes+routing call: its forward schedule (``cluster`` None: the
     planner's K3/K4 size at the call's batch), and the
     backward's when the caller fixed it (``bwd_mode`` None: planned in
-    backward)."""
+    backward), with the shared-memory budget its emit splits under (a
+    plan's ``smem_budget``)."""
 
     iters: int
     num_classes: int
@@ -522,19 +589,22 @@ class RoutingStatics(NamedTuple):
     op_name: str = FUSED_NAME
     bwd_cluster: int | None = None
     cluster: int | None = None
+    bwd_smem_budget: int = SMEM_BYTES
 
 
 def routing_statics(i_dim: int, jd: int, *, iters: int, num_classes: int,
                     mode: str, block_i: int, bwd_mode: str | None,
                     bwd_block_i: int | None, op_name: str = FUSED_NAME,
                     bwd_cluster: int | None = None,
-                    cluster: int | None = None) -> RoutingStatics:
+                    cluster: int | None = None,
+                    bwd_smem_budget: int = SMEM_BYTES) -> RoutingStatics:
     """Clamp and check the forward schedule; the backward's is checked
     where it runs."""
     st = RoutingStatics(iters=iters, num_classes=num_classes, mode=mode,
                         block_i=min(block_i, i_dim), bwd_mode=bwd_mode,
                         bwd_block_i=bwd_block_i, op_name=op_name,
-                        bwd_cluster=bwd_cluster, cluster=cluster)
+                        bwd_cluster=bwd_cluster, cluster=cluster,
+                        bwd_smem_budget=bwd_smem_budget)
     check_schedule(i_dim, jd, iters=iters, num_classes=num_classes,
                    mode=st.mode, block_i=st.block_i)
     return st
@@ -551,10 +621,11 @@ def routing_bwd(u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     else:
         mode, block_i, cluster = planned_votes_routing_bwd(
             u.shape[1], u.shape[2], w.shape[1], st.num_classes, st.iters,
-            st.op_name, u.shape[0])
+            st.op_name, u.shape[0], st.bwd_smem_budget)
     return votes_routing_bwd(u, w, g.contiguous(), iters=st.iters,
                              num_classes=st.num_classes, mode=mode,
-                             block_i=block_i, cluster=cluster)
+                             block_i=block_i, cluster=cluster,
+                             smem_budget=st.bwd_smem_budget)
 
 
 def _forward_st(u: torch.Tensor, w: torch.Tensor, st: RoutingStatics,
@@ -591,7 +662,8 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
                   bwd_mode: str | None = None,
                   bwd_block_i: int | None = None,
                   op_name: str = FUSED_NAME,
-                  bwd_cluster: int | None = None) -> torch.Tensor:
+                  bwd_cluster: int | None = None,
+                  bwd_smem_budget: int = SMEM_BYTES) -> torch.Tensor:
     """K3 (``mode="resident"``), K4 (``streamed``, ``streamed-global``) or
     K13 (``mode="streamed-2pass"``, K4 on the unfused schedule), each
     sample on a cluster of ``cluster`` CTAs (None: the planner's size at
@@ -601,13 +673,14 @@ def votes_routing(u: torch.Tensor, w: torch.Tensor, *,
     Differentiable: the backward runs ``votes_routing_bwd`` on
     ``bwd_mode`` / ``bwd_block_i`` (the i-tile defaulting to the
     forward's) and ``bwd_cluster`` when ``bwd_mode`` is given, else on
-    the planner's backward schedule for ``op_name``."""
+    the planner's backward schedule for ``op_name``; its emit splits as
+    ``bwd_smem_budget`` asks."""
     _check_shapes(u, w)
     st = routing_statics(u.shape[1], w.shape[1], iters=iters,
                          num_classes=num_classes, mode=mode, block_i=block_i,
                          bwd_mode=bwd_mode, bwd_block_i=bwd_block_i,
                          op_name=op_name, bwd_cluster=bwd_cluster,
-                         cluster=cluster)
+                         cluster=cluster, bwd_smem_budget=bwd_smem_budget)
     return _VotesRouting.apply(u, w, r, st)
 
 
@@ -694,7 +767,8 @@ def _seg_statics(stat, i_dim: int, jd: int) -> RoutingStatics:
                            num_classes=st.num_classes, mode=st.mode,
                            block_i=max(1, st.block_i), bwd_mode=st.bwd_mode,
                            bwd_block_i=bwd_bi, op_name=st.op_name,
-                           bwd_cluster=st.bwd_cluster, cluster=st.cluster)
+                           bwd_cluster=st.bwd_cluster, cluster=st.cluster,
+                           bwd_smem_budget=st.bwd_smem_budget)
 
 
 def res_caps_segment(x: torch.Tensor, ws, *, blocks) -> torch.Tensor:

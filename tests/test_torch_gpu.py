@@ -1125,3 +1125,92 @@ def test_graph_engine_ticks_eagerly_under_fault_injection(cuda):
     assert torch.isnan(eng._logits).all()
     eng.step()
     assert eng.last_tick == "replay" and eng.graph_replays == 4
+
+
+def _scaled_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def test_k9g_equals_k9_bit_for_bit_where_both_run(cuda):
+    """K9g (the replay's logits in device memory, ds_T and dv in s_T's and
+    v_T's place) does K9's arithmetic in K9's order: at the SVHN
+    bottleneck on the same cluster and i-tile both give the same bits,
+    twice, within 1e-4 of the largest of the twin's."""
+    u = _rand(80, 4, 2048, 8, scale=0.5, device=cuda)
+    w = _rand(81, 2048, 512, 8, scale=0.1, device=cuda)
+    g = _rand(82, 4, 512, device=cuda)
+    kw = dict(iters=3, num_classes=64, block_i=4, cluster=16)
+    build.reset_launch_counts()
+    k9 = k34.votes_routing_bwd(u, w, g, mode="streamed", **kw)
+    k9g = k34.votes_routing_bwd(u, w, g, mode=execplan.STREAMED_GLOBAL,
+                                **kw)
+    again = k34.votes_routing_bwd(u, w, g, mode=execplan.STREAMED_GLOBAL,
+                                  **kw)
+    counts = build.launch_counts()
+    assert counts["routing_bwd_global_cluster_f32"] == 2
+    assert counts["routing_bwd_cluster_f32"] == 1
+    twin = k34.votes_routing_bwd_plain(u.cpu(), w.cpu(), g.cpu(),
+                                       mode=execplan.STREAMED_GLOBAL, **kw)
+    for a, b, c, t in zip(k9, k9g, again, twin):
+        assert torch.equal(a, b) and torch.equal(b, c)
+        assert _scaled_err(b.cpu(), t) <= 1e-4
+
+
+def test_split_emit_keeps_dw_and_sums_du_by_blocks(cuda):
+    """Under a budget below the whole row's emit (22,272 B at MNIST's
+    ClassCaps) the emit splits over column blocks: dW keeps the whole-row
+    emit's bits, du (summed block by block) stays within 1e-4 of the
+    largest, both equal the split twin's within 1e-4 and repeat their
+    bits."""
+    u = _rand(83, 16, 1152, 8, scale=0.5, device=cuda)
+    w = _rand(84, 1152, 160, 8, scale=0.1, device=cuda)
+    g = _rand(85, 16, 160, device=cuda)
+    kw = dict(iters=3, num_classes=10, block_i=16, cluster=8,
+              mode="streamed")
+    assert execplan.emit_columns(8, 10, 160, 20_000) == 80
+    whole = k34.votes_routing_bwd(u, w, g, **kw)
+    split = k34.votes_routing_bwd(u, w, g, smem_budget=20_000, **kw)
+    again = k34.votes_routing_bwd(u, w, g, smem_budget=20_000, **kw)
+    twin = k34.votes_routing_bwd_plain(u.cpu(), w.cpu(), g.cpu(),
+                                       smem_budget=20_000, **kw)
+    assert torch.equal(split[1], whole[1])
+    assert _scaled_err(split[0], whole[0]) <= 1e-4
+    for a, b, t in zip(split, again, twin):
+        assert torch.equal(a, b)
+        assert _scaled_err(a.cpu(), t) <= 1e-4
+
+
+def test_cifar10_training_plan_footprints_match_the_kernels(cuda):
+    """CIFAR-10's full-width training plan at batch 1 and 8: K4g's, K9g's
+    replay and the split emit's planned shared memory are the kernels'
+    own layouts, and the card holds each grid."""
+    import ctypes
+    lib_f = build._library("votes_routing")
+    lib_b = build._library("votes_routing_bwd")
+    for fn, n in ((lib_f.votes_routing_cluster_smem_bytes, 8),
+                  (lib_b.routing_bwd_global_smem_bytes, 6),
+                  (lib_b.routing_bwd_emit_smem_bytes, 4)):
+        fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
+    cfg = capsnet_cifar10.config()
+    for batch in (1, 8):
+        plan = execplan.compile_plan(cfg, batch=batch, train=True)
+        for lay in cfg.routing_stack()[:6]:
+            fwd, bwd = plan.op(lay.name), plan.bwd_op(lay.name)
+            dims = (lay.in_caps, lay.in_dim, lay.num_caps, lay.caps_dim)
+            cols = execplan.emit_columns(lay.in_dim, lay.num_caps, lay.jd)
+            assert lib_f.votes_routing_cluster_smem_bytes(
+                *dims, fwd.cluster, 0, fwd.block_i, 1) == fwd.smem_bytes
+            replay = lib_b.routing_bwd_global_smem_bytes(
+                *dims, bwd.cluster, bwd.block_i)
+            emit = lib_b.routing_bwd_emit_smem_bytes(
+                lay.in_dim, lay.num_caps, lay.caps_dim, cols)
+            assert bwd.smem_bytes == max(replay, emit)
+            occ = k34.bwd_cluster_occupancy(*dims, mode=bwd.mode,
+                                            block_i=bwd.block_i,
+                                            cluster=bwd.cluster)
+            assert occ["max_dynamic_smem"] == replay
+            assert occ["max_active_clusters"] >= 1
+            eocc = k34.emit_occupancy(lay.in_dim, lay.num_caps,
+                                      lay.caps_dim, cols)
+            assert eocc["max_dynamic_smem"] == emit
+            assert eocc["max_active_clusters"] >= 1

@@ -158,6 +158,7 @@ def test_every_kernel_has_a_launch_counter():
                                    "matmul_at_b_f32", "col2im_patches_f32",
                                    "routing_bwd_2pass_f32",
                                    "routing_bwd_cluster_f32",
+                                   "routing_bwd_global_cluster_f32",
                                    "caps_votes_f32", "routing_cluster_f32",
                                    "squash_f32", "squash_bwd_f32",
                                    "rmsnorm", "flash_attention"}

@@ -6,7 +6,9 @@ gradient against the reference's jnp path; the residual-add epilogue of
 K3/K4; the unfused oracle schedule K13 (``streamed-2pass``) against the
 fused ``streamed`` one, bit for bit; the Hopper plan's ``streamed-global`` mode (the
 routing logits in device memory) at full SVHN width, with every MNIST
-plan unchanged; and the flat-in-depth activation residency.  Kernel
+and SVHN plan unchanged; CIFAR-10's full-width training plan (K9g and the
+split emit), and both at a small width under a reduced budget; and the
+flat-in-depth activation residency.  Kernel
 wrappers run their plain twins on CPU tensors; the card-side checks are
 in ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
@@ -43,6 +45,7 @@ from repro_torch.train import capsnet_loop
 TOL = 1e-5
 KEYS = ("class_caps", "lengths", "reconstruction")
 GOLDEN = Path(__file__).with_name("golden_torch_mnist_plans.json")
+SVHN_GOLDEN = Path(__file__).with_name("golden_torch_svhn_plans.json")
 # The reference's pipelined deep stack (tests/test_caps_stack.py): 48
 # primary capsules, a plain layer of 14 x 6D, then one ResCaps block.
 BASE = dict(image_hw=14, conv1_channels=16, conv1_kernel=5, pc_kernel=3,
@@ -392,23 +395,173 @@ def test_streamed_global_drops_only_the_logits_and_adds_their_traffic():
         execplan.plan_votes_routing(2048, 8, 512, 64, smem_budget=14_000)
 
 
-def test_full_width_cifar10_training_plan_names_the_bwd_op():
+@pytest.mark.parametrize("batch", [1, 8])
+def test_full_width_cifar10_training_plan_fits(batch):
     """A half of 1024 capsules routed to 1024 x 8D: the forward plans in
     streamed-global on a cluster (even 16 CTAs' rows' logits, 64 x 1024,
-    fit no CTA), but the backward's emit CTA (W[i] and dW[i], 2 x 256 KB)
-    fits no CTA: the error names the ``-bwd`` op."""
-    plan = compile_plan(capsnet_cifar10.config(), batch=8)
-    op = plan.op("ClassCaps-Routing[0]")
-    assert op.mode == STREAMED_GLOBAL and op.cluster in CLUSTER_SIZES
-    assert op.smem_bytes == execplan.votes_routing_cluster_smem(
-        1024, 8, 1024, 8192, op.cluster, mode=STREAMED_GLOBAL,
-        block_i=op.block_i) <= planner.SMEM_BYTES
+    fit no CTA), and so does the backward's replay (K9g: the logits in
+    device memory, five [J*D] vectors), its emit split over column blocks
+    of whole classes (W[i] and dW[i] alone are 2 x 256 KB).  Every op of
+    the training plan fits the budget at batch 1 and 8."""
+    cfg = capsnet_cifar10.config()
+    plan = compile_plan(cfg, batch=batch, train=True)
+    assert all(op.smem_bytes <= planner.SMEM_BYTES for op in plan.ops)
+    cols = execplan.emit_columns(8, 1024, 8192)
+    assert cols < 8192 and 8192 % cols == 0 and cols % 8 == 0
+    assert execplan.routing_bwd_emit_smem(8, 1024, 8192) \
+        > planner.SMEM_BYTES >= execplan.routing_bwd_emit_smem(
+            8, 1024, 8192, cols)
+    for k in range(6):
+        op = plan.op(f"ClassCaps-Routing[{k}]")
+        assert op.mode == STREAMED_GLOBAL and op.cluster in CLUSTER_SIZES
+        assert op.smem_bytes == execplan.votes_routing_cluster_smem(
+            1024, 8, 1024, 8192, op.cluster, mode=STREAMED_GLOBAL,
+            block_i=op.block_i)
+        bwd = plan.bwd_op(f"ClassCaps-Routing[{k}]")
+        assert (bwd.mode, bwd.n_passes) == (STREAMED_GLOBAL, 5)
+        replay = execplan.routing_bwd_cluster_smem(
+            STREAMED_GLOBAL, 1024, bwd.block_i, 8, 1024, 8192, bwd.cluster)
+        assert replay < execplan.routing_bwd_cluster_smem(
+            "streamed", 1024, bwd.block_i, 8, 1024, 8192, bwd.cluster)
+        assert bwd.smem_bytes == max(replay, execplan.routing_bwd_emit_smem(
+            8, 1024, 8192, cols))
+        # The logits' slab traffic and the split emit's partials of du.
+        assert bwd.global_bytes == execplan.votes_routing_bwd_global_bytes(
+            batch, 1024, 8, 8192, 1024, 5, 1024, 8192 // cols)
+    # MNIST's and SVHN's emits take whole rows: their bits are unchanged.
+    for c, j, jd in ((8, 10, 160), (8, 64, 512), (8, 32, 256),
+                     (4, 10, 80)):
+        assert execplan.emit_columns(c, j, jd) == jd
+
+
+def test_cifar10_bwd_plan_error_names_the_bwd_op():
+    """Under a budget where nothing fits -- below K9g's replay on 16 CTAs
+    (202,756 B at CIFAR-10's half) -- the planner's PlanError names the
+    ``-bwd`` op."""
+    need = execplan.routing_bwd_cluster_smem(STREAMED_GLOBAL, 1024, 1, 8,
+                                             1024, 8192, 16)
+    assert need == 202_756
     with pytest.raises(PlanError, match=r"ClassCaps-Routing\[5\]-bwd"):
-        compile_plan(capsnet_cifar10.config(), batch=8, train=True)
+        execplan.plan_votes_routing_bwd(1024, 8, 8192, 1024,
+                                        smem_budget=need - 1,
+                                        name="ClassCaps-Routing[5]")
 
 
-def _golden() -> dict:
-    return json.loads(GOLDEN.read_text())
+# A CIFAR-10 stack in miniature: 480 primary capsules of 8D, one ResCaps
+# block whose halves route 240 capsules to 240 x 8D (J*D = 1920), then
+# ClassCaps.  Under BUDGET its halves run K4g forward and K9g backward, the
+# emit split over column blocks, as CIFAR-10's full-width halves do under
+# the full budget.
+WIDE_HALVES = R.CapsNetConfig(image_hw=13, conv1_channels=16,
+                              conv1_kernel=5, pc_kernel=3,
+                              num_primary_groups=30, primary_dim=8,
+                              class_dim=8, use_decoder=False,
+                              caps_layers=(R.ResCapsBlock(),))
+BUDGET = 52_000
+
+
+def _split_inputs(seed=60):
+    i, c, j, d = 50, 4, 50, 4                 # CIFAR-10 smoke's halves
+    u = _rand(seed, 2, i, c, scale=0.5)
+    w = _rand(seed + 1, i, j * d, c, scale=0.3)
+    g = _rand(seed + 2, 2, j * d)
+    return u, w, g, j
+
+
+def test_split_replay_and_emit_twin_match_reference():
+    """At the CIFAR-10 smoke half's shape (50 capsules routed to 50 x 4D)
+    under a 6,000 B budget the backward plans K9g and splits its emit:
+    the twin's (du, dW) are within 1e-5 of ``jax.grad`` of the
+    reference, within 1e-6 of the unsplit twin (whole-row emit on the
+    same cluster), and K9g's twin equals K9's on the same schedule bit for
+    bit (the logits' placement changes no arithmetic)."""
+    u, w, g, j = _split_inputs()
+    budget = 6_000
+    sched = execplan.plan_votes_routing_bwd(50, 4, 200, j,
+                                            smem_budget=budget, batch=2)
+    cols = execplan.emit_columns(4, j, 200, budget)
+    assert sched.mode == STREAMED_GLOBAL and cols < 200
+    kw = dict(iters=3, num_classes=j, block_i=sched.block_i,
+              cluster=sched.cluster.cluster)
+    t = torch.from_numpy
+    got = vr.votes_routing_bwd(t(u), t(w), t(g), mode=STREAMED_GLOBAL,
+                               smem_budget=budget, **kw)
+    want = jax.vjp(lambda a, b: ref_vr.votes_routing(
+        a, b, iters=3, num_classes=j, mode="streamed", block_i=8,
+        bwd_mode="streamed", bwd_block_i=8, interpret=True),
+        jnp.asarray(u), jnp.asarray(w))[1](jnp.asarray(g))
+    whole = vr.votes_routing_bwd_plain(t(u), t(w), t(g),
+                                       mode=STREAMED_GLOBAL, **kw)
+    k9 = vr.votes_routing_bwd_plain(t(u), t(w), t(g), mode="streamed",
+                                    smem_budget=budget, **kw)
+    for x, y, z, q in zip(got, want, whole, k9):
+        assert _normalised_err(x.numpy(), y) <= 1e-5
+        assert _normalised_err(x.numpy(), z.numpy()) <= 1e-6
+        torch.testing.assert_close(x, q, rtol=0, atol=0)
+    # The split emit sums du block by block, dW exactly as a whole row.
+    torch.testing.assert_close(got[1], whole[1], rtol=0, atol=0)
+
+
+def test_emit_blocks_sum_the_column_blocks_in_order():
+    duh = torch.from_numpy(_rand(70, 2, 5, 24))
+    w = torch.from_numpy(_rand(71, 5, 24, 4))
+    want = sum((torch.einsum("bin,inc->bic", duh[..., n:n + 8],
+                             w[:, n:n + 8]) for n in (8, 16)),
+               torch.einsum("bin,inc->bic", duh[..., :8], w[:, :8]))
+    torch.testing.assert_close(vr.emit_blocks(duh, w, 8), want, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(vr.emit_blocks(duh, w, 24),
+                               torch.einsum("bin,inc->bic", duh, w),
+                               rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def wide_halves():
+    """The port's WIDE_HALVES config, params from the reference's init,
+    seeded images and labels, and the reference's ``jax.grad`` of
+    ``total_loss`` on its jnp path."""
+    params_r = jax.jit(R.init_params, static_argnums=1)(
+        jax.random.PRNGKey(3), WIDE_HALVES)
+    rng = np.random.default_rng(4)
+    images = rng.random((2, 13, 13, 1), np.float32)
+    labels = rng.integers(0, 10, 2)
+    x, y = jnp.asarray(images), jnp.asarray(labels)
+    want = jax.jit(jax.grad(
+        lambda p: R.total_loss(p, x, y, WIDE_HALVES)[0]))(params_r)
+    params = params_from_numpy({k: np.asarray(v)
+                                for k, v in params_r.items()}, "cpu")
+    return to_port(WIDE_HALVES), params, images, labels, want
+
+
+def test_reduced_budget_training_plan_runs_k9g_and_the_split_emit(
+        wide_halves):
+    """``compile_plan`` under BUDGET gives WIDE_HALVES's halves K4g and
+    K9g with a split emit; the kernels backend's gradients on that plan
+    (the CPU twins of the reversible segment K12 over them) are within
+    1e-5 of the reference's ``jax.grad`` and within 1e-6 of the
+    full-budget plan's (whole-row emits, logits on chip)."""
+    cfg, params, images, labels, want = wide_halves
+    plan = compile_plan(cfg, batch=2, train=True, smem_budget=BUDGET)
+    for k in range(2):
+        lay = cfg.routing_stack()[k]
+        assert plan.op(lay.name).mode == STREAMED_GLOBAL
+        assert plan.bwd_op(lay.name).mode == STREAMED_GLOBAL
+        assert execplan.emit_columns(lay.in_dim, lay.num_caps, lay.jd,
+                                     BUDGET) < lay.jd
+    got, _ = T.loss_and_grads(params, images, labels, cfg,
+                              backend="kernels", plan=plan, device="cpu")
+    full = compile_plan(cfg, batch=2, train=True)
+    assert full.bwd_op("ClassCaps-Routing[0]").mode != STREAMED_GLOBAL
+    unsplit, _ = T.loss_and_grads(params, images, labels, cfg,
+                                  backend="kernels", plan=full, device="cpu")
+    assert set(got) == set(want)
+    for k in want:
+        assert _normalised_err(got[k].numpy(), want[k]) <= TOL, k
+        assert _normalised_err(got[k].numpy(), unsplit[k].numpy()) <= 1e-6, k
+
+
+def _golden(path: Path = GOLDEN) -> dict:
+    return json.loads(path.read_text())
 
 
 @pytest.mark.parametrize("key", sorted(_golden()))
@@ -424,6 +577,21 @@ def test_mnist_plans_are_unchanged(key):
     got = json.loads(json.dumps([dataclasses.astuple(op)
                                  for op in plan.ops]))
     assert got == _golden()[key]
+
+
+@pytest.mark.parametrize("key", sorted(_golden(SVHN_GOLDEN)))
+def test_svhn_plans_are_unchanged(key):
+    """Op by op, the SVHN plans equal those ``compile_plan`` gave before
+    the backward's streamed-global replay and the split emit."""
+    name, pipeline, train, batch = key.split()
+    cfg = {"svhn": capsnet_svhn.config(),
+           "smoke": capsnet_svhn.smoke_config()}[name]
+    plan = compile_plan(cfg, batch=int(batch.split("=")[1]),
+                        pipeline=pipeline == "pipeline=True",
+                        train=train == "train=True")
+    got = json.loads(json.dumps([dataclasses.astuple(op)
+                                 for op in plan.ops]))
+    assert got == _golden(SVHN_GOLDEN)[key]
 
 
 def test_oracle_mode_is_never_plan_chosen():

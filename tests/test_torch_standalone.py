@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "cluster_bits.py",
-                             "conv_gather_times.py")]
+                             "conv_gather_times.py",
+                             "examples/capstore_dse_torch.py")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -28,7 +28,8 @@ from repro_torch.configs import capsnet_mnist
 from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.core import capsnet as T
 from repro_torch.core import execplan, faults, planner
-from repro_torch.core.execplan import BWD_SUFFIX, FUSED_NAME, PlanError
+from repro_torch.core.execplan import (BWD_SUFFIX, FUSED_NAME,
+                                       STREAMED_GLOBAL, PlanError)
 from repro_torch.kernels import ops
 from repro_torch.kernels import votes_routing as k34
 from repro_torch.train import checkpoint as ckpt
@@ -164,16 +165,23 @@ def test_full_width_backward_streams_because_resident_cannot_fit():
 
 
 def test_bwd_plan_error_names_the_bwd_op():
-    # Under 20,000 B no backward fits: the emit CTA alone (W[i], dW[i] and
-    # a chunk of 16 samples' rows) needs 22,272 B.
+    # The emit CTA of whole rows (W[i], dW[i] and a chunk of 16 samples'
+    # rows) needs 22,272 B; under that it splits over column blocks.  Under
+    # 6,000 B no backward fits: even K9g's replay on 16 CTAs (one votes
+    # row, 72 rows of u, five [J*D] vectors) needs 6,188 B.
     assert execplan.routing_bwd_emit_smem(8, 10, 160) == 22_272
+    assert execplan.emit_columns(8, 10, 160, 20_000) == 80
+    assert execplan.routing_bwd_cluster_smem(
+        STREAMED_GLOBAL, 1152, 1, 8, 10, 160, 16) == 6_188
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
         execplan.plan_votes_routing_bwd(1152, 8, 160, 10,
-                                        smem_budget=20_000)
-    # A budget where the forward fits but the backward does not: 64-D class
-    # capsules make the emit CTA (83,712 B) larger than every forward op.
-    wide = dataclasses.replace(capsnet_mnist.config(), class_dim=64)
-    assert execplan.routing_bwd_emit_smem(8, 10, 640) == 83_712
+                                        smem_budget=6_000)
+    # A budget where the forward fits but the backward does not: 350-D
+    # class capsules make K9g's five [J*D] vectors beside a votes row
+    # (86,348 B) larger than every forward op, K4's four among them.
+    wide = dataclasses.replace(capsnet_mnist.config(), class_dim=350)
+    assert execplan.routing_bwd_cluster_smem(
+        STREAMED_GLOBAL, 1152, 1, 8, 10, 3500, 16) == 86_348
     assert execplan.compile_plan(wide, batch=2, smem_budget=80_000)
     with pytest.raises(PlanError, match=FUSED_NAME + BWD_SUFFIX):
         execplan.compile_plan(wide, batch=2, smem_budget=80_000,
@@ -207,14 +215,14 @@ def test_forward_alone_plans_no_routing_backward():
 
 
 def test_infeasible_routing_backward_raises_naming_the_bwd_op():
-    """No backward schedule fits 16000 capsules routed to 100 classes: in
-    one CTA their u alone, 256,000 B, is over the budget, and even split
-    over a 16-CTA cluster each CTA's 1000 rows of logits take 400,000 B.
-    The forward runs (its logits in global memory on a cluster) and the
-    backward raises the planner's PlanError for the ``-bwd`` op, with no
-    fallback."""
-    u = torch.zeros(1, 16000, 4)
-    w = torch.zeros(16000, 200, 4, requires_grad=True)
+    """No backward schedule fits 16 capsules routed to 100 classes of
+    100D: the replay's five [J*D] vectors alone (K9g, the logits in
+    device memory) take 200,000 B, and a votes row beside them 40,404 B
+    more, while the forward's four fit beside it.  The forward runs and
+    the backward raises the planner's PlanError for the ``-bwd`` op,
+    with no fallback."""
+    u = torch.zeros(1, 16, 4)
+    w = torch.zeros(16, 10_000, 4, requires_grad=True)
     v = k34.votes_routing(u, w, num_classes=100,
                           mode=execplan.STREAMED_GLOBAL, block_i=128,
                           op_name="Hidden-Routing")
