@@ -77,7 +77,14 @@ device's idle share) beside a profiled eager tick, and both kernels'
 times beside their bounds, twins and library calls, with K15's decode
 sites swept over split counts and its prefill tile over head dims, and
 K16's forms (row groups, the small-R form at each CTA size) over row
-counts beside an empty launch of its decode grid.  The weights are random, made from a seed.
+counts beside an empty launch of its decode grid.  Phase 14 runs
+``python -m repro_torch.verify``'s sweep on the card (every CapsuleNet
+arch, plan, forward and train plan and budget rung; each op run once and
+held to its plan's shared memory, fit, votes passes, traffic and
+zero-intermediate claims) and the contract lint, fails on any drift or
+violation, and shows that the split path fails the u_hat claim the fused
+op passes; phase 15 runs the port's three examples on the card.  The
+weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -173,6 +180,27 @@ LM_PROMPT_LENGTHS = (17, 300)   # the engine's shortest and longest prompt
 LM_LONG_DECODE = (LM_PROMPT, LM_PROMPT - 508, 300, 17)
 SPLIT_SWEEP = (1, 2, 4, 8, 16, 32, 64)
 RMS_NARROW_D = 1024             # K16's widest warp-a-row row, for its sweep
+# Phase 14: the archs and plan batch of each verify sweep (every pipeline,
+# train and budget rung of verify.LADDER); CIFAR-10 trains at batch 1.
+VERIFY_CELLS = ((("capsnet-mnist", "capsnet-svhn"), 1),
+                (("capsnet-mnist", "capsnet-svhn"), SLOTS),
+                (("capsnet-cifar10",), 1))
+# Phase 15: each example, its arguments, a line it must print and the
+# kernels it must launch.
+EXAMPLES = (
+    ("quickstart_torch.py", ("--steps", "5", "--batch", "8"),
+     "selected design: PG-SEP",
+     ("primary_routing_f32", "routing_bwd_cluster_f32", "matmul_at_b_f32")),
+    ("serve_capsnet_torch.py", ("--requests", "16", "--slots", "4"),
+     "served 16 requests (kernels backend on cuda",
+     ("primary_routing_f32", "matmul_bias_act_f32")),
+    ("serve_capsnet_torch.py", ("--requests", "16", "--slots", "4",
+                                "--use-async"),
+     "served 16 requests (kernels backend on cuda, 4 slots, async)",
+     ("primary_routing_f32",)),
+    ("serve_lm_torch.py", ("--requests", "6", "--max-new", "8"),
+     "served 6 requests / 48 tokens", ("rmsnorm", "flash_attention")),
+)
 # Phase 2b wraps each profiled engine step in marker kernels (``traced``).
 # On the H100 a torch.profiler session can lose records at its start:
 # a few, more the older the process, and now and then the first ms or
@@ -3149,11 +3177,108 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 13. LM serving at the full width of gemma2-9b.
     lm_serving(dev, rows, lm_counted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 14. The plans against the built kernels, and the contract lint.
+    verify_plans(dev)
+    # 15. The examples on the card.
+    run_examples()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def verify_plans(dev) -> None:
+    """Phase 14, ``python -m repro_torch.verify`` on the card: every
+    CapsuleNet arch x {per-op, pipelined} x {forward, train} x the budget
+    ladder (``VERIFY_CELLS``; every op run once at its plan's shapes and
+    held to its plan: shared memory a CTA, the card's clusters, the votes
+    passes, the L2 traffic, the zero-intermediate claims), then the
+    contract lint over ``src/repro_torch``.  It fails on any drift or
+    lint violation; an unverified check is printed with its reason.  Then
+    the split path (K14a writes u_hat to device memory by design) must
+    fail the u_hat claim that the fused ClassCaps op passes: the check
+    sees what it looks for."""
+    import torch
+
+    from repro_torch.configs import capsnet_mnist
+    from repro_torch.core import execplan
+    from repro_torch.kernels import ops
+    from repro_torch.verify import __main__ as verify
+    from repro_torch.verify import lowering
+    from repro_torch.verify.lint import lint_repo
+
+    t0 = time.perf_counter()
+    result, cache = verify.Sweep(), {}
+    for archs, batch in VERIFY_CELLS:
+        verify.sweep(archs, batch=batch, quiet=True, cache=cache,
+                     result=result)
+    verify.report(result)
+    if result.drifts:
+        raise AssertionError(f"verify: {len(result.drifts)} drift(s), "
+                             f"first: {result.drifts[0]}")
+    violations = lint_repo(str(ROOT / "src" / "repro_torch"))
+    for v in violations:
+        print(f"LINT {v}", flush=True)
+    if violations:
+        raise AssertionError(f"verify: {len(violations)} lint violation(s)")
+    print(f"verify: {result.cells} plan cells ({result.infeasible} with no "
+          f"feasible plan), {len(result.audits)} op audits on {len(cache)} "
+          f"distinct op runs, 0 drifts, {result.unverified} unverified, 0 "
+          f"lint violations in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cfg = capsnet_mnist.config()
+    plan = execplan.compile_plan(cfg, batch=SLOTS)
+    op = plan.op(execplan.FUSED_NAME)
+    lay = cfg.routing_stack()[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    u = torch.randn(SLOTS, lay.in_caps, lay.in_dim, generator=gen,
+                    device=dev) * 0.1
+    w = torch.randn(lay.in_caps, lay.jd, lay.in_dim, generator=gen,
+                    device=dev) * 0.05
+    with lowering.record_allocations() as shapes:
+        ops.routing(ops.caps_votes(u, w, plan=plan), plan=plan)
+    (split,) = lowering.claim_checks(plan, op, shapes)
+    fused = lowering.audit_op(plan, op, counters=False)
+    (claim,) = [c for c in fused.checks if c.name == lowering.UHAT_CLAIM]
+    if split.ok or not claim.ok:
+        raise AssertionError(f"verify: the u_hat check did not tell the "
+                             f"split path ({split.detail}) from the fused "
+                             f"op ({claim.detail})")
+    print(f"verify: the split path fails {split.name} ({split.detail}); "
+          f"the fused {op.name} passes it", flush=True)
+
+
+def run_examples() -> None:
+    """Phase 15: the port's examples on the card at small sizes (each
+    ``main`` as its command line runs it), held to what each prints and
+    to the kernels it must launch."""
+    import runpy
+
+    from repro_torch.kernels import build
+
+    for name, argv, expect, kernels in EXAMPLES:
+        main_of = runpy.run_path(str(ROOT / "examples" / name),
+                                 run_name="example")["main"]
+        build.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_of(list(argv))
+        text = out.getvalue()
+        counts = build.launch_counts()
+        idle = [k for k in kernels if not counts.get(k)]
+        if expect not in text or idle:
+            raise AssertionError(f"example {name} {argv}: expected "
+                                 f"{expect!r} and launches of {idle}; it "
+                                 f"printed: {text[-1500:]}")
+        last = [line for line in text.splitlines() if line.strip()][-1]
+        print(f"example {name} {' '.join(argv)}: "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{sum(counts.get(k, 0) for k in kernels)} launches of "
+              f"{len(kernels)} kernels; {last.strip()}", flush=True)
 
 
 def capstore_line() -> None:

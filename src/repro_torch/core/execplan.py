@@ -262,6 +262,57 @@ class OpPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class AuditContract:
+    """Tolerances the plan auditor (``repro_torch.verify.lowering``) holds
+    an op's footprint and traffic to, as the built kernels and the card
+    report them.
+
+    ``smem_rtol`` bounds how far the derived shared memory of a CTA (the
+    most of any kernel the op launches: ``cudaFuncGetAttributes``'s static
+    bytes plus the dynamic bytes the launch opts into) may exceed the
+    modeled ``smem_bytes``: the hard direction, since an under-modeling
+    plan would let ``validate()`` pass a schedule the card refuses.
+    ``smem_over_factor`` bounds the other direction: the model may count
+    a kernel that the op's run does not launch at that footprint (a conv
+    backward's model holds the forward tile, whose recompute runs without
+    the staged squash epilogue), but a model more than this factor above
+    the kernels is stale.  ``global_rtol`` is symmetric: the bytes the
+    op's kernels request from L2 against ``global_bytes``.
+    """
+
+    smem_rtol: float
+    smem_over_factor: float
+    global_rtol: float
+
+
+# Per-kernel contracts, keyed by the kernel strings the plans emit.
+# Calibrated on the H100 to the worst margin of ``python -m
+# repro_torch.verify``'s sweep (chip_smoke.py phase 14: MNIST and SVHN at
+# batch 1 and 8, CIFAR-10 at 1, every plan, train and budget rung): every
+# op's derived shared memory is its model exactly (0 B static, the C
+# layout's dynamic bytes), so 0 and 1.  ``global_rtol`` is 0 because it is
+# uncalibrated: no counter of the card could be read there, and the
+# traffic check is reported unverified (PERF.md, PR 27).
+_AUDIT_CONTRACTS = {
+    "conv_im2col": AuditContract(0.0, 1.0, 0.0),
+    "conv_im2col+squash": AuditContract(0.0, 1.0, 0.0),
+    "conv_im2col_bwd": AuditContract(0.0, 1.0, 0.0),
+    "votes_routing": AuditContract(0.0, 1.0, 0.0),
+    "votes_routing_bwd": AuditContract(0.0, 1.0, 0.0),
+    "primary_routing": AuditContract(0.0, 1.0, 0.0),
+}
+
+
+def audit_contract(op: OpPlan) -> AuditContract:
+    """The audit tolerance contract of one plan op (keyed by kernel)."""
+    try:
+        return _AUDIT_CONTRACTS[op.kernel]
+    except KeyError:
+        raise PlanError(f"{op.name}: no audit contract for kernel "
+                        f"{op.kernel!r}") from None
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     cfg: CapsNetConfig
     batch: int

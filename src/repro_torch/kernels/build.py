@@ -14,6 +14,7 @@ Every C entry returns ``cudaGetLastError()`` after its launch; a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -130,9 +131,41 @@ class Kernel:
             msg = _library(self.library).repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        for rec in _RECORDERS:
+            rec.append((self.symbol, args))
 
 
 REGISTRY: dict[str, Kernel] = {}
+_RECORDERS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Every launch the runtime accepts inside the block, in order, as
+    ``(C entry, its arguments)`` (the plan auditor reads what each launch
+    asked the card for); counts nothing."""
+    rec: list = []
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def query(library: str, symbol: str, *sizes: int,
+          n_out: int = 4) -> tuple[int, ...]:
+    """Call a C entry that takes ints and fills an array of ``n_out`` ints
+    (the ``*_occupancy``, ``*_attributes`` and ``*_passes`` entries);
+    raises on a non-zero CUDA error code."""
+    fn = getattr(_library(library), symbol)
+    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * n_out)()
+    err = fn(*sizes, out)
+    if err != 0:
+        msg = _library(library).repro_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
+    return tuple(out)
 
 
 def cluster_query(library: str, symbol: str, *sizes: int) -> dict[str, int]:
@@ -140,16 +173,9 @@ def cluster_query(library: str, symbol: str, *sizes: int) -> dict[str, int]:
     library's ``*_occupancy`` entry: the clusters it can run at once
     (``cudaOccupancyMaxActiveClusters``) and ``cudaFuncGetAttributes``'s
     static and maximum dynamic shared memory and registers a thread."""
-    fn = getattr(_library(library), symbol)
-    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    err = fn(*sizes, out)
-    if err != 0:
-        msg = _library(library).repro_error_string(err).decode()
-        raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
     return dict(zip(("max_active_clusters", "static_smem",
-                     "max_dynamic_smem", "registers"), out))
+                     "max_dynamic_smem", "registers"),
+                    query(library, symbol, *sizes)))
 
 
 def call(library: str, symbol: str, argtypes: list, *args) -> None:

@@ -21,6 +21,24 @@ __device__ inline void squash_into(const float* x, float* y, int D) {
   for (int d = 0; d < D; ++d) y[d] = a * x[d] * r;
 }
 
+// What the card says of a plain (non-cluster) kernel launched with kThreads
+// threads and smem bytes of dynamic shared memory, for the plan auditor
+// (python -m repro_torch.verify): out = {CTAs of it an SM holds at once,
+// static shared bytes, smem, registers a thread}.  A kernel above 48 KB
+// opts in first, as its launch does.
+inline cudaError_t kernel_attributes(const void* kernel, int smem, int* out) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = fa.numRegs;
+  return cudaSuccess;
+}
+
 }  // namespace repro
 
 // Message of a CUDA error code returned by one of the library's entries.

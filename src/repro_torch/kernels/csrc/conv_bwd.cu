@@ -148,6 +148,30 @@ REPRO_EXPORT int matmul_at_b_smem_bytes() {
   return repro::AtbWide::smem_bytes(false);
 }
 
+// out = kernel_attributes of K6's 128 x 128 launch (wide != 0, with its
+// splits) or of its 128 x 64 launch past the wide rows (common.cuh).
+REPRO_EXPORT int matmul_at_b_occupancy(int wide, int splits, int* out) {
+  namespace g = repro::gemm;
+  return wide ? g::occupancy<8, 8, repro::kAtbStep, g::kAMMajor>(
+                    false, splits, out)
+              : g::occupancy<8, 4, repro::kAtbStep, g::kAMMajor>(
+                    false, 1, out);
+}
+
+// out = kernel_attributes of the K7 instance a launch at this stride runs,
+// float4 (vec != 0) or float.
+REPRO_EXPORT int col2im_attributes(int stride, int vec, int* out) {
+  using repro::col2im_kernel;
+  const void* k =
+      vec ? (stride == 1   ? (const void*)col2im_kernel<1, float4>
+             : stride == 2 ? (const void*)col2im_kernel<2, float4>
+                           : (const void*)col2im_kernel<0, float4>)
+          : (stride == 1   ? (const void*)col2im_kernel<1, float>
+             : stride == 2 ? (const void*)col2im_kernel<2, float>
+                           : (const void*)col2im_kernel<0, float>);
+  return repro::kernel_attributes(k, 0, out);
+}
+
 // dp [B, OH*OW, KH*KW*C] -> dx [B, H, W, C]
 REPRO_EXPORT int col2im_patches_f32(const float* dp, float* dx, int B, int H,
                                     int W, int C, int KH, int KW, int stride,

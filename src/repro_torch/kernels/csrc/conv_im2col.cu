@@ -197,3 +197,27 @@ REPRO_EXPORT int matmul_bias_act_smem_bytes(int block_m, int tile_bn,
 #undef REPRO_GEMM
   return -1;
 }
+
+// out = kernel_attributes of the matmul_bias_act build a launch with these
+// tiles, epilogue and split_k runs (common.cuh).
+REPRO_EXPORT int matmul_bias_act_occupancy(int block_m, int tile_bn,
+                                           int block_k, int epilogue,
+                                           int split_k, int* out) {
+  namespace g = repro::gemm;
+#define REPRO_GEMM(TM, TN, BK)                                              \
+  if (block_m == 16 * TM && tile_bn == 16 * TN && block_k == BK)            \
+    return g::occupancy<TM, TN, BK, g::kAKMem>(epilogue == g::kSquash,      \
+                                               split_k, out);
+  REPRO_GEMM(4, 4, 16) REPRO_GEMM(4, 8, 16) REPRO_GEMM(8, 4, 16)
+  REPRO_GEMM(8, 8, 16)
+#undef REPRO_GEMM
+  return cudaErrorInvalidValue;
+}
+
+// out = kernel_attributes of K1's float4 (vec != 0) or float instance.
+REPRO_EXPORT int im2col_attributes(int vec, int* out) {
+  return repro::kernel_attributes(
+      vec ? (const void*)repro::im2col_kernel<float4>
+          : (const void*)repro::im2col_kernel<float>,
+      0, out);
+}

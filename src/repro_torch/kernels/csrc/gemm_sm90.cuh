@@ -458,5 +458,25 @@ static cudaError_t launch(const Problem& p, const float* bias, float* out,
   return cudaGetLastError();
 }
 
+// What the card says of a launch() of this build (kernel_attributes): the
+// GEMM with the dynamic shared memory that launch() asks for, after the
+// same opt-in; with split > 1 the static bytes are the larger of the
+// GEMM's and the ordered reduction's.
+template <int TM, int TN, int BK, int AL>
+static cudaError_t occupancy(bool squash, int split, int* out) {
+  const void* kernel = (const void*)gemm_kernel<TM, TN, BK, AL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  err = kernel_attributes(
+      kernel, Tile<TM, TN, BK, AL>::smem_bytes(squash && split == 1), out);
+  if (err != cudaSuccess || split == 1) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, (const void*)splitk_reduce_kernel);
+  if (err == cudaSuccess && (int)fa.sharedSizeBytes > out[1])
+    out[1] = (int)fa.sharedSizeBytes;
+  return err;
+}
+
 }  // namespace gemm
 }  // namespace repro

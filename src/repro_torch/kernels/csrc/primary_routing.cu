@@ -287,6 +287,21 @@ REPRO_EXPORT int primary_routing_smem_bytes(int P, int N, int C, int J, int D,
          (int)sizeof(float);
 }
 
+// out = {the votes computations of a sample's CTA over the W stream
+// (route_votes), its blocks of rows (1 where the votes come in whole)} at
+// a K5 launch's sizes, for python -m repro_torch.verify.
+REPRO_EXPORT int primary_routing_passes(int P, int N, int C, int J, int D,
+                                        int cs, int resident, int block_i,
+                                        int iters, int* out) {
+  if (P < 1 || cs < 1 || N % cs || block_i < 1 || iters < 1)
+    return cudaErrorInvalidValue;
+  const repro::k5::Layout L =
+      repro::k5::layout(P, N, C, J, D, cs, resident, block_i);
+  out[0] = repro::route_votes(resident != 0, false, iters);
+  out[1] = resident ? 1 : (L.rows + block_i - 1) / block_i;
+  return cudaSuccess;
+}
+
 // patches [B, P, K], W_pc [K, N], bias [N], W [I, J*D, C] -> v [B, J*D], on
 // B clusters of cs CTAs.  smem_bytes is the plan's footprint
 // (execplan.primary_routing_smem), which must equal the kernel's layout.

@@ -368,6 +368,19 @@ __device__ inline void cluster_sum(cg::cluster_group& cl, float* mine,
   __syncthreads();
 }
 
+// The passes of route_cluster (t = 0 .. iters), and the votes computations
+// one CTA makes over them, in the loop's own terms: resident votes once,
+// before pass 0; streamed votes once a pass, and twice in each of the
+// oracle's passes after the first (its b-pass, then its s-pass).  Each
+// library's *_passes entry reports this count on the host, where
+// python -m repro_torch.verify holds it to the plan's n_passes.
+__host__ __device__ constexpr int route_passes(int iters) { return iters + 1; }
+
+__host__ __device__ constexpr int route_votes(bool resident, bool two_pass,
+                                              int iters) {
+  return resident ? 1 : route_passes(iters) + (two_pass ? iters : 0);
+}
+
 // Every routing pass of the cluster's sample, its votes from `votes` (a
 // votes source above): on return sc.s holds s_T and sc.v holds v_T (T =
 // iters) in every CTA, and s_prev (if given) s_{T-1}.  With two_pass (the
@@ -389,7 +402,7 @@ __device__ inline void route_cluster(cg::cluster_group& cl,
   if (resident) votes(0, own.n, jd, sc.uh, ld);
   __syncthreads();
   const int step = resident ? max(own.n, 1) : block_i;
-  for (int t = 0; t <= iters; ++t) {
+  for (int t = 0; t < route_passes(iters); ++t) {
     float* part = sc.part + (t & 1) * jd;
     for (int n = threadIdx.x; n < jd; n += blockDim.x) part[n] = 0.f;
     __syncthreads();

@@ -196,6 +196,21 @@ REPRO_EXPORT int votes_routing_cluster_smem_bytes(int I, int C, int J, int D,
          (int)sizeof(float);
 }
 
+// out = {the votes computations of a sample's CTA over the W stream
+// (route_votes), its blocks of rows (1 where the votes come in whole)} at
+// a K3/K4/K13 launch's sizes, for python -m repro_torch.verify.
+REPRO_EXPORT int votes_routing_passes(int I, int C, int J, int D, int cs,
+                                      int resident, int block_i,
+                                      int two_pass, int iters, int* out) {
+  if (I < 1 || cs < 1 || block_i < 1 || iters < 1)
+    return cudaErrorInvalidValue;
+  const repro::ClusterFwdLayout L =
+      repro::cluster_fwd_layout(I, C, J, D, cs, resident, block_i, 0);
+  out[0] = repro::route_votes(resident != 0, two_pass != 0, iters);
+  out[1] = resident ? 1 : (L.rows + block_i - 1) / block_i;
+  return cudaSuccess;
+}
+
 // K3: resident votes on B clusters of cs CTAs (1, 2, 4, 8 or 16), one
 // sample each; r may be null.
 REPRO_EXPORT int votes_routing_cluster_f32(const float* u, const float* W,

@@ -240,6 +240,13 @@ routing_bwd_cluster_kernel(const float* __restrict__ u,
   cl.sync();                      // no CTA leaves while a peer reads it
 }
 
+// The votes computations of one replay CTA: route_cluster's, then the
+// merged seed + reverse pass above brings streamed votes in once more.
+__host__ __device__ constexpr int replay_votes(bool resident, bool two_pass,
+                                               int iters) {
+  return route_votes(resident, two_pass, iters) + (resident ? 0 : 1);
+}
+
 // One CTA per capsule i: d u_hat[b, i, :] = c_T (x) ds_T + c_{T-1} (x)
 // ds_{T-1} for every sample b (kEmitChunk samples at a time), then
 // du[b, i, :] = d u_hat . W[i] and dW[i] = sum_b d u_hat (x) u[b, i].
@@ -474,6 +481,21 @@ REPRO_EXPORT int routing_bwd_global_smem_bytes(int I, int C, int J, int D,
                                                int cs, int block_i) {
   return repro::cluster_bwd_layout(I, C, J, D, cs, 0, block_i, 1).total *
          (int)sizeof(float);
+}
+
+// out = {the votes computations of a sample's replay CTA over the W stream
+// (replay_votes), its blocks of rows (1 where the votes come in whole)}
+// at a K8/K9/K9g/K13b launch's sizes, for python -m repro_torch.verify.
+REPRO_EXPORT int routing_bwd_passes(int I, int C, int J, int D, int cs,
+                                    int resident, int block_i, int two_pass,
+                                    int iters, int* out) {
+  if (I < 1 || cs < 1 || block_i < 1 || iters < 1)
+    return cudaErrorInvalidValue;
+  const repro::ClusterBwdLayout L =
+      repro::cluster_bwd_layout(I, C, J, D, cs, resident, block_i);
+  out[0] = repro::replay_votes(resident != 0, two_pass != 0, iters);
+  out[1] = resident ? 1 : (L.rows + block_i - 1) / block_i;
+  return cudaSuccess;
 }
 
 // The emit's layout in bytes at emit_cols columns a CTA.

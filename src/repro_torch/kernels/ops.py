@@ -32,7 +32,8 @@ import torch
 from repro_torch.core import execplan, faults
 from repro_torch.core.planner import SMEM_BYTES, MatmulWorkload, plan_matmul
 from repro_torch.kernels.caps_votes import caps_votes as _caps_votes
-from repro_torch.kernels.conv_im2col import conv2d_im2col, out_size
+from repro_torch.kernels.conv_im2col import conv2d_im2col as _conv2d_im2col
+from repro_torch.kernels.conv_im2col import out_size
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
 from repro_torch.kernels.primary_routing import \
@@ -79,9 +80,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             m, k, cout, squash_dim if epilogue == "squash" else 0)
     dx_block = (bwd_op.dx_block.tiles if bwd_op is not None
                 else planned_conv_blocks(m, cout, k))
-    out = conv2d_im2col(x, w, b, stride=stride, block=block,
-                        dx_block=dx_block, epilogue=epilogue,
-                        squash_dim=squash_dim)
+    out = _conv2d_im2col(x, w, b, stride=stride, block=block,
+                         dx_block=dx_block, epilogue=epilogue,
+                         squash_dim=squash_dim)
     if faults.enabled():                 # chaos-test site; zero cost when off
         out = faults.corrupt_array(faults.SITE_CONV2D, out)
     return out

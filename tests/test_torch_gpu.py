@@ -1214,3 +1214,56 @@ def test_cifar10_training_plan_footprints_match_the_kernels(cuda):
                                       lay.caps_dim, cols)
             assert eocc["max_dynamic_smem"] == emit
             assert eocc["max_active_clusters"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The plan auditor (repro_torch.verify) on the card
+# ---------------------------------------------------------------------------
+
+def test_verify_sweep_is_clean_on_the_card(cuda):
+    """``python -m repro_torch.verify``'s sweep at batch 1 (every arch x
+    plan x forward/train x budget rung), each op run once on the card:
+    no drift, and the only unverified check is the L2 traffic, whose
+    counters this test does not read (``chip_smoke.py`` does)."""
+    from repro_torch.configs import registry
+    from repro_torch.verify import __main__ as verify
+    result = verify.sweep(registry.CAPSNET_ARCHS, batch=1, quiet=True,
+                          counters=False)
+    assert result.cells == 36 and result.infeasible == 8    # CIFAR-10
+    assert not result.drifts, result.drifts[:5]
+    assert {r.split("]")[0] for r in result.reasons()} == {
+        "[global-traffic"}
+    kernels = {a.kernel for a in result.audits}
+    assert kernels == set(execplan._AUDIT_CONTRACTS)
+
+
+def test_verify_catches_a_seeded_wrong_footprint_on_the_card(cuda):
+    import dataclasses
+    from repro_torch.verify import lowering
+    plan = execplan.compile_plan(capsnet_mnist.config(), batch=2)
+    op = plan.op(execplan.FUSED_NAME)
+    honest = lowering.audit_op(plan, op, counters=False)
+    assert honest.ok, [c.detail for c in honest.failures()]
+    lie = dataclasses.replace(op, smem_bytes=op.smem_bytes // 2)
+    audit = lowering.audit_op(plan, lie, facts=honest.facts)
+    (under,) = [c for c in audit.checks if c.name == "smem-under-model"]
+    assert not under.ok and str(op.smem_bytes) in under.detail
+
+
+def test_verify_tells_the_split_path_from_the_fused_op_on_the_card(cuda):
+    """K14a writes u_hat [B, I, J*D] to device memory by design: the
+    split path fails the claim the fused ClassCaps (K3) passes."""
+    from repro_torch.verify import lowering
+    cfg = capsnet_mnist.config()
+    plan = execplan.compile_plan(cfg, batch=4)
+    op = plan.op(execplan.FUSED_NAME)
+    lay = cfg.routing_stack()[-1]
+    u = _rand(21, 4, lay.in_caps, lay.in_dim, scale=0.1, device=cuda)
+    w = _rand(22, lay.in_caps, lay.jd, lay.in_dim, scale=0.05, device=cuda)
+    with lowering.record_allocations() as shapes:
+        ops.routing(ops.caps_votes(u, w, plan=plan), plan=plan)
+    (split,) = lowering.claim_checks(plan, op, shapes)
+    assert not split.ok and str((4, lay.in_caps, lay.jd)) in split.detail
+    fused = lowering.audit_op(plan, op, counters=False)
+    (claim,) = [c for c in fused.checks if c.name == lowering.UHAT_CLAIM]
+    assert claim.ok and fused.ok

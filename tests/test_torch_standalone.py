@@ -14,8 +14,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "cluster_bits.py",
-                             "conv_gather_times.py",
-                             "examples/capstore_dse_torch.py")]
+                             "conv_gather_times.py", "oracle_times.py",
+                             "split_squash_times.py",
+                             "examples/capstore_dse_torch.py",
+                             "examples/quickstart_torch.py",
+                             "examples/serve_capsnet_torch.py",
+                             "examples/serve_lm_torch.py")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
