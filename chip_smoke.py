@@ -83,8 +83,24 @@ arch, plan, forward and train plan and budget rung; each op run once and
 held to its plan's shared memory, fit, votes passes, traffic and
 zero-intermediate claims) and the contract lint, fails on any drift or
 violation, and shows that the split path fails the u_hat claim the fused
-op passes; phase 15 runs the port's three examples on the card.  The
-weights are random, made from a seed.
+op passes; phase 15 runs the port's three examples on the card.  Phase
+16, LM training and MoE: ``examples/train_lm_torch.py --preset 100m``
+for 40 steps (the loss must fall), then the same run stopped at step 20
+by ``request_stop`` and resumed from its checkpoint (its losses held to
+the uninterrupted run's); ``granite-3-2b`` at its full width and depth
+(40 layers, 2.53 B parameters) trained by ``make_train_step`` (fp32
+masters, bf16 compute, remat full, AdamW) on the reference's default
+LM batch of 8 x 1024 tokens, the first step's loss and grad norm held
+to the same step in fp32 compute, its host and device ms, idle share,
+tokens/s and peak memory; at 4 of its 40 layers the remat modes' gradients
+held to each other beside their peak memory; ``phi3.5-moe`` at its full
+width (d_model 4096, 16 experts top-2 of 6400, 32/8 heads of 128) with
+its depth cut, one training step at 2 layers (finite loss, aux > 0) and,
+at 4 layers, a 512-token forward on K15/K16 against the plain one (the
+routing recorded on both), 8 requests through the graph engine with each
+tick's K15/K16 launches counted, its tick ms, tokens/s and idle share.
+Training runs on the plain backend (K15/K16 are forward-only), so no
+kernel launches there.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -103,6 +119,7 @@ import gc
 import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -201,6 +218,33 @@ EXAMPLES = (
     ("serve_lm_torch.py", ("--requests", "6", "--max-new", "8"),
      "served 6 requests / 48 tokens", ("rmsnorm", "flash_attention")),
 )
+# Phase 16: LM training and MoE.  granite-3-2b trains at full width and
+# depth on the reference's default LM batch (DataConfig: 8 x 1024), the
+# remat modes are held to each other at a cut depth, the 100m example
+# runs, stops and resumes; phi3.5-moe runs at full width, its depth cut.
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEQ, TRAIN_LM_BATCH = 1024, 8
+TRAIN_LM_STEPS = 3
+TRACE_TRIES = 3                 # profiled steps until one traces whole
+REMAT_REPEATS = 4               # the remat check: 4 of granite's 40 layers
+EXAMPLE_STEPS, EXAMPLE_STOP = 40, 20
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_TRAIN_REPEATS = 2           # of 32: fp32 masters, grads, m, v at 32
+MOE_SERVE_REPEATS = 4           # layers exceed 80 GB (42 B parameters)
+MOE_PROMPT = 512
+MOE_TIE = 1e-4                  # a top-k margin (probability) this small
+#                                 is a tie the backends' ~1e-6 may break
+BF16_STEP = (1e-2, 5e-2, "bf16 compute rounds each activation to 8 "
+             "mantissa bits over 40 layers: the loss is a mean over 8192 "
+             "tokens, the grad norm a sum of 2.5 B squares of gradients so "
+             "rounded")
+REMAT = (1e-6, "recomputation replays the same kernels on the same "
+         "inputs (equal bits expected)")
+RESUME = (1e-4, "the reference's own, tests/test_training.py:193")
+MOE_LOGITS = (1e-4, "fp32 through 4 MoE layers, attention and norms "
+              "summed in another order (K15's online softmax over key "
+              "tiles, K16's tree)")
+
 # Phase 2b wraps each profiled engine step in marker kernels (``traced``).
 # On the H100 a torch.profiler session can lose records at its start:
 # a few, more the older the process, and now and then the first ms or
@@ -2330,9 +2374,12 @@ def tick_profile(eng, reps: int) -> dict:
 
 
 def lm_per_forward(cfg) -> dict[str, int]:
-    """K15's and K16's launches in one forward of ``cfg``."""
+    """K15's and K16's launches in one forward of ``cfg``: a norm before
+    attention and one before the MLP (and one after each with post
+    norms) a layer, and the final norm."""
+    norms = 4 if cfg.use_post_norms else 2
     return {"flash_attention": cfg.num_layers,
-            "rmsnorm": 4 * cfg.num_layers + 1}
+            "rmsnorm": norms * cfg.num_layers + 1}
 
 
 def lm_params(cfg, dev):
@@ -3132,6 +3179,506 @@ def lm_serving(dev, rows: list[dict], counted: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def trace_device_ms(prof, top: int = 8) -> tuple[float, dict]:
+    """Device ms of every kernel and copy in a ``traced`` profile of one
+    call, the marker kernels and the spin left out, and the ``top``
+    largest by name."""
+    markers = ("frac_kernel", "trunc_kernel", "floor_kernel", "spin_kernel")
+    times: dict[str, float] = {}
+    for key, ms in kernel_ms(prof, 1).items():
+        if not any(m in key for m in markers):
+            times[key[:72]] = times.get(key[:72], 0.0) + ms
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return sum(times.values()), dict(ranked[:top])
+
+
+def lm_batch_on(data_cfg, step: int, dev) -> dict:
+    """The LM stream's batch of ``step`` on the card."""
+    import torch
+    from repro_torch.train.data import lm_batch
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in lm_batch(data_cfg, step).items()}
+
+
+def loss_and_grad_norm(params, batch, cfg, compute_dtype) -> tuple:
+    """``lm_loss`` and the global norm of its gradient w.r.t. the fp32
+    ``params`` (through the compute cast), as ``make_train_step`` takes
+    them, without the update; and the gradients."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    wrt = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = T.lm_loss(steps.cast_tree(wrt, compute_dtype), batch,
+                              cfg)
+    grads = torch.autograd.grad(loss, tree.leaves(wrt))
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            float(opt.global_norm(grads)), grads)
+
+
+def no_lm_kernel_ran(label: str) -> dict:
+    """The launch counts of a training path: K15 and K16 have no backward,
+    so training runs on backend='torch' and launches neither."""
+    from repro_torch.kernels import build
+    counts = {k: build.launch_counts()[k]
+              for k in ("rmsnorm", "flash_attention")}
+    if any(counts.values()):
+        raise AssertionError(f"{label}: forward-only kernels launched in "
+                             f"training: {counts}")
+    return counts
+
+
+def granite_training(dev) -> dict:
+    """Phase 16a: granite-3-2b at its full width and depth (40 layers,
+    d_model 2048, 2.53 B parameters) trains with ``make_train_step``
+    (fp32 masters and AdamW, bf16 compute, remat full) on the reference's
+    default LM batch; the first step's loss and grad norm in bf16 against
+    the same step in fp32 compute; then, cut to REMAT_REPEATS layers at
+    full width, the three remat modes' gradients against each other and
+    their peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH)
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      seed=SEED)
+    tokens = TRAIN_SEQ * TRAIN_LM_BATCH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    params = T.init_model(gen, cfg, device=dev)
+    print(f"{TRAIN_ARCH}: {count_params(cfg)} parameters, {cfg.num_layers} "
+          f"layers at d_model {cfg.d_model} (not cut), remat "
+          f"{cfg.remat!r}, batch {TRAIN_LM_BATCH} x {TRAIN_SEQ} tokens "
+          f"(the reference's DataConfig defaults)", flush=True)
+    build.reset_launch_counts()
+    # The first step's loss and grad norm in fp32 compute (no update).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m32, gn32, grads = loss_and_grad_norm(params, lm_batch_on(data, 0, dev),
+                                          cfg, torch.float32)
+    fp32_s = time.perf_counter() - t0
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_state = opt.init_opt_state(params)
+    step = steps.make_train_step(cfg, opt.OptConfig(),
+                                 compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for s in range(TRAIN_LM_STEPS):
+        batch = lm_batch_on(data, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        loss = float(m["loss"])                 # waits for the device
+        hist.append(dict(step=s + 1, loss=loss,
+                         grad_norm=float(m["grad_norm"]),
+                         host_ms=1e3 * (time.perf_counter() - t0)))
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = statistics.median(h["host_ms"] for h in hist[1:])
+    # One more step profiled, again (up to TRACE_TRIES) where the trace
+    # lost records of it: only a whole trace gives the device time.  The
+    # step launches one int64 kernel of its own whose name holds
+    # trunc_kernel (11,148 records a step, one of them that, in a plain
+    # profile on the H100), so a whole trace holds TRACE_GUARD + 1 such.
+    for tries in range(1, TRACE_TRIES + 1):
+        batch = lm_batch_on(data, TRAIN_LM_STEPS + tries - 1, dev)
+        prof, _, lost = traced(lambda: step(params, opt_state, batch))
+        guards = kernel_records(prof, ("trunc_kernel", "floor_kernel"))
+        whole = (lost < TRACE_LEAD and guards["floor_kernel"] == TRACE_GUARD
+                 and guards["trunc_kernel"] == TRACE_GUARD + 1)
+        if whole:
+            break
+    dev_ms, dev_top = trace_device_ms(prof)
+    records = sum(kernel_records(prof, ("",)).values())
+    idle = 1.0 - dev_ms / host_ms if whole else None
+    counts = no_lm_kernel_ran(f"{TRAIN_ARCH} training")
+    first = hist[0]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"{TRAIN_ARCH} training: non-finite {hist}")
+    loss_rel = abs(first["loss"] - m32["loss"]) / abs(m32["loss"])
+    gn_rel = abs(first["grad_norm"] - gn32) / gn32
+    rl, rg, reason = BF16_STEP
+    print(f"{TRAIN_ARCH} train steps (bf16 compute, AdamW over fp32 "
+          f"masters): {json.dumps(hist)}; a step {host_ms:.1f} host ms "
+          f"(median after the first), {dev_ms:.1f} device ms in the "
+          f"profiled step (try {tries}: trace whole {whole}, lead markers "
+          f"lost {lost}, guards kept {json.dumps(guards)}, {records} "
+          f"records in all; by kernel {json.dumps(dev_top)}), idle share "
+          f"{'not measured (no whole trace)' if idle is None else idle}, "
+          f"{tokens / host_ms * 1e3:.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB allocated; launches of K15/K16 "
+          f"{counts} ({CARD})", flush=True)
+    ok = loss_rel <= rl and gn_rel <= rg
+    print(f"check {TRAIN_ARCH} step 1, bf16 against fp32 compute: loss "
+          f"{first['loss']:.6f} / {m32['loss']:.6f} (rel {loss_rel:.2e}, "
+          f"bound {rl:g}), grad norm {first['grad_norm']:.6f} / "
+          f"{gn32:.6f} (rel {gn_rel:.2e}, bound {rg:g}) ({reason}); the "
+          f"fp32 loss and gradient took {fp32_s:.1f} s -> "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{TRAIN_ARCH}: the bf16 step is not within "
+                             f"tolerance of the fp32 step")
+    out = dict(arch=TRAIN_ARCH, params=count_params(cfg),
+               batch=[TRAIN_LM_BATCH, TRAIN_SEQ], steps=hist,
+               step_host_ms=host_ms, step_device_ms=dev_ms,
+               trace_whole=whole, idle_share=idle, device_top=dev_top,
+               tokens_per_s=tokens / host_ms * 1e3,
+               peak_gib=peak / 2**30, fp32_loss=m32["loss"],
+               fp32_grad_norm=gn32, loss_rel=loss_rel, grad_norm_rel=gn_rel)
+    del params, opt_state, step, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The remat modes at REMAT_REPEATS layers, full width: the same
+    # gradients, and their peak memory.
+    cut = dataclasses.replace(cfg, repeats=REMAT_REPEATS)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 16),
+                          cut, device=dev)
+    batch = lm_batch_on(data, 0, dev)
+    base = torch.cuda.memory_allocated()
+    remat = {}
+    want = None
+    for mode in ("none", "full", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m, gn, grads = loss_and_grad_norm(
+            params, batch, dataclasses.replace(cut, remat=mode),
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        row = dict(loss=m["loss"], grad_norm=gn,
+                   peak_gib=(torch.cuda.max_memory_allocated() - base)
+                   / 2**30, s=time.perf_counter() - t0)
+        if want is None:
+            want = grads
+        else:
+            row["max_err"] = max(
+                ((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(grads, want))
+            if row["max_err"] > REMAT[0]:
+                raise AssertionError(f"remat {mode!r}: gradients differ "
+                                     f"from 'none' by {row['max_err']:.3e}")
+        remat[mode] = row
+        del grads
+    print(f"check {TRAIN_ARCH} remat at {REMAT_REPEATS} of {cfg.repeats} "
+          f"layers, full width, bf16 compute: {json.dumps(remat)} (max_err: "
+          f"the largest leaf's max |g - g_none| / max |g_none|, bound "
+          f"{REMAT[0]:g}: {REMAT[1]}; peak_gib: above the parameters) "
+          f"({CARD})", flush=True)
+    out["remat"] = remat
+    del params, want, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 16a: {out['s']:.1f} s", flush=True)
+    return out
+
+
+def train_lm_example(dev) -> dict:
+    """Phase 16b: ``examples/train_lm_torch.py --preset 100m`` on the card
+    for EXAMPLE_STEPS steps (the loss must fall); then the same run
+    stopped at EXAMPLE_STOP by ``request_stop`` and resumed from its
+    checkpoint, whose losses must equal the uninterrupted run's."""
+    import runpy
+    from repro_torch.kernels import build
+    t_phase = time.perf_counter()
+    example = runpy.run_path(str(ROOT / "examples" / "train_lm_torch.py"),
+                             run_name="example")
+    with tempfile.TemporaryDirectory() as tmp:
+        build.reset_launch_counts()
+        out = io.StringIO()
+        argv = ["--preset", "100m", "--steps", str(EXAMPLE_STEPS),
+                "--ckpt-dir", f"{tmp}/full", "--no-resume"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            full = example["main"](argv)
+        full_s = time.perf_counter() - t0
+        counts = no_lm_kernel_ran("train_lm_torch.py")
+        shutil.rmtree(f"{tmp}/full")        # 1.5 GB a checkpoint
+        text = out.getvalue()
+        losses = [h["loss"] for h in full]
+        first, last = (statistics.mean(losses[:5]),
+                       statistics.mean(losses[-5:]))
+        if (len(full) != EXAMPLE_STEPS or "improved" not in text
+                or not last < first):
+            raise AssertionError(f"train_lm_torch.py --preset 100m: the "
+                                 f"loss did not fall: {text[-1500:]}")
+        step_ms = statistics.median(1e3 * h["time_s"] for h in full[1:])
+        print(f"example train_lm_torch.py {' '.join(argv[:4])}: "
+              f"{full_s:.1f} s, loss {first:.4f} -> {last:.4f} (mean of "
+              f"the first and last 5 steps), a step {step_ms:.2f} host ms "
+              f"(median), {8 * 128 / step_ms * 1e3:.0f} tokens/s; launches "
+              f"of K15/K16 {counts}; {text.strip().splitlines()[0]} "
+              f"({CARD})", flush=True)
+
+        def loop():
+            return example["build_loop"]("100m", EXAMPLE_STEPS, 128, 8,
+                                         f"{tmp}/cut", dev)
+
+        cut = loop()
+        beat = cut._heartbeat
+
+        def stop_at(step, metrics):
+            beat(step, metrics)
+            if step >= EXAMPLE_STOP:
+                cut.request_stop()
+
+        cut._heartbeat = stop_at
+        with contextlib.redirect_stdout(io.StringIO()):
+            before = cut.run(resume=False)
+            resumed = loop()
+            after = resumed.run(resume=True)
+    got = [h["loss"] for h in before + after]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+    print(f"check train_lm_torch.py 100m stopped at step {cut.step} and "
+          f"resumed from its checkpoint: steps {[h['step'] for h in after][:1]}"
+          f"..{resumed.step}, losses against the uninterrupted run's: max "
+          f"rel {rel:.3e} (bound {RESUME[0]:g}: {RESUME[1]})", flush=True)
+    if (cut.step != EXAMPLE_STOP or len(got) != EXAMPLE_STEPS
+            or rel > RESUME[0]):
+        raise AssertionError("the resumed 100m run does not give the "
+                             "uninterrupted run's losses")
+    res = dict(steps=EXAMPLE_STEPS, loss_first5=first, loss_last5=last,
+               step_host_ms=step_ms, run_s=full_s, stopped_at=cut.step,
+               resume_max_rel=rel, s=time.perf_counter() - t_phase)
+    print(f"phase 16b: {res['s']:.1f} s", flush=True)
+    return res
+
+
+def moe_training(dev) -> dict:
+    """Phase 16c, training: phi3.5-moe at full width, its depth cut to
+    MOE_TRAIN_REPEATS of 32 layers, one ``make_train_step`` step (bf16
+    compute, remat full) on the reference's default LM batch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig
+    full = registry.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, repeats=MOE_TRAIN_REPEATS)
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      seed=SEED)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 17),
+                          cfg, device=dev)
+    opt_state = opt.init_opt_state(params)
+    step = steps.make_train_step(cfg, opt.OptConfig(),
+                                 compute_dtype=torch.bfloat16)
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for s in range(2):
+        batch = lm_batch_on(data, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        row = {k: float(v) for k, v in m.items()}
+        row["host_ms"] = 1e3 * (time.perf_counter() - t0)
+        hist.append(row)
+    counts = no_lm_kernel_ran(f"{MOE_ARCH} training")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{MOE_ARCH} training at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}), depth cut to "
+          f"{cfg.num_layers} of {full.num_layers} layers "
+          f"({count_params(cfg)} of {count_params(full)} parameters: "
+          f"fp32 masters, grads, m and v of the full depth exceed 80 GB), "
+          f"batch {TRAIN_LM_BATCH} x {TRAIN_SEQ}: {json.dumps(hist)}, peak "
+          f"{peak / 2**30:.2f} GiB; launches of K15/K16 {counts} ({CARD})",
+          flush=True)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               and h["aux"] > 0 for h in hist):
+        raise AssertionError(f"{MOE_ARCH} training: {hist}")
+    del params, opt_state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, steps=hist, peak_gib=peak / 2**30,
+                params=count_params(cfg))
+
+
+def moe_serving(dev, rows: list[dict]) -> dict:
+    """Phase 16c, serving: phi3.5-moe at full width, its depth cut to
+    MOE_SERVE_REPEATS layers.  A MOE_PROMPT-token forward on the kernels
+    backend against the plain one (the routing recorded on both: where a
+    near-tie routes a token differently, the logits are held before it);
+    8 requests through ``ServeEngine`` on the kernels backend with graph
+    ticks, counted (the wrappers' launches over the prefills, the eager
+    tick and the capture), then again with each step profiled (each
+    replayed tick's K15/K16 records against a forward's launches); a
+    steady tick's device ms and idle share.  Adds the MoE run's launches
+    to the K15 and K16 rows."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as k15
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request
+    full = registry.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, repeats=MOE_SERVE_REPEATS)
+    per_forward = lm_per_forward(cfg)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 18),
+                          cfg, device=dev)
+    rng = np.random.default_rng(SEED + 16)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, MOE_PROMPT)), device=dev)
+    routes = {}
+    orig = moe_mod.moe_forward
+
+    def recording(p, x, *, cfg):
+        out = orig(p, x, cfg=cfg)
+        probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+        top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1)
+        routes[current].append((top.indices[..., :-1].sort(-1).values,
+                                top.values))
+        return out
+
+    logits = {}
+    moe_mod.moe_forward = recording
+    try:
+        with torch.no_grad():
+            for current in ("kernels", "torch"):
+                routes[current] = []
+                logits[current] = T.forward(params, tokens, cfg=cfg,
+                                            backend=current)[0][
+                    0, :, :cfg.vocab_size]
+    finally:
+        moe_mod.moe_forward = orig
+    held = MOE_PROMPT
+    for layer, ((ik, _), (it, vt)) in enumerate(zip(routes["kernels"],
+                                                    routes["torch"])):
+        diff = torch.nonzero((ik != it).any(-1)[0]).flatten().tolist()
+        for t in diff:
+            gap = float(vt[0, t, cfg.moe.top_k - 1] - vt[0, t, cfg.moe.top_k])
+            print(f"  {MOE_ARCH} layer {layer} token {t}: the backends "
+                  f"route to experts {ik[0, t].tolist()} / "
+                  f"{it[0, t].tolist()}; the plain top-k margin {gap:.3e}",
+                  flush=True)
+            if gap > MOE_TIE:
+                raise AssertionError("the backends route a token "
+                                     "differently beyond a tie")
+            held = min(held, t)
+    err = check_scaled(f"{MOE_ARCH} logits [{held} of {MOE_PROMPT}, "
+                       f"{cfg.vocab_size}] ({cfg.num_layers} layers)",
+                       logits["kernels"][:held], logits["torch"][:held],
+                       MOE_LOGITS)
+    del logits
+
+    lengths = rng.integers(LM_PROMPT_LENGTHS[0], LM_PROMPT_LENGTHS[1] + 1,
+                           LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    eng = lm_engine(params, cfg, dev, prompts, "kernels")
+    build.reset_launch_counts()
+    k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
+    t0 = time.perf_counter()
+    done = eng.run()
+    run_s = time.perf_counter() - t0
+    counts = {k: build.launch_counts()[k] for k in per_forward}
+    n_pre = len(eng.timings["prefill_s"])
+    kinds = dict(eng.tick_kinds)
+    want = {k: n * (n_pre + 2) for k, n in per_forward.items()}
+    print(f"{MOE_ARCH} engine ({cfg.num_layers} layers, {LM_SLOTS} slots, "
+          f"{LM_REQUESTS} requests): ticks {kinds}, {eng.graph_replays} "
+          f"replays; launches counted by the wrappers {counts} over "
+          f"{n_pre} prefills, the eager tick and the capture, expected "
+          f"{want}; K15 by schedule {dict(k15.SCHEDULE_LAUNCHES)}",
+          flush=True)
+    if (counts != want or kinds != {"eager": 1, "capture": 1,
+                                    "replay": eng.ticks - 2}):
+        raise AssertionError(f"the {MOE_ARCH} engine did not run on K15 "
+                             f"and K16 with graph ticks")
+    outputs = [(r.rid, r.output) for r in done]
+    n_tok = sum(len(r.output) for r in done)
+    decode_ms = [1e3 * s for s in eng.timings["decode_s"]]
+    replay_ms = statistics.median(decode_ms[2:])
+    # The same requests with each step profiled: a replayed tick holds a
+    # forward's K15/K16 records.
+    eng_p = lm_engine(params, cfg, dev, prompts, "kernels")
+    build.reset_launch_counts()
+    counted = lm_counted_run(eng_p, per_forward)
+    seen = (len(eng_p.timings["prefill_s"]) + eng_p.ticks
+            - counted["replays_untraced"])
+    ran = {k: build.launch_counts()[k] + counted["records_on_replays"][k]
+           for k in per_forward}
+    print(f"{MOE_ARCH} engine, each step profiled: counted + records on "
+          f"replays {ran} over {seen} forwards, per forward "
+          f"{per_forward}; one replayed tick "
+          f"{json.dumps(counted['one_replay'])}", flush=True)
+    if ran != {k: n * seen for k, n in per_forward.items()}:
+        raise AssertionError(f"the {MOE_ARCH} ticks did not run a "
+                             f"forward's K15/K16 launches each")
+    if [(r.rid, r.output) for r in counted["done"]] != outputs:
+        raise AssertionError(f"the {MOE_ARCH} engine's tokens differ "
+                             f"between its runs")
+    for i, p in enumerate(prompts[:LM_SLOTS]):
+        eng.submit(Request(rid=100 + i, prompt=p,
+                           max_new_tokens=LM_NEW_TOKENS))
+    eng.step()
+    eng.step()
+    tick = tick_profile(eng, 3)
+    res = dict(layers=cfg.num_layers, prompt=MOE_PROMPT, logits_held=held,
+               logit_err=err, requests=LM_REQUESTS, tokens=n_tok,
+               run_s=run_s, tokens_per_s=n_tok / run_s,
+               prefill_ms_mean=1e3 * statistics.mean(
+                   eng.timings["prefill_s"][:n_pre]),
+               replay_ms_median=replay_ms, tick_device_ms=tick["device_ms"],
+               idle_share=1.0 - tick["device_ms"] / replay_ms,
+               tick_top=tick["top"], counts=counts,
+               records_on_replays=counted["records_on_replays"],
+               per_forward=per_forward)
+    print(f"{MOE_ARCH} serving: {json.dumps(res)} ({CARD})", flush=True)
+    for row in rows:
+        if row["name"] in per_forward:
+            row["moe_launches"] = dict(
+                path=f"{MOE_ARCH} at {cfg.num_layers} of "
+                     f"{full.num_layers} layers, full width, served by "
+                     f"ServeEngine(backend='kernels'): {LM_REQUESTS} "
+                     f"requests, {LM_SLOTS} slots",
+                launches=counts[row["name"]],
+                launches_on_replays=counted["records_on_replays"][
+                    row["name"]], forward_launches=per_forward[row["name"]])
+    del params, eng, eng_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_training_phase(dev, rows: list[dict]) -> None:
+    """Phase 16: LM training (granite-3-2b, the 100m example) and MoE
+    (phi3.5-moe) on the card."""
+    t0 = time.perf_counter()
+    example = train_lm_example(dev)
+    granite = granite_training(dev)
+    t1 = time.perf_counter()
+    moe_train = moe_training(dev)
+    moe_serve = moe_serving(dev, rows)
+    print(f"phase 16c: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"lm training: {json.dumps(dict(granite=granite, example=example,
+                                          moe_train=moe_train,
+                                          moe_serve=moe_serve))}",
+          flush=True)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
+
+
 def main() -> int:
     global CARD
     import torch
@@ -3183,6 +3730,8 @@ def main() -> int:
     verify_plans(dev)
     # 15. The examples on the card.
     run_examples()
+    # 16. LM training and MoE.
+    lm_training_phase(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,2 @@
-"""Model configurations of the port: the CapsuleNet archs and the dense
-LM archs ported so far (``registry``)."""
+"""Model configurations of the port: the CapsuleNet archs and the LM
+archs ported so far (``registry``)."""

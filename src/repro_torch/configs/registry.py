@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> config module.
 
 Counterpart of ``repro/configs/registry.py``: the CapsuleNet archs and
-the dense LM archs that need nothing beyond attention and RMSNorm
-(``repro_torch.models``).  The reference's other LM archs raise
+the LM archs whose blocks the port runs (attention with a dense or an
+MoE MLP, ``repro_torch.models``).  The reference's other LM archs raise
 ``KeyError`` naming the ROADMAP item that ports them.
 """
 
@@ -15,6 +15,7 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "granite-3-2b": "granite_3_2b",
     "gemma-7b": "gemma_7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "chameleon-34b": "chameleon_34b",
     "capsnet-mnist": "capsnet_mnist",
     "capsnet-cifar10": "capsnet_cifar10",
@@ -35,8 +36,7 @@ _ALIASES = {
 # The reference's LM archs not ported yet, each with the ROADMAP item
 # (queue 1) that ports it.
 _WAITING = {
-    "phi3.5-moe-42b-a6.6b": "item 11b, MoE",
-    "deepseek-v2-lite-16b": "item 11c, MLA (and 11b, MoE)",
+    "deepseek-v2-lite-16b": "item 11c, MLA",
     "mamba2-370m": "item 11d, mamba and hybrid",
     "zamba2-1.2b": "item 11d, mamba and hybrid",
     "hubert-xlarge": "item 11e, hubert",

@@ -2,8 +2,9 @@
 
 The port keeps the reference's layouts (conv weights HWIO, ``cc_w``
 ``[I, J, D, C]``; the LM tree with its stacked ``[repeats, ...]`` pattern
-leaves and ``[d_in, d_out]`` projections), so conversion is a copy with
-no transposes.
+leaves and ``[d_in, d_out]`` projections, MoE experts ``[E, d, f]``
+stacked ``[repeats, E, d, f]``), so conversion is a copy with no
+transposes.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
 
 
@@ -25,12 +27,17 @@ def params_from_numpy(np_params: dict, device: str | torch.device = "cuda"
 
 def opt_state_from_numpy(np_state: dict, device: str | torch.device = "cuda"
                          ) -> dict:
-    """The reference's AdamW state (``{"m": {...}, "v": {...}, "step"}``
-    taken through ``np.asarray``) -> the port's ``init_opt_state`` layout:
-    float32 moments and an int32 0-d step."""
+    """The reference's AdamW state (``{"m": ..., "v": ..., "step"}``, its
+    leaves taken through ``np.asarray``; m and v flat dicts (CapsuleNet)
+    or LM trees of dicts and lists) -> the port's ``init_opt_state``
+    layout: float32 moments in the same tree and an int32 0-d step."""
     dev = resolve_device(device)
-    return {"m": params_from_numpy(np_state["m"], dev),
-            "v": params_from_numpy(np_state["v"], dev),
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    return {"m": tree.tree_map(f32, np_state["m"]),
+            "v": tree.tree_map(f32, np_state["v"]),
             "step": torch.tensor(np.asarray(np_state["step"], np.int32),
                                  device=dev)}
 
@@ -43,17 +50,10 @@ def _lm_leaf(a, dev: torch.device) -> torch.Tensor:
     return torch.tensor(a, device=dev)
 
 
-def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
+def lm_params_from_numpy(params, device: str | torch.device = "cuda"):
     """The reference's LM parameter tree (``repro.models.init_model``, its
-    leaves taken through ``np.asarray``: nested dicts and lists) -> the
-    same tree of tensors of the same types on ``device``."""
+    leaves taken through ``np.asarray``: nested dicts and lists, dense or
+    MoE blocks) -> the same tree of tensors of the same types on
+    ``device``."""
     dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        return _lm_leaf(node, dev)
-
-    return conv(tree)
+    return tree.tree_map(lambda a: _lm_leaf(a, dev), params)

@@ -1,7 +1,7 @@
 """The LM family of the port: the counterpart of ``repro/models``.
 
-Dense attention stacks so far (``transformer``); the reference's
-``lm_loss`` waits for LM training (ROADMAP queue 1, item 11a).
+Attention stacks with dense or MoE MLPs (``transformer``, ``moe``), and
+the training loss (``lm_loss``).
 """
 
 from repro_torch.models.config import (  # noqa: F401
@@ -12,10 +12,12 @@ from repro_torch.models.config import (  # noqa: F401
     count_params,
 )
 from repro_torch.models.transformer import (  # noqa: F401
+    cross_entropy,
     decode_step,
     forward,
     greedy_generate,
     init_model,
     init_model_cache,
+    lm_loss,
     prefill,
 )

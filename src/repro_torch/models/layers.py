@@ -3,9 +3,10 @@
 
 ``rmsnorm`` has the port's backend switch: ``"kernels"`` runs K16
 (``ops.rmsnorm``) for the reference's fp32 form, ``"torch"`` the plain
-form.  The reference's low-precision form (``fp32=False``, its
-``_rmsnorm_lowp`` custom VJP, no Pallas kernel) is plain torch on both
-backends.  The reference's ``rs_proj`` / ``ag_seq`` (Megatron-SP
+form.  The reference's low-precision form (``fp32=False``, no Pallas
+kernel) is ``RMSNormLowp`` on both backends: an autograd Function with
+the reference's hand-written backward (``_rmsnorm_lowp``'s custom
+VJP).  The reference's ``rs_proj`` / ``ag_seq`` (Megatron-SP
 collectives) wait for ``parallel/`` (ROADMAP queue 1, item 11f).
 """
 
@@ -20,18 +21,41 @@ BACKENDS = ("torch", "kernels")
 NEG_INF = -1e30
 
 
+class RMSNormLowp(torch.autograd.Function):
+    """RMSNorm with fp32 statistics whose backward keeps every full-size
+    tensor in x's type: fp32 appears only in the ``[..., 1]`` reduction
+    and in dw (the reference's ``_rmsnorm_lowp`` and its custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        scale32 = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, scale32)
+        return x * scale32.to(x.dtype) * (1.0 + weight.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, scale32 = ctx.saved_tensors
+        scale = scale32.to(x.dtype)
+        dxhat = dy * (1.0 + weight.to(x.dtype))             # full-size, x's
+        m = torch.mean((dxhat * x).float(), dim=-1, keepdim=True)
+        coef = (scale32 ** 3 * m).to(x.dtype)                # [..., 1]
+        dx = dxhat * scale - x * coef                        # full-size, x's
+        dw = torch.sum((dy * x * scale).float(),
+                       dim=tuple(range(dy.dim() - 1)))       # [D] fp32
+        return dx, dw.to(weight.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             fp32: bool = True, backend: str = "torch") -> torch.Tensor:
     """RMSNorm with fp32 statistics.  ``fp32=True`` also applies the
     normalisation in fp32 (K16 on ``backend="kernels"``); ``fp32=False``
-    applies it in x's type."""
+    applies it in x's type, forward and backward (``RMSNormLowp``)."""
     if fp32:
         if backend == "kernels":
             return ops.rmsnorm(x, weight, eps=eps)
         return ref.rmsnorm(x, weight, eps)
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    scale = torch.rsqrt(var + eps).to(x.dtype)
-    return x * scale * (1.0 + weight.to(x.dtype))
+    return RMSNormLowp.apply(x, weight, eps)
 
 
 def rope_tables(positions: torch.Tensor, theta: float, dim: int,

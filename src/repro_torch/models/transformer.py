@@ -1,11 +1,21 @@
 """Block-pattern transformer stack of the LM family: init, forward,
-prefill, decode -- the counterpart of ``repro/models/transformer.py``.
+prefill, decode and the training loss -- the counterpart of
+``repro/models/transformer.py``.
 
 The stack is ``prefix + pattern * repeats + suffix`` with the reference's
 parameter tree: ``blocks["s{i}"]`` leaves stacked ``[repeats, ...]``,
 ``prefix`` and ``suffix`` lists, so ``convert.lm_params_from_numpy`` is a
 copy.  The reference's ``jax.lax.scan`` over the repeats is a Python loop
-over views of the stacked leaves; serving needs no remat.
+over views of the stacked leaves.  ``cfg.remat`` applies to each repeat's
+body when autograd records and no cache is written: ``"full"`` keeps only
+the body's input (``torch.utils.checkpoint``), ``"dots"`` also the
+outputs of its 2-D matmuls (the counterpart of
+``dots_with_no_batch_dims_saveable``), ``"none"`` everything.  Remat
+changes memory, never values.
+
+The aux loss (MoE's load balancing) is summed as the reference sums it:
+every prefix and suffix block's, but of a repeat only its LAST pattern
+block's (the scan carries ``aux_sum + aux`` after the pattern's loop).
 
 ``backend="kernels"`` runs every attention on K15 and every fp32 RMSNorm
 on K16 (``ops.flash_attention`` / ``ops.rmsnorm``); ``backend="torch"`` is
@@ -16,20 +26,23 @@ for all its layers (``attention.AttnInputs``); it makes no host sync when
 its tokens and a per-row ``cache_index`` lie on the device, so the
 serving engine captures it into a CUDA graph.
 
-Ported so far: the dense attention blocks (``global``, ``local``,
-``bidir``).  MoE, MLA, ``mamba`` and ``shared_attn`` blocks and the audio
-frontend raise ``NotImplementedError`` naming their ROADMAP item; the
-reference's ``lm_loss`` / ``cross_entropy`` come with LM training.
+Ported so far: the attention blocks (``global``, ``local``, ``bidir``)
+with a dense or an MoE MLP (``models/moe.py``).  MLA, ``mamba`` and
+``shared_attn`` blocks and the audio frontend raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as remat
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (BACKENDS, embed_tokens, gated_mlp,
                                        init_linear, lm_head, rmsnorm)
@@ -37,8 +50,8 @@ from repro_torch.models.layers import (BACKENDS, embed_tokens, gated_mlp,
 Params = dict[str, Any]
 
 ATTN_KINDS = ("global", "local", "bidir")
+REMATS = ("full", "dots", "none")
 _TODO = {
-    "moe": "MoE layers are not ported yet (ROADMAP queue 1, item 11b)",
     "mla": attn.MLA_TODO,
     "mamba": "mamba and hybrid blocks are not ported yet (ROADMAP queue 1, "
              "item 11d)",
@@ -50,8 +63,6 @@ _TODO = {
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for any part
     of ``cfg`` the port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['moe']}")
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: {_TODO['mla']}")
     if cfg.frontend is not None:
@@ -72,8 +83,15 @@ def _check_backend(backend: str) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
+def _uses_moe(cfg: ModelConfig, in_prefix: bool) -> bool:
+    """Whether an attention block's MLP is MoE: prefix blocks are dense
+    unless ``moe_in_prefix``."""
+    return cfg.moe is not None and (cfg.moe_in_prefix or not in_prefix)
+
+
 def _init_attn_block(generator, cfg: ModelConfig, dtype, device,
-                     lead: tuple[int, ...] = ()) -> Params:
+                     lead: tuple[int, ...] = (),
+                     use_moe: bool = False) -> Params:
     d = cfg.d_model
 
     def zeros():
@@ -81,9 +99,15 @@ def _init_attn_block(generator, cfg: ModelConfig, dtype, device,
 
     p: Params = {"input_norm": zeros(), "pre_mlp_norm": zeros()}
     p.update(attn.init_attn_params(generator, cfg, dtype, device, lead))
-    p["gate_proj"] = init_linear(generator, d, cfg.d_ff, dtype, device, lead)
-    p["up_proj"] = init_linear(generator, d, cfg.d_ff, dtype, device, lead)
-    p["down_proj"] = init_linear(generator, cfg.d_ff, d, dtype, device, lead)
+    if use_moe:
+        p.update(moe_mod.init_moe_params(generator, cfg, dtype, device, lead))
+    else:
+        p["gate_proj"] = init_linear(generator, d, cfg.d_ff, dtype, device,
+                                     lead)
+        p["up_proj"] = init_linear(generator, d, cfg.d_ff, dtype, device,
+                                   lead)
+        p["down_proj"] = init_linear(generator, cfg.d_ff, d, dtype, device,
+                                     lead)
     if cfg.use_post_norms:
         p["post_attn_norm"] = zeros()
         p["post_mlp_norm"] = zeros()
@@ -112,13 +136,16 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["unembed"] = init_linear(generator, d, cfg.padded_vocab_size,
                                         dtype, dev)
-    params["prefix"] = [_init_attn_block(generator, cfg, dtype, dev)
-                        for _ in cfg.prefix]
-    params["suffix"] = [_init_attn_block(generator, cfg, dtype, dev)
-                        for _ in cfg.suffix]
+    params["prefix"] = [
+        _init_attn_block(generator, cfg, dtype, dev,
+                         use_moe=_uses_moe(cfg, True)) for _ in cfg.prefix]
+    params["suffix"] = [
+        _init_attn_block(generator, cfg, dtype, dev,
+                         use_moe=_uses_moe(cfg, False)) for _ in cfg.suffix]
     params["blocks"] = {
         f"s{i}": (_init_attn_block(generator, cfg, dtype, dev,
-                                   (cfg.repeats,)) if cfg.repeats else {})
+                                   (cfg.repeats,), _uses_moe(cfg, False))
+                  if cfg.repeats else {})
         for i in range(len(cfg.pattern))}
     return params
 
@@ -156,9 +183,12 @@ def cache_slot(cache: dict, slot: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
-                 cfg: ModelConfig, cache, backend: str) -> torch.Tensor:
-    """One attention block: norms, attention, MLP, residuals.  The cache,
-    if any, is written in place."""
+                 cfg: ModelConfig, cache, backend: str,
+                 in_prefix: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One attention block: norms, attention, MLP (dense or MoE),
+    residuals.  The cache, if any, is written in place.  Returns the
+    block's output and its aux loss (None for a dense MLP: 0)."""
     def norm(y, w):
         return rmsnorm(y, w, cfg.norm_eps, cfg.norm_fp32, backend)
 
@@ -170,11 +200,15 @@ def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
         a_out = norm(a_out, p["post_attn_norm"])
     x = x + a_out
     h = norm(x, p["pre_mlp_norm"])
-    m_out = gated_mlp(h, p["gate_proj"], p["up_proj"], p["down_proj"],
-                      cfg.mlp_act)
+    aux = None
+    if _uses_moe(cfg, in_prefix):
+        m_out, aux = moe_mod.moe_forward(p, h, cfg=cfg)
+    else:
+        m_out = gated_mlp(h, p["gate_proj"], p["up_proj"], p["down_proj"],
+                          cfg.mlp_act)
     if cfg.use_post_norms:
         m_out = norm(m_out, p["post_mlp_norm"])
-    return x + m_out
+    return x + m_out, aux
 
 
 def _cache_index(cache_index, b: int, device):
@@ -222,22 +256,39 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
     inputs = attn.AttnInputs(positions, ci, theta=cfg.rope_theta,
                              head_dim=cfg.head_dim)
     kw = dict(cfg=cfg, backend=backend)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
     for i, kind in enumerate(cfg.prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x = _apply_block(params["prefix"][i], kind, x, inputs, cache=c,
-                         **kw)
-    for r in range(cfg.repeats):
+        x, aux = _apply_block(params["prefix"][i], kind, x, inputs, cache=c,
+                              in_prefix=True, **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
+
+    def repeat(x, r: int):
+        """Repeat ``r`` of the pattern: its output and its last block's
+        aux (the reference's scan body)."""
+        aux = None
         for i, kind in enumerate(cfg.pattern):
             slot = params["blocks"][f"s{i}"]
             c = (None if cache is None else
                  {k: v[r] for k, v in cache["blocks"][f"s{i}"].items()})
-            x = _apply_block({k: v[r] for k, v in slot.items()}, kind, x,
-                             inputs, cache=c, **kw)
+            x, aux = _apply_block({k: v[r] for k, v in slot.items()}, kind,
+                                  x, inputs, cache=c, **kw)
+        return x, aux
+
+    run = _remat(repeat, cfg.remat) if (
+        cache is None and torch.is_grad_enabled()) else repeat
+    for r in range(cfg.repeats):
+        x, aux = run(x, r)
+        if aux is not None:
+            aux_total = aux_total + aux
     for i, kind in enumerate(cfg.suffix):
         c = cache["suffix"][i] if cache is not None else None
-        x = _apply_block(params["suffix"][i], kind, x, inputs, cache=c,
-                         **kw)
+        x, aux = _apply_block(params["suffix"][i], kind, x, inputs, cache=c,
+                              **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     if last_only:
         x = x[:, -1:]
@@ -247,8 +298,55 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
                      else params["unembed"], cfg.tie_embeddings,
                      cfg.final_logit_softcap, cfg.logits_fp32,
                      valid_vocab=cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return logits, cache, aux
+    return logits, cache, aux_total
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the 2-D matmuls' outputs (the projections;
+    batched einsums are recomputed), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return remat.CheckpointPolicy.MUST_SAVE
+    return remat.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under ``cfg.remat``'s policy (module docstring)."""
+    if mode not in REMATS:
+        raise ValueError(f"unknown remat {mode!r}; choose from {REMATS}")
+    if mode == "none":
+        return fn
+    kw = {} if mode == "full" else {"context_fn": functools.partial(
+        remat.create_selective_checkpoint_contexts, _save_matmuls)}
+    return functools.partial(remat.checkpoint, fn, use_reentrant=False, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, targets, mask=None) -> torch.Tensor:
+    """Mean token NLL, computed as logsumexp minus the target logit (no
+    full log-softmax), in fp32; with ``mask`` the masked mean over
+    ``max(sum(mask), 1)`` tokens."""
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+    nll = lse - tgt
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def lm_loss(params: Params, batch: dict, cfg: ModelConfig, *,
+            backend: str = "torch") -> tuple[torch.Tensor, dict]:
+    """``(ce + aux, {"loss", "ce", "aux"})`` of ``batch`` (``inputs``,
+    ``targets`` and an optional ``mask``)."""
+    logits, _, aux = forward(params, batch["inputs"], cfg=cfg,
+                             backend=backend)
+    ce = cross_entropy(logits, batch["targets"], batch.get("mask"))
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill(params: Params, tokens, cfg: ModelConfig, max_len: int, *,

@@ -1,2 +1,3 @@
 """Training through the port: data, AdamW, checkpoints, the fault-tolerant
-loop and the CapsuleNet trainer (``capsnet_loop``)."""
+loop, the LM trainer (``loop``) and the CapsuleNet trainer
+(``capsnet_loop``)."""

@@ -7,10 +7,12 @@ The counterpart of ``repro/train/checkpoint.py``; one directory per step:
         arrays.npz           # leaf key -> numpy array
     <dir>/step_000123.COMMIT # empty commit marker (atomicity)
 
-State is a nested dict of tensors (``{"params": {...}, "opt": {...}}``).
-Leaf keys are the reference's (``jax.tree_util.keystr`` of the dict
-path, e.g. ``['params']['conv1_w']``), so either package restores the
-other's checkpoints.  Writes go to ``step_X.tmp`` and are renamed, then
+State is a tree of tensors (``{"params": ..., "opt": ...}``): nested
+dicts and lists, as the LM's ``prefix`` / ``suffix`` lists
+(``repro_torch.tree``).  Leaf keys are the reference's
+(``jax.tree_util.keystr`` of the path, e.g. ``['params']['conv1_w']``,
+``['params']['prefix'][0]['input_norm']``), so either package restores
+the other's checkpoints.  Writes go to ``step_X.tmp`` and are renamed, then
 committed, so a preempted writer never leaves a readable but corrupt
 checkpoint.  ``AsyncCheckpointer.save_async`` copies the state to host
 memory at once and writes it on a background thread.
@@ -26,26 +28,17 @@ import threading
 import numpy as np
 import torch
 
-
-def _leaves(tree: dict, prefix: str = ""):
-    """(key, leaf) in the reference's order: dict keys sorted, depth first."""
-    for k in sorted(tree):
-        key = f"{prefix}[{k!r}]"
-        if isinstance(tree[k], dict):
-            yield from _leaves(tree[k], key)
-        else:
-            yield key, tree[k]
+from repro_torch import tree as trees
 
 
-def _to_host(tree: dict) -> dict:
-    """A numpy copy of every leaf (a copy, not a view: the loop goes on
-    updating its tensors in place)."""
-    return {k: (_to_host(v) if isinstance(v, dict)
-                else np.array(torch.as_tensor(v).detach().cpu(), copy=True))
-            for k, v in tree.items()}
+def _to_host(tree):
+    """A numpy copy of every leaf, in the tree's structure (a copy, not a
+    view: the loop goes on updating its tensors in place)."""
+    return trees.tree_map(lambda v: np.array(
+        torch.as_tensor(v).detach().cpu(), copy=True), tree)
 
 
-def save(tree: dict, directory: str | pathlib.Path, step: int,
+def save(tree, directory: str | pathlib.Path, step: int,
          extra: dict | None = None) -> pathlib.Path:
     """Synchronous atomic save."""
     directory = pathlib.Path(directory)
@@ -55,7 +48,7 @@ def save(tree: dict, directory: str | pathlib.Path, step: int,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    arrays = dict(_leaves(_to_host(tree)))
+    arrays = dict(trees.leaves_with_keys(_to_host(tree)))
     np.savez(tmp / "arrays.npz", **arrays)
     manifest = {
         "step": step,
@@ -81,7 +74,7 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self.last_error: Exception | None = None
 
-    def save_async(self, tree: dict, step: int,
+    def save_async(self, tree, step: int,
                    extra: dict | None = None) -> None:
         self.wait()
         host_tree = _to_host(tree)                       # snapshot
@@ -129,11 +122,11 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(template: dict, directory: str | pathlib.Path,
+def restore(template, directory: str | pathlib.Path,
             step: int | None = None) -> tuple[dict, dict]:
-    """Restore into the structure of ``template`` (a nested dict of
-    tensors): each leaf comes back with the template leaf's dtype and
-    device.  Returns ``(tree, manifest)``."""
+    """Restore into the structure of ``template`` (a tree of tensors:
+    dicts and lists, empty ones included): each leaf comes back with the
+    template leaf's dtype and device.  Returns ``(tree, manifest)``."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -142,21 +135,19 @@ def restore(template: dict, directory: str | pathlib.Path,
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     with np.load(d / "arrays.npz") as arrays:
-        def rebuild(tmpl: dict, prefix: str) -> dict:
-            out = {}
-            for k, leaf in tmpl.items():
-                key = f"{prefix}[{k!r}]"
-                if isinstance(leaf, dict):
-                    out[k] = rebuild(leaf, key)
-                    continue
-                if key not in arrays:
-                    raise KeyError(f"checkpoint missing leaf {key}")
-                arr = arrays[key]
-                if tuple(arr.shape) != tuple(leaf.shape):
-                    raise ValueError(f"shape mismatch for {key}: "
-                                     f"{arr.shape} vs {tuple(leaf.shape)}")
-                out[k] = torch.tensor(arr, dtype=leaf.dtype,
-                                      device=leaf.device)
-            return out
+        def rebuild(tmpl, key: str):
+            if isinstance(tmpl, dict):
+                return {k: rebuild(v, f"{key}[{k!r}]")
+                        for k, v in tmpl.items()}
+            if isinstance(tmpl, (list, tuple)):
+                return [rebuild(v, f"{key}[{i}]")
+                        for i, v in enumerate(tmpl)]
+            if key not in arrays:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = arrays[key]
+            if tuple(arr.shape) != tuple(tmpl.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{arr.shape} vs {tuple(tmpl.shape)}")
+            return torch.tensor(arr, dtype=tmpl.dtype, device=tmpl.device)
 
         return rebuild(template, ""), manifest

@@ -14,6 +14,9 @@ detection.  Subclasses supply the model's hooks:
   * ``_ckpt_extra()``        -> manifest extras (backend, optimizer, ...)
   * ``_skip_batch(step)``    -> advance a stateful data stream past a
                                poisoned batch (stateless data: no-op)
+  * ``_begin(start)``        -> once a run, after the restore, before the
+                               first step (the LM loop starts its data
+                               stream at ``start``)
 
 State is always the checkpoint dict (``{"params": ...}`` or
 ``{"params": ..., "opt": ...}``), a nested dict of tensors.
@@ -88,6 +91,10 @@ class FaultTolerantLoop:
         """Advance a stateful data stream to ``step`` (data indexed by
         step needs nothing here)."""
 
+    def _begin(self, start: int) -> None:
+        """Called once a ``run``, after the restore and before the first
+        step."""
+
     # -- shared machinery -----------------------------------------------------
     def _try_restore(self, state: dict) -> tuple[dict, int]:
         if ckpt.latest_step(self.loop_cfg.ckpt_dir) is None:
@@ -151,6 +158,7 @@ class FaultTolerantLoop:
         if start == 0:
             ckpt.save(state, self.loop_cfg.ckpt_dir, 0,
                       extra=self._ckpt_extra())
+        self._begin(start)
         self.step = start
         self._last_committed = start
         self._times = []

@@ -1,20 +1,26 @@
 """AdamW with a warmup + cosine schedule and global-norm clipping: the
 counterpart of ``repro/train/optimizer.py``.
 
-Plain functions over dicts of tensors, not a ``torch.optim`` class: the
-clipping (one global norm over every gradient) and the schedule must be
+Plain functions over trees of tensors (nested dicts and lists: the
+LM's ``blocks["s{i}"]`` stacked leaves and ``prefix`` / ``suffix``
+lists, CapsuleNet's flat dict; ``repro_torch.tree``), not a
+``torch.optim`` class: the clipping (one global norm over every
+gradient, summed in the reference's leaf order) and the schedule must be
 the reference's.  ``adamw_update`` updates the parameters and the m / v
 moments IN PLACE under ``torch.no_grad()`` (the reference returns new
-trees), and returns the same dicts.  All arithmetic is float32, as the
-reference's.
+trees), and returns the same trees.  All arithmetic is float32, as the
+reference's; a parameter keeps its own type.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
+
+from repro_torch import tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,28 +54,33 @@ def lr_at(step, cfg: OptConfig) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.peak_lr * cos)
 
 
-def init_opt_state(params: dict[str, torch.Tensor]) -> dict:
-    """``{"m": zeros, "v": zeros, "step": int32 0}``, the reference's
-    layout (so checkpoints of the two agree key for key)."""
-    dev = next(iter(params.values())).device
-    return {"m": {k: torch.zeros_like(p, dtype=torch.float32)
-                  for k, p in params.items()},
-            "v": {k: torch.zeros_like(p, dtype=torch.float32)
-                  for k, p in params.items()},
+def init_opt_state(params: Any) -> dict:
+    """``{"m": zeros, "v": zeros, "step": int32 0}``, m and v float32
+    trees of the params' structure: the reference's layout (so
+    checkpoints of the two agree key for key)."""
+    dev = tree.leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    return {"m": tree.tree_map(zeros, params),
+            "v": tree.tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors.values()))
+                          for t in tree.leaves(grads)))
 
 
-def adamw_update(params: dict[str, torch.Tensor],
-                 grads: dict[str, torch.Tensor], state: dict,
-                 cfg: OptConfig) -> tuple[dict, dict, dict]:
+def adamw_update(params: Any, grads: Any, state: dict,
+                 cfg: OptConfig) -> tuple[Any, dict, dict]:
     """One AdamW step with the gradients clipped to ``clip_norm`` by
-    their global norm.  Updates ``params`` and ``state`` in place and
-    returns ``(params, state, {"grad_norm", "lr"})``."""
+    their global norm.  ``grads`` is a tree of the params' structure, or
+    their leaves in ``tree.leaves`` order.  Updates ``params`` and
+    ``state`` in place and returns ``(params, state, {"grad_norm",
+    "lr"})``."""
     with torch.no_grad():
         step = state["step"] + 1
         gnorm = global_norm(grads)
@@ -78,13 +89,21 @@ def adamw_update(params: dict[str, torch.Tensor],
         stepf = step.float()
         b1c = 1 - _f32(cfg.b1, gnorm) ** stepf
         b2c = 1 - _f32(cfg.b2, gnorm) ** stepf
-        for k, p in params.items():
-            g = grads[k].float() * scale
-            m, v = state["m"][k], state["v"][k]
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-            u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-            u = u + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * u)
+        for p, g, m, v in zip(*map(tree.leaves, (params, grads, state["m"],
+                                                 state["v"])), strict=True):
+            # The reference's arithmetic, op for op (each op rounds once),
+            # with the temporaries reused in place: at full width a leaf
+            # is gigabytes.
+            g = g.float() * scale                   # a new tensor
+            m.mul_(cfg.b1).add_(g.mul((1 - cfg.b1)))
+            v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+            del g
+            u = m / b1c
+            u.div_(torch.div(v, b2c).sqrt_().add_(cfg.eps))
+            u.add_(p.float().mul(cfg.weight_decay))
+            if p.dtype == torch.float32:
+                p.sub_(u.mul_(lr))
+            else:
+                p.copy_(p.float() - u.mul_(lr))
         state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

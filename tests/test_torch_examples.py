@@ -34,9 +34,14 @@ assert not bad, f"imported {bad}"
     ("serve_lm_torch.py", ["--requests", "3", "--slots", "2",
                            "--max-new", "3"],
      "served 3 requests / 9 tokens"),
+    ("train_lm_torch.py", ["--preset", "tiny", "--steps", "4", "--seq",
+                           "32", "--batch", "4", "--ckpt-dir", "{tmp}"],
+     "over 4 steps"),
 ], ids=["quickstart", "serve_capsnet", "serve_capsnet-async",
-        "serve_lm"])
-def test_example_runs_on_the_cpu_without_jax(example, args, expect):
+        "serve_lm", "train_lm"])
+def test_example_runs_on_the_cpu_without_jax(example, args, expect,
+                                             tmp_path):
+    args = [a.format(tmp=tmp_path) for a in args]
     proc = subprocess.run(
         [sys.executable, "-c", DRIVER, f"examples/{example}",
          "--device", "cpu", *args],

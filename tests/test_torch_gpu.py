@@ -1267,3 +1267,87 @@ def test_verify_tells_the_split_path_from_the_fused_op_on_the_card(cuda):
     fused = lowering.audit_op(plan, op, counters=False)
     (claim,) = [c for c in fused.checks if c.name == lowering.UHAT_CLAIM]
     assert claim.ok and fused.ok
+
+
+def _moe_smoke(cuda):
+    """phi3.5-moe's smoke config with 16-wide heads (K15 builds head dims
+    16-256; the smoke config's are 8 wide), drawn on the card."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get_smoke_config("phi3.5-moe"),
+                              head_dim=16)
+    return cfg, T.init_model(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, device=cuda)
+
+
+def test_moe_graph_engine_replays_the_eager_engines_ticks_on_the_card(cuda):
+    """An MoE decode tick (top-k, cumsum, gather and the one-hot
+    comparisons on the device) captures into a CUDA graph: tokens and
+    logits bit for bit the eager tick's, with slots refilled; 2 norms a
+    layer and the final one, one K15 a layer, in every counted forward."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _moe_smoke(cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 3, 20, 7, 15)]
+    runs = {}
+    for graph in (True, False):
+        seen = []
+
+        def sampler(lg, seen=seen):
+            seen.append(lg.copy())
+            return np.argmax(lg, -1)
+        eng = ServeEngine(params, cfg, slots=2, max_len=40, backend="kernels",
+                          device=cuda, sampler=sampler, cuda_graph=graph)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4 + i))
+        build.reset_launch_counts()
+        runs[graph] = dict(eng=eng, done=[(r.rid, r.output)
+                                          for r in eng.run()],
+                           seen=seen, counts=build.launch_counts())
+    g, e = runs[True], runs[False]
+    assert g["done"] == e["done"]
+    for a, b in zip(g["seen"], e["seen"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    ticks = g["eng"].ticks
+    assert g["eng"].tick_kinds == {"eager": 1, "capture": 1,
+                                   "replay": ticks - 2}
+    n_fwd = len(g["eng"].timings["prefill_s"]) + 2
+    assert g["counts"]["rmsnorm"] == (2 * cfg.num_layers + 1) * n_fwd
+    assert g["counts"]["flash_attention"] == cfg.num_layers * n_fwd
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 ``make_train_step`` of the MoE smoke model on the card
+    against the same step on the CPU (loss, aux and grad norm within
+    1e-5: sums in another order), and bf16 steps that keep the masters
+    in fp32; the kernels backend is refused for training."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, lm_batch
+    cfg, params = _moe_smoke(cuda)
+    batch = lm_batch(DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                                seq_len=24, global_batch=4), 0)
+    metrics = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree.tree_map(lambda t: t.detach().to(dev).clone(), params)
+        step = steps.make_train_step(cfg, opt.OptConfig(),
+                                     compute_dtype=torch.float32)
+        _, _, m = step(p, opt.init_opt_state(p),
+                       {k: torch.as_tensor(v, device=dev)
+                        for k, v in batch.items()})
+        metrics[dev.type] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "aux", "grad_norm"):
+        assert metrics["cuda"][k] == pytest.approx(metrics["cpu"][k],
+                                                   rel=1e-5)
+    step = steps.make_train_step(cfg, opt.OptConfig())
+    state = opt.init_opt_state(params)
+    dev_batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+    for _ in range(2):
+        _, _, m = step(params, state, dev_batch)
+        assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
+    assert all(t.dtype == torch.float32 for t in tree.leaves(params))
+    with pytest.raises(ValueError, match="backward"):
+        steps.make_train_step(cfg, opt.OptConfig(), backend="kernels")

@@ -112,7 +112,7 @@ def test_configs_match_the_reference(module, arch):
 
 
 PORTED_LM_ARCHS = ("gemma2-9b", "gemma3-12b", "granite-3-2b", "gemma-7b",
-                   "chameleon-34b")
+                   "chameleon-34b", "phi3.5-moe-42b-a6.6b")
 
 
 def test_registry_matches_the_reference_capsnet_subset():
@@ -133,7 +133,7 @@ def test_registry_matches_the_reference_capsnet_subset():
 
 @pytest.mark.parametrize("arch", ref_registry.LM_ARCHS)
 def test_registry_names_the_roadmap_item_for_lm_archs(arch):
-    """The dense LM archs resolve to the reference's configs; the others
+    """The ported LM archs resolve to the reference's configs; the others
     are refused with the ROADMAP item that ports them."""
     if arch in PORTED_LM_ARCHS:
         for get, ref_get in ((registry.get_config, ref_registry.get_config),

@@ -19,7 +19,8 @@ SOURCES = sorted(PACKAGE.rglob("*.py")) + [
                              "examples/capstore_dse_torch.py",
                              "examples/quickstart_torch.py",
                              "examples/serve_capsnet_torch.py",
-                             "examples/serve_lm_torch.py")]
+                             "examples/serve_lm_torch.py",
+                             "examples/train_lm_torch.py")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -65,6 +66,9 @@ def _entry_points():
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import init_model
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig
 
     cfg = capsnet_mnist.smoke_config()
     params = capsnet.init_params(torch.Generator().manual_seed(0), cfg,
@@ -94,6 +98,8 @@ def _entry_points():
             torch.Generator().manual_seed(0), lm_cfg),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(
             {"embed": np.zeros((4, 2), np.float32), "prefix": []}),
+        "TrainLoop": lambda: TrainLoop(lm_cfg, OptConfig(),
+                                       DataConfig(kind="lm"), LoopConfig()),
     }
 
 
@@ -103,7 +109,7 @@ def _entry_points():
                                    "opt_state_from_numpy", "CapsTrainLoop",
                                    "capsnet_loop.main", "ServeEngine",
                                    "models.init_model",
-                                   "lm_params_from_numpy"])
+                                   "lm_params_from_numpy", "TrainLoop"])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
