@@ -100,7 +100,17 @@ at 4 layers, a 512-token forward on K15/K16 against the plain one (the
 routing recorded on both), 8 requests through the graph engine with each
 tick's K15/K16 launches counted, its tick ms, tokens/s and idle share.
 Training runs on the plain backend (K15/K16 are forward-only), so no
-kernel launches there.  The weights are random, made from a seed.
+kernel launches there.  Phase 17, the last LM families at full width:
+``deepseek-v2-lite`` at full depth in fp32 (MLA's absorbed decode held
+to the explicit forward, 8 requests through the graph engine on both
+backends, the same tokens), ``mamba2-370m`` (the recurrent decode held
+to the chunked scan, served likewise, 3 bf16 training steps at 8 x
+1024), ``zamba2-1.2b`` (served; each replayed tick a forward's K15
+decode and K16 records) and ``hubert-xlarge`` (K15 at head dim 80
+against its twin and timed beside SDPA, the forward on 8 x 1024 frames
+on both backends, the engine's refusal, 3 masked-frame training
+steps); each path's K15/K16 launches go on the ``kernels`` line.  The
+weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -244,6 +254,25 @@ RESUME = (1e-4, "the reference's own, tests/test_training.py:193")
 MOE_LOGITS = (1e-4, "fp32 through 4 MoE layers, attention and norms "
               "summed in another order (K15's online softmax over key "
               "tiles, K16's tree)")
+
+# Phase 17: the last LM families at full width.  deepseek-v2-lite (MLA,
+# MoE), mamba2-370m (Mamba2/SSD) and zamba2-1.2b (the hybrid) serve phase
+# 13's requests; mamba2 and hubert-xlarge (the audio encoder, K15 at head
+# dim 80) train at phase 16a's batch.
+MLA_ARCH = "deepseek-v2-lite-16b"
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-1.2b"
+AUDIO_ARCH = "hubert-xlarge"
+FAMILY_PROMPT = 97              # the continuation checks' prompt (a prime)
+FAMILY_DECODE = 8               # decode steps held to the full forward
+FAMILY_OPT = dict(peak_lr=1e-4, warmup_steps=1, decay_steps=100)
+AUDIO_MASK = (0.08, 10)         # masked-frame spans: start share, length
+CONTINUE = (1e-4, "fp32 through every layer, the decode's state or "
+            "latent attention summed in another order than the full "
+            "forward's")
+AUDIO_LOGITS = (1e-4, "fp32 through 48 bidirectional layers, attention "
+                "and norms summed in another order (K15's online softmax "
+                "over key tiles, K16's tree)")
 
 # Phase 2b wraps each profiled engine step in marker kernels (``traced``).
 # On the H100 a torch.profiler session can lose records at its start:
@@ -2376,10 +2405,14 @@ def tick_profile(eng, reps: int) -> dict:
 def lm_per_forward(cfg) -> dict[str, int]:
     """K15's and K16's launches in one forward of ``cfg``: a norm before
     attention and one before the MLP (and one after each with post
-    norms) a layer, and the final norm."""
+    norms) an attention block, one K15 an attention block unless it is
+    MLA (plain on both backends); two norms a Mamba block (before it and
+    ``mamba_norm``); and the final norm."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k != "mamba" for k in kinds)
     norms = 4 if cfg.use_post_norms else 2
-    return {"flash_attention": cfg.num_layers,
-            "rmsnorm": norms * cfg.num_layers + 1}
+    return {"flash_attention": 0 if cfg.mla else attn,
+            "rmsnorm": norms * attn + 2 * (len(kinds) - attn) + 1}
 
 
 def lm_params(cfg, dev):
@@ -3212,7 +3245,7 @@ def loss_and_grad_norm(params, batch, cfg, compute_dtype) -> tuple:
     wrt = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = T.lm_loss(steps.cast_tree(wrt, compute_dtype), batch,
                               cfg)
-    grads = torch.autograd.grad(loss, tree.leaves(wrt))
+    grads = steps.leaf_grads(loss, tree.leaves(wrt))
     return ({k: float(v.detach()) for k, v in metrics.items()},
             float(opt.global_norm(grads)), grads)
 
@@ -3679,6 +3712,463 @@ def lm_training_phase(dev, rows: list[dict]) -> None:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
 
 
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_launches(rows: list[dict], key: str, path: str,
+                    counts: dict[str, int], per_forward: dict[str, int],
+                    **extra) -> None:
+    """Adds one phase 17 path's launches of K15 and K16 to their rows of
+    the ``kernels`` line (under ``family_launches``), failing where a
+    kernel the path runs was launched no time."""
+    for name, n in per_forward.items():
+        if n and not counts[name]:
+            raise AssertionError(f"{key}: {name} never launched on its "
+                                 f"path ({counts})")
+    for row in rows:
+        if row["name"] in per_forward:
+            row.setdefault("family_launches", {})[key] = dict(
+                path=path, launches=counts[row["name"]],
+                forward_launches=per_forward[row["name"]],
+                **{k: v[row["name"]] for k, v in extra.items()})
+
+
+def family_serving(dev, rows: list[dict], cfg, params, key: str) -> dict:
+    """Phase 13's 8 requests through LM_SLOTS slots at LM_MAX_LEN on the
+    kernels backend with graph ticks, counted (the wrappers over the
+    prefills, the eager tick and the capture), against the plain
+    backend's tokens; again with each step profiled (every replayed
+    tick's K15/K16 records a forward's, ``lm_counted_run``); then a
+    steady tick's host and device ms and idle share.  Adds the run's
+    launches to the K15 and K16 rows."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as k15
+    from repro_torch.serve.engine import Request
+    per_forward = lm_per_forward(cfg)
+    prompts = lm_inputs(cfg)[2]
+    lengths = [len(p) for p in prompts]
+    outputs = {}
+    for backend in ("kernels", "torch"):
+        eng = lm_engine(params, cfg, dev, prompts, backend)
+        build.reset_launch_counts()
+        k15.SCHEDULE_LAUNCHES.update(prefill=0, decode=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        run_s = time.perf_counter() - t0
+        outputs[backend] = [(r.rid, r.output) for r in done]
+        if backend == "kernels":
+            counts = {k: build.launch_counts()[k] for k in per_forward}
+            schedules = dict(k15.SCHEDULE_LAUNCHES)
+            n_pre = len(eng.timings["prefill_s"])
+            kinds = dict(eng.tick_kinds)
+            want = {k: n * (n_pre + 2) for k, n in per_forward.items()}
+            print(f"{key} engine ({cfg.num_layers} layers, {LM_SLOTS} "
+                  f"slots, {LM_REQUESTS} requests of {lengths} tokens): "
+                  f"ticks {kinds}, {eng.graph_replays} replays; launches "
+                  f"counted {counts} over {n_pre} prefills, the eager tick "
+                  f"and the capture, expected {want}; K15 by schedule "
+                  f"{schedules}", flush=True)
+            if counts != want or kinds != {"eager": 1, "capture": 1,
+                                           "replay": eng.ticks - 2}:
+                raise AssertionError(f"the {key} engine did not run its "
+                                     f"kernels with graph ticks")
+            n_tok = sum(len(r.output) for r in done)
+            decode_ms = [1e3 * x for x in eng.timings["decode_s"]]
+            res = dict(requests=LM_REQUESTS, prompt_lengths=lengths,
+                       tokens=n_tok, run_s=run_s,
+                       tokens_per_s=n_tok / run_s,
+                       prefill_ms_mean=1e3 * statistics.mean(
+                           eng.timings["prefill_s"]),
+                       replay_ms_median=statistics.median(decode_ms[2:]),
+                       counts=counts, schedules=schedules,
+                       per_forward=per_forward)
+            eng_k = eng
+        else:
+            res["plain_run_s"] = run_s
+            res["plain_tokens_per_s"] = n_tok / run_s
+            del eng
+    if outputs["kernels"] != outputs["torch"]:
+        raise AssertionError(f"{key}: the backends' engines give different "
+                             f"tokens")
+    eng_p = lm_engine(params, cfg, dev, prompts, "kernels")
+    build.reset_launch_counts()
+    counted = lm_counted_run(eng_p, per_forward)
+    seen = (len(eng_p.timings["prefill_s"]) + eng_p.ticks
+            - counted["replays_untraced"])
+    ran = {k: build.launch_counts()[k] + counted["records_on_replays"][k]
+           for k in per_forward}
+    print(f"{key} engine, each step profiled: counted + records on "
+          f"replays {ran} over {seen} forwards, per forward {per_forward}; "
+          f"one replayed tick {json.dumps(counted['one_replay'])}",
+          flush=True)
+    if ran != {k: n * seen for k, n in per_forward.items()}:
+        raise AssertionError(f"the {key} ticks did not run a forward's "
+                             f"K15/K16 launches each")
+    if [(r.rid, r.output) for r in counted["done"]] != outputs["kernels"]:
+        raise AssertionError(f"the {key} engine's tokens differ between "
+                             f"its runs")
+    for i, p in enumerate(prompts[:LM_SLOTS]):
+        eng_k.submit(Request(rid=100 + i, prompt=p,
+                             max_new_tokens=LM_NEW_TOKENS))
+    eng_k.step()
+    eng_k.step()
+    tick = tick_profile(eng_k, 3)
+    t_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng_k.step()
+        t_host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = statistics.median(t_host)
+    res.update(tick_host_ms=host_ms, tick_device_ms=tick["device_ms"],
+               idle_share=1.0 - tick["device_ms"] / host_ms,
+               tick_top=tick["top"],
+               tick_records=tick["records_per_tick"],
+               kernels_per_tick=tick["kernels_per_tick"],
+               one_replay=counted["one_replay"],
+               records_on_replays=counted["records_on_replays"],
+               same_tokens_both_backends=True)
+    print(f"{key} serving: {json.dumps(res)} ({CARD})", flush=True)
+    family_launches(rows, key, f"{key} at full width served by "
+                    f"ServeEngine(backend='kernels'): {LM_REQUESTS} "
+                    f"requests, {LM_SLOTS} slots", counts, per_forward,
+                    launches_on_replays=counted["records_on_replays"])
+    del eng_k, eng_p
+    free_card()
+    return res
+
+
+def continues_the_forward(params, cfg, dev, label: str) -> float:
+    """A FAMILY_PROMPT-token prefill into an fp32 cache, then FAMILY_DECODE
+    greedy decode steps (MLA's absorbed form; Mamba's recurrent step),
+    on the kernels backend: each step's logits against the full forward's
+    at its position (the explicit form; the chunked scan), within
+    CONTINUE.  Returns the normalised error."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(SEED + 17)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, FAMILY_PROMPT)), device=dev)
+    v = cfg.vocab_size
+    with torch.no_grad():
+        logits, cache = T.prefill(params, prompt, cfg, FAMILY_PROMPT
+                                  + FAMILY_DECODE, cache_dtype=torch.float32,
+                                  backend="kernels")
+        steps = [logits[0, :, :v]]
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        seq = [prompt, tok]
+        for i in range(FAMILY_DECODE - 1):
+            logits, cache = T.decode_step(params, cache, tok,
+                                          FAMILY_PROMPT + i, cfg,
+                                          backend="kernels")
+            steps.append(logits[0, :, :v])
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            seq.append(tok)
+        full, _, _ = T.forward(params, torch.cat(seq[:-1], dim=1), cfg=cfg,
+                               backend="kernels")
+    got = torch.cat(steps, dim=0)
+    err = check_scaled(f"{label}: prefill of {FAMILY_PROMPT} then "
+                       f"{FAMILY_DECODE - 1} decode steps against the full "
+                       f"forward's logits [{got.shape[0]}, {v}]", got,
+                       full[0, :, :v], CONTINUE)
+    return err / full[0, :, :v].abs().max().item()
+
+
+def train_family(dev, cfg, batch_at, label: str) -> dict:
+    """Phase 16a's recipe on ``cfg`` (fp32 masters and AdamW, bf16
+    compute, remat full, FAMILY_OPT's schedule): three steps on one batch,
+    ``batch_at(0)`` (the loss falls on it, where the stream's batches
+    differ by more than two steps move it), every gradient finite; then
+    one more on ``batch_at(1)`` profiled (``traced``): its device ms and
+    the idle share; the peak memory.  Trains on the plain backend
+    (K15/K16 have no backward)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 19),
+                          cfg, device=dev)
+    opt_state = opt.init_opt_state(params)
+    step = steps.make_train_step(cfg, opt.OptConfig(**FAMILY_OPT),
+                                 compute_dtype=torch.bfloat16)
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    batch = batch_at(0)
+    for _ in range(TRAIN_LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        row = {k: float(v) for k, v in m.items()}
+        row["host_ms"] = 1e3 * (time.perf_counter() - t0)
+        hist.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    batch = batch_at(1)
+    prof, _, lost = traced(lambda: step(params, opt_state, batch))
+    # The step may launch trunc_/floor_ kernels of its own: the trace is
+    # whole where it kept every lead's spin and at least every guard.
+    guards = kernel_records(prof, ("trunc_kernel", "floor_kernel"))
+    whole = lost < TRACE_LEAD and min(guards.values()) >= TRACE_GUARD
+    dev_ms, dev_top = trace_device_ms(prof)
+    host_ms = statistics.median(h["host_ms"] for h in hist[1:])
+    counts = no_lm_kernel_ran(f"{label} training")
+    tokens = batch["targets"].numel()
+    out = dict(params=count_params(cfg), layers=cfg.num_layers,
+               batch=list(batch["targets"].shape), steps=hist,
+               step_host_ms=host_ms, step_device_ms=dev_ms,
+               trace_whole=whole, lead_lost=lost, guards_kept=guards,
+               idle_share=1.0 - dev_ms / host_ms,
+               tokens_per_s=tokens / host_ms * 1e3, peak_gib=peak / 2**30,
+               device_top=dev_top, launches=counts)
+    print(f"{label} train steps (bf16 compute, remat {cfg.remat}, AdamW "
+          f"over fp32 masters): {json.dumps(out)} ({CARD})", flush=True)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"{label} training: non-finite or no falling "
+                             f"loss: {hist}")
+    del params, opt_state, step, batch, prof
+    free_card()
+    return out
+
+
+def mla_phase(dev, rows: list[dict]) -> dict:
+    """Phase 17a: deepseek-v2-lite-16b at its full width and depth (27
+    layers: MLA with a 512-rank latent, a dense first layer, 26 of 64
+    routed experts top-6 and 2 shared), fp32: the absorbed decode against
+    the explicit forward, then served (``family_serving``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    cfg = registry.get_config(MLA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 20),
+                          cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"{MLA_ARCH}: {count_params(cfg)} parameters, {cfg.num_layers} "
+          f"layers (not cut), {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB on the card, drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # The MoE drops tokens past an expert's capacity, which grows with T:
+    # a 104-token forward and a 97-token prefill drop different tokens.
+    # At a capacity of T none drops, and the check holds MLA's two forms
+    # alone (the parameters do not depend on the capacity).
+    no_drops = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    err = continues_the_forward(params, no_drops, dev,
+                                f"{MLA_ARCH} absorbed decode (MoE capacity "
+                                f"T: no token dropped)")
+    res = family_serving(dev, rows, cfg, params, MLA_ARCH)
+    res.update(continue_err=err, params=count_params(cfg),
+               layers=cfg.num_layers,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"{MLA_ARCH}: max_memory_allocated {res['peak_gib']:.2f} GiB "
+          f"({CARD})", flush=True)
+    del params
+    free_card()
+    return res
+
+
+def ssm_phase(dev, rows: list[dict]) -> dict:
+    """Phase 17b: mamba2-370m at its full width and depth (48 Mamba2
+    blocks, d_inner 2048, 32 heads of 64, state 128): the recurrent decode
+    against the chunked forward, served, then trained at 8 x 1024."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import DataConfig
+    cfg = registry.get_config(SSM_ARCH)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 21),
+                          cfg, device=dev)
+    err = continues_the_forward(params, cfg, dev, f"{SSM_ARCH} recurrent "
+                                "decode")
+    res = family_serving(dev, rows, cfg, params, SSM_ARCH)
+    res["continue_err"] = err
+    del params
+    free_card()
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      seed=SEED)
+    res["train"] = train_family(dev, cfg, lambda s: lm_batch_on(data, s, dev),
+                                SSM_ARCH)
+    return res
+
+
+def hybrid_phase(dev, rows: list[dict]) -> dict:
+    """Phase 17c: zamba2-1.2b at its full width and depth (38 Mamba2
+    blocks and 6 uses of one shared attention-and-MLP block, MHA 32 x 64
+    on K15), served."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_config(HYBRID_ARCH)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 22),
+                          cfg, device=dev)
+    res = family_serving(dev, rows, cfg, params, HYBRID_ARCH)
+    del params
+    free_card()
+    return res
+
+
+def masked_frames(cfg, step: int, dev) -> dict:
+    """The frames stream's batch of ``step`` (8 x 1024 frames of 512)
+    with masked-frame prediction: spans of AUDIO_MASK[1] frames from
+    AUDIO_MASK[0] of the positions zeroed, the loss on them alone."""
+    import numpy as np
+    import torch
+    from repro_torch.train.data import DataConfig, frames_batch
+    data = DataConfig(kind="frames", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      frontend_dim=cfg.frontend_dim, seed=SEED)
+    batch = frames_batch(data, step)
+    rng = np.random.default_rng((SEED, step, 17))
+    share, span = AUDIO_MASK
+    starts = rng.random((TRAIN_LM_BATCH, TRAIN_SEQ)) < share
+    mask = np.zeros((TRAIN_LM_BATCH, TRAIN_SEQ), np.float32)
+    for i in range(span):
+        mask[:, i:] = np.maximum(mask[:, i:], starts[:, :TRAIN_SEQ - i])
+    batch["inputs"] = np.where(mask[..., None] > 0, 0.0,
+                               batch["inputs"]).astype(np.float32)
+    batch["mask"] = mask
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def audio_phase(dev, rows: list[dict]) -> dict:
+    """Phase 17d: hubert-xlarge at its full width and depth (48
+    bidirectional layers, d_model 1280, 16 heads of 80): K15 at head dim
+    80 against its twin and timed at the forward's shape beside SDPA
+    (non-causal), the forward on 8 x 1024 frames on both backends with
+    the kernels' launches counted and profiled, the engine's refusal,
+    then masked-frame training at 8 x 1024."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as k15
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg = registry.get_config(AUDIO_ARCH)
+    b, t, h, d = TRAIN_LM_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = randn(b, t, h, d), randn(b, t, h, d), randn(b, t, h, d)
+    with torch.no_grad():
+        sched = k15.schedule(q, k)
+        got = same_bits(f"flash_attention {AUDIO_ARCH} D={d} non-causal "
+                        f"[{b}, {t}, {h}, {d}] ({sched})",
+                        lambda: k15.flash_attention(q, k, v, causal=False))
+        r = check(f"flash_attention {AUDIO_ARCH} D={d} non-causal "
+                  f"against the twin", got,
+                  k15.flash_attention_plain(q, k, v, causal=False), FLASH)
+        nbytes, flops = attention_work([t] * b, t, h, h, d, False, None)
+        (site,) = timed_sites([(
+            f"{AUDIO_ARCH} prefill [{b}, {t}, {h}, {d}] non-causal",
+            lambda: k15.flash_attention(q, k, v, causal=False),
+            lambda: k15.flash_attention_plain(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            nbytes, flops)])
+        # device_ms's plain session can lose every record this late in
+        # the process: read the kernel's records between marker kernels.
+        prof, whole, _ = traced(lambda: [k15.flash_attention(
+            q, k, v, causal=False) for _ in range(10)])
+        times = [ms for key, ms in kernel_ms(prof, 10).items()
+                 if "flash::prefill_kernel" in key]
+    site.update(block_k=sched.block_k, max_abs_err=r["max_abs"],
+                device_ms=site["device_ms"] or (times[0] if times
+                                                else None),
+                traced_device_ms=times[0] if times else None,
+                trace_whole=whole,
+                library="F.scaled_dot_product_attention (non-causal)")
+    print(f"flash_attention D=80 site: {json.dumps(site)} ({CARD})",
+          flush=True)
+    del q, k, v, got
+    free_card()
+
+    params = T.init_model(gen, cfg, device=dev)
+    per_forward = lm_per_forward(cfg)
+    frames = masked_frames(cfg, 0, dev)["inputs"]
+    logits = {}
+    with torch.no_grad():
+        build.reset_launch_counts()
+        logits["kernels"] = T.forward(params, frames, cfg=cfg,
+                                      backend="kernels")[0][..., :cfg.vocab_size]
+        counts = {k: build.launch_counts()[k] for k in per_forward}
+        logits["torch"] = T.forward(params, frames, cfg=cfg,
+                                    backend="torch")[0][..., :cfg.vocab_size]
+        fwd_ms = {name: time_ms(lambda be=name: T.forward(
+            params, frames, cfg=cfg, backend=be), reps=3)
+            for name in ("kernels", "torch")}
+        prof, whole, _ = traced(lambda: T.forward(params, frames, cfg=cfg,
+                                                  backend="kernels"))
+    rec = lm_records(prof)
+    err = check_scaled(f"{AUDIO_ARCH} logits [{b}, {t}, {cfg.vocab_size}] "
+                       f"({cfg.num_layers} layers), kernels against plain",
+                       logits["kernels"], logits["torch"], AUDIO_LOGITS)
+    del logits
+    print(f"{AUDIO_ARCH} forward on {b} x {t} frames: {count_params(cfg)} "
+          f"parameters, launches counted {counts} (per forward "
+          f"{per_forward}); the profiled forward's records {rec} (trace "
+          f"whole {whole}); ms {json.dumps(fwd_ms)} ({CARD})", flush=True)
+    if (counts != per_forward or rec["flash prefill"] < 1
+            or (whole and rec["flash prefill"] != per_forward[
+                "flash_attention"])):
+        raise AssertionError(f"{AUDIO_ARCH}: the forward did not run K15 "
+                             f"at D 80 and K16 once a site")
+    try:
+        ServeEngine(params, cfg, device=dev)
+    except ValueError as refusal:
+        print(f"{AUDIO_ARCH}: ServeEngine refuses it: {refusal}", flush=True)
+    else:
+        raise AssertionError("ServeEngine took an encoder-only config")
+    family_launches(rows, AUDIO_ARCH, f"{AUDIO_ARCH} at full width: one "
+                    f"forward of {b} x {t} frames, backend='kernels'",
+                    counts, per_forward)
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["hubert_d80"] = dict(site, launches=counts[row["name"]])
+    del params, frames, prof
+    free_card()
+    res = dict(logit_err=err, forward_ms=fwd_ms, counts=counts,
+               records=rec, d80=site)
+    res["train"] = train_family(dev, cfg,
+                                lambda s: masked_frames(cfg, s, dev),
+                                AUDIO_ARCH)
+    return res
+
+
+def lm_families_phase(dev, rows: list[dict]) -> None:
+    """Phase 17: deepseek-v2-lite (MLA), mamba2-370m (Mamba2/SSD),
+    zamba2-1.2b (the hybrid) and hubert-xlarge (the audio encoder) at
+    full width on the card."""
+    import torch
+    t0 = time.perf_counter()
+    free_card()
+    print(f"phase 17: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"still allocated on the card", flush=True)
+    out = {}
+    for key, fn in (("17a", mla_phase), ("17b", ssm_phase),
+                    ("17c", hybrid_phase), ("17d", audio_phase)):
+        t1 = time.perf_counter()
+        out[key] = fn(dev, rows)
+        print(f"phase {key}: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"lm families: {json.dumps(out)}", flush=True)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
+
+
 def main() -> int:
     global CARD
     import torch
@@ -3732,6 +4222,8 @@ def main() -> int:
     run_examples()
     # 16. LM training and MoE.
     lm_training_phase(dev, rows)
+    # 17. MLA, Mamba2, the hybrid and the audio encoder.
+    lm_families_phase(dev, rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ PyTorch model, and ``--device cpu`` runs the kernels' plain twins.  The
 default arch is the port's LM main path, ``gemma2-9b``: the reference's
 default, ``granite-3-2b``, has 8-wide heads in its smoke config, which K15
 is not built for (head dims 16 to 256), so it serves with ``--backend
-torch``.
+torch``.  ``--arch`` names any decoding arch of the registry, e.g.
+``mamba2-370m`` (Mamba2/SSD), ``deepseek-v2-lite`` (MLA and MoE) or
+``zamba2-1.2b`` (the hybrid); an encoder (hubert) has no decode path.
 """
 
 import argparse

@@ -13,6 +13,11 @@ in bf16 over fp32 master weights.
     # stop it at any point (SIGTERM saves a checkpoint), then resume
     # exactly with the same command.
 
+    # an arch's smoke config instead of a preset (an audio encoder such
+    # as hubert-xlarge trains on the frames stream):
+    PYTHONPATH=src python examples/train_lm_torch.py --device cpu \
+        --arch hubert-xlarge --steps 10 --seq 32
+
 It runs on the card unless ``--device cpu`` is given.
 """
 
@@ -21,6 +26,7 @@ import sys
 
 sys.path.insert(0, "src")
 
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models.config import ModelConfig, count_params  # noqa: E402
 from repro_torch.train.data import DataConfig  # noqa: E402
@@ -40,26 +46,37 @@ PRESETS = {
 }
 
 
+def model_config(preset: str, arch: str | None = None) -> ModelConfig:
+    """``arch``'s smoke config where an arch is named, else the preset."""
+    return registry.get_smoke_config(arch) if arch else PRESETS[preset]
+
+
 def build_loop(preset: str, steps: int, seq: int, batch: int,
-               ckpt_dir: str, device) -> TrainLoop:
-    """The example's loop: ``preset``'s model on ``device``, the LM stream
-    at ``seq`` x ``batch``, checkpoints under ``ckpt_dir/preset``."""
-    cfg = PRESETS[preset]
-    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size, seq_len=seq,
-                      global_batch=batch)
+               ckpt_dir: str, device, arch: str | None = None) -> TrainLoop:
+    """The example's loop: the model (``model_config``) on ``device``, the
+    LM stream -- the frames stream for an audio frontend -- at ``seq`` x
+    ``batch``, checkpoints under ``ckpt_dir/<preset or arch>``."""
+    cfg = model_config(preset, arch)
+    kind = "frames" if cfg.frontend == "audio_frames" else "lm"
+    data = DataConfig(kind=kind, vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, frontend_dim=cfg.frontend_dim)
+    name = arch or preset
     return TrainLoop(
         cfg,
         OptConfig(peak_lr=3e-4, warmup_steps=20, decay_steps=steps),
         data,
         LoopConfig(total_steps=steps, ckpt_every=max(steps // 4, 10),
-                   ckpt_dir=f"{ckpt_dir}/{preset}", log_every=5,
-                   heartbeat_path=f"{ckpt_dir}/{preset}/hb.json"),
+                   ckpt_dir=f"{ckpt_dir}/{name}", log_every=5,
+                   heartbeat_path=f"{ckpt_dir}/{name}/hb.json"),
         device=device)
 
 
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="tiny", choices=list(PRESETS))
+    ap.add_argument("--arch", default=None,
+                    help="train this registry arch's smoke config instead "
+                         "of the preset")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -70,11 +87,11 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = PRESETS[args.preset]
+    cfg = model_config(args.preset, args.arch)
     print(f"model {cfg.name}: {count_params(cfg)/1e6:.1f}M params, "
           f"{cfg.num_layers} layers, on {dev}")
     loop = build_loop(args.preset, args.steps, args.seq, args.batch,
-                      args.ckpt_dir, dev)
+                      args.ckpt_dir, dev, args.arch)
     loop.install_signal_handler()
     hist = loop.run(resume=not args.no_resume)
     if hist:

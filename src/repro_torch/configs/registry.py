@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config module.
 
-Counterpart of ``repro/configs/registry.py``: the CapsuleNet archs and
-the LM archs whose blocks the port runs (attention with a dense or an
-MoE MLP, ``repro_torch.models``).  The reference's other LM archs raise
-``KeyError`` naming the ROADMAP item that ports them.
+Counterpart of ``repro/configs/registry.py``: every arch of the
+reference, the CapsuleNet archs and the LM archs (dense, MoE, MLA,
+Mamba2, the hybrid and the audio encoder, ``repro_torch.models``), in
+the reference's order.
 """
 
 from __future__ import annotations
@@ -15,8 +15,12 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "granite-3-2b": "granite_3_2b",
     "gemma-7b": "gemma_7b",
+    "mamba2-370m": "mamba2_370m",
+    "hubert-xlarge": "hubert_xlarge",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "chameleon-34b": "chameleon_34b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "capsnet-mnist": "capsnet_mnist",
     "capsnet-cifar10": "capsnet_cifar10",
     "capsnet-svhn": "capsnet_svhn",
@@ -33,15 +37,6 @@ _ALIASES = {
     "capsnet_svhn": "capsnet-svhn",
 }
 
-# The reference's LM archs not ported yet, each with the ROADMAP item
-# (queue 1) that ports it.
-_WAITING = {
-    "deepseek-v2-lite-16b": "item 11c, MLA",
-    "mamba2-370m": "item 11d, mamba and hybrid",
-    "zamba2-1.2b": "item 11d, mamba and hybrid",
-    "hubert-xlarge": "item 11e, hubert",
-}
-
 LM_ARCHS = [a for a in _MODULES if not a.startswith("capsnet")]
 CAPSNET_ARCHS = [a for a in _MODULES if a.startswith("capsnet")]
 
@@ -52,10 +47,6 @@ def canonical(name: str) -> str:
 
 def _module(name: str):
     name = canonical(name)
-    if name in _WAITING:
-        raise KeyError(f"arch {name!r} of the reference is not ported yet "
-                       f"(ROADMAP queue 1, {_WAITING[name]}); ported: "
-                       f"{list(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

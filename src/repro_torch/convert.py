@@ -52,8 +52,9 @@ def _lm_leaf(a, dev: torch.device) -> torch.Tensor:
 
 def lm_params_from_numpy(params, device: str | torch.device = "cuda"):
     """The reference's LM parameter tree (``repro.models.init_model``, its
-    leaves taken through ``np.asarray``: nested dicts and lists, dense or
-    MoE blocks) -> the same tree of tensors of the same types on
-    ``device``."""
+    leaves taken through ``np.asarray``: nested dicts and lists; dense,
+    MoE, MLA and Mamba blocks, the ``shared`` branch with its ``{}``
+    pattern slots, ``frontend_proj``) -> the same tree of tensors of the
+    same types on ``device``."""
     dev = resolve_device(device)
     return tree.tree_map(lambda a: _lm_leaf(a, dev), params)

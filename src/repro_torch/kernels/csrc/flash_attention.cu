@@ -42,7 +42,11 @@
 //    (transposed), alpha and l go to shared memory;
 //  - p.v: the 64 x D output tile as TM x TN register blocks, float4 blocks
 //    of rows and columns (8 x 8 at D = 256, the GEMM core's layout,
-//    csrc/gemm_sm90.cuh): per key, 2 + 2 float4 loads feed 64 FMAs.
+//    csrc/gemm_sm90.cuh): per key, 2 + 2 float4 loads feed 64 FMAs.  Where
+//    TN is not a multiple of 4 (2 at D = 32, 1 at 16, 5 at hubert's 80) a
+//    thread takes TN adjacent columns by scalar loads: at D = 80 the 16
+//    column threads of a half-warp read at a stride of 5 floats, 16
+//    distinct banks.
 // KV blocks that no row of the CTA can see (past the causal diagonal,
 // before the window) are skipped -- except in a CTA holding a row with no
 // valid key at all, which visits every block so that row's mean of V comes
@@ -50,7 +54,9 @@
 // register budgets (kernels/flash_attention.py plan_tiles): with fp32 K/V
 // at D = 256 only BK = 32 fits (208,896 B, one CTA an SM).
 //
-// Decode (Tq x H/KvH query rows at most 8 at D = 256, 16 below; the plan,
+// Decode (Tq x H/KvH query rows at most 8 at D = 256, 16 below; not built
+// at D = 80, whose 20 float4 chunks a key do not split over a power-of-two
+// count of lanes: kernels/flash_attention.py refuses it there; the plan,
 // plan_decode, fixes the split count from host-known shapes only).  Bound:
 // the bytes of the visible K/V rows.  One CTA takes one (batch row, KV
 // head, key split) and all Tq x group query rows that read that KV head,
@@ -193,7 +199,7 @@ struct Prefill {
   static constexpr int kTRO = D == 256 ? 8 : 16;      // p.v thread rows
   static constexpr int kTCO = kThreads / kTRO;
   static constexpr int kTM = kBQ / kTRO;              // 8 or 4 rows a thread
-  static constexpr int kTN = D / kTCO;                // 8, 8, 4, 2, 1 columns
+  static constexpr int kTN = D / kTCO;                // 8, 8, 5, 4, 2, 1
   static constexpr int kQBytes = kBQ * kQStride * 4;
   static constexpr int kKBytes = BK * kKStride * kKvB;
   static constexpr int kVBytes = BK * D * kKvB;
@@ -301,8 +307,8 @@ prefill_kernel(const Args a, bool vec) {
   float m_run[P::kRows], l_run[P::kRows];
 #pragma unroll
   for (int ii = 0; ii < P::kRows; ++ii) m_run[ii] = kNegInf, l_run[ii] = 0.f;
-  // p.v: rows a*4*TRO + tro*4 + e, columns (TN >= 4) b*4*TCO + tco*4 + e
-  // or (TN < 4) tco*TN + e.
+  // p.v: rows a*4*TRO + tro*4 + e, columns (TN % 4 == 0) b*4*TCO +
+  // tco*4 + e, else tco*TN + e.
   const int tro = tid / P::kTCO, tco = tid % P::kTCO;
   constexpr int TM = P::kTM, TN = P::kTN;
   float acc[TM][TN];
@@ -421,7 +427,8 @@ prefill_kernel(const Args a, bool vec) {
           for (int j = 0; j < TN; ++j) acc[ga * 4 + e][j] *= alv[e];
       }
       const float* pr = Pt + tro * 4;
-      const TKV* vr = Vt + (TN >= 4 ? tco * 4 : tco * TN);
+      constexpr bool kVec = TN % 4 == 0;
+      const TKV* vr = Vt + (kVec ? tco * 4 : tco * TN);
 #pragma unroll
       for (int c = 0; c < BK; ++c) {
         float pv[TM], vv[TN];
@@ -431,7 +438,7 @@ prefill_kernel(const Args a, bool vec) {
           pv[ga * 4] = t.x, pv[ga * 4 + 1] = t.y, pv[ga * 4 + 2] = t.z,
                   pv[ga * 4 + 3] = t.w;
         }
-        if constexpr (TN >= 4) {
+        if constexpr (kVec) {
 #pragma unroll
           for (int gb = 0; gb < TN / 4; ++gb) {
             const float4 t = load4(vr + c * D + gb * 4 * P::kTCO);
@@ -462,8 +469,8 @@ prefill_kernel(const Args a, bool vec) {
     TQ* orow = o + (long long)(t0 + r) * a.sot;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int col = TN >= 4 ? (j / 4) * 4 * P::kTCO + tco * 4 + j % 4
-                              : tco * TN + j;
+      const int col = TN % 4 == 0 ? (j / 4) * 4 * P::kTCO + tco * 4 + j % 4
+                                  : tco * TN + j;
       store_f(orow + col, acc[i][j] / lsum);
     }
   }
@@ -786,7 +793,9 @@ template <typename TQ, typename TKV, int D>
 int launch_d(const Args& a, int B, int bk, int splits, int chunk,
              float* ws, cudaStream_t stream) {
   constexpr int kvb = (int)sizeof(TKV);
-  if (splits > 0) {
+  if constexpr (D == 80) {                // prefill only
+    if (splits > 0) return (int)cudaErrorInvalidValue;
+  } else if (splits > 0) {
     // A lane copies 4 elements at a time.
     const bool vec = aligned(a.k, a.skb, a.skt, a.skh, 4 * kvb, 4) &&
                      aligned(a.v, a.svb, a.svt, a.svh, 4 * kvb, 4);
@@ -821,6 +830,7 @@ int launch_pair(const Args& a, int B, int D, int bk, int splits, int chunk,
     case 16: return launch_d<TQ, TKV, 16>(a, B, bk, splits, chunk, ws, stream);
     case 32: return launch_d<TQ, TKV, 32>(a, B, bk, splits, chunk, ws, stream);
     case 64: return launch_d<TQ, TKV, 64>(a, B, bk, splits, chunk, ws, stream);
+    case 80: return launch_d<TQ, TKV, 80>(a, B, bk, splits, chunk, ws, stream);
     case 128:
       return launch_d<TQ, TKV, 128>(a, B, bk, splits, chunk, ws, stream);
     case 256:
@@ -838,16 +848,20 @@ int prefill_smem(int bk) {
 
 template <typename TKV, int D>
 int decode_smem(int rb) {
-  switch (rb) {
-    case 2: return Decode<TKV, D, 2>::kSmem;
-    case 4: return Decode<TKV, D, 4>::kSmem;
-    case 8: return Decode<TKV, D, 8>::kSmem;
-    default: break;
+  if constexpr (D == 80) {
+    return -1;                            // no decode schedule
+  } else {
+    switch (rb) {
+      case 2: return Decode<TKV, D, 2>::kSmem;
+      case 4: return Decode<TKV, D, 4>::kSmem;
+      case 8: return Decode<TKV, D, 8>::kSmem;
+      default: break;
+    }
+    if constexpr (D <= 128) {
+      if (rb == 16) return Decode<TKV, D, 16>::kSmem;
+    }
+    return -1;
   }
-  if constexpr (D <= 128) {
-    if (rb == 16) return Decode<TKV, D, 16>::kSmem;
-  }
-  return -1;
 }
 
 template <typename TKV>
@@ -856,6 +870,7 @@ int smem_of(int D, int n, bool decode) {
     case 16: return decode ? decode_smem<TKV, 16>(n) : prefill_smem<TKV, 16>(n);
     case 32: return decode ? decode_smem<TKV, 32>(n) : prefill_smem<TKV, 32>(n);
     case 64: return decode ? decode_smem<TKV, 64>(n) : prefill_smem<TKV, 64>(n);
+    case 80: return decode ? decode_smem<TKV, 80>(n) : prefill_smem<TKV, 80>(n);
     case 128:
       return decode ? decode_smem<TKV, 128>(n) : prefill_smem<TKV, 128>(n);
     case 256:
@@ -887,7 +902,8 @@ REPRO_EXPORT int flash_decode_smem_bytes(int D, int rb, int kv_bytes) {
 // q, o [B, Tq, H, D] and k, v [B, Tk, KvH, D], each with (b, t, h) element
 // strides and a contiguous last dim.  qo_dtype / kv_dtype: 0 fp32, 1 bf16
 // (fp32 q with bf16 K/V reads a bf16 cache in place); kv_len [B] int32 or
-// null; D in {16, 32, 64, 128, 256}.  splits > 0: the decode schedule, S
+// null; D in {16, 32, 64, 80, 128, 256}.  splits > 0 (not at D = 80): the
+// decode schedule, S
 // splits of `chunk` keys over a workspace ws of B * H * Tq * S * (D + 2)
 // floats (the partials, then their (m, l)), both kernels launched here;
 // else prefill on KV tiles of bk keys (32, or 64 below D = 256).

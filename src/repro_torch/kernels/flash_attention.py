@@ -40,6 +40,11 @@ kernel for CUDA tensors, in one of two schedules:
   two-stage ``cp.async`` ring.  The tile comes from the shared-memory and
   register budgets (``plan_tiles``).
 
+Head dims: 16, 32, 64, 80, 128 and 256 in prefill (80 is hubert's: 16
+heads of 80); the decode schedule is built for every one but 80, where
+the plan refuses it by name (``plan_decode``, ``schedule``) and a call
+with few query rows takes the prefill schedule, which serves any Tq.
+
 Both run in IEEE fp32 on CUDA cores; one call is one counted launch.
 Forward only: on the card the wrapper refuses inputs that require grad,
 as the reference has no backward kernel either.
@@ -71,7 +76,10 @@ CTA_RESERVED_BYTES = 1_024       # the runtime's share of it per CTA
 # (65,536), at a spill of up to 56 B a thread.
 MAX_RESIDENT = {256: 1}
 MAX_RESIDENT_DEFAULT = 2
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# The decode kernel's lanes split D / 4 float4 chunks of a key by powers
+# of two: D = 80 (20 chunks) has no decode schedule.
+DECODE_HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q/o type, k/v type) pairs the library is built for: one model type, or
 # an fp32 model reading a bf16 cache in place.
@@ -124,10 +132,11 @@ def plan_tiles(head_dim: int, smem_budget: int = SMEM_BYTES
     SM holds most CTAs of, and of those the widest.  At D = 256 only the
     32-key tile fits (208,896 B: Q, two K/V stages, P); at D = 128 the
     32-key tile (110,592 B) lets two CTAs share an SM where the 64-key one
-    (185,856 B) allows one; at D <= 64 the registers cap both at two, so
-    the 64-key tile wins.  The reference's 128 x 128 fp32 tiles at D = 256
-    would need 128 KB for Q alone, with K and V as much again: they do not
-    carry over from VMEM."""
+    (185,856 B) allows one, and so at D = 80 (73,728 B against 124,416 B);
+    at D <= 64 the registers cap both at two, so the 64-key tile wins.
+    The reference's 128 x 128 fp32 tiles at D = 256 would need 128 KB for
+    Q alone, with K and V as much again: they do not carry over from
+    VMEM."""
     if head_dim not in HEAD_DIMS:
         raise PlanError(f"flash_attention: head_dim {head_dim} not among "
                         f"the kernel's {HEAD_DIMS}")
@@ -178,9 +187,15 @@ def plan_decode(batch: int, kv_heads: int, rows: int, tk: int,
     key counts: enough splits that ``batch * kv_heads * splits`` CTAs fill
     ``DECODE_WAVES`` CTAs an SM, none shorter than ``DECODE_MIN_KEYS``
     keys, none empty when every row holds ``tk`` keys.  Splits past a
-    row's ``kv_len`` exit at once."""
+    row's ``kv_len`` exit at once.  A head dim with no decode kernel
+    (``DECODE_HEAD_DIMS``) raises ``PlanError`` where the call would be
+    a decode."""
     if rows > decode_rows(head_dim):
         return None
+    if head_dim not in DECODE_HEAD_DIMS:
+        raise PlanError(f"flash_attention: no decode schedule at head_dim "
+                        f"{head_dim} (built for {DECODE_HEAD_DIMS}); its "
+                        f"calls take the prefill schedule")
     want = -(-DECODE_WAVES * NUM_SMS // (batch * kv_heads))
     most = max(1, tk // DECODE_MIN_KEYS)
     return split_keys(tk, min(want, most))[0]
@@ -206,7 +221,8 @@ def schedule(q: torch.Tensor, k: torch.Tensor, *, block_k: int | None = None,
     ``plan_decode``'s splits, else prefill on ``plan_tiles``' tile.
     ``splits`` (decode) or ``block_k`` (prefill: one of
     ``BLOCK_K_CHOICES`` that fits a CTA) overrides the plan, for sweeps
-    and tests; not both."""
+    and tests; not both.  At a head dim with no decode kernel every call
+    is a prefill, and ``splits`` raises ``PlanError``."""
     if block_k is not None and splits is not None:
         raise ValueError("flash_attention: block_k (prefill) and splits "
                          "(decode) name two schedules; give one")
@@ -216,7 +232,11 @@ def schedule(q: torch.Tensor, k: torch.Tensor, *, block_k: int | None = None,
         raise PlanError(f"flash_attention: head_dim {d} not among the "
                         f"kernel's {HEAD_DIMS}")
     rows = tq * (h // kvh)
-    if splits is None and block_k is None:
+    if d not in DECODE_HEAD_DIMS:
+        if splits is not None:
+            raise PlanError(f"flash_attention: no decode schedule at "
+                            f"head_dim {d} (built for {DECODE_HEAD_DIMS})")
+    elif splits is None and block_k is None:
         splits = plan_decode(b, kvh, rows, tk, d)
     if splits is not None:
         if rows > decode_rows(d) or splits < 1:

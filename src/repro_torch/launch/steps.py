@@ -45,6 +45,14 @@ def cast_tree(params: Any, dtype: torch.dtype) -> Any:
         lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
+def leaf_grads(loss: torch.Tensor, leaves: list) -> list[torch.Tensor]:
+    """The gradient of ``loss`` in each leaf; 0 for a leaf the loss never
+    reads (an untied encoder's ``embed``), as ``jax.grad`` gives it."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, shd=None, *,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     grad_dtype: str = "fp32", grad_shardings=None,
@@ -78,9 +86,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, shd=None, *,
                 wrt = tree.tree_map(leaf, params)
                 cparams = cast_tree(wrt, compute_dtype)
             loss, metrics = lm_loss(cparams, batch, cfg, backend=backend)
-            grads = torch.autograd.grad(loss, tree.leaves(wrt))
+            grads = leaf_grads(loss, tree.leaves(wrt))
         del cparams, wrt, loss
-        params, opt_state, opt_metrics = adamw_update(params, list(grads),
+        params, opt_state, opt_metrics = adamw_update(params, grads,
                                                       opt_state, opt_cfg)
         return params, opt_state, {
             **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}

@@ -1,12 +1,18 @@
-"""Attention of the LM family: the GQA/MQA/MHA path of
-``repro/models/attention.py`` (sliding window, softcap, bidirectional),
-with KV caches for decode.
+"""Attention of the LM family: the counterpart of
+``repro/models/attention.py`` -- GQA/MQA/MHA (sliding window, softcap,
+bidirectional) and MLA (DeepSeek's multi-head latent attention), with KV
+caches for decode.
 
-Decode cache (per layer): ``{"k": [B, S, KvH, Dh], "v": [B, S, KvH, Dh]}``
-in attention layout, preallocated by ``init_cache``.  The reference's
-functional ``_cache_update`` (a ``dynamic_update_slice``) becomes an
-indexed write INTO the cache tensors: ``gqa_forward`` updates the cache
-in place and returns the same dict.
+Decode caches (per layer), preallocated by ``init_cache``:
+
+* GQA: ``{"k": [B, S, KvH, Dh], "v": [B, S, KvH, Dh]}`` in attention
+  layout;
+* MLA: ``{"c_kv": [B, S, R], "k_rope": [B, S, Rr]}``, the compressed
+  latent and the shared rope key.
+
+The reference's functional ``_cache_update`` (a ``dynamic_update_slice``)
+becomes an indexed write INTO the cache tensors: ``gqa_forward`` and
+``mla_forward`` update the cache in place and return the same dict.
 
 ``cache_index`` is a scalar (every row aligned) or a per-row vector
 ``[B]`` (the slot-based serving engine).  ``backend="torch"`` computes
@@ -17,7 +23,13 @@ with each row's key count ``kv_len = cache_index + T``.  What every layer
 derives from the positions (rope tables, cache-write indices, ``kv_len``)
 is computed once a forward, in ``AttnInputs``.
 
-MLA (DeepSeek's latent attention) waits for its ROADMAP item.
+MLA runs in plain PyTorch on both backends, op for op the reference's
+``mla_forward``: the reference computes it in jnp with no Pallas kernel,
+so there is no TPU kernel for a port kernel to replace.  Without a cache
+it is the explicit form (the whole sequence up-projected to keys and
+values); with one it is the absorbed form (``q_nope`` projected into the
+latent space by ``W_uk``, attention against the compressed cache, the
+context up-projected once by ``W_uv``).
 """
 
 from __future__ import annotations
@@ -31,15 +43,28 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, init_linear, rope_tables
 
 NEG_INF = -1e30
-MLA_TODO = ("MLA attention is not ported yet (ROADMAP queue 1, item 11c)")
 
 
 def init_attn_params(generator: torch.Generator, cfg: ModelConfig,
                      dtype: torch.dtype, device: torch.device,
                      lead: tuple[int, ...] = ()) -> dict:
-    if cfg.mla:
-        raise NotImplementedError(MLA_TODO)
     d, dh = cfg.d_model, cfg.head_dim
+    if cfg.mla:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_proj": init_linear(generator, d, cfg.num_heads * qk, dtype,
+                                  device, lead),
+            "kv_down": init_linear(generator, d, m.kv_lora_rank
+                                   + m.qk_rope_head_dim, dtype, device,
+                                   lead),
+            "kv_up": init_linear(generator, m.kv_lora_rank,
+                                 cfg.num_heads * (m.qk_nope_head_dim
+                                                  + m.v_head_dim),
+                                 dtype, device, lead),
+            "o_proj": init_linear(generator, cfg.num_heads * m.v_head_dim,
+                                  d, dtype, device, lead),
+        }
     return {
         "q_proj": init_linear(generator, d, cfg.num_heads * dh, dtype,
                               device, lead),
@@ -224,13 +249,93 @@ def gqa_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
     return out.reshape(b, t, h * dh) @ params["o_proj"], cache
 
 
+# ---------------------------------------------------------------------------
+# MLA block
+# ---------------------------------------------------------------------------
+
+def _mla_split_up(params: dict, cfg: ModelConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``kv_up`` as W_uk [R, H, nope] and W_uv [R, H, vd]."""
+    m = cfg.mla
+    up = params["kv_up"].reshape(m.kv_lora_rank, cfg.num_heads,
+                                 m.qk_nope_head_dim + m.v_head_dim)
+    return up[..., :m.qk_nope_head_dim], up[..., m.qk_nope_head_dim:]
+
+
+def _mla_softmax(logits: torch.Tensor, mask: torch.Tensor, scale: float,
+                 fp32: bool, dtype: torch.dtype) -> torch.Tensor:
+    """The reference's MLA softmax: fp32 logits under ``fp32`` (else the
+    model's type, masked at -3e38), scaled, masked, softmaxed, cast to
+    ``dtype``."""
+    if fp32:
+        logits = logits.float()
+    logits = logits * torch.tensor(scale, dtype=logits.dtype)
+    logits = torch.where(mask[:, None], logits, NEG_INF if fp32 else -3e38)
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def mla_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
+                cfg: ModelConfig, cache: dict | None
+                ) -> tuple[torch.Tensor, dict | None]:
+    """x [B, T, D] -> (attention output [B, T, D], the cache written in
+    place or None): the explicit form without a cache, the absorbed form
+    with one (module docstring).  ``inputs`` carries the rope tables at
+    ``qk_rope_head_dim``."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    nope, rd, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = (nope + rd) ** -0.5
+
+    q = (x @ params["q_proj"]).reshape(b, t, h, nope + rd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, *inputs.rope(q_rope.dtype))
+    down = x @ params["kv_down"]                        # [B, T, R + Rr]
+    c_kv, k_rope = down[..., :m.kv_lora_rank], down[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :],
+                        *inputs.rope(k_rope.dtype))[:, :, 0]
+    w_uk, w_uv = _mla_split_up(params, cfg)   # [R, H, nope], [R, H, vd]
+
+    if cache is None:
+        # Explicit (prefill / train) form: up-project the whole sequence.
+        k_nope = torch.einsum("btr,rhn->bthn", c_kv, w_uk)
+        v = torch.einsum("btr,rhv->bthv", c_kv, w_uv)
+        logits = (torch.einsum("bthn,bshn->bhts", q_nope, k_nope)
+                  + torch.einsum("bthr,bsr->bhts", q_rope, k_rope))
+        msk = _mask(inputs.positions, inputs.positions, cfg.causal, None)
+        p = _mla_softmax(logits, msk, scale, cfg.attn_fp32_softmax, v.dtype)
+        out = torch.einsum("bhts,bshv->bthv", p, v)
+    else:
+        # Absorbed (decode) form: attend in the compressed latent space.
+        _cache_write(cache["c_kv"], c_kv, inputs)
+        _cache_write(cache["k_rope"], k_rope, inputs)
+        c_all, r_all = cache["c_kv"], cache["k_rope"]
+        q_lat = torch.einsum("bthn,rhn->bthr", q_nope, w_uk)   # [B,T,H,R]
+        logits = (torch.einsum("bthr,bsr->bhts", q_lat,
+                               c_all.to(q_lat.dtype))
+                  + torch.einsum("bthr,bsr->bhts", q_rope,
+                                 r_all.to(q_rope.dtype)))
+        msk = _mask(inputs.positions, inputs.kv_pos(c_all.shape[1]),
+                    cfg.causal, None)
+        p = _mla_softmax(logits, msk, scale, cfg.attn_fp32_softmax, x.dtype)
+        ctx = torch.einsum("bhts,bsr->bthr", p, c_all.to(p.dtype))
+        out = torch.einsum("bthr,rhv->bthv", ctx, w_uv)
+    return out.reshape(b, t, h * vd) @ params["o_proj"], cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device: torch.device,
                lead: tuple[int, ...] = ()) -> dict:
-    """One layer's cache (``lead`` stacks a pattern slot's repeats),
-    in attention layout [B, S, KvH, Dh]: the kernel reads it in place."""
+    """One layer's cache (``lead`` stacks a pattern slot's repeats): GQA's
+    in attention layout [B, S, KvH, Dh] (the kernel reads it in place),
+    MLA's compressed latent and rope key."""
     if cfg.mla:
-        raise NotImplementedError(MLA_TODO)
+        m = cfg.mla
+        return {"c_kv": torch.zeros(lead + (batch, max_len, m.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros(lead + (batch, max_len,
+                                              m.qk_rope_head_dim),
+                                      dtype=dtype, device=device)}
     shape = lead + (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

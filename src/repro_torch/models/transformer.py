@@ -26,10 +26,19 @@ for all its layers (``attention.AttnInputs``); it makes no host sync when
 its tokens and a per-row ``cache_index`` lie on the device, so the
 serving engine captures it into a CUDA graph.
 
-Ported so far: the attention blocks (``global``, ``local``, ``bidir``)
-with a dense or an MoE MLP (``models/moe.py``).  MLA, ``mamba`` and
-``shared_attn`` blocks and the audio frontend raise
-``NotImplementedError`` naming their ROADMAP item.
+Every block kind of the reference runs: attention (``global``,
+``local``, ``bidir``; GQA or MLA, ``models/attention.py``) with a dense
+or an MoE MLP (``models/moe.py``), ``mamba`` (``models/mamba.py``: the
+norm before the block, the residual after) and ``shared_attn`` (Zamba-2:
+its pattern slots hold ``{}``, the weights live once in
+``params["shared"]`` -- a dense attention-and-MLP block every use reads,
+so its gradient is the sum over the uses -- while each use keeps its own
+cache slice).  The audio frontend (``frontend="audio_frames"``, hubert)
+projects float frames ``[B, T, F]`` by ``params["frontend_proj"]``; the
+frames are cast to that weight's type first.  The reference multiplies
+fp32 frames by bf16 weights and JAX promotes the whole stack to fp32
+under bf16 compute; the port keeps the compute type (the same function
+at fp32, a designed deviation under mixed precision).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from torch.utils import checkpoint as remat
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (BACKENDS, embed_tokens, gated_mlp,
@@ -49,28 +59,7 @@ from repro_torch.models.layers import (BACKENDS, embed_tokens, gated_mlp,
 
 Params = dict[str, Any]
 
-ATTN_KINDS = ("global", "local", "bidir")
 REMATS = ("full", "dots", "none")
-_TODO = {
-    "mla": attn.MLA_TODO,
-    "mamba": "mamba and hybrid blocks are not ported yet (ROADMAP queue 1, "
-             "item 11d)",
-    "audio": "the audio frontend (hubert) is not ported yet (ROADMAP queue "
-             "1, item 11e)",
-}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for any part
-    of ``cfg`` the port does not run yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['mla']}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['audio']}")
-    other = set(cfg.layer_kinds()) - set(ATTN_KINDS)
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: blocks {sorted(other)}: {_TODO['mamba']}")
 
 
 def _check_backend(backend: str) -> None:
@@ -114,6 +103,20 @@ def _init_attn_block(generator, cfg: ModelConfig, dtype, device,
     return p
 
 
+def _init_block(generator, kind: str, cfg: ModelConfig, dtype, device,
+                lead: tuple[int, ...] = (), in_prefix: bool = False
+                ) -> Params:
+    if kind == "mamba":
+        p = mb.init_mamba_block(generator, cfg, dtype, device, lead)
+        p["input_norm"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype,
+                                      device=device)
+        return p
+    if kind == "shared_attn":
+        return {}                      # weights live in params["shared"]
+    return _init_attn_block(generator, cfg, dtype, device, lead,
+                            _uses_moe(cfg, in_prefix))
+
+
 def init_model(generator: torch.Generator, cfg: ModelConfig,
                dtype: torch.dtype = torch.float32, *,
                device: str | torch.device = "cuda") -> Params:
@@ -124,7 +127,6 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     (``repro_torch.convert.lm_params_from_numpy``)."""
     dev = resolve_device(device)
     cfg.validate()
-    check_ported(cfg)
     if generator.device.type != dev.type:
         raise ValueError(f"init_model: the generator lies on "
                          f"{generator.device}, the parameters go to {dev}")
@@ -136,35 +138,48 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["unembed"] = init_linear(generator, d, cfg.padded_vocab_size,
                                         dtype, dev)
-    params["prefix"] = [
-        _init_attn_block(generator, cfg, dtype, dev,
-                         use_moe=_uses_moe(cfg, True)) for _ in cfg.prefix]
-    params["suffix"] = [
-        _init_attn_block(generator, cfg, dtype, dev,
-                         use_moe=_uses_moe(cfg, False)) for _ in cfg.suffix]
+    if cfg.frontend == "audio_frames":
+        params["frontend_proj"] = init_linear(generator, cfg.frontend_dim,
+                                              d, dtype, dev)
+    params["prefix"] = [_init_block(generator, kind, cfg, dtype, dev,
+                                    in_prefix=True) for kind in cfg.prefix]
+    params["suffix"] = [_init_block(generator, kind, cfg, dtype, dev)
+                        for kind in cfg.suffix]
+    if "shared_attn" in cfg.layer_kinds():
+        params["shared"] = _init_attn_block(generator, cfg, dtype, dev)
     params["blocks"] = {
-        f"s{i}": (_init_attn_block(generator, cfg, dtype, dev,
-                                   (cfg.repeats,), _uses_moe(cfg, False))
-                  if cfg.repeats else {})
-        for i in range(len(cfg.pattern))}
+        f"s{i}": (_init_block(generator, kind, cfg, dtype, dev,
+                              (cfg.repeats,)) if cfg.repeats else {})
+        for i, kind in enumerate(cfg.pattern)}
     return params
+
+
+def _block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                 dtype, device, lead: tuple[int, ...] = ()) -> dict | None:
+    """One block's cache: a Mamba block's state (always fp32, as the
+    reference's), an attention block's K/V (``bidir`` has none)."""
+    if kind == "mamba":
+        return mb.init_mamba_cache(cfg, batch, torch.float32, device, lead)
+    if kind in ("global", "local", "shared_attn"):
+        return attn.init_cache(cfg, batch, max_len, dtype, device, lead)
+    return None
 
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype: torch.dtype = torch.bfloat16, *,
                      device: str | torch.device = "cuda") -> dict:
-    """Zeroed KV caches in the reference's tree: ``prefix`` / ``suffix``
-    lists and ``blocks["s{i}"]`` leaves stacked ``[repeats, ...]``."""
+    """Zeroed caches in the reference's tree: ``prefix`` / ``suffix``
+    lists and ``blocks["s{i}"]`` leaves stacked ``[repeats, ...]``; None
+    for a block that keeps no cache."""
     dev = resolve_device(device)
-    check_ported(cfg)
     return {
-        "prefix": [attn.init_cache(cfg, batch, max_len, dtype, dev)
-                   for _ in cfg.prefix],
-        "suffix": [attn.init_cache(cfg, batch, max_len, dtype, dev)
-                   for _ in cfg.suffix],
-        "blocks": {f"s{i}": attn.init_cache(cfg, batch, max_len, dtype, dev,
-                                            (cfg.repeats,))
-                   for i in range(len(cfg.pattern))},
+        "prefix": [_block_cache(k, cfg, batch, max_len, dtype, dev)
+                   for k in cfg.prefix],
+        "suffix": [_block_cache(k, cfg, batch, max_len, dtype, dev)
+                   for k in cfg.suffix],
+        "blocks": {f"s{i}": _block_cache(k, cfg, batch, max_len, dtype, dev,
+                                         (cfg.repeats,))
+                   for i, k in enumerate(cfg.pattern)},
     }
 
 
@@ -172,10 +187,26 @@ def cache_slot(cache: dict, slot: int) -> dict:
     """Views of one batch row of ``cache`` (batch 1): a forward on them
     writes straight into that row of the batch cache."""
     def row(c, ax):
-        return {k: v.narrow(ax, slot, 1) for k, v in c.items()}
+        return None if c is None else {k: v.narrow(ax, slot, 1)
+                                       for k, v in c.items()}
     return {"prefix": [row(c, 0) for c in cache["prefix"]],
             "suffix": [row(c, 0) for c in cache["suffix"]],
             "blocks": {k: row(c, 1) for k, c in cache["blocks"].items()}}
+
+
+def reset_states(cfg: ModelConfig, cache: dict) -> None:
+    """Zero the recurrent state of every Mamba block of ``cache`` (or of
+    ``cache_slot``'s views of one row) in place: a sequence starts from
+    no conv tail and no SSD state.  Attention caches are left as they
+    are: a forward weighs no key past its row's length."""
+    for kinds, caches in ((cfg.prefix, cache["prefix"]),
+                          (cfg.suffix, cache["suffix"]),
+                          (cfg.pattern, [cache["blocks"][f"s{i}"] for i in
+                                         range(len(cfg.pattern))])):
+        for kind, c in zip(kinds, caches):
+            if kind == "mamba":
+                for v in c.values():
+                    v.zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -184,30 +215,39 @@ def cache_slot(cache: dict, slot: int) -> dict:
 
 def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
                  cfg: ModelConfig, cache, backend: str,
-                 in_prefix: bool = False
+                 shared: Params | None, in_prefix: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One attention block: norms, attention, MLP (dense or MoE),
-    residuals.  The cache, if any, is written in place.  Returns the
-    block's output and its aux loss (None for a dense MLP: 0)."""
+    """One block: a Mamba block (norm, block, residual), or an attention
+    block (norms, GQA or MLA attention, MLP dense or MoE, residuals);
+    ``shared_attn`` reads ``shared``.  The cache, if any, is written in
+    place.  Returns the block's output and its aux loss (None: 0)."""
     def norm(y, w):
         return rmsnorm(y, w, cfg.norm_eps, cfg.norm_fp32, backend)
 
-    window = cfg.sliding_window if kind == "local" else None
-    h = norm(x, p["input_norm"])
-    a_out, _ = attn.gqa_forward(p, h, inputs, cfg=cfg, window=window,
-                                cache=cache, backend=backend)
-    if cfg.use_post_norms:
-        a_out = norm(a_out, p["post_attn_norm"])
-    x = x + a_out
-    h = norm(x, p["pre_mlp_norm"])
-    aux = None
-    if _uses_moe(cfg, in_prefix):
-        m_out, aux = moe_mod.moe_forward(p, h, cfg=cfg)
+    if kind == "mamba":
+        out, _ = mb.mamba_forward(p, norm(x, p["input_norm"]), cfg=cfg,
+                                  cache=cache, backend=backend)
+        return x + out, None
+    blk = shared if kind == "shared_attn" else p
+    h = norm(x, blk["input_norm"])
+    if cfg.mla:
+        a_out, _ = attn.mla_forward(blk, h, inputs, cfg=cfg, cache=cache)
     else:
-        m_out = gated_mlp(h, p["gate_proj"], p["up_proj"], p["down_proj"],
-                          cfg.mlp_act)
+        window = cfg.sliding_window if kind == "local" else None
+        a_out, _ = attn.gqa_forward(blk, h, inputs, cfg=cfg, window=window,
+                                    cache=cache, backend=backend)
     if cfg.use_post_norms:
-        m_out = norm(m_out, p["post_mlp_norm"])
+        a_out = norm(a_out, blk["post_attn_norm"])
+    x = x + a_out
+    h = norm(x, blk["pre_mlp_norm"])
+    aux = None
+    if kind != "shared_attn" and _uses_moe(cfg, in_prefix):
+        m_out, aux = moe_mod.moe_forward(blk, h, cfg=cfg)
+    else:
+        m_out = gated_mlp(h, blk["gate_proj"], blk["up_proj"],
+                          blk["down_proj"], cfg.mlp_act)
+    if cfg.use_post_norms:
+        m_out = norm(m_out, blk["post_mlp_norm"])
     return x + m_out, aux
 
 
@@ -233,17 +273,23 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
             cache: dict | None = None, cache_index=None,
             backend: str = "torch", last_only: bool = False
             ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
-    """inputs: int tokens [B, T] (a tensor or an array).
+    """inputs: int tokens [B, T], or frames [B, T, F] for the audio
+    frontend (a tensor or an array).
 
     Returns (logits [B, T, V], the cache -- written in place -- or None,
     aux loss).  ``last_only`` computes the final norm and the LM head at
     the last position only (logits [B, 1, V]): all a sampler reads."""
     _check_backend(backend)
-    check_ported(cfg)
     dev = params["embed"].device
-    tokens = torch.as_tensor(inputs, device=dev).long()
-    x = embed_tokens(params["embed"], tokens, cfg.scale_embeddings,
-                     cfg.d_model)
+    if cfg.frontend == "audio_frames":
+        w = params["frontend_proj"]
+        x = torch.as_tensor(inputs, device=dev).to(w.dtype) @ w
+        if cfg.scale_embeddings:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    else:
+        tokens = torch.as_tensor(inputs, device=dev).long()
+        x = embed_tokens(params["embed"], tokens, cfg.scale_embeddings,
+                         cfg.d_model)
     b, t = x.shape[:2]
     ci = _cache_index(cache_index, b, dev)
     if ci is None:
@@ -253,9 +299,11 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
     if cache is not None and ci is None:
         raise ValueError("forward: a cache needs a cache_index")
     # The rope tables, cache-write indices and kv_len, once for every layer.
+    # (MLA rotates only its qk_rope_head_dim features.)
     inputs = attn.AttnInputs(positions, ci, theta=cfg.rope_theta,
-                             head_dim=cfg.head_dim)
-    kw = dict(cfg=cfg, backend=backend)
+                             head_dim=(cfg.mla.qk_rope_head_dim if cfg.mla
+                                       else cfg.head_dim))
+    kw = dict(cfg=cfg, backend=backend, shared=params.get("shared"))
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
     for i, kind in enumerate(cfg.prefix):
@@ -271,8 +319,8 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
         aux = None
         for i, kind in enumerate(cfg.pattern):
             slot = params["blocks"][f"s{i}"]
-            c = (None if cache is None else
-                 {k: v[r] for k, v in cache["blocks"][f"s{i}"].items()})
+            sc = None if cache is None else cache["blocks"][f"s{i}"]
+            c = None if sc is None else {k: v[r] for k, v in sc.items()}
             x, aux = _apply_block({k: v[r] for k, v in slot.items()}, kind,
                                   x, inputs, cache=c, **kw)
         return x, aux
@@ -352,7 +400,8 @@ def lm_loss(params: Params, batch: dict, cfg: ModelConfig, *,
 def prefill(params: Params, tokens, cfg: ModelConfig, max_len: int, *,
             cache_dtype: torch.dtype = torch.bfloat16,
             backend: str = "torch") -> tuple[torch.Tensor, dict]:
-    """Run the prompt through the model: (logits, a fresh cache)."""
+    """Run the prompt through the model: (logits, a fresh cache; Mamba
+    states in fp32 whatever ``cache_dtype``)."""
     b = torch.as_tensor(tokens).shape[0]
     cache = init_model_cache(cfg, b, max_len, cache_dtype,
                              device=params["embed"].device)

@@ -13,7 +13,13 @@ reference's, so tokens and finish order equal the reference engine's.
 
 A refilled slot keeps the earlier request's K/V past the new prompt; no
 key past a row's length is ever weighed (each row sees ``kv_len`` keys),
-so stale entries never reach a result.  Runs under ``torch.no_grad()``.
+so stale entries never reach a result.  A Mamba block's cache is a state,
+not a list of keys (and every tick advances every row's, active or not),
+so before a prefill the engine zeroes the slot's conv tail and SSD state
+(``transformer.reset_states``): each request starts from no state, as
+the reference's prefill into a fresh cache does.  MLA's compressed cache
+and the Mamba states are written in place like K/V, inside the captured
+tick.  Runs under ``torch.no_grad()``.
 
 The decode tick works on fixed buffers the engine owns: the slots' last
 tokens ``[slots, 1]`` and lengths ``[slots]`` (int64, copied in from the
@@ -48,7 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import BACKENDS
 from repro_torch.models.transformer import (cache_slot, forward,
-                                            init_model_cache)
+                                            init_model_cache, reset_states)
 
 
 @dataclasses.dataclass
@@ -154,10 +160,11 @@ class ServeEngine:
                 t0 = time.perf_counter()
                 tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                          device=self.device)[None]
+                view = cache_slot(self.cache, s)
+                reset_states(self.cfg, view)
                 logits, _, _ = forward(
-                    self.params, tokens, cfg=self.cfg,
-                    cache=cache_slot(self.cache, s), cache_index=0,
-                    backend=self.backend, last_only=True)
+                    self.params, tokens, cfg=self.cfg, cache=view,
+                    cache_index=0, backend=self.backend, last_only=True)
                 last = logits[:, -1]
                 req.output.append(int(self._sample(last)[0]))
                 req.prefill_logits = last[0].float().cpu().numpy()

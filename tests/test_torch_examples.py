@@ -37,8 +37,19 @@ assert not bad, f"imported {bad}"
     ("train_lm_torch.py", ["--preset", "tiny", "--steps", "4", "--seq",
                            "32", "--batch", "4", "--ckpt-dir", "{tmp}"],
      "over 4 steps"),
+    ("serve_lm_torch.py", ["--arch", "mamba2-370m", "--requests", "3",
+                           "--slots", "2", "--max-new", "3"],
+     "served 3 requests / 9 tokens"),
+    ("serve_lm_torch.py", ["--arch", "deepseek-v2-lite", "--requests", "3",
+                           "--slots", "2", "--max-new", "3"],
+     "served 3 requests / 9 tokens"),
+    ("train_lm_torch.py", ["--arch", "hubert-xlarge", "--steps", "4",
+                           "--seq", "32", "--batch", "4", "--ckpt-dir",
+                           "{tmp}"],
+     "over 4 steps"),
 ], ids=["quickstart", "serve_capsnet", "serve_capsnet-async",
-        "serve_lm", "train_lm"])
+        "serve_lm", "train_lm", "serve_lm-mamba2", "serve_lm-deepseek",
+        "train_lm-hubert"])
 def test_example_runs_on_the_cpu_without_jax(example, args, expect,
                                              tmp_path):
     args = [a.format(tmp=tmp_path) for a in args]

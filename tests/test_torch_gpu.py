@@ -981,7 +981,7 @@ def test_flash_schedules_repeat_their_bits_and_decode_matches_its_twin(
 def test_flash_footprint_model_matches_the_kernel(cuda):
     """The planner's shared-memory models are the bytes the kernels ask
     for at launch: every prefill tile and every decode row count the
-    library is built for, with fp32 and bf16 K/V."""
+    library is built for, with fp32 and bf16 K/V (no decode at D 80)."""
     import ctypes
 
     from repro_torch.kernels import flash_attention as k15
@@ -994,7 +994,9 @@ def test_flash_footprint_model_matches_the_kernel(cuda):
             for bk in k15.BLOCK_K_CHOICES:
                 assert pre(d, bk, kvb) == k15.smem_bytes(d, bk, kvb)
             for rb in k15.DECODE_ROW_BUCKETS:
-                if rb <= k15.decode_rows(d):
+                if d not in k15.DECODE_HEAD_DIMS:
+                    assert dec(d, rb, kvb) == -1      # no decode schedule
+                elif rb <= k15.decode_rows(d):
                     assert dec(d, rb, kvb) == k15.decode_smem_bytes(d, rb,
                                                                     kvb)
 
@@ -1351,3 +1353,103 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
     assert all(t.dtype == torch.float32 for t in tree.leaves(params))
     with pytest.raises(ValueError, match="backward"):
         steps.make_train_step(cfg, opt.OptConfig(), backend="kernels")
+
+
+@pytest.mark.parametrize("block_k", [None, 32, 64])
+@pytest.mark.parametrize("case", ["bidir", "causal", "ragged", "window",
+                                  "bf16_cache", "bf16_model", "one_row",
+                                  "kv_len"])
+def test_flash_kernel_at_head_dim_80_matches_twin_on_the_card(cuda, case,
+                                                              block_k):
+    """K15's prefill at hubert's head dim, 80 (5 output columns a
+    thread), against its twin within 2e-5 on both tiles: bidirectional
+    and causal, ragged, windowed, bf16 K/V and a bf16 model, one query
+    row and per-row ``kv_len``.  The decode schedule is not built at 80:
+    every call takes the prefill schedule, and ``splits`` is refused."""
+    from repro_torch.core.execplan import PlanError
+    from repro_torch.kernels import flash_attention as k15
+    b, h, kvh, d = 2, 4, 2, 80
+    tq, tk, kw, lens = {
+        "bidir": (100, 100, dict(causal=False), None),
+        "causal": (128, 128, dict(softcap=50.0), None),
+        "ragged": (75, 75, dict(causal=False), None),
+        "window": (150, 150, dict(window=40), None),
+        "bf16_cache": (3, 90, dict(), [90, 50]),
+        "bf16_model": (70, 70, dict(causal=False), None),
+        "one_row": (1, 200, dict(), None),
+        "kv_len": (4, 60, dict(window=20), [60, 33]),
+    }[case]
+    q = _rand(13, b, tq, h, d, device=cuda)
+    k = _rand(14, b, tk, kvh, d, device=cuda)
+    v = _rand(15, b, tk, kvh, d, device=cuda)
+    if case == "bf16_cache":
+        k, v = k.bfloat16(), v.bfloat16()
+    tol = 2e-5
+    if case == "bf16_model":
+        q, k, v, tol = q.bfloat16(), k.bfloat16(), v.bfloat16(), 2e-2
+    kv_len = (torch.tensor(lens, dtype=torch.int32, device=cuda)
+              if lens else None)
+    assert k15.schedule(q, k, block_k=block_k).kind == "prefill"
+    with pytest.raises(PlanError, match="head_dim 80"):
+        k15.schedule(q, k, splits=2)
+    k15.FLASH.launches = 0
+    got = k15.flash_attention(q, k, v, kv_len=kv_len, block_k=block_k, **kw)
+    assert k15.FLASH.launches == 1
+    want = k15.flash_attention_plain(q, k, v, kv_len=kv_len, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, k15.flash_attention(q, k, v, kv_len=kv_len,
+                                                block_k=block_k, **kw))
+
+
+def _smoke(arch, cuda):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config(arch)
+    return cfg, T.init_model(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, device=cuda)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "deepseek-v2-lite",
+                                  "zamba2-1.2b"])
+def test_recurrent_and_mla_graph_engines_replay_the_eager_ticks_on_the_card(
+        cuda, arch):
+    """A Mamba tick (the recurrent step, its fp32 state written in place),
+    an MLA tick (the absorbed form over the compressed cache) and the
+    hybrid's (Mamba blocks and the shared attention on K15) capture into
+    a CUDA graph: tokens and logits bit for bit the eager engine's, with
+    slots refilled (each prefill zeroes its slot's state), a prime prompt
+    length among them; every counted forward runs its K16 norms."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _smoke(arch, cuda)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 3, 17, 7, 16)]
+    runs = {}
+    for graph in (True, False):
+        seen = []
+
+        def sampler(lg, seen=seen):
+            seen.append(lg.copy())
+            return np.argmax(lg, -1)
+        eng = ServeEngine(params, cfg, slots=2, max_len=40, backend="kernels",
+                          device=cuda, sampler=sampler, cuda_graph=graph)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4 + i))
+        build.reset_launch_counts()
+        runs[graph] = dict(eng=eng, done=[(r.rid, r.output)
+                                          for r in eng.run()],
+                           seen=seen, counts=build.launch_counts())
+    g, e = runs[True], runs[False]
+    assert g["done"] == e["done"]
+    for a, b in zip(g["seen"], e["seen"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert g["eng"].tick_kinds == {"eager": 1, "capture": 1,
+                                   "replay": g["eng"].ticks - 2}
+    n_fwd = len(g["eng"].timings["prefill_s"]) + 2
+    kinds = cfg.layer_kinds()
+    mamba = kinds.count("mamba")
+    attn_blocks = len(kinds) - mamba
+    assert g["counts"]["rmsnorm"] == (2 * mamba + 2 * attn_blocks
+                                      + 1) * n_fwd
+    assert g["counts"]["flash_attention"] == (
+        0 if cfg.mla else attn_blocks) * n_fwd

@@ -34,6 +34,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 ARCHS = ("gemma2-9b", "granite-3-2b", "gemma-7b", "gemma3-12b",
          "chameleon-34b")
+# Once refused, ported by items 11c-11e: each resolves, initialises and
+# runs (their parity tests: tests/test_torch_{mla,mamba,hybrid,hubert}.py).
 REFUSED = ("mamba2-370m", "hubert-xlarge", "deepseek-v2-lite-16b",
            "zamba2-1.2b")
 MOE = "phi3.5-moe-42b-a6.6b"      # ported since item 11b: resolves
@@ -220,13 +222,27 @@ def test_engine_times_its_prefills_and_ticks():
 # Registry, configs, refusals
 # ---------------------------------------------------------------------------
 
+def _inputs(cfg, b, t):
+    """Tokens, or frames for the audio frontend."""
+    if cfg.frontend == "audio_frames":
+        return np.random.default_rng(0).standard_normal(
+            (b, t, cfg.frontend_dim)).astype(np.float32)
+    return _tokens(cfg, b, t)
+
+
 @pytest.mark.parametrize("arch", ARCHS + REFUSED + (MOE,))
 def test_registry_resolves_the_dense_archs_and_refuses_the_rest(arch):
+    """Every LM arch of the reference resolves to its config (equal
+    fields and parameter count); the archs items 11c-11e ported also
+    initialise from their smoke config and run a forward."""
     from repro.configs import registry as ref_registry
     if arch in REFUSED:
-        with pytest.raises(KeyError, match="ROADMAP queue 1, item 11"):
-            registry.get_config(arch)
-        return
+        cfg = registry.get_smoke_config(arch)
+        params = T.init_model(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+        logits, _, _ = T.forward(params, _inputs(cfg, 2, 5), cfg=cfg)
+        assert logits.shape == (2, 5, cfg.padded_vocab_size)
+        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
     for get, ref_get in ((registry.get_config, ref_registry.get_config),
                          (registry.get_smoke_config,
                           ref_registry.get_smoke_config)):
@@ -251,20 +267,22 @@ def test_gemma2_9b_counts_its_published_size():
     (dict(frontend="audio_frames"), "11e"),
 ])
 def test_unported_parts_name_their_roadmap_item(part, item):
-    """Each part of the stack that waits for a ROADMAP item raises naming
-    it; MoE (item 11b) is ported: its config initialises and runs."""
+    """Each part of the stack that once waited for a ROADMAP item is
+    ported: MoE (item 11b), MLA (11c), Mamba (11d) and the audio frontend
+    (11e) each initialise on a dense config and run a forward and a
+    one-token decode where the config decodes."""
     cfg = dataclasses.replace(registry.get_smoke_config("granite-3-2b"),
                               **part)
-    if item == "11b":
-        params = T.init_model(torch.Generator().manual_seed(0), cfg,
-                              device="cpu")
-        logits, _, aux = T.forward(params, _tokens(cfg, 2, 5), cfg=cfg)
-        assert logits.shape == (2, 5, cfg.padded_vocab_size)
-        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
-        assert float(aux) > 0
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        T.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = T.init_model(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    logits, _, aux = T.forward(params, _inputs(cfg, 2, 5), cfg=cfg)
+    assert logits.shape == (2, 5, cfg.padded_vocab_size)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    assert (float(aux) > 0) == (item == "11b")
+    if item in ("11c", "11d"):
+        _, cache = T.prefill(params, _tokens(cfg, 2, 5), cfg, 8)
+        step, _ = T.decode_step(params, cache, _tokens(cfg, 2, 1), 5, cfg)
+        assert torch.isfinite(step[..., :cfg.vocab_size]).all()
 
 
 def test_bf16_logits_lever_is_plain_only():
@@ -289,3 +307,26 @@ def test_init_model_draws_the_reference_shapes_on_the_device():
     shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), rp)
     assert jax.tree_util.tree_map(lambda t: tuple(t.shape), tp) == shapes
     assert float(tp["blocks"]["s0"]["input_norm"].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_convert_carries_every_family_tree(arch):
+    """``lm_params_from_numpy`` copies the reference's tree of each new
+    family leaf for leaf: MLA's projections, the Mamba leaves, the
+    ``shared`` branch and its ``{}`` pattern slots, ``frontend_proj``;
+    fp32 and bf16 alike."""
+    rp = jax.tree_util.tree_map(
+        np.asarray, ref_init(jax.random.PRNGKey(1), ref_smoke(arch)))
+    for dtype in (np.float32, jnp.bfloat16):
+        src = jax.tree_util.tree_map(lambda a: a.astype(dtype), rp)
+        tp = lm_params_from_numpy(src, "cpu")
+        paths = jax.tree_util.tree_flatten_with_path(src)[0]
+        got = jax.tree_util.tree_flatten_with_path(tp)[0]
+        assert [p for p, _ in paths] == [p for p, _ in got]
+        for (_, a), (_, t) in zip(paths, got):
+            assert t.dtype == (torch.float32 if dtype is np.float32
+                               else torch.bfloat16)
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(a, np.float32))
+    assert jax.tree_util.tree_structure(tp) == jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(np.asarray, rp))

@@ -246,9 +246,9 @@ def test_plan_tiles_follow_the_shared_memory_budget():
     """The tile an SM holds most CTAs of, then the widest: at D = 256 only
     the 32-key tile fits (208,896 B); at D = 128 the 32-key tile lets two
     CTAs share an SM (110,592 B) where the 64-key one (185,856 B) allows
-    one; 64 keys below.  A smaller budget halves the tile, a too small one
-    is refused by name."""
-    want = {16: 64, 32: 64, 64: 64, 128: 32, 256: 32}
+    one, and so at D = 80; 64 keys below.  A smaller budget halves the
+    tile, a too small one is refused by name."""
+    want = {16: 64, 32: 64, 64: 64, 80: 32, 128: 32, 256: 32}
     for d in k15.HEAD_DIMS:
         bq, bk = k15.plan_tiles(d)
         assert (bq, bk) == (64, want[d])

@@ -112,7 +112,8 @@ def test_configs_match_the_reference(module, arch):
 
 
 PORTED_LM_ARCHS = ("gemma2-9b", "gemma3-12b", "granite-3-2b", "gemma-7b",
-                   "chameleon-34b", "phi3.5-moe-42b-a6.6b")
+                   "chameleon-34b", "phi3.5-moe-42b-a6.6b", "mamba2-370m",
+                   "hubert-xlarge", "deepseek-v2-lite-16b", "zamba2-1.2b")
 
 
 def test_registry_matches_the_reference_capsnet_subset():
@@ -133,17 +134,14 @@ def test_registry_matches_the_reference_capsnet_subset():
 
 @pytest.mark.parametrize("arch", ref_registry.LM_ARCHS)
 def test_registry_names_the_roadmap_item_for_lm_archs(arch):
-    """The ported LM archs resolve to the reference's configs; the others
-    are refused with the ROADMAP item that ports them."""
-    if arch in PORTED_LM_ARCHS:
-        for get, ref_get in ((registry.get_config, ref_registry.get_config),
-                             (registry.get_smoke_config,
-                              ref_registry.get_smoke_config)):
-            assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
-                ref_get(arch))
-        return
-    with pytest.raises(KeyError, match="item 11"):
-        registry.get_config(arch)
+    """Every LM arch of the reference resolves to its config: items
+    11a-11e of ROADMAP queue 1 ported them all, so none is refused."""
+    assert arch in PORTED_LM_ARCHS
+    for get, ref_get in ((registry.get_config, ref_registry.get_config),
+                         (registry.get_smoke_config,
+                          ref_registry.get_smoke_config)):
+        assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
+            ref_get(arch))
 
 
 # ---------------------------------------------------------------------------
