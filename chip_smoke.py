@@ -255,6 +255,16 @@ MOE_LOGITS = (1e-4, "fp32 through 4 MoE layers, attention and norms "
               "summed in another order (K15's online softmax over key "
               "tiles, K16's tree)")
 
+# Phase 18: parallel/ on the card.  The sharded CapsuleEngine at
+# n_shards=1 (the mesh path on the first device) serves phase 5's
+# requests; a world-size-1 NCCL group runs granite-3-2b's train step at
+# full width and depth through ShardingCtx on a 1 x 1 mesh against the
+# plain step.
+PAR_STEPS = 2                   # train steps a side (the first warms up)
+PAR_STEP = (1e-6, "a 1 x 1 mesh runs the same kernels on the same "
+            "tensors (equal bits expected)")
+PAR_COMPRESS_N = 1 << 24        # compressed_psum's payload at world 1
+
 # Phase 17: the last LM families at full width.  deepseek-v2-lite (MLA,
 # MoE), mamba2-370m (Mamba2/SSD) and zamba2-1.2b (the hybrid) serve phase
 # 13's requests; mamba2 and hubert-xlarge (the audio encoder, K15 at head
@@ -3576,8 +3586,8 @@ def moe_serving(dev, rows: list[dict]) -> dict:
     routes = {}
     orig = moe_mod.moe_forward
 
-    def recording(p, x, *, cfg):
-        out = orig(p, x, cfg=cfg)
+    def recording(p, x, *, cfg, shd=None):
+        out = orig(p, x, cfg=cfg, shd=shd)
         probs = torch.softmax((x @ p["router"]).float(), dim=-1)
         top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1)
         routes[current].append((top.indices[..., :-1].sort(-1).values,
@@ -4209,7 +4219,7 @@ def main() -> int:
     # 2b. The LM main path with each step profiled.
     lm_counted = lm_main_path_counted(dev)
     # 3.-12. The CapsuleNet phases; their tensors are freed on return.
-    rows = capsnet_phases(dev)
+    rows, phase5 = capsnet_phases(dev)
     gc.collect()
     torch.cuda.empty_cache()
     # 13. LM serving at the full width of gemma2-9b.
@@ -4224,11 +4234,278 @@ def main() -> int:
     lm_training_phase(dev, rows)
     # 17. MLA, Mamba2, the hybrid and the audio encoder.
     lm_families_phase(dev, rows)
+    # 18. parallel/: the sharded engine and the sharded LM step.
+    sharding_phase(dev, phase5)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sharded_engine(dev, phase5: dict) -> dict:
+    """Phase 18a: ``CapsuleEngine(n_shards=1)`` -- the mesh path on the
+    first device -- serves phase 5's requests at MNIST's full width on
+    the kernels: the lengths bit for bit the ``n_shards=None`` engine's,
+    the per-shard plan at ``slots_per_shard``, one forward build, the
+    same kernel launches, ``check_engine_stats`` clean; under a 1/4
+    ``vmem_shrink`` one replan and 2 builds; ``n_shards=2`` on one GPU
+    refused (with 2 or more GPUs, served)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faults
+    from repro_torch.kernels import build
+    from repro_torch.serve.capsule import CapsRequest, CapsuleEngine
+
+    params, cfg, reqs = phase5["params"], phase5["cfg"], phase5["reqs"]
+
+    def engine(**kw):
+        return CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
+                             device=dev, **kw)
+
+    eng = engine(n_shards=1)
+    for r in reqs:
+        eng.submit(CapsRequest(rid=r.rid, image=r.image))
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = build.launch_counts()
+    stats = eng.stats()
+    fault_free("serve n_shards=1", stats)
+    if len(done) != N_REQUESTS or any(r.status != "ok" for r in done):
+        raise AssertionError(f"serve n_shards=1: statuses "
+                             f"{[r.status for r in done]}")
+    same = all(np.array_equal(r.lengths, phase5["lengths"][r.rid])
+               for r in done)
+    k_routing = {k: launches[k] for k in ("primary_routing_f32",
+                                          "votes_routing_cluster_f32")}
+    want_routing = {k: phase5["launches"][k] for k in k_routing}
+    print(f"serve n_shards=1: {json.dumps(stats)}", flush=True)
+    print(f"check serve n_shards=1 against n_shards=None: lengths bit for "
+          f"bit {same}; plan.batch {eng.plan.batch} == slots_per_shard "
+          f"{eng.slots_per_shard}; forward builds {eng._forward_builds}; "
+          f"K5/K3 launches {json.dumps(k_routing)} against "
+          f"{json.dumps(want_routing)}; all launches equal "
+          f"{launches == phase5['launches']}; {len(done)} requests in "
+          f"{secs * 1e3:.1f} ms ({CARD})", flush=True)
+    if not same or eng.plan.batch != eng.slots_per_shard \
+            or eng.slots_per_shard != SLOTS or eng._forward_builds != 1 \
+            or k_routing != want_routing \
+            or launches != phase5["launches"] or stats["n_shards"] != 1:
+        raise AssertionError("serve n_shards=1: not the single-device "
+                             "engine's run")
+    for sym in ("im2col_patches_f32", "matmul_bias_act_f32",
+                "primary_routing_f32"):
+        if launches[sym] < 1:
+            raise AssertionError(f"serve n_shards=1: {sym} never launched")
+    eng = engine(n_shards=1)
+    stats, (first, rest) = serve_checked(
+        "n_shards=1 vmem_shrink 0.25", eng, reqs, phase5["plain_len"],
+        [faults.FaultSpec(site=faults.SITE_ENGINE_TICK, kind="vmem_shrink",
+                          at=1, times=1, factor=0.25)], first_ticks=1)
+    if stats["replans"] != 1 or eng._forward_builds != 2 \
+            or stats["breaker_trips"] or rest["votes_routing_cluster_f32"] < 1:
+        raise AssertionError(f"n_shards=1 vmem_shrink: {stats}, "
+                             f"builds {eng._forward_builds}, {rest}")
+    print(f"check n_shards=1 vmem_shrink 0.25: replans {stats['replans']}, "
+          f"forward builds {eng._forward_builds}, K3 after the shrink "
+          f"{rest['votes_routing_cluster_f32']}", flush=True)
+    n_gpu = torch.cuda.device_count()
+    out = dict(lengths_bit_equal=same, launches=launches,
+               forward_builds=1, shrink_builds=eng._forward_builds,
+               serve_ms=secs * 1e3, gpus=n_gpu)
+    if n_gpu < 2:
+        try:
+            engine(n_shards=2)
+        except ValueError as e:
+            print(f"check n_shards=2 on {n_gpu} GPU refused: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("n_shards=2 served on one GPU")
+        print("phase 18 multi-GPU serving: skipped: 1 GPU", flush=True)
+        return out
+    eng = engine(n_shards=2)
+    for r in reqs:
+        eng.submit(CapsRequest(rid=r.rid, image=r.image))
+    done = eng.run()
+    if not all(np.array_equal(r.lengths, phase5["lengths"][r.rid])
+               for r in done) or eng._forward_builds != 1:
+        raise AssertionError("serve n_shards=2: not the single-device "
+                             "engine's lengths")
+    fault_free("serve n_shards=2", eng.stats())
+    print(f"check serve n_shards=2 on {n_gpu} GPUs: lengths bit for bit, "
+          f"plan.batch {eng.plan.batch}", flush=True)
+    return out
+
+
+def _par_step_run(dev, cfg, data, shd, mesh) -> dict:
+    """PAR_STEPS train steps of ``cfg`` from a seeded init: plain, or
+    through ``shd`` (parameters by ``param_shardings``, gradients pinned
+    there, the moments by ``zero1_shardings``); their metrics and host
+    ms, and a fingerprint of the updated parameters (each leaf's sum in
+    float64)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as opt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    params = T.init_model(gen, cfg, device=dev)
+    pshard = None
+    if shd is not None:
+        pshard = sharding.param_shardings(params, mesh)
+        params = sharding.place_tree(params, pshard)
+    state = opt.init_opt_state(params)
+    if shd is not None:
+        zs = sharding.zero1_shardings(params, mesh, ("data",))
+        state["m"] = sharding.place_tree(state["m"], zs)
+        state["v"] = sharding.place_tree(state["v"], zs)
+    step = steps.make_train_step(cfg, opt.OptConfig(), shd,
+                                 grad_shardings=pshard)
+    hist = []
+    for s in range(PAR_STEPS):
+        batch = lm_batch_on(data, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        loss = float(m["loss"])                 # waits for the device
+        hist.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                         host_ms=1e3 * (time.perf_counter() - t0)))
+    prints = [float(sharding.full(p).double().sum())
+              for p in tree.leaves(params)]
+    del params, state, step
+    free_card()
+    return dict(steps=hist, fingerprint=prints)
+
+
+def _two_rank_step(rank, world, cfg, seq, batch_size) -> dict:
+    """A rank of the 2-GPU check: ``cfg``'s step plain and on a (1, 2)
+    ("data", "model") mesh over NCCL."""
+    import torch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel import sharding
+    from repro_torch.train.data import DataConfig
+    dev = torch.device("cuda", rank)
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch_size, seed=SEED)
+    mesh = lmesh.make_debug_mesh(1, 2, device_type="cuda")
+    shd = sharding.ShardingCtx(mesh, sharding.make_rules())
+    return dict(plain=_par_step_run(dev, cfg, data, None, None)["steps"],
+                sharded=_par_step_run(dev, cfg, data, shd, mesh)["steps"])
+
+
+def sharded_lm(dev) -> dict:
+    """Phase 18b: a world-size-1 NCCL group (a ``file://`` store in a
+    temporary directory) with a 1 x 1 ("data", "model") mesh:
+    ``granite-3-2b``'s train step at full width and depth (phase 16's
+    batch, bf16 compute) through ``ShardingCtx``, ``param_shardings``,
+    gradients pinned by ``grad_shardings`` and the moments placed by
+    ``zero1_shardings``, held to the plain step (loss and grad norm
+    within PAR_STEP, the updated parameters' fingerprints), both timed;
+    ``compressed_psum`` at world 1 held to ``compress_grads_tree`` bit for
+    bit."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.parallel import compat, compress, sharding
+    from repro_torch.parallel.ranks import init_group
+    from repro_torch.train.data import DataConfig
+    cfg = registry.get_config(TRAIN_ARCH)
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      seed=SEED)
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_group(0, 1, "nccl", os.path.join(tmp, "store"))
+    try:
+        mesh = compat.make_mesh("cuda", (1, 1), ("data", "model"))
+        shd = sharding.ShardingCtx(mesh, sharding.make_rules())
+        t0 = time.perf_counter()
+        plain = _par_step_run(dev, cfg, data, None, None)
+        t1 = time.perf_counter()
+        sharded = _par_step_run(dev, cfg, data, shd, mesh)
+        t2 = time.perf_counter()
+        rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(
+            sharded["steps"], plain["steps"])) for k in ("loss",
+                                                           "grad_norm")}
+        bits = all(a[k] == b[k] for a, b in zip(sharded["steps"],
+                                                 plain["steps"])
+                   for k in ("loss", "grad_norm"))
+        same_params = sharded["fingerprint"] == plain["fingerprint"]
+        tol, why = PAR_STEP
+        print(f"check {TRAIN_ARCH} sharded step (1 x 1 mesh, NCCL world "
+              f"1, {cfg.num_layers} layers at d_model {cfg.d_model}, batch "
+              f"{TRAIN_LM_BATCH} x {TRAIN_SEQ}, bf16 compute, ZeRO-1 "
+              f"moments) against the plain step: loss/grad-norm max rel "
+              f"{json.dumps(rel)} (bound {tol:g}: {why}), bit-equal "
+              f"{bits}, updated parameters' fingerprints equal "
+              f"{same_params}", flush=True)
+        print(f"{TRAIN_ARCH} step host ms: plain "
+              f"{[round(h['host_ms'], 1) for h in plain['steps']]}, "
+              f"sharded {[round(h['host_ms'], 1) for h in sharded['steps']]}"
+              f" (the first of each warms up; {t1 - t0:.1f} s and "
+              f"{t2 - t1:.1f} s with the init) ({CARD})", flush=True)
+        if max(rel.values()) > tol or not same_params:
+            raise AssertionError(f"{TRAIN_ARCH}: the sharded step is not "
+                                 f"the plain step")
+        g = torch.randn(PAR_COMPRESS_N, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 18), device=dev) * 0.01
+        out, res = compress.compressed_psum(g, None, 1)
+        (want,), (wres,) = compress.compress_grads_tree([g], None)
+        equal = torch.equal(out, want) and torch.equal(res, wres)
+        psum_ms = time_ms(lambda: compress.compressed_psum(g, None, 1))
+        tree_ms = time_ms(lambda: compress.compress_grads_tree([g], None))
+        print(f"check compressed_psum at world 1 against "
+              f"compress_grads_tree, {PAR_COMPRESS_N} fp32: equal bits "
+              f"{equal}; {psum_ms:.3f} ms against {tree_ms:.3f} ms ({CARD})",
+              flush=True)
+        if not equal:
+            raise AssertionError("compressed_psum at world 1 differs from "
+                                 "compress_grads_tree")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(layers=cfg.num_layers, plain=plain["steps"],
+                sharded=sharded["steps"], rel=rel, bit_equal=bits,
+                params_equal=same_params, compress_equal=equal,
+                psum_ms=psum_ms, tree_ms=tree_ms)
+
+
+def sharding_phase(dev, phase5: dict) -> None:
+    """Phase 18, ``parallel/`` on the card: the sharded engine
+    (``sharded_engine``), the sharded LM step at world 1
+    (``sharded_lm``); with 2 or more GPUs also a 2-rank NCCL step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.parallel.ranks import run_ranks
+    t_phase = time.perf_counter()
+    result = dict(engine=sharded_engine(dev, phase5))
+    free_card()
+    result["lm"] = sharded_lm(dev)
+    if torch.cuda.device_count() >= 2:
+        cut = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                                  repeats=2)
+        two = run_ranks(_two_rank_step, 2, "nccl",
+                        args=(cut, TRAIN_SEQ, TRAIN_LM_BATCH))
+        for r in two:
+            for a, b in zip(r["sharded"], r["plain"]):
+                if abs(a["loss"] - b["loss"]) > 2e-4 * abs(b["loss"]):
+                    raise AssertionError(f"2-rank step: {two}")
+        print(f"check 2-rank NCCL step, {TRAIN_ARCH} at 2 layers: "
+              f"{json.dumps(two[0])}", flush=True)
+        result["two_rank"] = two[0]
+    else:
+        print("phase 18 2-rank NCCL step: skipped: 1 GPU", flush=True)
+    print(f"sharding: {json.dumps(result)}", flush=True)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({CARD})",
+          flush=True)
 
 
 def verify_plans(dev) -> None:
@@ -4343,8 +4620,11 @@ def capstore_line() -> None:
           "not the card)", flush=True)
 
 
-def capsnet_phases(dev) -> list[dict]:
-    """Phases 3-12 at the CapsuleNet's shapes; returns the kernels' rows."""
+def capsnet_phases(dev) -> tuple[list[dict], dict]:
+    """Phases 3-12 at the CapsuleNet's shapes; returns the kernels' rows
+    and phase 5's engine run (its parameters, requests, lengths by rid,
+    launches and the plain forward's lengths), which phase 18 serves
+    again."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4556,6 +4836,9 @@ def capsnet_phases(dev) -> list[dict]:
     print(f"serve: {N_REQUESTS} requests ok, "
           f"{stats['requests_per_s']:.1f} req/s, mean latency "
           f"{stats['mean_latency_ms']:.2f} ms", flush=True)
+    phase5 = dict(params=params, cfg=cfg, reqs=reqs, plain_len=plain_len,
+                  launches=serve_launches,
+                  lengths={r.rid: r.lengths for r in done})
     # The same requests through the engine on the per-op plan.
     engine_po = CapsuleEngine(params, cfg, slots=SLOTS, backend="kernels",
                               device=dev, plan=perop)
@@ -5359,7 +5642,7 @@ def capsnet_phases(dev) -> list[dict]:
             row["degraded_serve_launches"] = {
                 label: counts[f"{row['name']}_f32"]
                 for label, counts in degraded.items()}
-    return rows
+    return rows, phase5
 
 
 if __name__ == "__main__":

@@ -12,10 +12,11 @@ per-request latency and throughput.
 kernels, ``torch`` on the plain PyTorch forward.  ``--use-async`` drives
 the same engine through ``AsyncCapsuleServer``: requests are submitted
 concurrently from asyncio tasks and each awaits its own terminal status
-while the driver recycles slots continuously.  There is no ``--shards``:
-the port's engine serves one device (it has no ``n_shards``; ROADMAP
-queue 1, item 2).  It runs on the card; ``--device cpu`` runs the plain
-twins of the kernels.
+while the driver recycles slots continuously.  ``--shards N`` lays the
+slot batch over N shards (the first N CUDA devices; on ``--device cpu``
+every shard is the CPU): ONE ``compile_plan`` gives the per-shard plan,
+``slots = shards * plan.batch``.  It runs on the card; ``--device cpu``
+runs the plain twins of the kernels.
 """
 
 import argparse
@@ -42,6 +43,8 @@ def main(argv=None) -> None:
                     default="kernels")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shard the slot batch over N devices")
     ap.add_argument("--use-async", action="store_true",
                     help="submit through the asyncio host loop")
     ap.add_argument("--device", default="cuda",
@@ -57,7 +60,10 @@ def main(argv=None) -> None:
                                  device=dev)
     # pipeline=True: PrimaryCaps -> ClassCaps served as ONE kernel (K5)
     # when the pair fits a CTA's shared memory (per-op plan otherwise).
-    plan = compile_plan(cfg, batch=args.slots, pipeline=True)
+    # The plan is compiled for the PER-SHARD batch: slots = shards *
+    # plan.batch.
+    plan = compile_plan(cfg, batch=args.slots // (args.shards or 1),
+                        pipeline=True)
 
     print("== ExecutionPlan (one schedule: kernels + PMU + serving) ==")
     print(f"{'op':20s} {'kernel':18s} {'block':>18s} {'smem KiB':>9s} "
@@ -76,7 +82,8 @@ def main(argv=None) -> None:
 
     engine = CapsuleEngine(
         params, cfg, slots=args.slots, backend=args.backend,
-        plan=plan if args.backend == "kernels" else None, device=dev)
+        plan=plan if args.backend == "kernels" else None, device=dev,
+        n_shards=args.shards)
     batch = mnist_batch(DataConfig(global_batch=args.requests), 0,
                         image_hw=cfg.image_hw)
     images = batch["images"]
@@ -95,9 +102,11 @@ def main(argv=None) -> None:
         done = engine.run()
     s = engine.stats()
 
+    mesh_note = (f", {engine.n_shards} shards x {engine.slots_per_shard} "
+                 f"slots/shard" if args.shards else "")
     print(f"\n== served {s['requests']} requests ({args.backend} backend on "
-          f"{dev}, {args.slots} slots{', async' if args.use_async else ''}) "
-          f"==")
+          f"{dev}, {args.slots} slots{mesh_note}"
+          f"{', async' if args.use_async else ''}) ==")
     for r in done[:8]:
         print(f"req {r.rid:3d}: {r.status} pred={r.pred} "
               f"latency={1e3 * r.latency_s:7.2f} ms "

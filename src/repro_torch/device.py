@@ -10,9 +10,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     CUDA is the default; without a card this raises instead of quietly
     running on the CPU -- the caller asks for ``device="cpu"`` (the plain
-    PyTorch twins of every kernel) explicitly.  On CUDA it also turns TF32
-    off for cuBLAS and cuDNN: the port computes in IEEE fp32, as the
-    reference does, and a TF32 result would miss its tolerances.
+    PyTorch twins of every kernel) explicitly.  ``"meta"`` builds shapes
+    and dtypes without memory (``launch/shapes.py``).  On CUDA it also
+    turns TF32 off for cuBLAS and cuDNN: the port computes in IEEE fp32,
+    as the reference does, and a TF32 result would miss its tolerances.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -22,6 +23,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "to run the plain PyTorch versions of the kernels")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or 'meta' "
+                         f"for shapes alone), not {dev}")
     return dev

@@ -40,7 +40,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, init_linear, rope_tables
+from repro_torch.models.layers import (apply_rope, init_linear, rope_tables,
+                                       rs_proj)
+from repro_torch.parallel import compat
+from repro_torch.parallel.sharding import (P, shard_count, to_placements,
+                                           unshard_dim)
 
 NEG_INF = -1e30
 
@@ -188,6 +192,10 @@ def grouped_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     """q: [B, T, H, Dh], k/v: [B, S, KvH, Dh] -> [B, T, H, Dh]."""
     b, t, h, dh = q.shape
     kvh = k.shape[2]
+    if kvh % shard_count(q, 2):
+        # Heads sharded finer than the KV groups: DTensor cannot split
+        # them into groups, so gather the heads first.
+        q = unshard_dim(q, 2)
     q5 = q.reshape(b, t, kvh, h // kvh, dh)
     logits = torch.einsum("btkgd,bskd->bkgts", q5, k)
     if fp32_softmax:
@@ -207,19 +215,59 @@ def grouped_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
 # GQA block
 # ---------------------------------------------------------------------------
 
+def _local_attention(shd, q, k, v, q_pos, kv_pos, **kw) -> torch.Tensor:
+    """``grouped_attention`` of a sharded forward on each rank's shard:
+    attention is independent over the batch rows and the KV groups, so
+    each rank attends its rows (over ``data``) and its heads (over
+    ``model``, when both head counts divide by it; otherwise every head)
+    on local tensors, and the result is the DTensor of those shards.
+    The einsums on DTensors would reach the same values through
+    DTensor's planning of every contraction."""
+    dp, tp = shd.rules.dp, shd.rules.tp
+    n = shd.tp_size()
+    heads = tp if q.shape[2] % n == 0 and k.shape[2] % n == 0 else None
+    rows = dp if q.shape[0] % shd.axis_size(dp) == 0 else None
+    spec = P(rows, None, heads, None)
+    ql, kl, vl = (shd.constrain(x, spec).to_local() for x in (q, k, v))
+    qp, kp = (shd.constrain(x, P(rows, None)).to_local()
+              for x in (q_pos, kv_pos))
+    out = grouped_attention(ql, kl, vl, qp, kp, **kw)
+    return compat.DTensor.from_local(out, shd.mesh,
+                                     to_placements(spec, shd.mesh),
+                                     run_check=False)
+
+
+def _heads(y: torch.Tensor, n: int, dh: int, shd) -> torch.Tensor:
+    """A projection [B, T, n * dh] as heads [B, T, n, dh].  Under a mesh
+    whose model axis does not divide ``n``, DTensor cannot split the
+    model-sharded feature dim into heads: gather it first (the ``act``
+    rule leaves such heads unsharded anyway)."""
+    if shd is not None and shd.active and n % shd.tp_size():
+        y = unshard_dim(y, -1)
+    return y.reshape(y.shape[0], y.shape[1], n, dh)
+
+
 def gqa_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
                 cfg: ModelConfig, window: int | None, cache: dict | None,
-                backend: str = "torch") -> tuple[torch.Tensor, dict | None]:
+                backend: str = "torch", shd=None
+                ) -> tuple[torch.Tensor, dict | None]:
     """x [B, T, D] -> (attention output [B, T, D], the cache written in
     place or None).  ``inputs`` holds the forward's positions and cache
-    index (None without a cache) and what the layers derive from them."""
+    index (None without a cache) and what the layers derive from them.
+    ``shd`` places q/k/v and the output over the heads (the reference's
+    sites); with ``cfg.manual_tp`` and no cache the output projection is
+    ``layers.rs_proj``."""
     b, t, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else dh ** -0.5
 
-    q = (x @ params["q_proj"]).reshape(b, t, h, dh)
-    k = (x @ params["k_proj"]).reshape(b, t, kvh, dh)
-    v = (x @ params["v_proj"]).reshape(b, t, kvh, dh)
+    q = _heads(x @ params["q_proj"], h, dh, shd)
+    k = _heads(x @ params["k_proj"], kvh, dh, shd)
+    v = _heads(x @ params["v_proj"], kvh, dh, shd)
+    if shd is not None:
+        q = shd.act(q, "bthd")
+        k = shd.act(k, "btkd")
+        v = shd.act(v, "btkd")
     q = apply_rope(q, *inputs.rope(q.dtype))
     k = apply_rope(k, *inputs.rope(k.dtype))
 
@@ -241,12 +289,19 @@ def gqa_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
     else:
         kv_pos = (inputs.positions if cache is None
                   else inputs.kv_pos(k.shape[1]))
-        out = grouped_attention(q, k.to(q.dtype), v.to(q.dtype),
-                                inputs.positions, kv_pos, causal=cfg.causal,
-                                window=window,
-                                softcap=cfg.attn_logit_softcap, scale=scale,
-                                fp32_softmax=cfg.attn_fp32_softmax)
-    return out.reshape(b, t, h * dh) @ params["o_proj"], cache
+        core = (functools.partial(_local_attention, shd)
+                if shd is not None and shd.active and cache is None
+                else grouped_attention)
+        out = core(q, k.to(q.dtype), v.to(q.dtype), inputs.positions,
+                   kv_pos, causal=cfg.causal, window=window,
+                   softcap=cfg.attn_logit_softcap, scale=scale,
+                   fp32_softmax=cfg.attn_fp32_softmax)
+    if shd is not None:
+        out = shd.act(out, "bthd")
+    out = out.reshape(b, t, h * dh)
+    if cfg.manual_tp and cache is None:
+        return rs_proj(out, params["o_proj"], shd), cache
+    return out @ params["o_proj"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +329,42 @@ def _mla_softmax(logits: torch.Tensor, mask: torch.Tensor, scale: float,
     return torch.softmax(logits, dim=-1).to(dtype)
 
 
+def _mla_explicit(q_nope, q_rope, k_nope, k_rope, v, positions, *,
+                  causal: bool, scale: float, fp32: bool) -> torch.Tensor:
+    """The explicit form's attention: [B, T, H, vd]."""
+    logits = (torch.einsum("bthn,bshn->bhts", q_nope, k_nope)
+              + torch.einsum("bthr,bsr->bhts", q_rope, k_rope))
+    msk = _mask(positions, positions, causal, None)
+    p = _mla_softmax(logits, msk, scale, fp32, v.dtype)
+    return torch.einsum("bhts,bshv->bthv", p, v)
+
+
+def _local_mla(shd, attend, q_nope, q_rope, k_nope, k_rope, v, positions
+               ) -> torch.Tensor:
+    """``attend`` of a sharded forward on each rank's rows (over ``data``)
+    and heads (over ``model`` when it divides them), as
+    ``_local_attention`` does; the shared rope key has no head dim."""
+    dp, tp = shd.rules.dp, shd.rules.tp
+    heads = tp if q_nope.shape[2] % shd.tp_size() == 0 else None
+    rows = dp if q_nope.shape[0] % shd.axis_size(dp) == 0 else None
+    spec = P(rows, None, heads, None)
+    qn, qr, kn, vl = (shd.constrain(x, spec).to_local()
+                      for x in (q_nope, q_rope, k_nope, v))
+    kr_spec = P(rows, None, None)
+    # The rope key meets only this rank's heads: its local gradient is
+    # this rank's part of the sum over the model axis.
+    kr_grad = [compat.Partial() if heads and name == tp else p
+               for name, p in zip(shd.mesh.mesh_dim_names,
+                                  to_placements(kr_spec, shd.mesh))]
+    kr = shd.constrain(k_rope, kr_spec).to_local(grad_placements=kr_grad)
+    pos = shd.constrain(positions, P(rows, None)).to_local()
+    return compat.DTensor.from_local(attend(qn, qr, kn, kr, vl, pos),
+                                     shd.mesh, to_placements(spec, shd.mesh),
+                                     run_check=False)
+
+
 def mla_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
-                cfg: ModelConfig, cache: dict | None
+                cfg: ModelConfig, cache: dict | None, shd=None
                 ) -> tuple[torch.Tensor, dict | None]:
     """x [B, T, D] -> (attention output [B, T, D], the cache written in
     place or None): the explicit form without a cache, the absorbed form
@@ -300,11 +389,15 @@ def mla_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
         # Explicit (prefill / train) form: up-project the whole sequence.
         k_nope = torch.einsum("btr,rhn->bthn", c_kv, w_uk)
         v = torch.einsum("btr,rhv->bthv", c_kv, w_uv)
-        logits = (torch.einsum("bthn,bshn->bhts", q_nope, k_nope)
-                  + torch.einsum("bthr,bsr->bhts", q_rope, k_rope))
-        msk = _mask(inputs.positions, inputs.positions, cfg.causal, None)
-        p = _mla_softmax(logits, msk, scale, cfg.attn_fp32_softmax, v.dtype)
-        out = torch.einsum("bhts,bshv->bthv", p, v)
+        attend = functools.partial(_mla_explicit, causal=cfg.causal,
+                                   scale=scale,
+                                   fp32=cfg.attn_fp32_softmax)
+        if shd is not None and shd.active:
+            out = _local_mla(shd, attend, q_nope, q_rope, k_nope, k_rope, v,
+                             inputs.positions)
+        else:
+            out = attend(q_nope, q_rope, k_nope, k_rope, v,
+                         inputs.positions)
     else:
         # Absorbed (decode) form: attend in the compressed latent space.
         _cache_write(cache["c_kv"], c_kv, inputs)

@@ -6,16 +6,21 @@
 form.  The reference's low-precision form (``fp32=False``, no Pallas
 kernel) is ``RMSNormLowp`` on both backends: an autograd Function with
 the reference's hand-written backward (``_rmsnorm_lowp``'s custom
-VJP).  The reference's ``rs_proj`` / ``ag_seq`` (Megatron-SP
-collectives) wait for ``parallel/`` (ROADMAP queue 1, item 11f).
+VJP).  ``rs_proj`` / ``ag_seq`` are the reference's Megatron-SP
+collectives (``cfg.manual_tp``): an explicit reduce-scatter of the
+row-parallel projection over the sequence dim, and the all-gather of the
+sequence-sharded residual, on the ``model`` axis's process group.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.parallel import compat
+from repro_torch.parallel.sharding import P, to_placements
 
 BACKENDS = ("torch", "kernels")
 NEG_INF = -1e30
@@ -94,16 +99,113 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
 
 
 def gated_mlp(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
-              down_w: torch.Tensor, act: str = "silu") -> torch.Tensor:
+              down_w: torch.Tensor, act: str = "silu", shd=None,
+              manual_tp: bool = False) -> torch.Tensor:
     """SwiGLU (``act="silu"``) or GeGLU (``"gelu"``, the tanh form of the
-    reference's ``gelu(approximate=True)``)."""
+    reference's ``gelu(approximate=True)``).  ``shd`` places the hidden
+    over ``model``; ``manual_tp`` projects it down through ``rs_proj``."""
     g = x @ gate_w
     u = x @ up_w
     if act == "gelu":
         h = F.gelu(g, approximate="tanh") * u
     else:
         h = F.silu(g) * u
+    if shd is not None:
+        h = shd.act(h, "btf")
+    if manual_tp:
+        return rs_proj(h, down_w, shd)
     return h @ down_w
+
+
+# ---------------------------------------------------------------------------
+# Manual Megatron-SP collectives: the SP <-> TP transitions as explicit
+# collectives on the model axis's group, on the local shards of DTensors.
+# ---------------------------------------------------------------------------
+
+def _dim_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x.movedim(dim, 0).contiguous()
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """Sum the ranks' partial products and keep this rank's chunk of
+    ``dim``; the backward all-gathers the chunk's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xt = _dim_first(x, dim)
+        out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+        compat.reduce_scatter_single(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gt = _dim_first(g, ctx.dim)
+        out = gt.new_empty((gt.shape[0] * n,) + gt.shape[1:])
+        compat.all_gather_single(out, gt, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    """Gather every rank's chunk of ``dim``.  Its output is wrapped as a
+    DTensor replicated over the group, and DTensor sums the gradient of a
+    replicated tensor over the group before it reaches this backward, so
+    the backward keeps this rank's chunk of that sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xt = _dim_first(x, dim)
+        out = xt.new_empty((xt.shape[0] * n,) + xt.shape[1:])
+        compat.all_gather_single(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        rank = dist.get_rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[rank].contiguous(), None, None
+
+
+def _manual_ok(x: torch.Tensor, shd) -> bool:
+    return (shd is not None and shd.active
+            and x.shape[1] % shd.tp_size() == 0)
+
+
+def rs_proj(x: torch.Tensor, w: torch.Tensor, shd) -> torch.Tensor:
+    """Row-parallel projection with an explicit reduce-scatter over the
+    sequence dim: x [B, T, F] (F model-sharded) @ w [F, D] -> [B, T, D]
+    sequence-sharded over the model axis.  The plain product without a
+    mesh or when T does not divide by the TP size."""
+    if not _manual_ok(x, shd):
+        return x @ w
+    dp, tp = shd.rules.dp, shd.rules.tp
+    xl = shd.constrain(x, P(dp, None, tp)).to_local()
+    w_spec = P(tp, None)
+    # w's local gradient is this data shard's part of the sum over dp.
+    w_grad = [compat.Partial() if p.is_replicate() else p
+              for p in to_placements(w_spec, shd.mesh)]
+    wl = shd.constrain(w, w_spec).to_local(grad_placements=w_grad)
+    y = _ReduceScatterSeq.apply(xl @ wl, 1, shd.tp_group())
+    return compat.DTensor.from_local(
+        y, shd.mesh, to_placements(P(dp, tp, None), shd.mesh),
+        run_check=False)
+
+
+def ag_seq(x: torch.Tensor, shd) -> torch.Tensor:
+    """All-gather the sequence-sharded residual (the SP -> TP transition):
+    [B, T, D] sequence-sharded over the model axis -> replicated over it."""
+    if not _manual_ok(x, shd):
+        return x
+    dp, tp = shd.rules.dp, shd.rules.tp
+    xl = shd.constrain(x, P(dp, tp, None)).to_local()
+    y = _AllGatherSeq.apply(xl, 1, shd.tp_group())
+    return compat.DTensor.from_local(
+        y, shd.mesh, to_placements(P(dp, None, None), shd.mesh),
+        run_check=False)
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, scale: bool,
@@ -127,7 +229,14 @@ def lm_head(x: torch.Tensor, embed_or_unembed: torch.Tensor, tied: bool,
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
-        logits[..., valid_vocab:] = NEG_INF
+        if compat.is_dtensor(logits):
+            # A slice of the (vocab-sharded) last dim is no view of a
+            # DTensor: mask the padded columns instead, the same values.
+            pad = torch.arange(logits.shape[-1],
+                               device=logits.device) >= valid_vocab
+            logits = logits.masked_fill(pad, NEG_INF)
+        else:
+            logits[..., valid_vocab:] = NEG_INF
     return logits
 
 

@@ -35,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_linear, rmsnorm
+from repro_torch.parallel import compat
+from repro_torch.parallel.sharding import P, to_placements
 
 
 def _dims(cfg: ModelConfig):
@@ -177,6 +179,27 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     return y.reshape(b, t, h, p), carry
 
 
+def _local_ssd(shd, x, a, bmat, cmat, chunk: int):
+    """``ssd_chunked`` of a sharded forward (no cache) on each rank's
+    shard: the scan is independent over the batch rows and the heads, so
+    each rank scans its rows (over ``data``) and its heads (over
+    ``model``, when it divides ``nh``; otherwise every head) on local
+    tensors; the results are the DTensors of those shards."""
+    dp, tp = shd.rules.dp, shd.rules.tp
+    heads = tp if x.shape[2] % shd.tp_size() == 0 else None
+    rows = dp if x.shape[0] % shd.axis_size(dp) == 0 else None
+    xl, bl, cl = (shd.constrain(v, P(rows, None, heads, None)).to_local()
+                  for v in (x, bmat, cmat))
+    al = shd.constrain(a, P(rows, None, heads)).to_local()
+    y, h = ssd_chunked(xl, al, bl, cl, chunk, None)
+    return (compat.DTensor.from_local(
+                y, shd.mesh, to_placements(P(rows, None, heads, None),
+                                           shd.mesh), run_check=False),
+            compat.DTensor.from_local(
+                h, shd.mesh, to_placements(P(rows, heads, None, None),
+                                           shd.mesh), run_check=False))
+
+
 def ssd_recurrent_step(x, a, bmat, cmat, h
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step.  x: [B, 1, H, P], a: [B, 1, H], b/c: [B, 1, H, N],
@@ -190,7 +213,7 @@ def ssd_recurrent_step(x, a, bmat, cmat, h
 
 
 def mamba_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                  cache: dict | None, backend: str = "torch"
+                  cache: dict | None, backend: str = "torch", shd=None
                   ) -> tuple[torch.Tensor, dict | None]:
     """x [B, T, D] -> (out [B, T, D], the cache written in place or None).
     A cache is read as the sequence's state so far (the conv's tail and
@@ -205,6 +228,9 @@ def mamba_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     bm = x @ params["b_proj"]
     cm = x @ params["c_proj"]
     dt = x @ params["dt_proj"]
+    if shd is not None:
+        z = shd.act(z, "btf")
+        xi = shd.act(xi, "btf")
 
     xbc = torch.cat([xi, bm, cm], dim=-1)                 # [B, T, CH]
     xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
@@ -224,6 +250,8 @@ def mamba_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
     h0 = None if cache is None else cache["ssd"]
     if t == 1 and cache is not None:
         y, h_final = ssd_recurrent_step(xh, a, bh, ch, h0)
+    elif shd is not None and shd.active and cache is None:
+        y, h_final = _local_ssd(shd, xh, a, bh, ch, s.chunk)
     else:
         y, h_final = ssd_chunked(xh, a, bh, ch, s.chunk, h0)
 

@@ -71,15 +71,20 @@ def capacity_for(tokens: int, cfg_moe) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, T, D] -> (out [B, T, D], the aux loss, an fp32 scalar)."""
+def moe_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
+                shd=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] -> (out [B, T, D], the aux loss, an fp32 scalar).
+    ``shd`` (a ``parallel.sharding.ShardingCtx``) places the router
+    probabilities and the grouped dispatch buffers at the reference's
+    sites."""
     e = cfg.moe
     b, t, d = x.shape
     n, k = e.num_experts, e.top_k
 
     logits = (x @ params["router"]).float()                  # [B, T, E]
     probs = torch.softmax(logits, dim=-1)
+    if shd is not None:
+        probs = shd.act(probs, "bte")
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)       # [B, T, K]
     gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
 
@@ -105,10 +110,14 @@ def moe_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig
     dispatch = torch.einsum("btke,btkc->btec", sel, pos_oh)
     expert_in = torch.bmm(dispatch.reshape(b, t, n * cap).transpose(1, 2),
                           x).reshape(b, n, cap, d)           # [B, E, C, D]
+    if shd is not None:
+        expert_in = shd.act(expert_in, "becd")
     g = torch.einsum("becd,edf->becf", expert_in, params["experts_gate"])
     u = torch.einsum("becd,edf->becf", expert_in, params["experts_up"])
     h = F.silu(g) * u
     expert_out = torch.einsum("becf,efd->becd", h, params["experts_down"])
+    if shd is not None:
+        expert_out = shd.act(expert_out, "becd")
     # Combine: the gates onto the one-hot, then [B, T, E*C] @ [B, E*C, D].
     combine = torch.einsum("btke,btkc->btec", sel * gate_vals.to(x.dtype)[
         ..., None], pos_oh)

@@ -54,8 +54,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (BACKENDS, embed_tokens, gated_mlp,
-                                       init_linear, lm_head, rmsnorm)
+from repro_torch.models.layers import (BACKENDS, ag_seq, embed_tokens,
+                                       gated_mlp, init_linear, lm_head,
+                                       rmsnorm)
+from repro_torch.parallel.sharding import (cache_shardings, place_tree,
+                                           unshard_dim)
 
 Params = dict[str, Any]
 
@@ -121,13 +124,14 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
                dtype: torch.dtype = torch.float32, *,
                device: str | torch.device = "cuda") -> Params:
     """Random parameters with the reference's tree, shapes and init laws,
-    drawn on ``device`` from ``generator`` (a generator of that device):
-    nothing is made on the host.  The values differ from the reference's
+    drawn on ``device`` from ``generator`` (a generator of that device;
+    on ``"meta"``, shapes alone, any generator): nothing is made on the
+    host.  The values differ from the reference's
     (another generator); parity tests copy the reference's instead
     (``repro_torch.convert.lm_params_from_numpy``)."""
     dev = resolve_device(device)
     cfg.validate()
-    if generator.device.type != dev.type:
+    if dev.type != "meta" and generator.device.type != dev.type:
         raise ValueError(f"init_model: the generator lies on "
                          f"{generator.device}, the parameters go to {dev}")
     d = cfg.d_model
@@ -167,11 +171,20 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype: torch.dtype = torch.bfloat16, *,
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda", shd=None) -> dict:
     """Zeroed caches in the reference's tree: ``prefix`` / ``suffix``
     lists and ``blocks["s{i}"]`` leaves stacked ``[repeats, ...]``; None
-    for a block that keeps no cache."""
+    for a block that keeps no cache.  Under ``shd`` each leaf is a DTensor
+    placed by ``parallel.sharding.cache_shardings``."""
     dev = resolve_device(device)
+    cache = _zero_cache(cfg, batch, max_len, dtype, dev)
+    if shd is None or not shd.active:
+        return cache
+    return place_tree(cache, cache_shardings(cache, shd.rules, shd.mesh))
+
+
+def _zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                dev: torch.device) -> dict:
     return {
         "prefix": [_block_cache(k, cfg, batch, max_len, dtype, dev)
                    for k in cfg.prefix],
@@ -215,40 +228,59 @@ def reset_states(cfg: ModelConfig, cache: dict) -> None:
 
 def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
                  cfg: ModelConfig, cache, backend: str,
-                 shared: Params | None, in_prefix: bool = False
+                 shared: Params | None, in_prefix: bool = False, shd=None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One block: a Mamba block (norm, block, residual), or an attention
     block (norms, GQA or MLA attention, MLP dense or MoE, residuals);
     ``shared_attn`` reads ``shared``.  The cache, if any, is written in
-    place.  Returns the block's output and its aux loss (None: 0)."""
+    place.  Returns the block's output and its aux loss (None: 0).
+    ``shd`` pins the residual stream and the TP reductions at the
+    reference's sites; with ``cfg.manual_tp`` (and no cache) the SP -> TP
+    transitions are ``layers.ag_seq`` / ``rs_proj``."""
     def norm(y, w):
         return rmsnorm(y, w, cfg.norm_eps, cfg.norm_fp32, backend)
 
+    def pin(y, kind="btd"):
+        return y if shd is None else shd.act(y, kind)
+
+    def tp_in(y):                   # SP -> TP
+        return y if shd is None else shd.seq_whole(y)
+
     if kind == "mamba":
-        out, _ = mb.mamba_forward(p, norm(x, p["input_norm"]), cfg=cfg,
-                                  cache=cache, backend=backend)
-        return x + out, None
+        out, _ = mb.mamba_forward(p, tp_in(norm(x, p["input_norm"])),
+                                  cfg=cfg, cache=cache, backend=backend,
+                                  shd=shd)
+        return pin(x + out), None
     blk = shared if kind == "shared_attn" else p
+    manual = cfg.manual_tp and cache is None and shd is not None
     h = norm(x, blk["input_norm"])
+    # SP -> TP: the explicit all-gather under manual_tp, else DTensor's.
+    h = ag_seq(h, shd) if manual else tp_in(h)
     if cfg.mla:
-        a_out, _ = attn.mla_forward(blk, h, inputs, cfg=cfg, cache=cache)
+        a_out, _ = attn.mla_forward(blk, h, inputs, cfg=cfg, cache=cache,
+                                    shd=shd)
     else:
         window = cfg.sliding_window if kind == "local" else None
         a_out, _ = attn.gqa_forward(blk, h, inputs, cfg=cfg, window=window,
-                                    cache=cache, backend=backend)
+                                    cache=cache, backend=backend, shd=shd)
+    a_out = pin(a_out)              # the o_proj TP reduction, here
     if cfg.use_post_norms:
         a_out = norm(a_out, blk["post_attn_norm"])
-    x = x + a_out
+    x = pin(x + a_out)
     h = norm(x, blk["pre_mlp_norm"])
     aux = None
-    if kind != "shared_attn" and _uses_moe(cfg, in_prefix):
-        m_out, aux = moe_mod.moe_forward(blk, h, cfg=cfg)
+    use_moe = kind != "shared_attn" and _uses_moe(cfg, in_prefix)
+    h = ag_seq(h, shd) if manual and not use_moe else tp_in(h)
+    if use_moe:
+        m_out, aux = moe_mod.moe_forward(blk, h, cfg=cfg, shd=shd)
     else:
         m_out = gated_mlp(h, blk["gate_proj"], blk["up_proj"],
-                          blk["down_proj"], cfg.mlp_act)
+                          blk["down_proj"], cfg.mlp_act, shd=shd,
+                          manual_tp=manual)
+    m_out = pin(m_out)              # the down_proj TP reduction
     if cfg.use_post_norms:
         m_out = norm(m_out, blk["post_mlp_norm"])
-    return x + m_out, aux
+    return pin(x + m_out), aux
 
 
 def _cache_index(cache_index, b: int, device):
@@ -269,7 +301,7 @@ def _cache_index(cache_index, b: int, device):
 # Full forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, inputs, *, cfg: ModelConfig,
+def forward(params: Params, inputs, *, cfg: ModelConfig, shd=None,
             cache: dict | None = None, cache_index=None,
             backend: str = "torch", last_only: bool = False
             ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
@@ -278,8 +310,29 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
 
     Returns (logits [B, T, V], the cache -- written in place -- or None,
     aux loss).  ``last_only`` computes the final norm and the LM head at
-    the last position only (logits [B, 1, V]): all a sampler reads."""
+    the last position only (logits [B, 1, V]): all a sampler reads.
+
+    ``shd`` (a ``parallel.sharding.ShardingCtx`` over a mesh) runs the
+    forward sharded: the parameters (and a cache) are DTensors placed by
+    ``param_shardings`` (``cache_shardings``), the activations are
+    redistributed at the reference's ``shd.act`` sites and follow
+    DTensor's propagation between them; the result is a DTensor."""
     _check_backend(backend)
+    if shd is None or not shd.active:
+        return _forward(params, inputs, cfg=cfg, shd=None, cache=cache,
+                        cache_index=cache_index, backend=backend,
+                        last_only=last_only)
+    if backend != "torch":
+        raise ValueError("a sharded forward runs on backend='torch': K15 "
+                         "and K16 take no DTensor")
+    with shd.region():
+        return _forward(params, inputs, cfg=cfg, shd=shd, cache=cache,
+                        cache_index=cache_index, backend=backend,
+                        last_only=last_only)
+
+
+def _forward(params: Params, inputs, *, cfg: ModelConfig, shd, cache,
+             cache_index, backend: str, last_only: bool):
     dev = params["embed"].device
     if cfg.frontend == "audio_frames":
         w = params["frontend_proj"]
@@ -290,6 +343,8 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
         tokens = torch.as_tensor(inputs, device=dev).long()
         x = embed_tokens(params["embed"], tokens, cfg.scale_embeddings,
                          cfg.d_model)
+    if shd is not None:
+        x = shd.act(x, "btd")
     b, t = x.shape[:2]
     ci = _cache_index(cache_index, b, dev)
     if ci is None:
@@ -303,7 +358,8 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
     inputs = attn.AttnInputs(positions, ci, theta=cfg.rope_theta,
                              head_dim=(cfg.mla.qk_rope_head_dim if cfg.mla
                                        else cfg.head_dim))
-    kw = dict(cfg=cfg, backend=backend, shared=params.get("shared"))
+    kw = dict(cfg=cfg, backend=backend, shared=params.get("shared"),
+              shd=shd)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
     for i, kind in enumerate(cfg.prefix):
@@ -342,10 +398,14 @@ def forward(params: Params, inputs, *, cfg: ModelConfig,
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.norm_fp32,
                 backend)
+    if shd is not None:
+        x = shd.seq_whole(x)
     logits = lm_head(x, params["embed"] if cfg.tie_embeddings
                      else params["unembed"], cfg.tie_embeddings,
                      cfg.final_logit_softcap, cfg.logits_fp32,
                      valid_vocab=cfg.vocab_size)
+    if shd is not None:
+        logits = shd.act(logits, "logits")
     return logits, cache, aux_total
 
 
@@ -377,6 +437,10 @@ def cross_entropy(logits: torch.Tensor, targets, mask=None) -> torch.Tensor:
     full log-softmax), in fp32; with ``mask`` the masked mean over
     ``max(sum(mask), 1)`` tokens."""
     targets = torch.as_tensor(targets, device=logits.device).long()
+    # Sharded logits: DTensor's reductions over a sharded vocab (the
+    # gather's masked partial, logsumexp's strategy) are not in every
+    # release, so the vocab is gathered whole first.
+    logits = unshard_dim(logits, -1)
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0].float()
     nll = lse - tgt
@@ -386,36 +450,43 @@ def cross_entropy(logits: torch.Tensor, targets, mask=None) -> torch.Tensor:
     return torch.mean(nll)
 
 
-def lm_loss(params: Params, batch: dict, cfg: ModelConfig, *,
+def lm_loss(params: Params, batch: dict, cfg: ModelConfig, shd=None, *,
             backend: str = "torch") -> tuple[torch.Tensor, dict]:
     """``(ce + aux, {"loss", "ce", "aux"})`` of ``batch`` (``inputs``,
-    ``targets`` and an optional ``mask``)."""
-    logits, _, aux = forward(params, batch["inputs"], cfg=cfg,
+    ``targets`` and an optional ``mask``); sharded under ``shd``
+    (``forward``), the loss then a replicated DTensor."""
+    logits, _, aux = forward(params, batch["inputs"], cfg=cfg, shd=shd,
                              backend=backend)
+    if shd is not None and shd.active:
+        with shd.region():
+            ce = cross_entropy(logits, batch["targets"], batch.get("mask"))
+            loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
     ce = cross_entropy(logits, batch["targets"], batch.get("mask"))
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
-def prefill(params: Params, tokens, cfg: ModelConfig, max_len: int, *,
-            cache_dtype: torch.dtype = torch.bfloat16,
+def prefill(params: Params, tokens, cfg: ModelConfig, max_len: int,
+            shd=None, *, cache_dtype: torch.dtype = torch.bfloat16,
             backend: str = "torch") -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model: (logits, a fresh cache; Mamba
-    states in fp32 whatever ``cache_dtype``)."""
+    states in fp32 whatever ``cache_dtype``).  Under ``shd`` the cache is
+    placed by ``parallel.sharding.cache_shardings``."""
     b = torch.as_tensor(tokens).shape[0]
     cache = init_model_cache(cfg, b, max_len, cache_dtype,
-                             device=params["embed"].device)
-    logits, cache, _ = forward(params, tokens, cfg=cfg, cache=cache,
+                             device=params["embed"].device, shd=shd)
+    logits, cache, _ = forward(params, tokens, cfg=cfg, shd=shd, cache=cache,
                                cache_index=0, backend=backend)
     return logits, cache
 
 
 def decode_step(params: Params, cache: dict, token, index,
-                cfg: ModelConfig, *, backend: str = "torch"
+                cfg: ModelConfig, shd=None, *, backend: str = "torch"
                 ) -> tuple[torch.Tensor, dict]:
     """One autoregressive step.  token: [B, 1] -> (logits [B, 1, V],
     the cache, written in place)."""
-    logits, cache, _ = forward(params, token, cfg=cfg, cache=cache,
+    logits, cache, _ = forward(params, token, cfg=cfg, shd=shd, cache=cache,
                                cache_index=index, backend=backend)
     return logits, cache
 

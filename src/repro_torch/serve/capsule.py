@@ -53,10 +53,29 @@ these paths changes a result:
 it is 1 after the first dispatch and goes up by one at the first
 dispatch after each plan swap or breaker trip.
 
+**Sharded serving.**  ``n_shards=k`` lays the slot batch out over the
+serving mesh of ``parallel.sharding.slot_mesh`` (``slots = n_shards *
+slots_per_shard``; slot ``s`` lives on shard ``s // slots_per_shard``):
+the first k CUDA devices, or k shards all on the CPU for
+``device="cpu"``.  Each shard holds a replica of the parameters and its
+``[slots_per_shard, H, W, C]`` block of the device slot batch; ONE
+``compile_plan`` call gives the per-shard plan (``plan.batch ==
+slots_per_shard``), so every shard runs its plan's kernels at
+``slots_per_shard``.  Each tick launches every shard's forward on its
+own device before it reads any result back, and gathers each shard's
+active rows by a shard-local index.  Admission interleaves the shards;
+``stats()["per_shard"]`` holds each shard's terminal counters beside the
+``"queue"`` bucket.  A replan or a breaker trip rebuilds every shard's
+forward at once: one ``_forward_builds``.  ``n_shards=None`` is the
+single-device layout on ``device``; ``n_shards=1`` runs the mesh path on
+its first device.  The capsule head is per-sample, so the sharded
+engine's lengths equal the single-device engine's.
+
 Designed differences from the reference: the forward is eager PyTorch,
 so nothing is traced or jitted, and the active rows are gathered on
-the device by their slot list; the engine serves on one device (no
-``n_shards``: ``stats()`` reports one shard of every slot); the breaker
+the device by their slot list; a shard is a device holding a replica
+of the parameters and its block of the slot batch (there is no
+``shard_map``); the breaker
 takes only ``PlanError`` (the reference's takes every exception, since
 its fallback runs on the same TPU, where here it would hide a broken
 CUDA kernel); its fallback is the plain ``torch`` backend, the port's
@@ -66,6 +85,7 @@ reference path.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -78,9 +98,17 @@ from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.core.execplan import ExecutionPlan, PlanError, compile_plan
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import slot_mesh
 
 TERMINAL_STATUSES = ("ok", "timeout", "error", "shed")
 ADMISSIONS = ("reject", "shed-oldest")
+
+
+def _on(dev: torch.device):
+    """The CUDA device context a shard's kernels launch in (none on the
+    CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 class EngineStalled(RuntimeError):
@@ -115,6 +143,7 @@ class CapsuleEngine:
                  slots: int = 8, backend: str = "kernels",
                  device: str | torch.device = "cuda",
                  plan: ExecutionPlan | None = None,
+                 n_shards: int | None = None,
                  max_queue: int | None = None, admission: str = "reject",
                  max_retries: int = 2, retry_backoff_ticks: int = 1,
                  quarantine_after: int = 3, breaker_after: int = 3,
@@ -130,13 +159,32 @@ class CapsuleEngine:
         self.params = params
         self.cfg = cfg
         self.slots = slots
+        self.n_shards = n_shards if n_shards is not None else 1
+        if slots % self.n_shards:
+            raise ValueError(
+                f"slots={slots} does not divide over n_shards="
+                f"{self.n_shards}: the slot batch is laid out "
+                f"[n_shards, slots_per_shard, ...]")
+        # One device a shard; the single-device layout is one shard on
+        # ``device``.
+        self.mesh = (slot_mesh(n_shards, self.device)
+                     if n_shards is not None else None)
+        self._shard_devices = (self.mesh if self.mesh is not None
+                               else [self.device])
+        self.slots_per_shard = sps = slots // self.n_shards
         if plan is None and backend == "kernels":
-            plan = compile_plan(cfg, batch=slots, pipeline=True)
-        elif plan is not None and plan.batch < slots:
+            # ONE compile_plan gives the per-shard plan: each shard's
+            # forward sees slots_per_shard rows.
+            plan = compile_plan(cfg, batch=sps, pipeline=True)
+        elif plan is not None and plan.batch < sps:
+            shard_note = (
+                f" per shard (slots = n_shards * plan.batch: {slots} slots "
+                f"over {self.n_shards} shards)" if self.mesh is not None
+                else "")
             raise PlanError(
-                f"plan compiled for batch {plan.batch} cannot serve {slots} "
-                f"slots: every tick runs the full {slots}-row slot batch; "
-                f"compile the plan with batch >= slots")
+                f"plan compiled for batch {plan.batch} cannot serve {sps} "
+                f"slots{shard_note}: every tick runs the full {sps}-row "
+                f"slot batch; compile the plan with batch >= slots")
         self.plan = plan
         self.max_queue = max_queue
         self.admission = admission
@@ -165,8 +213,10 @@ class CapsuleEngine:
         self._counters.update(submitted=0, retries=0, replans=0,
                               breaker_trips=0, forward_failures=0,
                               poisoned=0, unquarantined=0)
-        # Terminals of requests that never reached a slot; the rest of
-        # each aggregate is the (one) shard's.
+        # Slot-resident terminals by shard, and a "queue" bucket for the
+        # requests that never reached a slot: they sum to the aggregate.
+        self._shard_counters = [{s: 0 for s in TERMINAL_STATUSES}
+                                for _ in range(self.n_shards)]
         self._queue_counters = {s: 0 for s in TERMINAL_STATUSES}
         self._poison_streak = [0] * slots   # consecutive bad results / slot
         self._backoff_until = [0] * slots   # tick a retrying slot resumes at
@@ -175,45 +225,84 @@ class CapsuleEngine:
         self._stall_pending = False         # injected stall: skip one tick
         self._batch = np.zeros(
             (slots, cfg.image_hw, cfg.image_hw, cfg.in_channels), np.float32)
-        self._batch_dev = torch.zeros(self._batch.shape, device=self.device)
+        # Each shard's block of the device slot batch, and its replica of
+        # the parameters (the same tensors where they already lie there).
+        self._shard_batch = [
+            torch.zeros((sps,) + self._batch.shape[1:], device=dev)
+            for dev in self._shard_devices]
+        self._shard_params = [
+            {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+            for dev in self._shard_devices]
         self._dirty: set[int] = set()    # slots to upload before a forward
         self._forward_builds = 0         # forwards built and dispatched
         self._forward = self._make_forward(backend)
 
-    def _make_forward(self, backend: str):
-        """The forward over the full slot batch on ``self.plan``, returning
-        the lengths and predictions of the slots ``idx`` (a list).  Rebuilt
-        only when the serving path changes (a replan swaps the plan, the
-        breaker the backend); ``_forward_builds`` counts it at its first
-        dispatch."""
-        built = False
+    @property
+    def _batch_dev(self) -> torch.Tensor:
+        """The device slot batch (all shards' blocks, in slot order)."""
+        if len(self._shard_batch) == 1:
+            return self._shard_batch[0]
+        return torch.cat([b.cpu() for b in self._shard_batch])
 
-        def fwd(params, images, idx):
+    def _make_forward(self, backend: str):
+        """The forward over the full slot batch on ``self.plan``, every
+        shard's block on its own device: ``fwd(shard_params, shard_batch,
+        idx)`` returns the lengths and predictions of the slots ``idx``
+        (a list, in its order).  Every shard's forward is launched before
+        any result is read back; each shard's active rows are gathered on
+        its device by a shard-local index.  Rebuilt only when the serving
+        path changes (a replan swaps the plan, the breaker the backend),
+        for every shard at once; ``_forward_builds`` counts it at its
+        first dispatch."""
+        built = False
+        sps = self.slots_per_shard
+
+        def fwd(shard_params, shard_batch, idx):
             nonlocal built
             if not built:
                 built = True
                 self._forward_builds += 1
+            local = [[s - sh * sps for s in idx if s // sps == sh]
+                     for sh in range(self.n_shards)]
+            picked = []
             with torch.no_grad():
-                out = capsnet.forward(params, images, self.cfg,
-                                      backend=backend, plan=self.plan,
-                                      device=self.device)
-            lengths = out["lengths"][idx].cpu().numpy()
+                for sh, dev in enumerate(self._shard_devices):
+                    if not local[sh]:
+                        picked.append(None)
+                        continue
+                    with _on(dev):
+                        out = capsnet.forward(shard_params[sh],
+                                              shard_batch[sh], self.cfg,
+                                              backend=backend,
+                                              plan=self.plan, device=dev)
+                        picked.append(out["lengths"][local[sh]])
+            rows = {}
+            for sh, got in enumerate(picked):          # read back
+                if got is not None:
+                    for k, row in zip(local[sh], got.cpu().numpy()):
+                        rows[sh * sps + k] = row
+            lengths = np.stack([rows[s] for s in idx])
             return lengths, np.argmax(lengths, axis=-1)
 
         return fwd
 
     # -- admission -------------------------------------------------------
+    def _shard_of(self, s: int) -> int:
+        return s // self.slots_per_shard
+
     def _finish(self, req: CapsRequest, status: str,
-                in_slot: bool = False) -> None:
+                shard: int | None = None) -> None:
         """Assign the terminal ``status``; every submitted request passes
-        through here exactly once.  A terminal not ``in_slot`` goes to
-        the queue bucket as well."""
+        through here exactly once.  ``shard`` attributes a slot-resident
+        terminal to its shard; the rest go to the queue bucket."""
         req.status = status
         req.finished_s = self._now()
         self.finished.append(req)
         self._counters[status] += 1
-        if not in_slot:
+        if shard is None:
             self._queue_counters[status] += 1
+        else:
+            self._shard_counters[shard][status] += 1
 
     def submit(self, req: CapsRequest) -> None:
         """Queue ``req``.  Rejects an image whose layout is not the
@@ -236,8 +325,18 @@ class CapsuleEngine:
             self._finish(self.queue.popleft(), "shed")   # the oldest pays
         self.queue.append(req)
 
+    def _admit_order(self):
+        """Slot fill order: shard-interleaved under a mesh, so a part-full
+        queue spreads over every shard (placement never changes a
+        result, only balance)."""
+        if self.n_shards == 1:
+            return range(self.slots)
+        return (shard * self.slots_per_shard + k
+                for k in range(self.slots_per_shard)
+                for shard in range(self.n_shards))
+
     def _admit(self) -> None:
-        for s in range(self.slots):
+        for s in self._admit_order():
             if s in self.quarantined:
                 continue
             if self.active[s] is None and self.queue:
@@ -253,12 +352,19 @@ class CapsuleEngine:
         self._backoff_until[s] = 0
 
     def _upload_dirty(self) -> None:
-        """Copy only the slots dirtied since the last tick to the device."""
+        """Copy only the slots dirtied since the last tick to their
+        shards' devices."""
         dirty = sorted(self._dirty)
         self._dirty.clear()
-        rows = torch.from_numpy(self._batch[dirty]).to(self.device)
-        self._batch_dev.index_copy_(
-            0, torch.tensor(dirty, device=self.device), rows)
+        sps = self.slots_per_shard
+        for sh, dev in enumerate(self._shard_devices):
+            mine = [s for s in dirty if s // sps == sh]
+            if not mine:
+                continue
+            rows = torch.from_numpy(self._batch[mine]).to(dev)
+            self._shard_batch[sh].index_copy_(
+                0, torch.tensor([s - sh * sps for s in mine], device=dev),
+                rows)
 
     # -- fault reactions -------------------------------------------------
     def _apply_tick_faults(self, tick: int) -> None:
@@ -283,7 +389,8 @@ class CapsuleEngine:
             return                       # the plain path plans nothing
         try:
             plan, report = execplan.degrade_plan(
-                self.cfg, new_budget, batch=self.slots, pipeline=True)
+                self.cfg, new_budget, batch=self.slots_per_shard,
+                pipeline=True)
         except PlanError:
             self._trip_breaker()         # not even degraded fits: plain
             return
@@ -306,7 +413,8 @@ class CapsuleEngine:
         s = act[int(rng.integers(len(act)))]
         if self._dirty:
             self._upload_dirty()    # land pending admissions first, or the
-        self._batch_dev[s] = float("nan")   # dispatch upload erases the NaN
+        sh = self._shard_of(s)              # dispatch upload erases the NaN
+        self._shard_batch[sh][s - sh * self.slots_per_shard] = float("nan")
 
     def _trip_breaker(self) -> None:
         if self._backend == "torch":
@@ -349,7 +457,7 @@ class CapsuleEngine:
         for s, req in enumerate(self.active):
             if (req is not None and req.deadline_s is not None
                     and now - req.submitted_s > req.deadline_s):
-                self._finish(req, "timeout", in_slot=True)
+                self._finish(req, "timeout", self._shard_of(s))
                 self._clear_slot(s)
 
     # -- main loop -------------------------------------------------------
@@ -401,8 +509,8 @@ class CapsuleEngine:
                 raise PlanError(
                     f"injected plan_error at {faults.SITE_ENGINE_FORWARD} "
                     f"(tick {self.ticks})")
-            lengths, preds = self._forward(self.params, self._batch_dev,
-                                           act)
+            lengths, preds = self._forward(self._shard_params,
+                                           self._shard_batch, act)
             self._breaker_fails = 0
         except PlanError:
             # A plan failure loses one tick, never the engine: consecutive
@@ -424,6 +532,7 @@ class CapsuleEngine:
         poisoned_tick = False
         for row, pred, s in zip(lengths, preds, act):
             req = self.active[s]
+            shard = self._shard_of(s)
             if not np.all(np.isfinite(row)):
                 poisoned_tick = True
                 self._counters["poisoned"] += 1
@@ -432,12 +541,12 @@ class CapsuleEngine:
                     # K consecutive poisoned results through one slot:
                     # quarantine it (probation may lift it), error out.
                     self.quarantined.add(s)
-                    self._finish(req, "error", in_slot=True)
+                    self._finish(req, "error", shard)
                     self._clear_slot(s)
                 elif self._expired(req):
                     # The deadline passed in retry backoff: no further
                     # dispatch for a dead request.
-                    self._finish(req, "timeout", in_slot=True)
+                    self._finish(req, "timeout", shard)
                     self._clear_slot(s)
                 elif req.retries < self.max_retries:
                     req.retries += 1
@@ -450,13 +559,13 @@ class CapsuleEngine:
                     self._batch[s] = req.image
                     self._dirty.add(s)
                 else:
-                    self._finish(req, "error", in_slot=True)
+                    self._finish(req, "error", shard)
                     self._clear_slot(s)
                 continue
             self._poison_streak[s] = 0
             req.lengths = row
             req.pred = int(pred)
-            self._finish(req, "ok", in_slot=True)
+            self._finish(req, "ok", shard)
             self._clear_slot(s)
             done += 1
         self._end_tick(len(act), poisoned=poisoned_tick)
@@ -490,11 +599,15 @@ class CapsuleEngine:
                    if self._started_s is not None
                    and self._stopped_s is not None else 0.0)
         lats = [r.latency_s for r in self.finished if r.latency_s is not None]
-        per_shard = [dict(shard=0, slots=self.slots,
-                          occupied=sum(a is not None for a in self.active),
-                          quarantined=len(self.quarantined),
-                          **{st: self._counters[st] - self._queue_counters[st]
-                             for st in TERMINAL_STATUSES})]
+        sps = self.slots_per_shard
+        per_shard = [
+            dict(shard=i, slots=sps,
+                 occupied=sum(1 for s in range(i * sps, (i + 1) * sps)
+                              if self.active[s] is not None),
+                 quarantined=sum(1 for s in self.quarantined
+                                 if self._shard_of(s) == i),
+                 **self._shard_counters[i])
+            for i in range(self.n_shards)]
         return dict(
             requests=n,
             ticks=self.ticks,
@@ -507,8 +620,8 @@ class CapsuleEngine:
             degraded=self.degraded,
             quarantined=len(self.quarantined),
             smem_budget=self._smem_budget,
-            n_shards=1,
-            slots_per_shard=self.slots,
+            n_shards=self.n_shards,
+            slots_per_shard=sps,
             per_shard=per_shard,
             queue_bucket=dict(self._queue_counters),
             **self._counters,

@@ -17,6 +17,8 @@ detection.  Subclasses supply the model's hooks:
   * ``_begin(start)``        -> once a run, after the restore, before the
                                first step (the LM loop starts its data
                                stream at ``start``)
+  * ``_shardings()``         -> placements for a restore (the sharded LM
+                               loop's elastic restore), None by default
 
 State is always the checkpoint dict (``{"params": ...}`` or
 ``{"params": ..., "opt": ...}``), a nested dict of tensors.
@@ -91,6 +93,11 @@ class FaultTolerantLoop:
         """Advance a stateful data stream to ``step`` (data indexed by
         step needs nothing here)."""
 
+    def _shardings(self):
+        """Placements of the state's leaves for a restore (a tree of
+        ``parallel.sharding.NamedSharding``), None for as they were."""
+        return None
+
     def _begin(self, start: int) -> None:
         """Called once a ``run``, after the restore and before the first
         step."""
@@ -99,7 +106,8 @@ class FaultTolerantLoop:
     def _try_restore(self, state: dict) -> tuple[dict, int]:
         if ckpt.latest_step(self.loop_cfg.ckpt_dir) is None:
             return state, 0
-        restored, manifest = ckpt.restore(state, self.loop_cfg.ckpt_dir)
+        restored, manifest = ckpt.restore(state, self.loop_cfg.ckpt_dir,
+                                          shardings=self._shardings())
         return restored, manifest["step"]
 
     def _restore_committed(self) -> dict:
@@ -107,7 +115,8 @@ class FaultTolerantLoop:
         ckpt_dir may hold later steps of an abandoned run)."""
         restored, _ = ckpt.restore(self._init_state(),
                                    self.loop_cfg.ckpt_dir,
-                                   step=self._last_committed)
+                                   step=self._last_committed,
+                                   shardings=self._shardings())
         return restored
 
     def _heartbeat(self, step: int, metrics: dict) -> None:

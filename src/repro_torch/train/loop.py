@@ -13,8 +13,15 @@ past a poisoned batch on a rollback.
 The loop runs on the card unless ``device="cpu"`` is given; batches move
 to its device as they are drawn.  It trains on ``backend="torch"`` (K15
 and K16 have no backward; ``make_train_step`` refuses ``"kernels"``).
-The reference's ``shd`` and ``param_shardings`` (elastic restore onto a
-mesh) wait for ``parallel/`` (ROADMAP queue 1, item 11f) and raise.
+
+Sharded: with ``shd`` (``parallel.sharding.ShardingCtx``) and
+``param_shardings`` (``parallel.sharding.param_shardings``) the loop
+runs one process a rank (``parallel.ranks.run_ranks``), every rank with
+the same seed and the same data: the parameters are placed by
+``param_shardings`` and the AdamW moments follow them.  Rank 0 writes
+full tensors; a restore places every leaf by ``param_shardings``, so a
+checkpoint written on one mesh resumes on another (the elastic
+restore).
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import SHARDING_TODO, make_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_model
+from repro_torch.parallel.sharding import place_tree
 from repro_torch.train.data import DataConfig, DataIterator
 from repro_torch.train.harness import FaultTolerantLoop
 from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -53,15 +61,15 @@ class TrainLoop(FaultTolerantLoop):
                  on_straggler: Callable[[int, float], None] | None = None,
                  *, device: str | torch.device = "cuda",
                  backend: str = "torch"):
-        if shd is not None or param_shardings is not None:
-            raise NotImplementedError(SHARDING_TODO)
         self.device = resolve_device(device)
         super().__init__(loop_cfg, on_straggler=on_straggler)
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
+        self.shd = shd
+        self.param_shardings = param_shardings
         self._data: DataIterator | None = None
-        self._step_fn = make_train_step(model_cfg, opt_cfg,
+        self._step_fn = make_train_step(model_cfg, opt_cfg, shd,
                                         backend=backend)
 
     # -- state ----------------------------------------------------------------
@@ -69,12 +77,27 @@ class TrainLoop(FaultTolerantLoop):
         gen = torch.Generator(device=self.device).manual_seed(
             self.loop_cfg.seed)
         params = init_model(gen, self.model_cfg, device=self.device)
+        if self.param_shardings is not None:
+            params = place_tree(params, self.param_shardings)
         return params, init_opt_state(params)
+
+    def try_restore(self, params, opt_state):
+        state, start = self._try_restore({"params": params,
+                                          "opt": opt_state})
+        return state["params"], state["opt"], start
 
     # -- harness hooks ---------------------------------------------------------
     def _init_state(self) -> dict:
         params, opt_state = self.init_state()
         return {"params": params, "opt": opt_state}
+
+    def _shardings(self):
+        """The state's placements for a restore: the moments as their
+        parameters, the step count plain."""
+        ps = self.param_shardings
+        if ps is None:
+            return None
+        return {"params": ps, "opt": {"m": ps, "v": ps, "step": None}}
 
     def _ckpt_extra(self) -> dict:
         return {"model": self.model_cfg.name}

@@ -43,3 +43,37 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def leaves_with_path(tree: Any, prefix: tuple = ()
+                     ) -> Iterator[tuple[tuple, Any]]:
+    """``(path, leaf)`` in ``leaves_with_keys``' order, the path a tuple of
+    dict keys (str) and list indices (int); a None subtree (a block that
+    keeps no cache) has no leaves, as in the reference's pytrees."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_path(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
+                       prefix: tuple = ()) -> Any:
+    """``fn(path, leaf, *matching leaves of rest)`` over the leaves of
+    ``tree``, paths as in ``leaves_with_path``; None subtrees stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      prefix=prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                   prefix=prefix + (i,))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree, *rest)

@@ -51,6 +51,7 @@ from repro_torch.convert import lm_params_from_numpy, opt_state_from_numpy
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import RMSNormLowp
+from repro_torch.parallel.sharding import ShardingCtx
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import data, optimizer
 from repro_torch.train.loop import LoopConfig, TrainLoop
@@ -266,14 +267,32 @@ def test_train_step_in_bf16_is_near_the_reference_step(grad_dtype):
 
 
 def test_train_step_refuses_kernels_and_sharding():
+    """The kernels backend has no backward; a step given ``shd`` runs on
+    ``backend="torch"`` only, and ``ShardingCtx(mesh=None)`` is the plain
+    step, bit for bit."""
     _, cfg = _params("granite-3-2b")
     with pytest.raises(ValueError, match="backward"):
         steps.make_train_step(cfg, optimizer.OptConfig(), backend="kernels")
-    with pytest.raises(NotImplementedError, match="11f"):
-        steps.make_train_step(cfg, optimizer.OptConfig(), shd=object())
-    with pytest.raises(NotImplementedError, match="11f"):
+    with pytest.raises(ValueError, match="sharded"):
+        steps.make_train_step(cfg, optimizer.OptConfig(), shd=ShardingCtx(),
+                              backend="kernels")
+    with pytest.raises(ValueError, match="sharded"):
         TrainLoop(cfg, optimizer.OptConfig(), data.DataConfig(kind="lm"),
-                  LoopConfig(), shd=object(), device="cpu")
+                  LoopConfig(), shd=ShardingCtx(), device="cpu",
+                  backend="kernels")
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    out = []
+    for shd in (None, ShardingCtx()):
+        p = _port_params("granite-3-2b")
+        o = optimizer.init_opt_state(p)
+        p, o, m = steps.make_train_step(
+            cfg, optimizer.OptConfig(**OPT), shd,
+            compute_dtype=torch.float32)(p, o, batch)
+        out.append((p, o, m))
+    (p0, o0, m0), (p1, o1, m1) = out
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    for a, b in zip(tree.leaves((p0, o0)), tree.leaves((p1, o1))):
+        assert torch.equal(a, b)
 
 
 def test_prefill_and_serve_steps_match_the_reference():
