@@ -109,8 +109,14 @@ to the chunked scan, served likewise, 3 bf16 training steps at 8 x
 decode and K16 records) and ``hubert-xlarge`` (K15 at head dim 80
 against its twin and timed beside SDPA, the forward on 8 x 1024 frames
 on both backends, the engine's refusal, 3 masked-frame training
-steps); each path's K15/K16 launches go on the ``kernels`` line.  The
-weights are random, made from a seed.
+steps); each path's K15/K16 launches go on the ``kernels`` line.
+Phase 18 runs ``parallel/`` on the card.  Phase 19 anchors the roofline
+and the op counters (``launch/roofline.py``, ``launch/hlo_analysis.py``)
+to the card on phase 16a's cell: one counted granite-3-2b train step on
+the card against the same step on meta parameters (equal flops), the dry
+run's memory model against the measured peak, the roofline step against
+the measured step, and ``python -m repro_torch.launch.dryrun`` on one
+production cell.  The weights are random, made from a seed.
 Every check that fails raises, so the script exits non-zero; it also
 exits non-zero, printing no result, where no CUDA device is present or
 the ``repro_torch`` package is not beside it.  It imports neither JAX nor
@@ -265,6 +271,12 @@ PAR_STEP = (1e-6, "a 1 x 1 mesh runs the same kernels on the same "
             "tensors (equal bits expected)")
 PAR_COMPRESS_N = 1 << 24        # compressed_psum's payload at world 1
 
+# Phase 19: the roofline and counters (launch/roofline.py,
+# launch/hlo_analysis.py, launch/dryrun.py) anchored to the card on phase
+# 16a's cell: granite-3-2b's bf16 train step at 8 x 1024, remat full.
+ROOF_STEPS = 2                  # timed steps after the counted one
+DRYRUN_TIMEOUT_S = 300          # the dry-run CLI's one cell
+
 # Phase 17: the last LM families at full width.  deepseek-v2-lite (MLA,
 # MoE), mamba2-370m (Mamba2/SSD) and zamba2-1.2b (the hybrid) serve phase
 # 13's requests; mamba2 and hubert-xlarge (the audio encoder, K15 at head
@@ -288,7 +300,11 @@ AUDIO_LOGITS = (1e-4, "fp32 through 48 bidirectional layers, attention "
 # On the H100 a torch.profiler session can lose records at its start:
 # a few, more the older the process, and now and then the first ms or
 # more.  The lead markers and the spin take that loss; the guards show
-# whether it reached the step.
+# whether it reached the step.  Rarely a session also loses a run of
+# records inside the step and keeps every guard (once, a zamba2 step of
+# four prefills and a replay lacked 18 K16 and 2 K15 records): the CUDA
+# API's records, matched to the device's by correlation id
+# (``trace_launches``), show that loss.
 TRACE_LEAD = 64                 # frac_ kernels that open a session
 TRACE_SPIN_CYCLES = 10_000_000  # then ~5 ms of device spin
 TRACE_GUARD = 8                 # trunc_ kernels before the step, floor_ after
@@ -2509,8 +2525,11 @@ def traced(fn):
     trace loses records at the start of a session (TRACE_LEAD's
     comment); the lead markers and the spin take that loss.  Returns the
     profile, whether the trace holds every guard on both sides of
-    ``fn`` (so that ``fn``'s records are all there), and how many lead
-    markers it lost."""
+    ``fn`` and, from the first guard on, every kernel launch's record and
+    every kernel record's launch (``trace_launches``: so that ``fn``'s
+    records are all there, those of a graph replay as far as one launch
+    shows), how many lead markers it lost, and each graph launch's
+    device records from the first guard on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     mark = torch.ones(1, device="cuda")
@@ -2527,8 +2546,54 @@ def traced(fn):
         torch.cuda.synchronize()
     rec = kernel_records(prof, ("frac_kernel", "trunc_kernel",
                                 "floor_kernel"))
-    return (prof, rec["trunc_kernel"] == rec["floor_kernel"] == TRACE_GUARD,
-            TRACE_LEAD - rec["frac_kernel"])
+    missing, orphans, graphs = trace_launches(prof)
+    return (prof, rec["trunc_kernel"] == rec["floor_kernel"] == TRACE_GUARD
+            and missing == orphans == 0, TRACE_LEAD - rec["frac_kernel"],
+            graphs)
+
+
+def trace_launches(prof) -> tuple[int, int, list[int]]:
+    """The trace's CUDA API records against its device records, matched
+    by correlation id (CUPTI numbers API calls in order), from the first
+    ``trunc_`` guard's launch on: the kernel launches whose kernel record
+    the trace lacks (a launch into a stream capture has none), the kernel
+    records whose launch it lacks (a copy or a fill has no kernel
+    launch), and each graph launch's device records (every launch of one
+    graph holds as many).  With no guard kept, every launch counts as
+    missing."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    kernels, graphs, device = set(), set(), defaultdict(list)
+    captures = []                   # [begin, end) of each stream capture
+    for e in prof.profiler.kineto_results.events():
+        name, corr = e.name(), e.correlation_id()
+        if e.device_type() == DeviceType.CUDA:
+            device[corr].append(name)
+        elif "LaunchKernel" in name or "LaunchCooperativeKernel" in name:
+            kernels.add(corr)
+        elif "GraphLaunch" in name:
+            graphs.add(corr)
+        elif "BeginCapture" in name or "EndCapture" in name:
+            captures.append(corr)
+    # A launch into a capture runs only when the graph does.
+    captures.sort()
+    kernels = {corr for corr in kernels
+               if not any(b < corr < end for b, end in
+                          zip(captures[::2], captures[1::2]))}
+    first = min((corr for corr, names in device.items()
+                 if any("trunc_kernel" in n for n in names)), default=None)
+    if first is None:
+        return len(kernels), 0, []
+    launched = kernels | graphs
+    missing = sum(corr >= first and corr not in device for corr in kernels)
+    orphans = sum(corr >= first and corr not in launched
+                  and not all(n.startswith(("Memcpy", "Memset"))
+                              for n in names)
+                  for corr, names in device.items())
+    return (missing, orphans,
+            [len(device.get(corr, ())) for corr in sorted(graphs)
+             if corr >= first])
 
 
 def lm_counted_run(eng, per_forward: dict[str, int]) -> dict:
@@ -2538,37 +2603,47 @@ def lm_counted_run(eng, per_forward: dict[str, int]) -> dict:
     A step never holds more records than launches: one forward beyond
     the count if its tick replayed the graph, none beyond it otherwise
     (prefills, the eager tick, the capture and its one replay).  A step
-    whose trace holds its guards holds exactly that many; a replay that
-    admits nobody, traced whole, holds 169 K16, 42 K15 decode and 42
-    combine records, no prefill.  Returns the wrappers' counts, the
-    records, those on the later replays traced whole, one such replay's
-    records, the steps whose trace lost records and the replays among
-    them, the steps by lead markers lost, and the finished requests."""
+    whose trace is whole (``traced``, and each of its graph launches
+    holding as many device records as the run's fullest) holds exactly
+    that many; a replay that admits nobody, traced whole, holds 169 K16,
+    42 K15 decode and 42 combine records, no prefill.  Returns the
+    wrappers' counts, the records, those on the later replays traced
+    whole, one such replay's records, the steps whose trace lost records
+    and the replays among them, the steps by lead markers lost, and the
+    finished requests."""
     from repro_torch.kernels import build
-    totals = {part: dict.fromkeys(per_forward, 0)
-              for part in ("counted", "records", "records_on_replays")}
-    steps, one_replay, untraced, replays_untraced = 0, None, [], 0
-    lead_lost = []
+    runs = []
     while eng.queue or any(a is not None for a in eng.active):
         before, replays = build.launch_counts(), eng.graph_replays
-        prof, whole, lost = traced(eng.step)
-        lead_lost.append(lost)
+        prof, whole, lost, graphs = traced(eng.step)
         after, rec = build.launch_counts(), lm_records(prof)
+        runs.append(dict(
+            tick=eng.last_tick, whole=whole, lost=lost, rec=rec, graph=graphs,
+            counted={k: after[k] - before[k] for k in per_forward},
+            replayed=(eng.graph_replays - replays == 1
+                      and eng.last_tick == "replay")))
+        del prof
+    # Every launch of the engine's one graph runs the same nodes: a launch
+    # with fewer device records than the fullest lost some of them.
+    full = max((n for r in runs for n in r["graph"]), default=0)
+    totals = {part: dict.fromkeys(per_forward, 0)
+              for part in ("counted", "records", "records_on_replays")}
+    one_replay, untraced, replays_untraced = None, [], 0
+    for steps, r in enumerate(runs):
+        rec, counted, replayed = r["rec"], r["counted"], r["replayed"]
+        whole = r["whole"] and all(n == full for n in r["graph"])
         ran = {"rmsnorm": rec["rmsnorm"],
                "flash_attention": rec["flash prefill"] + rec["flash decode"]}
-        counted = {k: after[k] - before[k] for k in per_forward}
-        replayed = (eng.graph_replays - replays == 1
-                    and eng.last_tick == "replay")
         extra = {k: ran[k] - counted[k] for k in per_forward}
         want = {k: n if replayed else 0 for k, n in per_forward.items()}
         if (extra != want if whole
                 else any(extra[k] > want[k] for k in per_forward)):
-            raise AssertionError(f"engine step {steps} ({eng.last_tick}, "
+            raise AssertionError(f"engine step {steps} ({r['tick']}, "
                                  f"traced {'whole' if whole else 'in part'}"
                                  f"): {ran} kernel records, {counted} "
                                  f"launches counted")
         if not whole:
-            untraced.append(f"{steps} ({eng.last_tick})")
+            untraced.append(f"{steps} ({r['tick']})")
             replays_untraced += replayed
         elif replayed and not any(counted.values()) and one_replay is None:
             one_replay = rec
@@ -2583,14 +2658,14 @@ def lm_counted_run(eng, per_forward: dict[str, int]) -> dict:
             totals["records"][k] += ran[k]
             if whole:
                 totals["records_on_replays"][k] += extra[k]
-        steps += 1
     if one_replay is None:
         raise AssertionError("no step replayed the tick without a prefill "
                              "and kept its whole trace")
-    return dict(steps=steps, ticks=eng.ticks, replays=eng.graph_replays,
+    return dict(steps=len(runs), ticks=eng.ticks, replays=eng.graph_replays,
                 **totals, one_replay=one_replay, untraced=untraced,
                 replays_untraced=replays_untraced,
-                lead_lost=dict(sorted(Counter(lead_lost).items())),
+                lead_lost=dict(sorted(Counter(
+                    r["lost"] for r in runs).items())),
                 done=eng.finished)
 
 
@@ -3335,7 +3410,7 @@ def granite_training(dev) -> dict:
     # profile on the H100), so a whole trace holds TRACE_GUARD + 1 such.
     for tries in range(1, TRACE_TRIES + 1):
         batch = lm_batch_on(data, TRAIN_LM_STEPS + tries - 1, dev)
-        prof, _, lost = traced(lambda: step(params, opt_state, batch))
+        prof, _, lost, _ = traced(lambda: step(params, opt_state, batch))
         guards = kernel_records(prof, ("trunc_kernel", "floor_kernel"))
         whole = (lost < TRACE_LEAD and guards["floor_kernel"] == TRACE_GUARD
                  and guards["trunc_kernel"] == TRACE_GUARD + 1)
@@ -3921,7 +3996,7 @@ def train_family(dev, cfg, batch_at, label: str) -> dict:
         hist.append(row)
     peak = torch.cuda.max_memory_allocated()
     batch = batch_at(1)
-    prof, _, lost = traced(lambda: step(params, opt_state, batch))
+    prof, _, lost, _ = traced(lambda: step(params, opt_state, batch))
     # The step may launch trunc_/floor_ kernels of its own: the trace is
     # whole where it kept every lead's spin and at least every guard.
     guards = kernel_records(prof, ("trunc_kernel", "floor_kernel"))
@@ -4093,7 +4168,7 @@ def audio_phase(dev, rows: list[dict]) -> dict:
             nbytes, flops)])
         # device_ms's plain session can lose every record this late in
         # the process: read the kernel's records between marker kernels.
-        prof, whole, _ = traced(lambda: [k15.flash_attention(
+        prof, whole, _, _ = traced(lambda: [k15.flash_attention(
             q, k, v, causal=False) for _ in range(10)])
         times = [ms for key, ms in kernel_ms(prof, 10).items()
                  if "flash::prefill_kernel" in key]
@@ -4122,8 +4197,8 @@ def audio_phase(dev, rows: list[dict]) -> dict:
         fwd_ms = {name: time_ms(lambda be=name: T.forward(
             params, frames, cfg=cfg, backend=be), reps=3)
             for name in ("kernels", "torch")}
-        prof, whole, _ = traced(lambda: T.forward(params, frames, cfg=cfg,
-                                                  backend="kernels"))
+        prof, whole, _, _ = traced(lambda: T.forward(
+            params, frames, cfg=cfg, backend="kernels"))
     rec = lm_records(prof)
     err = check_scaled(f"{AUDIO_ARCH} logits [{b}, {t}, {cfg.vocab_size}] "
                        f"({cfg.num_layers} layers), kernels against plain",
@@ -4236,6 +4311,8 @@ def main() -> int:
     lm_families_phase(dev, rows)
     # 18. parallel/: the sharded engine and the sharded LM step.
     sharding_phase(dev, phase5)
+    # 19. The roofline, the counters and the dry run against the card.
+    roofline_phase(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4506,6 +4583,140 @@ def sharding_phase(dev, phase5: dict) -> None:
     print(f"sharding: {json.dumps(result)}", flush=True)
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({CARD})",
           flush=True)
+
+
+def roofline_phase(dev) -> dict:
+    """Phase 19: ``analyze_ops`` over one real train step of phase 16a's
+    cell on the card beside the same step on meta parameters in this
+    process (world 1, no mesh): the same ops, so the same flops (checked
+    equal); the dry run's memory model of the cell beside the step's
+    measured peak; the roofline's step time and bottleneck beside the
+    measured step; then ``python -m repro_torch.launch.dryrun`` on one
+    production cell in a child process (its status must be ok)."""
+    import os
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, shapes, steps
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.hlo_analysis import analyze_ops
+    from repro_torch.models import count_params
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH)
+    data = DataConfig(kind="lm", vocab_size=cfg.vocab_size,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_LM_BATCH,
+                      seed=SEED)
+    step = steps.make_train_step(cfg, opt.OptConfig(),
+                                 compute_dtype=torch.bfloat16)
+    # The meta side first: no card memory.
+    batch = lm_batch_on(data, 0, dev)
+    meta_params = shapes.param_specs(cfg, torch.float32)
+    meta_args = (meta_params, opt.init_opt_state(meta_params),
+                 {k: torch.empty_like(v, device="meta")
+                  for k, v in batch.items()})
+    t0 = time.perf_counter()
+    _, meta, mem = dryrun.analyze_step("train", step, meta_args)
+    meta_s = time.perf_counter() - t0
+    del meta_args, meta_params
+    # The card side: the counted step, then ROOF_STEPS timed ones.
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED + 19),
+                          cfg, device=dev)
+    opt_state = opt.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (_, _, m), card = analyze_ops(step, params, opt_state, batch)
+    loss = float(m["loss"])
+    counted_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = []
+    for s in range(ROOF_STEPS):
+        b = lm_batch_on(data, s + 1, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, b)
+        float(m["loss"])                        # waits for the device
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    del params, opt_state, batch, b, m
+    free_card()
+    if not math.isfinite(loss):
+        raise AssertionError(f"phase 19: the counted step's loss is {loss}")
+    print(f"check {TRAIN_ARCH} step flops, card against meta (world 1, "
+          f"{cfg.num_layers} layers, batch {TRAIN_LM_BATCH} x {TRAIN_SEQ}, "
+          f"bf16, remat {cfg.remat!r}): card {card.flops:.0f} ({card.dot_count}"
+          f" dots), meta {meta.flops:.0f} ({meta.dot_count} dots), equal "
+          f"{card.flops == meta.flops}; uncounted card {card.uncounted}, "
+          f"meta {meta.uncounted}; counted bytes card "
+          f"{card.memory_bytes:.0f}, meta {meta.memory_bytes:.0f} ({CARD})",
+          flush=True)
+    if card.flops != meta.flops or card.dot_count != meta.dot_count:
+        raise AssertionError("phase 19: the meta step's flops are not the "
+                             "card step's")
+    model = rf.model_flops_for(
+        cfg, shapes.ShapeSpec("phase16a", "train", TRAIN_SEQ,
+                              TRAIN_LM_BATCH),
+        count_params(cfg, active_only=True))
+    roof = rf.Roofline(
+        flops_per_device=meta.flops,
+        hbm_bytes_per_device=rf.hbm_bytes_estimate(meta.memory_bytes, mem),
+        collective_bytes_per_device=meta.collective_bytes, chips=1,
+        model_flops=model)
+    measured_s = min(host_ms) / 1e3
+    live_model = mem["argument_bytes"] + meta.peak_live_bytes
+    print(f"{TRAIN_ARCH} memory: the dry run's model "
+          f"{mem['total_bytes'] / 2**30:.2f} GiB (parameters "
+          f"{mem['param_bytes'] / 2**30:.2f}, Adam "
+          f"{mem['opt_bytes'] / 2**30:.2f}, gradients "
+          f"{mem['grad_bytes'] / 2**30:.2f}, saved activations "
+          f"{mem['activation_bytes'] / 2**30:.2f}), the live-set model "
+          f"(arguments + the step's peak of live storages) "
+          f"{live_model / 2**30:.2f} GiB; measured peak "
+          f"{peak / 2**30:.2f} GiB allocated (the card's live-set count "
+          f"{card.peak_live_bytes / 2**30:.2f} GiB over the arguments); "
+          f"model / measured {mem['total_bytes'] / peak:.3f}, live-set / "
+          f"measured {live_model / peak:.3f} ({CARD})", flush=True)
+    print(f"{TRAIN_ARCH} roofline: step {roof.step_time_s:.4f} s "
+          f"({roof.bottleneck}-bound; compute {roof.compute_s:.4f} s, "
+          f"memory {roof.memory_s:.4f} s at the per-op byte model, "
+          f"collective {roof.collective_s:.4f} s), mfu at the roofline "
+          f"{roof.mfu:.4f}; measured host ms a step {[round(t, 1) for t in host_ms]}"
+          f" (the counted step {counted_ms:.1f} ms), measured / roofline "
+          f"{measured_s / roof.step_time_s:.3f}, mfu measured "
+          f"{model / (measured_s * rf.PEAK_FLOPS):.4f} (model flops "
+          f"{model:.4e}; the meta count took {meta_s:.1f} s) ({CARD})",
+          flush=True)
+    # The dry-run CLI on one production cell, in a child process.
+    with tempfile.TemporaryDirectory(prefix="dryrun_torch_") as out:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             TRAIN_ARCH, "--shape", "train_4k", "--mesh", "single",
+             "--out", out], capture_output=True, text=True, env=env,
+            timeout=DRYRUN_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        files = list(Path(out).glob("*.json"))
+        cell = json.loads(files[0].read_text()) if files else {}
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    print(f"dryrun CLI {TRAIN_ARCH} train_4k pod16x16 (torch "
+          f"{torch.__version__}): exit {proc.returncode}, status "
+          f"{cell.get('status')}, {cli_s:.1f} s; {lines}", flush=True)
+    if proc.returncode != 0 or cell.get("status") != "ok":
+        raise AssertionError(f"phase 19: the dry-run CLI failed: "
+                             f"{cell.get('error')} {proc.stderr[-3000:]}")
+    out = dict(flops_card=card.flops, flops_meta=meta.flops,
+               model_gib=mem["total_bytes"] / 2**30,
+               live_gib=live_model / 2**30, peak_gib=peak / 2**30,
+               roofline_s=roof.step_time_s, bottleneck=roof.bottleneck,
+               host_ms=host_ms, mfu=model / (measured_s * rf.PEAK_FLOPS),
+               cli_s=cli_s, cli_roofline=cell.get("roofline"),
+               s=time.perf_counter() - t_phase)
+    print(f"phase 19: {out['s']:.1f} s ({CARD})", flush=True)
+    return out
 
 
 def verify_plans(dev) -> None:

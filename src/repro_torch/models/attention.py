@@ -290,8 +290,7 @@ def gqa_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
         kv_pos = (inputs.positions if cache is None
                   else inputs.kv_pos(k.shape[1]))
         core = (functools.partial(_local_attention, shd)
-                if shd is not None and shd.active and cache is None
-                else grouped_attention)
+                if shd is not None and shd.active else grouped_attention)
         out = core(q, k.to(q.dtype), v.to(q.dtype), inputs.positions,
                    kv_pos, causal=cfg.causal, window=window,
                    softcap=cfg.attn_logit_softcap, scale=scale,
@@ -411,7 +410,11 @@ def mla_forward(params: dict, x: torch.Tensor, inputs: AttnInputs, *,
         msk = _mask(inputs.positions, inputs.kv_pos(c_all.shape[1]),
                     cfg.causal, None)
         p = _mla_softmax(logits, msk, scale, cfg.attn_fp32_softmax, x.dtype)
-        ctx = torch.einsum("bhts,bsr->bthr", p, c_all.to(p.dtype))
+        # Heads before T: torch's einsum then flattens (h, t) into the
+        # matmul's rows, which a head-sharded DTensor allows; (t, h)
+        # torch 2.11's DTensor refuses.
+        ctx = torch.einsum("bhts,bsr->bhtr", p,
+                           c_all.to(p.dtype)).transpose(1, 2)
         out = torch.einsum("bthr,rhv->bthv", ctx, w_uv)
     return out.reshape(b, t, h * vd) @ params["o_proj"], cache
 

@@ -211,8 +211,20 @@ def ag_seq(x: torch.Tensor, shd) -> torch.Tensor:
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, scale: bool,
                  d_model: int) -> torch.Tensor:
     """Row gather; Gemma's ``x *= sqrt(d_model)`` multiplies in x's type
-    (the factor rounded to it first, as ``jnp.asarray(.., x.dtype)``)."""
-    x = embed[tokens]
+    (the factor rounded to it first, as ``jnp.asarray(.., x.dtype)``).
+    ``F.embedding``, not ``embed[tokens]``: indexing's backward is an
+    accumulating ``index_put``, whose DTensor strategy in torch 2.11
+    fails on a batch-sharded index (an unnormalised ``Shard(-1)``);
+    the embedding's backward has a strategy of its own."""
+    x = F.embedding(tokens, embed)
+    if compat.is_dtensor(x):
+        # A vocab-sharded table gives a masked partial sum (each rank its
+        # rows): reduce it here.  Redistributed straight to a batch- and
+        # sequence-sharded layout, DTensor applies the whole batch's
+        # mask to a batch shard.
+        x = x.redistribute(x.device_mesh, [
+            compat.Replicate() if p.is_partial() else p
+            for p in x.placements])
     if scale:
         x = x * torch.tensor(d_model ** 0.5, dtype=x.dtype)
     return x

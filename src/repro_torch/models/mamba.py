@@ -179,19 +179,24 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     return y.reshape(b, t, h, p), carry
 
 
-def _local_ssd(shd, x, a, bmat, cmat, chunk: int):
-    """``ssd_chunked`` of a sharded forward (no cache) on each rank's
-    shard: the scan is independent over the batch rows and the heads, so
-    each rank scans its rows (over ``data``) and its heads (over
-    ``model``, when it divides ``nh``; otherwise every head) on local
-    tensors; the results are the DTensors of those shards."""
+def _local_ssd(shd, scan, x, a, bmat, cmat, h0):
+    """``scan`` (``ssd_chunked`` or ``ssd_recurrent_step``) of a sharded
+    forward on each rank's shard: the scan is independent over the batch
+    rows and the heads, so each rank scans its rows (over ``data``) and
+    its heads (over ``model``, when it divides ``nh``; otherwise every
+    head) on local tensors, from its shard of ``h0`` (None: zeros); the
+    results are the DTensors of those shards.  On DTensors the scans'
+    einsums flatten the batch with the sharded heads, which torch 2.11's
+    DTensor refuses."""
     dp, tp = shd.rules.dp, shd.rules.tp
     heads = tp if x.shape[2] % shd.tp_size() == 0 else None
     rows = dp if x.shape[0] % shd.axis_size(dp) == 0 else None
     xl, bl, cl = (shd.constrain(v, P(rows, None, heads, None)).to_local()
                   for v in (x, bmat, cmat))
     al = shd.constrain(a, P(rows, None, heads)).to_local()
-    y, h = ssd_chunked(xl, al, bl, cl, chunk, None)
+    hl = (None if h0 is None else
+          shd.constrain(h0, P(rows, heads, None, None)).to_local())
+    y, h = scan(xl, al, bl, cl, hl)
     return (compat.DTensor.from_local(
                 y, shd.mesh, to_placements(P(rows, None, heads, None),
                                            shd.mesh), run_check=False),
@@ -249,11 +254,14 @@ def mamba_forward(params: dict, x: torch.Tensor, *, cfg: ModelConfig,
 
     h0 = None if cache is None else cache["ssd"]
     if t == 1 and cache is not None:
-        y, h_final = ssd_recurrent_step(xh, a, bh, ch, h0)
-    elif shd is not None and shd.active and cache is None:
-        y, h_final = _local_ssd(shd, xh, a, bh, ch, s.chunk)
+        scan = ssd_recurrent_step
     else:
-        y, h_final = ssd_chunked(xh, a, bh, ch, s.chunk, h0)
+        def scan(x_, a_, b_, c_, h_):
+            return ssd_chunked(x_, a_, b_, c_, s.chunk, h_)
+    if shd is not None and shd.active:
+        y, h_final = _local_ssd(shd, scan, xh, a, bh, ch, h0)
+    else:
+        y, h_final = scan(xh, a, bh, ch, h0)
 
     y = y + params["ssm_d"][None, None, :, None] * xi.reshape(b, t, nh, p)
     y = y.reshape(b, t, di)

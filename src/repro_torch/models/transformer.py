@@ -250,7 +250,10 @@ def _apply_block(p: Params, kind: str, x, inputs: attn.AttnInputs, *,
         out, _ = mb.mamba_forward(p, tp_in(norm(x, p["input_norm"])),
                                   cfg=cfg, cache=cache, backend=backend,
                                   shd=shd)
-        return pin(x + out), None
+        # The out_proj TP reduction, here, as attention's: left to the
+        # sum, torch 2.11's DTensor sends back a sequence-sharded
+        # gradient that out_proj's backward cannot flatten.
+        return pin(x + pin(out)), None
     blk = shared if kind == "shared_attn" else p
     manual = cfg.manual_tp and cache is None and shd is not None
     h = norm(x, blk["input_norm"])

@@ -7,7 +7,8 @@ releases: the counterpart of ``repro/parallel/compat.py``.
   * ``torch.distributed.tensor`` (public since 2.4) vs
     ``torch.distributed._tensor``;
   * ``init_device_mesh`` vs the ``DeviceMesh`` constructor;
-  * ``implicit_replication`` that nests.
+  * ``implicit_replication`` that nests;
+  * ``fake_store``: the fake process group, from a private module.
 
 Nothing here touches a process group at import time.
 """
@@ -70,6 +71,22 @@ def reduce_scatter_single(out: torch.Tensor, inp: torch.Tensor,
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     fn(out, inp, group=group)
+
+
+def fake_store():
+    """The store of torch's fake process-group backend (``"fake"``: every
+    collective returns at once, nothing is sent), which the dry run uses
+    to build a production mesh in one process.  It lives in a private
+    module (``torch.testing._internal.distributed.fake_pg``, whose import
+    registers the backend); a torch without it raises here."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:                            # pragma: no cover
+        raise ImportError(
+            "the dry run needs torch's fake process group "
+            "(torch.testing._internal.distributed.fake_pg), which this "
+            f"torch {torch.__version__} does not have") from e
+    return FakeStore()
 
 
 def make_mesh(device_type: str, shape: tuple[int, ...],

@@ -6,6 +6,7 @@ trees in.  Not a test module itself (no ``test_`` prefix).
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -67,7 +68,33 @@ def _sharded_step(cfg, np_params, np_batch, mesh, grad_shardings=False):
                                  grad_shardings=gs)
     batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     ps, opt, m = step(ps, opt, batch)
-    return shd, ps, {k: float(v) for k, v in m.items()}
+    return shd, ps, opt, {k: float(v) for k, v in m.items()}
+
+
+def _digests(state) -> dict[str, str]:
+    """A SHA-256 of each leaf's full value as this rank holds it (a
+    collective: every rank gathers); a replicated dim keeps this rank's
+    own replica, so digests equal across ranks mean the replicas agree
+    bit for bit."""
+    return {k: hashlib.sha256(sharding.full(v).detach().numpy().tobytes()
+                              ).hexdigest()
+            for k, v in tree.leaves_with_keys(state)}
+
+
+def _sharded_serve(cfg, np_params, np_batch, shd, mesh,
+                   cache_dtype=torch.bfloat16) -> dict:
+    """The sharded prefill (8 tokens into a 12-slot cache) and one decode
+    step: the full logits and the greedy token."""
+    params = lm_params_from_numpy(np_params, "cpu")
+    placed = sharding.place_tree(params,
+                                 sharding.param_shardings(params, mesh))
+    toks = torch.from_numpy(np_batch["inputs"][:, :8].astype(np.int64))
+    logits, cache = steps.make_prefill_step(
+        cfg, 12, shd, cache_dtype=cache_dtype)(placed, toks)
+    nxt, dec, _ = steps.make_serve_step(cfg, shd)(
+        placed, cache, torch.full((toks.shape[0], 1), 3), 8)
+    return dict(prefill=sharding.full(logits).numpy(), decode=dec.numpy(),
+                next=nxt.numpy())
 
 
 def _count_collectives() -> list:
@@ -87,13 +114,18 @@ def _count_collectives() -> list:
 def step_body(rank, world, cases):
     """On a (2, 2) ("data", "model") mesh: the sharded fp32 step of each
     case; for granite also its loss and step with ``manual_tp`` and the
-    local shard shapes."""
+    local shard shapes; digests of each case's full parameters and Adam
+    moments after the step; each case's sharded prefill and decode."""
     mesh = lmesh.make_debug_mesh(2, 2)
-    out = {"metrics": {}}
+    out = {"metrics": {}, "digests": {}, "serve": {}}
     for arch, np_params, np_batch in cases:
         cfg = registry.get_smoke_config(arch)
-        shd, _, m = _sharded_step(cfg, np_params, np_batch, mesh)
+        shd, ps, opt, m = _sharded_step(cfg, np_params, np_batch, mesh)
         out["metrics"][arch] = m
+        out["digests"][arch] = _digests({"params": ps, "m": opt["m"],
+                                         "v": opt["v"]})
+        out["serve"][arch] = _sharded_serve(cfg, np_params, np_batch, shd,
+                                            mesh, torch.float32)
         if arch != "granite-3-2b":
             continue
         batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
@@ -109,8 +141,9 @@ def step_body(rank, world, cases):
                     placed, batch, c, shd)[0]))
         out["manual_tp"] = losses
         out["manual_collectives"] = calls[0]
-        _, _, mm = _sharded_step(dataclasses.replace(cfg, manual_tp=True),
-                                 np_params, np_batch, mesh)
+        _, _, _, mm = _sharded_step(
+            dataclasses.replace(cfg, manual_tp=True), np_params, np_batch,
+            mesh)
         out["manual_step"] = mm
         specs = dict(tree.leaves_with_path(sharding.param_shardings(
             params, mesh)))
@@ -132,21 +165,14 @@ def restore_body(rank, world, np_params, np_batch, ckpt_dir, loop_dir):
     cfg = registry.get_smoke_config("granite-3-2b")
     mesh = lmesh.make_debug_mesh(2, 2)
     out = {}
-    shd, ps, out["step"] = _sharded_step(cfg, np_params, np_batch, mesh)
-    _, _, out["grad_shardings_step"] = _sharded_step(
+    shd, ps, _, out["step"] = _sharded_step(cfg, np_params, np_batch, mesh)
+    _, _, _, out["grad_shardings_step"] = _sharded_step(
         cfg, np_params, np_batch, mesh, grad_shardings=True)
     batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     params = lm_params_from_numpy(np_params, "cpu")
     placed = sharding.place_tree(params,
                                  sharding.param_shardings(params, mesh))
-    # The sharded prefill and decode steps.
-    toks = torch.from_numpy(np_batch["inputs"][:, :8].astype(np.int64))
-    logits, cache = steps.make_prefill_step(cfg, 12, shd)(placed, toks)
-    nxt, dec, _ = steps.make_serve_step(cfg, shd)(
-        placed, cache, torch.full((toks.shape[0], 1), 3), 8)
-    out["prefill"] = sharding.full(logits).numpy()
-    out["decode"] = dec.numpy()
-    out["next"] = nxt.numpy()
+    out.update(_sharded_serve(cfg, np_params, np_batch, shd, mesh))
     # ZeRO-1: the moments sharded over data as well.
     zs = sharding.zero1_shardings(params, mesh, ("data",))
     opt = optimizer.init_opt_state(placed)
