@@ -16,6 +16,12 @@ Both backends are differentiable: ``total_loss`` trains through the
 kernels' ``torch.autograd.Function``s, whose backward runs the backward
 kernels (K6-K9; for ResCaps stacks the reversible segment K12) on the
 plan's ``-bwd`` schedules.
+
+Under a ``torch.profiler`` session (``repro_torch.obs``) the kernels
+forward records one ``plan.<op name>`` span per plan op and both backends
+``model.decode``; ``train_step`` records ``train.step`` over
+``train.forward``, ``train.backward`` (``loss_and_grads``) and
+``train.update``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 
 # Plan-op name of one fused votes+routing layer: the final (classification)
@@ -331,8 +338,9 @@ def forward(params: Params, images, cfg: CapsNetConfig = CapsNetConfig(), *,
     lengths = torch.linalg.vector_norm(v, dim=-1)           # class scores
     out = {"class_caps": v, "lengths": lengths}
     if cfg.use_decoder and "dec_w1" in params:
-        out["reconstruction"] = decode(params, v, cfg, labels=labels,
-                                       lengths=lengths)
+        with obs.span("model.decode"):
+            out["reconstruction"] = decode(params, v, cfg, labels=labels,
+                                           lengths=lengths)
     return out
 
 
@@ -345,34 +353,38 @@ def _forward_kernels(params: Params, images: torch.Tensor,
     stack = cfg.routing_stack()
     if plan is None:
         plan = execplan.compile_plan(cfg, batch=b, pipeline=True)
-    x = ops.conv2d(images, params["conv1_w"], params["conv1_b"], stride=1,
-                   plan_op=plan.op("Conv1"), bwd_op=plan.bwd_op("Conv1"),
-                   epilogue="relu")
+    with obs.span("plan.Conv1"):
+        x = ops.conv2d(images, params["conv1_w"], params["conv1_b"],
+                       stride=1, plan_op=plan.op("Conv1"),
+                       bwd_op=plan.bwd_op("Conv1"), epilogue="relu")
 
     def w_of(lay: RoutingLayer) -> torch.Tensor:
         return params[lay.param].reshape(lay.in_caps, lay.jd, lay.in_dim)
 
     if plan.pipelined:
         first = stack[0]
-        h = ops.primary_routing(
-            x, params["pc_w"], params["pc_b"], w_of(first), plan=plan,
-            stride=cfg.pc_stride, iters=first.iters,
-            num_classes=first.num_caps,
-            routing_op_name=first.name).reshape(b, first.num_caps,
-                                                first.caps_dim)
+        with obs.span("plan.", execplan.PIPE_NAME):
+            h = ops.primary_routing(
+                x, params["pc_w"], params["pc_b"], w_of(first), plan=plan,
+                stride=cfg.pc_stride, iters=first.iters,
+                num_classes=first.num_caps,
+                routing_op_name=first.name).reshape(b, first.num_caps,
+                                                    first.caps_dim)
         k = 1
     else:
         pc = plan.op("PrimaryCaps")
-        x = ops.conv2d(x, params["pc_w"], params["pc_b"],
-                       stride=cfg.pc_stride, plan_op=pc,
-                       bwd_op=plan.bwd_op("PrimaryCaps"),
-                       squash_dim=cfg.primary_dim if pc.fuses_squash else 0)
-        h, k = x.reshape(b, cfg.num_primary, cfg.primary_dim), 0
-        if not pc.fuses_squash:        # no capsule-aligned tile: K10
-            h = ops.squash(h, plan=plan)
+        with obs.span("plan.PrimaryCaps"):
+            x = ops.conv2d(x, params["pc_w"], params["pc_b"],
+                           stride=cfg.pc_stride, plan_op=pc,
+                           bwd_op=plan.bwd_op("PrimaryCaps"),
+                           squash_dim=(cfg.primary_dim if pc.fuses_squash
+                                       else 0))
+            h, k = x.reshape(b, cfg.num_primary, cfg.primary_dim), 0
+            if not pc.fuses_squash:    # no capsule-aligned tile: K10
+                h = ops.squash(h, plan=plan)
     # Walk the rest of the routing-layer graph: one votes+routing kernel
     # per plain layer, one reversible segment (K12) per maximal run of
-    # residual blocks.
+    # residual blocks, its span named by its first op.
     while k < len(stack):
         lay = stack[k]
         if lay.half == "f":
@@ -381,12 +393,14 @@ def _forward_kernels(params: Params, images: torch.Tensor,
                 pairs.append((stack[k], stack[k + 1]))
                 k += 2
             ws = tuple(w_of(lyr) for pair in pairs for lyr in pair)
-            h = ops.res_caps_segment(h, ws, tuple(pairs), plan=plan)
+            with obs.span("plan.", lay.name):
+                h = ops.res_caps_segment(h, ws, tuple(pairs), plan=plan)
         else:
-            h = ops.votes_routing(
-                h, w_of(lay), plan=plan, op_name=lay.name, iters=lay.iters,
-                num_classes=lay.num_caps).reshape(b, lay.num_caps,
-                                                  lay.caps_dim)
+            with obs.span("plan.", lay.name):
+                h = ops.votes_routing(
+                    h, w_of(lay), plan=plan, op_name=lay.name,
+                    iters=lay.iters, num_classes=lay.num_caps).reshape(
+                        b, lay.num_caps, lay.caps_dim)
             k += 1
     return h
 
@@ -438,9 +452,11 @@ def loss_and_grads(params: Params, images, labels,
     ``params``' order, with the metrics detached.  ``kw`` goes to
     ``total_loss``."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, metrics = total_loss(leaves, images, labels, cfg, **kw)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
+    with obs.span("train.forward"):
+        loss, metrics = total_loss(leaves, images, labels, cfg, **kw)
+    with obs.span("train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
     missing = [k for k, g in zip(leaves, grads) if g is None]
     if missing:
         raise RuntimeError(f"total_loss: no gradient reached {missing}")
@@ -455,10 +471,11 @@ def train_step(params: Params, images, labels,
                ) -> tuple[Params, dict[str, torch.Tensor]]:
     """One SGD step of ``total_loss``.  Updates ``params``' tensors IN
     PLACE (under ``no_grad``) and returns them with the metrics."""
-    grads, metrics = loss_and_grads(params, images, labels, cfg,
-                                    backend=backend, plan=plan,
-                                    device=device)
-    with torch.no_grad():
-        for k, p in params.items():
-            p.sub_(lr * grads[k])
+    with obs.span("train.step"):
+        grads, metrics = loss_and_grads(params, images, labels, cfg,
+                                        backend=backend, plan=plan,
+                                        device=device)
+        with obs.span("train.update"), torch.no_grad():
+            for k, p in params.items():
+                p.sub_(lr * grads[k])
     return params, metrics

@@ -62,8 +62,8 @@ the first k CUDA devices, or k shards all on the CPU for
 ``compile_plan`` call gives the per-shard plan (``plan.batch ==
 slots_per_shard``), so every shard runs its plan's kernels at
 ``slots_per_shard``.  Each tick launches every shard's forward on its
-own device before it reads any result back, and gathers each shard's
-active rows by a shard-local index.  Admission interleaves the shards;
+own device before it reads any result back, then reads each shard's
+lengths back whole and picks its active rows on the host.  Admission interleaves the shards;
 ``stats()["per_shard"]`` holds each shard's terminal counters beside the
 ``"queue"`` bucket.  A replan or a breaker trip rebuilds every shard's
 forward at once: one ``_forward_builds``.  ``n_shards=None`` is the
@@ -71,9 +71,15 @@ single-device layout on ``device``; ``n_shards=1`` runs the mesh path on
 its first device.  The capsule head is per-sample, so the sharded
 engine's lengths equal the single-device engine's.
 
+**Spans.**  Under a ``torch.profiler`` session each tick records
+``engine.step`` and inside it ``engine.sweep``, ``engine.admit``,
+``engine.upload``, ``engine.dispatch``, ``engine.readback`` and
+``engine.finish``, and admission samples ``engine.queue_wait_s``
+(``repro_torch.obs``); with none, each is one flag check.
+
 Designed differences from the reference: the forward is eager PyTorch,
-so nothing is traced or jitted, and the active rows are gathered on
-the device by their slot list; a shard is a device holding a replica
+so nothing is traced or jitted, and the active rows are picked on
+the host from the slot batch's lengths; a shard is a device holding a replica
 of the parameters and its block of the slot batch (there is no
 ``shard_map``); the breaker
 takes only ``PlanError`` (the reference's takes every exception, since
@@ -93,6 +99,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import capsnet, execplan, faults
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.core.execplan import ExecutionPlan, PlanError, compile_plan
@@ -249,11 +256,12 @@ class CapsuleEngine:
         shard's block on its own device: ``fwd(shard_params, shard_batch,
         idx)`` returns the lengths and predictions of the slots ``idx``
         (a list, in its order).  Every shard's forward is launched before
-        any result is read back; each shard's active rows are gathered on
-        its device by a shard-local index.  Rebuilt only when the serving
-        path changes (a replan swaps the plan, the breaker the backend),
-        for every shard at once; ``_forward_builds`` counts it at its
-        first dispatch."""
+        any result is read back; each shard's whole block of lengths comes
+        back to the host, where its active rows are picked (no index goes
+        to the device, so no copy waits on a forward in the launch loop).
+        Rebuilt only when the serving path changes (a replan swaps the
+        plan, the breaker the backend), for every shard at once;
+        ``_forward_builds`` counts it at its first dispatch."""
         built = False
         sps = self.slots_per_shard
 
@@ -264,25 +272,27 @@ class CapsuleEngine:
                 self._forward_builds += 1
             local = [[s - sh * sps for s in idx if s // sps == sh]
                      for sh in range(self.n_shards)]
-            picked = []
-            with torch.no_grad():
+            launched = []
+            with obs.span("engine.dispatch"), torch.no_grad():
                 for sh, dev in enumerate(self._shard_devices):
                     if not local[sh]:
-                        picked.append(None)
+                        launched.append(None)
                         continue
                     with _on(dev):
                         out = capsnet.forward(shard_params[sh],
                                               shard_batch[sh], self.cfg,
                                               backend=backend,
                                               plan=self.plan, device=dev)
-                        picked.append(out["lengths"][local[sh]])
-            rows = {}
-            for sh, got in enumerate(picked):          # read back
-                if got is not None:
-                    for k, row in zip(local[sh], got.cpu().numpy()):
-                        rows[sh * sps + k] = row
-            lengths = np.stack([rows[s] for s in idx])
-            return lengths, np.argmax(lengths, axis=-1)
+                    launched.append(out["lengths"])
+            with obs.span("engine.readback"):
+                rows = {}
+                for sh, got in enumerate(launched):
+                    if got is not None:
+                        block = got.cpu().numpy()
+                        for k in local[sh]:
+                            rows[sh * sps + k] = block[k]
+                lengths = np.stack([rows[s] for s in idx])
+                return lengths, np.argmax(lengths, axis=-1)
 
         return fwd
 
@@ -336,11 +346,15 @@ class CapsuleEngine:
                 for shard in range(self.n_shards))
 
     def _admit(self) -> None:
+        traced = obs.recording()
+        now = self._now() if traced else 0.0
         for s in self._admit_order():
             if s in self.quarantined:
                 continue
             if self.active[s] is None and self.queue:
                 req = self.queue.popleft()
+                if traced:
+                    obs.sample("engine.queue_wait_s", now - req.submitted_s)
                 self._batch[s] = req.image
                 self._dirty.add(s)
                 self.active[s] = req
@@ -473,11 +487,17 @@ class CapsuleEngine:
         """One tick: deadline sweep, admission, tick faults, then one
         forward over the slot batch.  Returns the number of requests that
         ended ``ok``."""
+        with obs.span("engine.step"):
+            return self._tick()
+
+    def _tick(self) -> int:
         if self._started_s is None:
             self._started_s = self._now()
-        self._sweep_deadlines(self._now())
-        self._maybe_lift_quarantine()
-        self._admit()
+        with obs.span("engine.sweep"):
+            self._sweep_deadlines(self._now())
+            self._maybe_lift_quarantine()
+        with obs.span("engine.admit"):
+            self._admit()
         # Tick faults land after admission (slot_corrupt sees this tick's
         # rows) and before dispatch (a replan swaps the plan between
         # forwards, never inside one).
@@ -500,8 +520,9 @@ class CapsuleEngine:
             if any(a is not None for a in self.active) or self.queue:
                 self._end_tick(0)        # backed-off slots need time to pass
             return 0
-        if self._dirty:
-            self._upload_dirty()
+        with obs.span("engine.upload"):
+            if self._dirty:
+                self._upload_dirty()
         try:
             if faults.enabled() and faults.poll(
                     faults.SITE_ENGINE_FORWARD, index=self.ticks,
@@ -528,6 +549,12 @@ class CapsuleEngine:
                                     kinds=("nan_output", "inf_output")):
                 fill = np.nan if spec.kind == "nan_output" else np.inf
                 lengths = np.full_like(lengths, fill)
+        with obs.span("engine.finish"):
+            return self._finish_tick(lengths, preds, act)
+
+    def _finish_tick(self, lengths, preds, act) -> int:
+        """Give each dispatched slot's request its result (or its retry,
+        quarantine or error) and close the tick."""
         done = 0
         poisoned_tick = False
         for row, pred, s in zip(lengths, preds, act):
