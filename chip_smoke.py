@@ -764,6 +764,82 @@ def sweep_miss(label: str, sweep: dict, planned: int) -> dict:
     return dict(planned=planned, best=best, miss=miss)
 
 
+# Phase 12c: K5 at the benchmark cells' shapes (capbench/configs): the
+# published SVHN net (64 positions x 96 channels, K = 9 x 9 x 64, 1024
+# capsules of 6D into 10 x 8D) at svhn-train's batch 512 and svhn-offline's
+# 32 slots, MNIST (36 x 256, K = 9 x 9 x 256, 1152 of 8D into 10 x 16D) at
+# mnist-offline's 64; each on the planner's schedule at that batch.
+K5_CELLS = (("SVHN", 512, 64, 5184, 96, 6, 10, 8),
+            ("SVHN", 32, 64, 5184, 96, 6, 10, 8),
+            ("MNIST", 64, 36, 20736, 256, 8, 10, 16))
+
+
+def k5_cells(root: Path = ROOT) -> list[dict]:
+    """Phase 12c: K5 at each of ``K5_CELLS``, from seeded inputs, with the
+    ``repro_torch`` of the checkout at ``root`` (default: this one): held
+    against its plain twin at ``ROUTING``'s tolerance, then its device ms
+    (warm L2, CUDA events) beside its FLOP bound (the PrimaryCaps GEMM and
+    the routing), the thread tile it ran (where the checkout counts
+    launches by tile) and a SHA-256 of its output, for comparing two
+    checkouts bit for bit on one card:
+
+        python3 -c "import chip_smoke; chip_smoke.k5_cells('build/parent')"
+
+    One line a cell, each with its max abs error against the twin
+    (``max_abs``); fails where two launches differ in a bit or the kernel
+    leaves the twin's tolerance."""
+    import hashlib
+
+    import torch
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.core import execplan
+    from repro_torch.kernels import build
+    from repro_torch.kernels import primary_routing as k5
+
+    dev = torch.device("cuda")
+    out = []
+    for name, bsz, p_pos, k_in, n_ch, caps_dim, j, d in K5_CELLS:
+        i_dim, jd = p_pos * n_ch // caps_dim, j * d
+        sched = execplan.plan_primary_routing(
+            p_pos, k_in, n_ch, i_dim, caps_dim, jd, j, iters=3, batch=bsz)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        patches = torch.rand(bsz, p_pos, k_in, generator=gen, device=dev)
+        w_pc = torch.randn(k_in, n_ch, generator=gen,
+                           device=dev) * k_in ** -0.5
+        b_pc = torch.randn(n_ch, generator=gen, device=dev) * 0.1
+        w_cc = torch.randn(i_dim, jd, caps_dim, generator=gen,
+                           device=dev) * 0.05
+        build.reset_launch_counts()
+
+        kw = dict(iters=3, num_classes=j, mode=sched.mode,
+                  block_i=sched.block_i, cluster=sched.cluster.cluster)
+
+        def run():
+            return k5.primary_routing_patches(patches, w_pc, b_pc, w_cc,
+                                              **kw)
+
+        label = (f"K5 {name} batch {bsz}, {sched.mode} block_i "
+                 f"{sched.block_i}, cluster {sched.cluster.cluster}")
+        v = same_bits(label, run)
+        max_abs = check(label, v, k5.primary_routing_patches_plain(
+            patches, w_pc, b_pc, w_cc, **kw), ROUTING)["max_abs"]
+        kinds = getattr(build, "launch_kinds", dict)().get(
+            "primary_routing_f32")
+        ms = time_ms(run)
+        flops = (2.0 * bsz * p_pos * k_in * n_ch
+                 + routing_flops(bsz, i_dim, caps_dim, jd, 3))
+        bound_ms, _ = bound(0.0, flops)
+        digest = hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"{label}: {ms:.4f} ms, bound {bound_ms:.4f} ms (operations, "
+              f"{100 * bound_ms / ms:.1f}%), tile "
+              f"{', '.join(kinds) if kinds else 'not counted'}, digest "
+              f"{digest}", flush=True)
+        out.append(dict(site=label, ms=ms, bound_ms=bound_ms,
+                        tile=sorted(kinds) if kinds else None,
+                        digest=digest, max_abs=max_abs))
+    return out
+
+
 def svhn_pc_inputs(dev):
     """Seeded inputs of the PrimaryCaps conv at capsnet-svhn's serving
     shape: a non-negative Conv1 output (a ReLU's) [SLOTS, 24, 24, 256],
@@ -4295,6 +4371,11 @@ def main() -> int:
     lm_counted = lm_main_path_counted(dev)
     # 3.-12. The CapsuleNet phases; their tensors are freed on return.
     rows, phase5 = capsnet_phases(dev)
+    # 12c. K5 at the benchmark cells' shapes, held to its twin there too.
+    k5_row = next(r for r in rows if r["name"] == "primary_routing")
+    k5_row["cell_sites"] = k5_cells()
+    k5_row["max_abs_err"] = max(k5_row["max_abs_err"],
+                                *(c["max_abs"] for c in k5_row["cell_sites"]))
     gc.collect()
     torch.cuda.empty_cache()
     # 13. LM serving at the full width of gemma2-9b.

@@ -151,10 +151,16 @@ ALL_MODES = MODES + (ORACLE_MODE,)
 
 # Limits of primary_routing's produce phase (csrc/primary_routing.cu): the
 # cluster splits K, and each CTA's threads hold the whole P x N tile of its
-# slab, 4 columns and up to 16 rows each.
+# slab, on a thread tile fitted to P x N (``pipe_tile``).
 PIPE_MAX_POSITIONS = 64
 PIPE_MAX_CHANNELS = 256
-PIPE_ROWS_BUILT = (1, 2, 3, 4, 6, 8, 9, 12, 16)   # rows a thread, built
+PIPE_ROWS_BUILT = (1, 2, 3, 4, 6, 8, 9, 12, 16)   # a ring stage's rows / 4
+# The producer's built thread tiles, in the kernel's order: (rows, columns)
+# a thread and the column groups of a CTA's 256 threads.  The 4-column
+# tiles over 64 groups serve N = 256 and any N no other tile fits; 4 x 6
+# over 16 groups serves the published SVHN net's 64 x 96.
+PIPE_TILES_BUILT = (tuple((tr, 4, 64) for tr in PIPE_ROWS_BUILT)
+                    + ((4, 6, 16),))
 PIPE_BLOCK_K = 16            # K per ring stage
 # The producer's cp.async ring: 3 to 16 stages, as deep as the consumer's
 # region and at least PIPE_RING_FLOATS (64 KB): its L2 stream is bound by
@@ -171,8 +177,9 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 # CTAs of a kernel one SM holds at once follow from its shared memory and
 # its registers: an SM's 233,472 B and 65,536 registers; the registers a
-# thread of K5 (161 to 207 by its rows a thread: one CTA an SM) and of the
-# K3 and K8/K9 cluster kernels (each held to 128) take, as
+# thread of K5 (161 to 207 by its rows a thread on the 4-column tiles,
+# 161 at MNIST's 9 x 4; 155 at SVHN's 4 x 6: one CTA an SM) and of the K3
+# and K8/K9 cluster kernels (each held to 128) take, as
 # cudaFuncGetAttributes reports them.
 SM_SMEM_BYTES = 233_472
 SM_REGISTERS = 65_536
@@ -1136,9 +1143,51 @@ class PrimaryRoutingSchedule:
 
 
 def pipe_rows(p_pos: int) -> int:
-    """Rows of the P x N tile each producer thread holds: the smallest
-    built count with 4 x rows >= P."""
+    """A producer ring stage's patch rows over 4: the smallest built count
+    with 4 x rows >= P."""
     return next(tr for tr in PIPE_ROWS_BUILT if 4 * tr >= p_pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeTile:
+    """The producer's thread tile: thread t of the 256 holds ``rows``
+    rows from ``(t // col_groups) * rows`` and ``cols`` columns from ``(t %
+    col_groups) * cols`` of the P x N tile."""
+
+    rows: int
+    cols: int
+    row_groups: int
+    col_groups: int
+
+    @property
+    def name(self) -> str:
+        """The key K5's launches are counted by (``build.launch_kinds``)."""
+        return f"{self.rows}x{self.cols}"
+
+
+def pipe_tile(p_pos: int, n_ch: int) -> PipeTile:
+    """The thread tile ``primary_routing``'s producer runs at ``p_pos x
+    n_ch`` (the kernel's ``tile_for``): of ``PIPE_TILES_BUILT``, those
+    whose row groups span a stage's ``4 * pipe_rows(p_pos)`` rows and whose
+    column groups split N whole; of them the one on which the most threads
+    own outputs, the first built on a tie.  Raises ``ValueError`` where
+    none fits (P past ``PIPE_MAX_POSITIONS``, N past
+    ``PIPE_MAX_CHANNELS`` or not a multiple of 4)."""
+    best, most = None, 0
+    if 0 < p_pos <= PIPE_MAX_POSITIONS:
+        for rows, cols, col_groups in PIPE_TILES_BUILT:
+            row_groups = CTA_THREADS // col_groups
+            if row_groups * rows != 4 * pipe_rows(p_pos) or n_ch % cols \
+                    or col_groups * cols < n_ch:
+                continue
+            busy = min(row_groups, -(-p_pos // rows)) * (n_ch // cols)
+            if busy > most:
+                best = PipeTile(rows, cols, row_groups, col_groups)
+                most = busy
+    if best is None:
+        raise ValueError(f"primary_routing: no built thread tile covers "
+                         f"{p_pos} x {n_ch}")
+    return best
 
 
 def primary_routing_smem(mode: str, p_pos: int, n_ch: int, block_i: int,

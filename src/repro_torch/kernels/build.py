@@ -9,7 +9,8 @@ is compiled or loaded when a module is imported: machines without
 ``nvcc`` (and the CPU tests) import every module of the package.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; a
-``Kernel`` raises on a non-zero code and otherwise counts the launch.
+``Kernel`` raises on a non-zero code and otherwise counts the launch (and,
+where the wrapper names one, its kind).
 """
 
 from __future__ import annotations
@@ -108,8 +109,9 @@ class Kernel:
     """One C entry of a csrc library and the number of its launches.
 
     ``launches`` grows by one for each launch that the CUDA runtime
-    accepted, and nowhere else.  Arguments are ctypes values: pointers
-    and the stream as ``c_void_p``, sizes as ``c_int``.
+    accepted, and nowhere else; ``kinds`` counts those launches by the
+    ``kind`` the wrapper names (K5: its thread tile).  Arguments are ctypes
+    values: pointers and the stream as ``c_void_p``, sizes as ``c_int``.
     """
 
     def __init__(self, library: str, symbol: str, argtypes: list):
@@ -117,10 +119,11 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.kinds: dict[str, int] = {}
         self._fn = None
         REGISTRY[symbol] = self
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, kind: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(_library(self.library), self.symbol)
             fn.argtypes = self.argtypes
@@ -131,6 +134,8 @@ class Kernel:
             msg = _library(self.library).repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        if kind is not None:
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
         for rec in _RECORDERS:
             rec.append((self.symbol, args))
 
@@ -196,9 +201,16 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in REGISTRY.items()}
 
 
+def launch_kinds() -> dict[str, dict[str, int]]:
+    """Launches by kind, by C entry name, of every kernel that named one
+    (``primary_routing_f32``: its thread tile, ``"9x4"`` or ``"4x6"``)."""
+    return {name: dict(k.kinds) for name, k in REGISTRY.items() if k.kinds}
+
+
 def reset_launch_counts() -> None:
     for k in REGISTRY.values():
         k.launches = 0
+        k.kinds.clear()
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

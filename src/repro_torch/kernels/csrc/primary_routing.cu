@@ -13,31 +13,51 @@
 // the capsule rows i = p * G + g of those groups.
 //
 // Produce: the cluster splits the sample's GEMM [P, K] x [K, N] (36 x
-// 20,736 x 256 at MNIST) along K.  CTA rank r computes the whole P x N
-// tile over its slab of K (a multiple of kBK, the last ragged) from the
-// sample's patches (written by K1) and W_pc, through a ring of cp.async
-// stages, as deep as the region the consumer needs anyway and at least 64
-// KB: the stream comes from L2, and the bytes in flight set its rate.  Each
-// of the 256 threads holds a TR x 4 block of the tile (TR = ceil(P / 4)
-// rows, 4 columns; 36 or 64 accumulators at MNIST / SVHN), reading the
-// patch rows as one float4 of 4 k (broadcast across the warp) and W_pc as
-// one float4 a k.  The partial tiles then meet through distributed shared
-// memory: each CTA adds its own N/cs columns of all cs partials in rank
-// order, adds the bias and squashes each capsule, so u lands in the CTA
-// that routes it; the slice's [P][N/cs] layout is exactly the CTA's
-// [rows][C] capsule rows.  (A split of N instead would leave each CTA a
-// 36 x 32 slice: 4.5 outputs a thread, too few to hide the shared-memory
-// reads, and every CTA would read the whole patch tile.)
+// 20,736 x 256 at MNIST, 64 x 5,184 x 96 at the published SVHN net) along
+// K.  CTA rank r computes the whole P x N tile over its slab of K (a
+// multiple of kBK, the last ragged) from the sample's patches (written by
+// K1) and W_pc, through a ring of cp.async stages, as deep as the region
+// the consumer needs anyway and at least 64 KB: the stream comes from L2,
+// and the bytes in flight set its rate.  A stage holds stage_rows(P) patch
+// rows and kBK rows of W_pc, whatever the thread tile.  The partial
+// tiles then meet through distributed shared memory: each CTA adds its own
+// N/cs columns of all cs partials in rank order, adds the bias and squashes
+// each capsule, so u lands in the CTA that routes it; the slice's
+// [P][N/cs] layout is exactly the CTA's [rows][C] capsule rows.  (A split
+// of N instead would leave each CTA a 36 x 32 slice: 4.5 outputs a thread,
+// too few to hide the shared-memory reads, and every CTA would read the
+// whole patch tile.)
+//
+// The thread tile is fitted to P x N (tile_for; execplan.pipe_tile): the
+// 256 threads form 256 / cg row groups, which span the stage's rows, and cg
+// column groups, which split N whole, each thread tr rows x tc columns;
+// of the built tiles the kernel runs the one on which the most threads own
+// outputs.  A thread reads its rows as one float4 of 4 k (a warp spans one
+// to four row groups, so the reads are broadcasts) and its columns in the
+// widest loads their alignment allows.  N = 256 (MNIST, the repo's deep
+// SVHN and CIFAR-10 stacks) keeps 4 row groups x 64 groups of 4 columns:
+// 9 x 4 at P = 36, 16 x 4 at 64.  At SVHN's N = 96 that tile left 160 of
+// the 256 threads idle; 16 x 16 groups of 4 x 6 (24 accumulators, W_pc in
+// three float2 a k, conflict-free) employ all 8 warps.  Of 16 x 2, 8 x 3,
+// 4 x 6 and 2 x 12 at 64 x 96, 4 x 6 ran fastest on the H100.  Any N no
+// narrower built tile splits (the smoke configs' 16 and 24) runs the
+// 4-column tile, some threads idle.  Each output still sums its rank's
+// slab in ascending k with fmaf, so any tile gives the same bits.
 // Consume: routing_cluster.cuh routes the sample over the cluster on those
 // rows (votes resident or streamed, the plan's mode), so neither u nor
 // u_hat goes to device memory; only s crosses CTAs.  The producer's ring,
 // its partial tile and the consumer's votes rows share one region.
 //
-// What bounds it on the H100: the producer's 2*36*20,736*256 = 382 M fp32
-// operations a sample (MNIST; the votes are 2.9 M a pass) over 67 TFLOP/s,
-// 0.046 ms at batch 8 -- if every SM works.  One CTA a sample (the earlier
-// design) kept B of 132 SMs busy; clusters of 8 spread a batch of 8 over 64
-// SMs, of 16 over 128 (in two waves: an H100 runs 7 clusters of 16 at once).
+// What bounds it on the H100: the producer's 2 P K N fp32 operations a
+// sample (382 M at MNIST, 64 M at SVHN; the votes are 2.9 M and 1.6 M a
+// pass) over 67 TFLOP/s -- if every SM works.  Clusters spread a batch
+// over the SMs (8 CTAs a sample at MNIST batch 64, 2 at SVHN batch 512:
+// 512 and 1024 CTAs, 5 and 8 waves of one CTA an SM).  There the producer
+// alone (with the ranks' sum and the squash) runs at ~28% of the fp32
+// peak at both shapes, its shared-memory reads and a barrier a stage
+// against 24 or 36 FMAs a thread a k; at SVHN batch 512 the routing of a
+// CTA's 512 capsule rows through the passes then takes more time than the
+// producer (~2.6 of 4.35 ms), at MNIST batch 64 a third (144 rows).
 
 #include "gemm_sm90.cuh"
 #include "routing_cluster.cuh"
@@ -50,8 +70,6 @@ using gemm::cp_async4;
 using gemm::cp_async_commit;
 constexpr int kBK = 16;            // K per ring stage (execplan.PIPE_BLOCK_K)
 constexpr int kLda = kBK + 4;      // a patch row in a stage, padded
-constexpr int kColGroups = 64;     // 4-column groups: N <= 256
-constexpr int kRowGroups = kThreads / kColGroups;
 constexpr int kMinStages = 3;
 constexpr int kMaxStages = 16;
 constexpr int kRingFloats = 16384; // 64 KB at least in the ring
@@ -72,22 +90,59 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
-// Rows a thread holds of the P x N tile: the smallest built TR with
-// 4 TR >= P (0 past the kernel's 64 positions).
-__host__ __device__ inline int rows_per_thread(int P) {
+// Patch rows of a ring stage: 4 x the smallest of {1, 2, 3, 4, 6, 8, 9, 12,
+// 16} that is >= P / 4 (execplan.pipe_rows; 0 past the kernel's 64
+// positions).
+__host__ __device__ inline int stage_rows(int P) {
   const int need = (P + 3) / 4;
   const int built[] = {1, 2, 3, 4, 6, 8, 9, 12, 16};
   for (int tr : built)
-    if (tr >= need) return tr;
+    if (tr >= need) return 4 * tr;
   return 0;
+}
+
+// The producer's thread tile: the 256 threads as kThreads / cg row groups x
+// cg column groups, each thread tr rows x tc columns of the P x N tile.
+// The built tiles, in execplan.PIPE_TILES_BUILT's order: the 4-column
+// tiles over 64 column groups (N = 256), then 4 x 6 over 16 (N = 96).
+struct Tile {
+  int tr, tc, cg;
+};
+#define REPRO_K5_TILES(X)                                                \
+  X(1, 4, 64) X(2, 4, 64) X(3, 4, 64) X(4, 4, 64) X(6, 4, 64) X(8, 4, 64) \
+  X(9, 4, 64) X(12, 4, 64) X(16, 4, 64) X(4, 6, 16)
+
+// The tile a launch at P x N runs (execplan.pipe_tile): of the built tiles
+// whose row groups span the stage's rows and whose column groups split N
+// whole, the one on which the most threads own outputs, the first built
+// on a tie; {0, 0, 0} where none fits.
+inline Tile tile_for(int P, int N) {
+  const Tile built[] = {
+#define REPRO_K5_TILE(TR, TC, CG) {TR, TC, CG},
+      REPRO_K5_TILES(REPRO_K5_TILE)
+#undef REPRO_K5_TILE
+  };
+  Tile best{0, 0, 0};
+  int most = 0;
+  for (const Tile& t : built) {
+    const int rg = kThreads / t.cg;
+    if (rg * t.tr != stage_rows(P) || N % t.tc || t.cg * t.tc < N) continue;
+    const int busy = min(rg, (P + t.tr - 1) / t.tr) * (N / t.tc);
+    if (busy > most) {
+      best = t;
+      most = busy;
+    }
+  }
+  return best;
 }
 
 // The shared memory of one CTA, in floats (execplan.primary_routing_smem
 // models the same sum): the region (the producer's ring of `stages` stages
-// and then its P x N partial tile, then the consumer's votes rows and
-// couplings), u, the logits, and s, v and the two partials of s.
+// of stage_rows(P) patch rows and kBK rows of W_pc, and then its P x N
+// partial tile, then the consumer's votes rows and couplings), u, the
+// logits, and s, v and the two partials of s.
 struct Layout {
-  int ns, rows, vrows, tr, stage, stages, region, total;
+  int ns, rows, vrows, stage, stages, region, total;
 };
 
 __host__ __device__ inline Layout layout(int P, int N, int C, int J, int D,
@@ -97,8 +152,7 @@ __host__ __device__ inline Layout layout(int P, int N, int C, int J, int D,
   L.ns = N / cs;
   L.rows = P * L.ns / C;
   L.vrows = resident ? L.rows : min(block_i, L.rows);
-  L.tr = rows_per_thread(P);
-  L.stage = kRowGroups * L.tr * kLda + kBK * N;
+  L.stage = stage_rows(P) * kLda + kBK * N;
   const int consume = L.vrows * (jd + 1 + J);
   L.stages = max(kMinStages,
                  min(kMaxStages, max(consume, kRingFloats) / L.stage));
@@ -116,23 +170,64 @@ struct Args {
   int P, K, N, C, J, D, iters, resident, block_i;
 };
 
-// The P x N partial tile of the K slab [k_begin, k_end) into part ([P][N]).
-template <int TR>
+// Floats a load of a thread's TC columns moves: the widest vector whose
+// alignment TC floats a thread (from a 16-byte aligned row) keeps.
+template <int TC>
+constexpr int kColVec = TC % 4 == 0 ? 4 : TC % 2 == 0 ? 2 : 1;
+
+// v[0..TC) = the TC floats at p.
+template <int TC>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[TC]) {
+#pragma unroll
+  for (int j = 0; j < TC; j += kColVec<TC>) {
+    if constexpr (kColVec<TC> == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + j);
+      v[j] = q.x, v[j + 1] = q.y, v[j + 2] = q.z, v[j + 3] = q.w;
+    } else if constexpr (kColVec<TC> == 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + j);
+      v[j] = q.x, v[j + 1] = q.y;
+    } else {
+      v[j] = p[j];
+    }
+  }
+}
+
+// The TC floats at p = v[0..TC).
+template <int TC>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[TC]) {
+#pragma unroll
+  for (int j = 0; j < TC; j += kColVec<TC>) {
+    if constexpr (kColVec<TC> == 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    else if constexpr (kColVec<TC> == 2)
+      *reinterpret_cast<float2*>(p + j) = make_float2(v[j], v[j + 1]);
+    else
+      p[j] = v[j];
+  }
+}
+
+// The P x N partial tile of the K slab [k_begin, k_end) into part ([P][N]),
+// on the thread tile <TR, TC, CG> (tile_for): thread t holds rows
+// [(t / CG) TR, +TR) and columns [(t % CG) TC, +TC); the row groups span
+// the stage's PP = (256 / CG) TR patch rows.  Each output sums the slab in
+// ascending k with fmaf, whatever the tile.
+template <int TR, int TC, int CG>
 __device__ void produce_partial(const Args& a, const Layout& L,
                                 const float* pa, int k_begin, int k_end,
                                 float* ring, float* part) {
-  constexpr int PP = kRowGroups * TR;   // padded rows of a stage
+  constexpr int PP = kThreads / CG * TR;   // patch rows of a stage
   const int tid = threadIdx.x;
-  const int rg = tid / kColGroups, cg4 = (tid % kColGroups) * 4;
-  const bool cols = cg4 < a.N;
+  const int rg = tid / CG, c0 = (tid % CG) * TC;
+  const bool cols = c0 < a.N;
   const bool vec_a = a.K % 4 == 0;
   const int steps = (k_end - k_begin + kBK - 1) / kBK;
   const int stage = L.stage, nst = L.stages;
-  float acc[TR][4];
+  float acc[TR][TC];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
 
   auto load = [&](int slot, int step) {
     float* As = ring + slot * stage;
@@ -172,7 +267,7 @@ __device__ void produce_partial(const Args& a, const Layout& L,
     if (st + nst - 1 < steps) load((st + nst - 1) % nst, st + nst - 1);
     cp_async_commit();
     const float* As = ring + (st % nst) * stage + rg * TR * kLda;
-    const float* Bs = ring + (st % nst) * stage + PP * kLda + cg4;
+    const float* Bs = ring + (st % nst) * stage + PP * kLda + c0;
     if (cols) {
 #pragma unroll
       for (int k4 = 0; k4 < kBK; k4 += 4) {
@@ -182,15 +277,13 @@ __device__ void produce_partial(const Args& a, const Layout& L,
           av[i] = *reinterpret_cast<const float4*>(As + i * kLda + k4);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float4 bv =
-              *reinterpret_cast<const float4*>(Bs + (k4 + kk) * a.N);
+          float bv[TC];
+          load_cols<TC>(Bs + (k4 + kk) * a.N, bv);
 #pragma unroll
           for (int i = 0; i < TR; ++i) {
             const float x = gemm::lane_of(av[i], kk);
-            acc[i][0] = fmaf(x, bv.x, acc[i][0]);
-            acc[i][1] = fmaf(x, bv.y, acc[i][1]);
-            acc[i][2] = fmaf(x, bv.z, acc[i][2]);
-            acc[i][3] = fmaf(x, bv.w, acc[i][3]);
+#pragma unroll
+            for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
           }
         }
       }
@@ -202,16 +295,15 @@ __device__ void produce_partial(const Args& a, const Layout& L,
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const int p = rg * TR + i;
-      if (p < a.P)
-        *reinterpret_cast<float4*>(part + p * a.N + cg4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (p < a.P) store_cols<TC>(part + p * a.N + c0, acc[i]);
     }
   }
 }
 
-template <int TR>
-__global__ void __launch_bounds__(kThreads, 1)
-primary_routing_kernel(Args a) {
+// One sample on a cluster: produce u on the thread tile <TR, TC, CG>, then
+// route it.
+template <int TR, int TC, int CG>
+__device__ __forceinline__ void primary_routing(const Args& a) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks();
@@ -233,8 +325,9 @@ primary_routing_kernel(Args a) {
   // Produce: this rank's slab of K, then its columns of every partial.
   const int slab = ((a.K + cs - 1) / cs + kBK - 1) / kBK * kBK;
   const int k_begin = min(a.K, rank * slab);
-  produce_partial<TR>(a, L, a.patches + (size_t)smp * a.P * a.K, k_begin,
-                      min(a.K, k_begin + slab), region, region);
+  produce_partial<TR, TC, CG>(a, L, a.patches + (size_t)smp * a.P * a.K,
+                              k_begin, min(a.K, k_begin + slab), region,
+                              region);
   cl.sync();                      // every partial tile is written
   const int n0 = rank * L.ns;
   for (int e = threadIdx.x; e < a.P * L.ns; e += kThreads) {
@@ -260,20 +353,37 @@ primary_routing_kernel(Args a) {
   cl.sync();                      // no CTA leaves while a peer reads it
 }
 
-// The template instance that holds tr rows a thread.
-inline void (*kernel_for(int tr))(Args) {
-  switch (tr) {
-    case 1: return primary_routing_kernel<1>;
-    case 2: return primary_routing_kernel<2>;
-    case 3: return primary_routing_kernel<3>;
-    case 4: return primary_routing_kernel<4>;
-    case 6: return primary_routing_kernel<6>;
-    case 8: return primary_routing_kernel<8>;
-    case 9: return primary_routing_kernel<9>;
-    case 12: return primary_routing_kernel<12>;
-    case 16: return primary_routing_kernel<16>;
-    default: return nullptr;
-  }
+// The 4-column tiles over 64 column groups, TR rows a thread (N = 256)...
+template <int TR>
+__global__ void __launch_bounds__(kThreads, 1)
+primary_routing_kernel(Args a) {
+  primary_routing<TR, 4, 64>(a);
+}
+
+// ... and the tiles of narrower N.
+template <int TR, int TC, int CG>
+__global__ void __launch_bounds__(kThreads, 1)
+primary_routing_kernel_tiled(Args a) {
+  primary_routing<TR, TC, CG>(a);
+}
+
+using KernelFn = void (*)(Args);
+
+template <int TR, int TC, int CG>
+KernelFn instance() {
+  if constexpr (TC == 4 && CG == 64)
+    return primary_routing_kernel<TR>;
+  else
+    return primary_routing_kernel_tiled<TR, TC, CG>;
+}
+
+// The template instance of a built tile (nullptr for any other).
+inline KernelFn kernel_for(Tile t) {
+#define REPRO_K5_KERNEL(TR, TC, CG) \
+  if (t.tr == TR && t.tc == TC && t.cg == CG) return instance<TR, TC, CG>();
+  REPRO_K5_TILES(REPRO_K5_KERNEL)
+#undef REPRO_K5_KERNEL
+  return nullptr;
 }
 
 }  // namespace k5
@@ -312,12 +422,11 @@ REPRO_EXPORT int primary_routing_f32(const float* patches, const float* wpc,
                                      int resident, int block_i, int cs,
                                      int smem_bytes, void* stream) {
   using namespace repro;
-  if (B < 1 || P < 1 || K < 1 || cs < 1 || cs > 16 || N % 4 ||
-      N > 4 * k5::kColGroups || N % cs || (N / cs) % C || (N / cs) % 4 ||
-      iters < 1 || block_i < 1)
+  if (B < 1 || P < 1 || K < 1 || cs < 1 || cs > 16 || N % 4 || N > 256 ||
+      N % cs || (N / cs) % C || (N / cs) % 4 || iters < 1 || block_i < 1)
     return cudaErrorInvalidValue;
   const k5::Layout L = k5::layout(P, N, C, J, D, cs, resident, block_i);
-  void (*kernel)(k5::Args) = k5::kernel_for(L.tr);
+  const k5::KernelFn kernel = k5::kernel_for(k5::tile_for(P, N));
   if (!kernel || L.total * (int)sizeof(float) != smem_bytes)
     return cudaErrorInvalidValue;
   const k5::Args a{patches, wpc, bias, W, out, P, K, N, C, J, D, iters,
@@ -332,7 +441,19 @@ REPRO_EXPORT int primary_routing_occupancy(int P, int N, int C, int J, int D,
                                            int* out) {
   using namespace repro;
   const k5::Layout L = k5::layout(P, N, C, J, D, cs, resident, block_i);
-  void (*kernel)(k5::Args) = k5::kernel_for(L.tr);
+  const k5::KernelFn kernel = k5::kernel_for(k5::tile_for(P, N));
   if (!kernel) return cudaErrorInvalidValue;
   return cluster_occupancy(kernel, cs, L.total * (int)sizeof(float), out);
+}
+
+// out = {rows, columns a thread, row groups, column groups} of the thread
+// tile a launch at P x N runs (execplan.pipe_tile mirrors the choice).
+REPRO_EXPORT int primary_routing_tile(int P, int N, int* out) {
+  const repro::k5::Tile t = repro::k5::tile_for(P, N);
+  if (!t.tr) return cudaErrorInvalidValue;
+  out[0] = t.tr;
+  out[1] = t.tc;
+  out[2] = repro::kThreads / t.cg;
+  out[3] = t.cg;
+  return cudaSuccess;
 }

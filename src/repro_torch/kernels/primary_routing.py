@@ -38,7 +38,7 @@ from repro_torch.core.execplan import (PIPE_MAX_CHANNELS, PIPE_MAX_POSITIONS,
 from repro_torch.core.planner import SMEM_BYTES
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import (Kernel, cluster_query, on_cpu, ptr,
-                                       stream_of)
+                                       query, stream_of)
 from repro_torch.kernels.conv_im2col import (conv_bwd_from_dpre,
                                              gemm_tiles, im2col_patches)
 from repro_torch.kernels.votes_routing import (FUSED_NAME, RoutingStatics,
@@ -61,6 +61,17 @@ def planned_primary_routing(p_pos: int, k_in: int, n_ch: int, num_caps: int,
     sched = plan_primary_routing(p_pos, k_in, n_ch, num_caps, caps_dim, jd,
                                  num_classes, iters=iters, batch=batch)
     return sched.mode, sched.block_i, sched.cluster.cluster
+
+
+@functools.lru_cache(maxsize=64)            # a process runs a few shapes
+def thread_tile(p_pos: int, n_ch: int) -> str:
+    """The producer's thread tile a launch at ``p_pos x n_ch`` runs, as
+    the kernel reports it (``primary_routing_tile``): rows x columns a
+    thread, ``"9x4"`` at MNIST's 36 x 256, ``"4x6"`` at the published SVHN
+    net's 64 x 96.  ``execplan.pipe_tile`` mirrors the choice."""
+    rows, cols, _, _ = query("primary_routing", "primary_routing_tile",
+                             p_pos, n_ch)
+    return f"{rows}x{cols}"
 
 
 def primary_routing_patches_plain(patches: torch.Tensor, w_pc: torch.Tensor,
@@ -91,7 +102,9 @@ def primary_routing_patches(patches: torch.Tensor, w_pc: torch.Tensor,
                             cluster: int | None = None) -> torch.Tensor:
     """K5 from the PrimaryCaps patches (see ``primary_routing``):
     ``cluster`` CTAs a sample (None: the planner's at this batch).  The
-    card's producer runs stages of ``execplan.PIPE_BLOCK_K`` K values."""
+    card's producer runs stages of ``execplan.PIPE_BLOCK_K`` K values on
+    a thread tile fitted to P x N; each launch is counted by that tile
+    (``thread_tile``, ``build.launch_kinds``)."""
     bsz, p_pos, kk = patches.shape
     n_ch = w_pc.shape[1]
     i_dim, jd, caps_dim = w_cc.shape
@@ -135,7 +148,8 @@ def primary_routing_patches(patches: torch.Tensor, w_pc: torch.Tensor,
         PRIMARY_ROUTING(ptr(patches), ptr(w_pc), ptr(b_pc), ptr(w_cc),
                         ptr(out), bsz, p_pos, kk, n_ch, caps_dim, j, jd // j,
                         iters, int(mode == "resident"), block_i, cluster,
-                        smem, stream_of(patches))
+                        smem, stream_of(patches),
+                        kind=thread_tile(p_pos, n_ch))
     except RuntimeError as err:
         raise RuntimeError(
             f"primary_routing: the launch of {bsz} clusters of {cluster} "

@@ -150,6 +150,41 @@ def test_cluster_kernels_match_twins_with_identical_bits(cuda, cs):
     assert counts["routing_bwd_2pass_f32"] == 1
 
 
+@pytest.mark.parametrize("cs", [2, 8])
+def test_k5_at_svhn_width_matches_twin_and_repeats_bits(cuda, cs):
+    """K5 at the published SVHN net's 64 positions x 96 channels (16
+    groups of 6D into 10 x 8D) on clusters of cs CTAs: the 4 x 6 thread
+    tile (16 x 16 threads) against the twin, twice for the same bits, and
+    each launch counted under that tile."""
+    build.reset_launch_counts()
+    p = _rand(40, 2, 64, 144, uniform=True, device=cuda)
+    w_pc = _rand(41, 144, 96, scale=144 ** -0.5, device=cuda)
+    b_pc = _rand(42, 96, scale=0.1, device=cuda)
+    w_cc = _rand(43, 1024, 80, 6, scale=0.05, device=cuda)
+    for mode in ("resident", "streamed"):
+        kw = dict(iters=3, num_classes=10, mode=mode, block_i=128,
+                  cluster=cs)
+        got = k5.primary_routing_patches(p, w_pc, b_pc, w_cc, **kw)
+        assert torch.equal(got, k5.primary_routing_patches(p, w_pc, b_pc,
+                                                           w_cc, **kw))
+        torch.testing.assert_close(
+            got, k5.primary_routing_patches_plain(p, w_pc, b_pc, w_cc, **kw),
+            rtol=1e-5, atol=1e-6)
+    assert k5.thread_tile(64, 96) == execplan.pipe_tile(64, 96).name == "4x6"
+    assert build.launch_kinds()["primary_routing_f32"] == {"4x6": 4}
+
+
+def test_k5_tile_choice_is_the_mirrors_on_the_card(cuda):
+    """The kernel's own thread tile (``primary_routing_tile``) equals
+    ``execplan.pipe_tile`` at every P <= 64, N <= 256, N % 4 == 0."""
+    for p_pos in range(1, execplan.PIPE_MAX_POSITIONS + 1):
+        for n_ch in range(4, execplan.PIPE_MAX_CHANNELS + 1, 4):
+            t = execplan.pipe_tile(p_pos, n_ch)
+            assert build.query("primary_routing", "primary_routing_tile",
+                               p_pos, n_ch) == (
+                t.rows, t.cols, t.row_groups, t.col_groups), (p_pos, n_ch)
+
+
 def test_cluster_footprint_model_matches_the_kernels(cuda):
     """The plans' modeled shared memory of K5 and of K9's replay is the
     kernels' own layout, which is what cudaFuncGetAttributes reports once
