@@ -17,6 +17,14 @@ The mix file (``mixes/<mix>.json``) says how requests arrive:
   (``{"period_ms", "on_ms", "on_factor"}``) makes the rate ``on_factor``
   x the mean for ``on_ms`` of every ``period_ms`` and lower in between,
   the mean kept: the same arrivals, moved in time.
+- ``"arrivals": "closed"``: MLPerf Inference's MultiStream.  A query of
+  ``samples_per_query`` requests is submitted at once, and the next as
+  soon as the last request of the one before has its result; the window
+  closes with the first query to end after ``seconds``.  Each query is
+  timed from its submission to its last result on the host.  The
+  end-to-end number is the 99th percentile of those latencies
+  (``query_p99_ms``); the median is read beside it.  Every seed offers
+  the same work: one query at a time, the images in another order.
 
 The engine serves the kernels backend.  The cell file's ``params``:
 ``slots`` and the image ``pool`` size (``rate_per_s`` for an open loop),
@@ -167,6 +175,8 @@ class Driver:
             rec = self._backlog(seconds, span)
         elif self.mix["arrivals"] == "poisson":
             rec = self._open_loop(seconds, span)
+        elif self.mix["arrivals"] == "closed":
+            rec = self._closed_loop(seconds, span)
         else:
             raise ValueError(f"unknown arrivals {self.mix['arrivals']!r}")
         after = eng.stats()
@@ -243,6 +253,32 @@ class Driver:
             late_p99_ms=1e3 * float(np.percentile(late, 99)),
             late_max_ms=1e3 * float(late.max()))
 
+    def _closed_loop(self, seconds: float, span) -> dict:
+        eng = self.engine
+        n = self.mix["samples_per_query"]
+        t0 = time.perf_counter()
+        end = t0 + seconds
+        lat, ticks, rids = [], [], set()
+        while True:
+            issued = time.perf_counter()
+            with span("capbench.submit"):
+                query = [self._new(issued) for _ in range(n)]
+            while eng.queue or any(a is not None for a in eng.active):
+                t = time.perf_counter()
+                with span("capbench.step"):
+                    eng.step()
+                ticks.append(time.perf_counter() - t)
+            lat.append(max(r.finished_s for r in query) - issued)
+            rids.update(r.rid for r in query)
+            if time.perf_counter() >= end:
+                break
+        lat = 1e3 * np.array(lat)
+        return dict(wall_s=time.perf_counter() - t0, tick_s=ticks,
+                    rids=rids, queries=len(lat),
+                    query_p50_ms=float(np.percentile(lat, 50)),
+                    query_p99_ms=float(np.percentile(lat, 99)),
+                    query_max_ms=float(lat.max()))
+
     def drain(self) -> None:
         self.engine.run()
 
@@ -253,8 +289,9 @@ class Driver:
 
     def end_to_end(self, rec: dict) -> dict:
         out = {"images_per_s": rec["images"] / rec["wall_s"]}
-        if "latency_p95_ms" in rec:
-            out["latency_p95_ms"] = rec["latency_p95_ms"]
+        for name in ("latency_p95_ms", "query_p99_ms"):
+            if name in rec:
+                out[name] = rec[name]
         return out
 
     def notes(self, rec: dict) -> dict:
@@ -271,6 +308,11 @@ class Driver:
                 f"p99 {rec['late_p99_ms']:.4f} ms, max "
                 f"{rec['late_max_ms']:.4f} ms over {rec['offered']} "
                 f"arrivals")
+        if "query_p99_ms" in rec:
+            out["query latency ms"] = (
+                f"p50 {rec['query_p50_ms']:.4f}, p99 "
+                f"{rec['query_p99_ms']:.4f}, max {rec['query_max_ms']:.4f} "
+                f"over {rec['queries']} queries")
         return out
 
     # -- correctness -------------------------------------------------------

@@ -2,43 +2,59 @@
 
 ``run_cell`` is the whole run but the command line and the look for the
 card (``run.py``): the CPU tests drive it at a configuration's smoke
-sizes on the kernels' plain twins.
+sizes on the kernels' plain twins.  What a cell builds on the card,
+draws from the seed and hands the program comes from its configuration's
+family (``families/<family>.py``, ``spec.family_of``), so a new kind of
+model is new files only.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import sys
 import time
 
 import torch
 
-from capbench import inputs, spec, trace
+from capbench import spec, trace
 
 TRACE_ATTEMPTS = 3
-# The port's CUDA libraries that CapsuleNet's forward and backward load.
-KERNEL_LIBRARIES = ("conv_im2col", "primary_routing", "votes_routing",
-                    "conv_bwd", "votes_routing_bwd")
 MAX_TRACE_S = 10.0
 
 
-@dataclasses.dataclass
+def __getattr__(name: str):
+    # ``KERNEL_LIBRARIES``, the default family's libraries, for
+    # chipjobs/idle_by_span.py only: it goes once that script asks
+    # ``spec.family_of(cfg)``.  Looked up here, so that importing the
+    # harness loads no family.
+    if name == "KERNEL_LIBRARIES":
+        return spec.family(spec.DEFAULT_FAMILY).LIBRARIES
+    raise AttributeError(name)
+
+
 class Ctx:
     """What a traffic driver is handed: the configuration (the file's
     dict and the program's type), the cell's parameters, the device, the
-    seed, and the inputs made from it."""
+    seed, and the weights and the pool made from it.  The pool's entries
+    read as attributes too (``ctx.images``).  Keywords beyond these join
+    the pool (``images=x, labels=y``), for the callers written before
+    ``pool=`` (capbench/tests/test_capbench_traffic.py,
+    chipjobs/idle_by_span.py); ``**entries`` goes once they pass
+    ``pool=``."""
 
-    cfg: dict
-    pcfg: object
-    mix: dict
-    params: dict
-    limits: dict
-    device: torch.device
-    seed: int
-    weights: dict
-    images: torch.Tensor
-    labels: torch.Tensor
+    def __init__(self, *, cfg: dict, pcfg, mix: dict, params: dict,
+                 limits: dict, device: torch.device, seed: int,
+                 weights: dict, pool: dict | None = None, **entries):
+        self.cfg, self.pcfg, self.mix = cfg, pcfg, mix
+        self.params, self.limits = params, limits
+        self.device, self.seed, self.weights = device, seed, weights
+        self.pool = {**(pool or {}), **entries}
+
+    def __getattr__(self, name: str):
+        try:
+            return self.__dict__["pool"][name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
 class GcWatch:
@@ -87,18 +103,19 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace_on: bool, *,
     ``control`` also reads the control's numbers (``control_checks``),
     which the benchmark's own runs never do."""
     cfg = cfg if cfg is not None else cell.config
+    family = spec.family_of(cfg)
     marks = [("start", time.perf_counter())]
     if device.type == "cuda":
         from repro_torch.kernels import build
-        built = build.build(KERNEL_LIBRARIES)  # nvcc once a checkout
+        built = build.build(family.LIBRARIES)  # nvcc once a checkout
         marks.append((f"nvcc {len(built)}", time.perf_counter()))
-    weights = inputs.weights(cfg, seed, device)
-    x, y = inputs.images(cfg, cell.params["pool"], seed, device)
+    weights = family.weights(cfg, seed, device)
+    pool = family.pool(cfg, cell.params, seed, device)
     sync(device)
     marks.append(("inputs", time.perf_counter()))
-    ctx = Ctx(cfg=cfg, pcfg=inputs.program_config(cfg), mix=cell.mix,
+    ctx = Ctx(cfg=cfg, pcfg=family.program_config(cfg), mix=cell.mix,
               params=cell.params, limits=cell.limits, device=device,
-              seed=seed, weights=weights, images=x, labels=y)
+              seed=seed, weights=weights, pool=pool)
     driver = spec.driver(cell.mix["driver"])(ctx)
     sync(device)
     marks.append(("program and warm-up", time.perf_counter()))
@@ -159,7 +176,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace_on: bool, *,
     checks = driver.check()
     if control:
         out["control_checks"] = driver.check("tf32")
-    del driver, weights, ctx
+    del driver, weights, pool, ctx
     gc.collect()
     out.update(metrics=metrics, checks=checks, attempted=attempted,
                failed=failed, memory_peak_bytes=peak)

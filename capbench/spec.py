@@ -5,7 +5,11 @@ per-layer metric sits in a file of its own under the benchmark's folder,
 found by the name ``BENCHMARK.json`` gives it:
 
 - ``configs/<config>.json``: the configuration's sizes, source and
-  precision (the ``file`` of its ``BENCHMARK.json`` entry);
+  precision (the ``file`` of its ``BENCHMARK.json`` entry), and its
+  ``"family"`` (``capsnet`` where it names none);
+- ``families/<family>.py``: what sets a cell of that family up: the
+  program's CUDA libraries, the weights and the pool the traffic draws
+  from, the configuration in the program's type (``families/__init__.py``);
 - ``workloads/<cell>.json``: the cell's configuration, mix, parameters
   and the limits of its correctness check;
 - ``mixes/<mix>.json``: the traffic mix's parameters, and the general
@@ -29,6 +33,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_FAMILY = "capsnet"
 
 
 @dataclasses.dataclass
@@ -91,6 +96,26 @@ def _module(path: Path, name: str):
 def driver(kind: str):
     """The general traffic driver ``drivers/<kind>.py``'s ``Driver``."""
     return importlib.import_module(f"capbench.drivers.{kind}").Driver
+
+
+def family(name: str):
+    """The family module ``families/<name>.py``.  An unknown name is
+    refused, with the names there are."""
+    mod = f"capbench.families.{name}"
+    if isinstance(name, str) and name.isidentifier():
+        try:
+            return importlib.import_module(mod)
+        except ModuleNotFoundError as err:
+            if err.name != mod:
+                raise
+    have = sorted(p.stem for p in (HERE / "families").glob("*.py")
+                  if not p.stem.startswith("_"))
+    raise ValueError(f"unknown family {name!r} (have {have})")
+
+
+def family_of(config: dict):
+    """The family module of a configuration file's contents."""
+    return family(config.get("family", DEFAULT_FAMILY))
 
 
 def reader(metric: str, bench_dir: Path = HERE):

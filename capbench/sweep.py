@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from capbench import harness, inputs, spec, trace
+    from capbench import harness, spec, trace
     from capbench.drivers import serve
 
     if not torch.cuda.is_available():
@@ -48,12 +48,12 @@ def main(argv=None) -> int:
                             "params": dict(base.params, rate_per_s=rate)})
         seed = args.seed + k
         cfg = cell.config
-        w = inputs.weights(cfg, seed, dev)
-        x, y = inputs.images(cfg, cell.params["pool"], seed, dev)
-        ctx = harness.Ctx(cfg=cfg, pcfg=inputs.program_config(cfg),
+        family = spec.family_of(cfg)
+        ctx = harness.Ctx(cfg=cfg, pcfg=family.program_config(cfg),
                           mix=cell.mix, params=cell.params,
                           limits=cell.limits, device=dev, seed=seed,
-                          weights=w, images=x, labels=y)
+                          weights=family.weights(cfg, seed, dev),
+                          pool=family.pool(cfg, cell.params, seed, dev))
         drv = serve.Driver(ctx)
         gc.collect()
         gc.freeze()                      # as run_cell does after set-up
